@@ -1,0 +1,318 @@
+"""Fixed-shape MTCNN cascade detector (P/R/O-net + masked NMS).
+
+Counterpart of `facerecognitionpipeline_tpu/models/detector.py` (float
+nets). Every stage works on padded candidate sets with validity masks, and
+the whole batch of frames runs each stage together (where the JAX package
+vmaps one frame's cascade):
+
+  pyramid (static scales, static-weight matmul resizes) -> P-net ->
+  128 proposals/scale -> NMS -> 256 -> R-net on 24 px crops (from the
+  frame pre-downsampled 2x) -> NMS -> 96 -> O-net on 48 px crops ->
+  NMS(min) -> max_faces.
+
+The R-net and O-net crops are kernel K1 (`ops/crop_kernel.py`) when
+`crop_impl='kernel'`.
+"""
+
+from __future__ import annotations
+
+import math
+import os
+import sys
+from typing import Optional
+
+import numpy as np
+import torch
+
+from facerecognitionpipeline_tpu_torch.models.convert import detector_state_from_jax
+from facerecognitionpipeline_tpu_torch.models.detector_nets import DetectorNets
+from facerecognitionpipeline_tpu_torch.models.layers import lecun_normal_
+from facerecognitionpipeline_tpu_torch.ops.crop_kernel import (
+    crop_resize_kernel,
+    crop_resize_plain,
+)
+from facerecognitionpipeline_tpu_torch.ops.nms import nms_mask, top_k, topk_boxes
+from facerecognitionpipeline_tpu_torch.ops.numerics import div, round_to
+from facerecognitionpipeline_tpu_torch.utils.device import resolve_device
+from facerecognitionpipeline_tpu_torch.utils.io import load_npz_variables
+
+_NEG = -1e9
+
+P_PER_SCALE = 128
+P_KEEP = 256
+R_KEEP = 96
+
+_PRETRAINED_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
+    "pretrained",
+)
+DEFAULT_DETECTOR_WEIGHTS = (
+    os.path.join(_PRETRAINED_DIR, "mtcnn_dr.npz"),
+    os.path.join(_PRETRAINED_DIR, "mtcnn_stress.npz"),
+    os.path.join(_PRETRAINED_DIR, "mtcnn_synthetic.npz"),
+)
+
+
+def discover_default_weights() -> Optional[str]:
+    """First existing default detector weights file, or None."""
+    for path in DEFAULT_DETECTOR_WEIGHTS:
+        if os.path.isfile(path):
+            return path
+    return None
+
+
+def _resize_matrix(src: int, dst: int) -> np.ndarray:
+    """[dst, src] antialiased-linear resize weights (jax.image.resize
+    'linear' with antialias): output o reads (o+0.5)*src/dst - 0.5; on
+    downscale the hat stretches by src/dst and rows renormalize."""
+    scale = dst / src
+    pos = (np.arange(dst, dtype=np.float64) + 0.5) / scale - 0.5
+    d = np.abs(pos[:, None] - np.arange(src, dtype=np.float64)[None, :])
+    w = np.maximum(0.0, 1.0 - (d * scale if scale < 1.0 else d))
+    return (w / w.sum(axis=1, keepdims=True)).astype(np.float32)
+
+
+def _square(boxes: torch.Tensor) -> torch.Tensor:
+    """Expand boxes [..., 4] to squares around their centres ('rerec')."""
+    x1, y1, x2, y2 = boxes.unbind(-1)
+    side = torch.maximum(x2 - x1, y2 - y1)
+    cx = (x1 + x2) * 0.5
+    cy = (y1 + y2) * 0.5
+    half = side * 0.5
+    return torch.stack([cx - half, cy - half, cx + half, cy + half], dim=-1)
+
+
+def _apply_reg(boxes: torch.Tensor, reg: torch.Tensor) -> torch.Tensor:
+    """Bounding-box regression: offsets scaled by box size."""
+    w = boxes[..., 2] - boxes[..., 0]
+    h = boxes[..., 3] - boxes[..., 1]
+    return boxes + reg * torch.stack([w, h, w, h], dim=-1)
+
+
+class MTCNNDetector:
+    """Three-stage cascaded detector with fixed shapes end to end."""
+
+    def __init__(
+        self,
+        det_size: tuple[int, int] = (640, 640),
+        det_thresh: float = 0.5,
+        stage_thresholds: tuple[float, float, float] | None = None,
+        min_face_size: int = 20,
+        scale_factor: float = 0.709,
+        max_faces: int = 32,
+        variables: Optional[dict] = None,
+        weights_path: Optional[str] = None,
+        dtype: torch.dtype = torch.float32,
+        rnet_crop_downscale: int = 2,
+        stage1_keep: int = P_KEEP,
+        stage2_keep: int = R_KEEP,
+        crop_impl: str = "auto",
+        device="cuda",
+        init_seed: int = 0,
+    ):
+        """variables: JAX-format detector variables (nested dicts of arrays);
+        weights_path: a JAX-format `.npz`, or "random" for a seeded random
+        init (`init_seed`); neither = the first of DEFAULT_DETECTOR_WEIGHTS.
+
+        crop_impl: 'kernel' (K1, the counterpart of the JAX 'pallas';
+        bf16 by design), 'matmul' (plain dense resample in `dtype`) or
+        'auto': 'kernel' on CUDA for a bf16 cascade, else 'matmul'.
+        On CPU tensors 'kernel' runs K1's plain version."""
+        self.device = resolve_device(device)
+        self.det_size = tuple(det_size)
+        self.max_faces = max_faces
+        self.thresholds = stage_thresholds or (0.6, 0.7, det_thresh)
+        self.rnet_crop_downscale = int(rnet_crop_downscale)
+        self.stage1_keep = int(stage1_keep)
+        self.stage2_keep = int(stage2_keep)
+        if not (self.max_faces <= self.stage2_keep <= self.stage1_keep):
+            raise ValueError(
+                f"candidate budgets must narrow through the cascade: "
+                f"max_faces={self.max_faces} <= stage2_keep="
+                f"{self.stage2_keep} <= stage1_keep={self.stage1_keep}"
+            )
+        self.dtype = dtype
+        if crop_impl == "auto":
+            crop_impl = (
+                "kernel"
+                if self.device.type == "cuda" and dtype == torch.bfloat16
+                else "matmul"
+            )
+        if crop_impl not in ("kernel", "matmul"):
+            raise ValueError(f"unknown crop_impl {crop_impl!r}")
+        if crop_impl == "kernel" and dtype != torch.bfloat16:
+            raise ValueError(
+                "crop_impl='kernel' computes crops in bfloat16; use "
+                "dtype=torch.bfloat16 or crop_impl='matmul'"
+            )
+        self.crop_impl = crop_impl
+
+        nets = DetectorNets()
+        if variables is None and weights_path is None:
+            weights_path = discover_default_weights()
+        if variables is None and weights_path not in (None, "random"):
+            variables = load_npz_variables(weights_path)
+        if variables is not None:
+            nets.load_state_dict(detector_state_from_jax(variables))
+            self.pretrained = True
+        else:
+            if weights_path != "random":
+                print(
+                    "[MTCNNDetector] No weights found; using random init "
+                    "(detections will be meaningless).",
+                    file=sys.stderr,
+                )
+            lecun_normal_(nets, torch.Generator().manual_seed(init_seed))
+            self.pretrained = False
+        self.nets = nets.to(device=self.device, dtype=dtype).eval()
+
+        h, w = self.det_size
+        m = 12.0 / min_face_size
+        self.scales: list[float] = []
+        s = m
+        while min(h, w) * s >= 12.0:
+            self.scales.append(s)
+            s *= scale_factor
+        if not self.scales:
+            raise ValueError(
+                f"min_face_size={min_face_size} leaves no pyramid scale "
+                f"for det_size={det_size} (need min_face_size <= "
+                f"{min(h, w)}); lower min_face_size or raise det_size"
+            )
+        # static resize weights of the progressive pyramid, rounded to the
+        # cascade dtype once
+        self._pyramid_mats = []
+        ph, pw = h, w
+        for sc in self.scales:
+            sh, sw = int(math.ceil(h * sc)), int(math.ceil(w * sc))
+            wy = torch.from_numpy(_resize_matrix(ph, sh)).to(self.device)
+            wx = torch.from_numpy(_resize_matrix(pw, sw)).to(self.device)
+            self._pyramid_mats.append((round_to(wy, dtype), round_to(wx, dtype)))
+            ph, pw = sh, sw
+
+    # ------------------------------------------------------------- cascade
+
+    def _pyramid(self, img: torch.Tensor) -> list[torch.Tensor]:
+        """img [B,H,W,3] float32 -> levels [B,h_s,w_s,3] (float32 tensors
+        holding `dtype` values). Each level resamples the previous one with
+        two static-weight matmuls, rounded to the cascade dtype after each,
+        as the JAX package's bf16 einsums do."""
+        dt = self.dtype
+        src = round_to(img, dt)
+        levels = []
+        for wy, wx in self._pyramid_mats:
+            rows = round_to(torch.einsum("oh,bhwc->bowc", wy, src), dt)
+            src = round_to(torch.einsum("xw,bowc->boxc", wx, rows), dt)
+            levels.append(src)
+        return levels
+
+    def _pnet_proposals(self, prob, reg, scale):
+        """One scale's P-net maps prob [B,fh,fw], reg [B,fh,fw,4] ->
+        P_PER_SCALE padded proposals (boxes [B,P,4], scores [B,P])."""
+        b, fh, fw = prob.shape
+        k = min(P_PER_SCALE, fh * fw)
+        top_p, top_i = top_k(prob.reshape(b, -1), k)
+        rows = torch.div(top_i, fw, rounding_mode="floor").float()
+        cols = (top_i % fw).float()
+        x1 = div(cols * 2.0, scale)
+        y1 = div(rows * 2.0, scale)
+        x2 = div(cols * 2.0 + 12.0, scale)
+        y2 = div(rows * 2.0 + 12.0, scale)
+        boxes = torch.stack([x1, y1, x2, y2], dim=-1)
+        r = torch.gather(reg.reshape(b, -1, 4), 1, top_i[..., None].expand(b, k, 4))
+        boxes = _apply_reg(boxes, r)
+        pad = P_PER_SCALE - k
+        if pad:
+            boxes = torch.cat([boxes, boxes.new_zeros((b, pad, 4))], dim=1)
+            top_p = torch.cat([top_p, top_p.new_full((b, pad), _NEG)], dim=1)
+        return boxes, top_p
+
+    def _stage1(self, img):
+        all_boxes, all_scores = [], []
+        for scale, level in zip(self.scales, self._pyramid(img)):
+            prob, reg = self.nets.pnet(level)
+            boxes, scores = self._pnet_proposals(prob, reg, scale)
+            all_boxes.append(boxes)
+            all_scores.append(scores)
+        boxes = torch.cat(all_boxes, dim=1)
+        scores = torch.cat(all_scores, dim=1)
+        valid = scores > self.thresholds[0]
+        keep = nms_mask(boxes, scores, valid, iou_threshold=0.7)
+        masked = torch.where(keep, scores, torch.full_like(scores, _NEG))
+        return topk_boxes(boxes, masked, keep, self.stage1_keep)
+
+    def _crop(self, img, boxes, out_size):
+        if self.crop_impl == "kernel":
+            return crop_resize_kernel(img, boxes, out_size)
+        return crop_resize_plain(img, boxes, out_size, self.dtype)
+
+    def _stage2(self, img, boxes, valid):
+        b, h, w, _ = img.shape
+        sq = _square(boxes).clamp(0, max(h, w))
+        d = self.rnet_crop_downscale
+        if d > 1:
+            # One shared downsample of each frame, then every candidate
+            # crops from the small frame. Boxes scale by the true per-axis
+            # factors, so sample positions are those of full resolution.
+            s = max(h, w) // d
+            full = img.new_tensor([0.0, 0.0, float(w), float(h)]).expand(b, 1, 4)
+            small = crop_resize_plain(img, full, s, self.dtype)[:, 0]
+            sx, sy = s / float(w), s / float(h)
+            crops = self._crop(small, sq * img.new_tensor([sx, sy, sx, sy]), 24)
+        else:
+            crops = self._crop(img, sq, 24)
+        n = sq.shape[1]
+        prob, reg = self.nets.rnet(crops.reshape(b * n, 24, 24, -1))
+        prob, reg = prob.reshape(b, n), reg.reshape(b, n, 4)
+        valid = valid & (prob > self.thresholds[1])
+        boxes = _apply_reg(sq, reg)
+        keep = nms_mask(boxes, prob, valid, iou_threshold=0.7)
+        masked = torch.where(keep, prob, torch.full_like(prob, _NEG))
+        return topk_boxes(boxes, masked, keep, self.stage2_keep)
+
+    def _stage3(self, img, boxes, valid):
+        b, h, w, _ = img.shape
+        sq = _square(boxes).clamp(0, max(h, w))
+        crops = self._crop(img, sq, 48)
+        n = sq.shape[1]
+        prob, reg, lmk = self.nets.onet(crops.reshape(b * n, 48, 48, -1))
+        prob = prob.reshape(b, n)
+        reg = reg.reshape(b, n, 4)
+        lmk = lmk.reshape(b, n, 5, 2)
+        valid = valid & (prob > self.thresholds[2])
+        bw = (sq[..., 2] - sq[..., 0])[..., None]
+        bh = (sq[..., 3] - sq[..., 1])[..., None]
+        landmarks = torch.stack(
+            [sq[..., 0, None] + lmk[..., 0] * bw, sq[..., 1, None] + lmk[..., 1] * bh],
+            dim=-1,
+        )  # [B,N,5,2]
+        boxes = _apply_reg(sq, reg)
+        keep = nms_mask(boxes, prob, valid, iou_threshold=0.7, mode="min")
+        masked = torch.where(keep, prob, torch.full_like(prob, _NEG))
+        top_scores, top_i = top_k(masked, self.max_faces)
+        f = self.max_faces
+        return (
+            torch.gather(boxes, 1, top_i[..., None].expand(b, f, 4)),
+            top_scores,
+            torch.gather(landmarks, 1, top_i[..., None, None].expand(b, f, 5, 2)),
+            top_scores > _NEG / 2,
+        )
+
+    def detect_device(self, frames: torch.Tensor) -> dict:
+        """frames [B,H,W,3] raw RGB (uint8 or float, at det_size, on the
+        detector's device) -> padded detections: bboxes [B,F,4], scores
+        [B,F], landmarks [B,F,5,2], valid [B,F]."""
+        with torch.inference_mode():
+            img = (frames.float() - 127.5) / 128.0
+            boxes, _, valid = self._stage1(img)
+            boxes, _, valid = self._stage2(img, boxes, valid)
+            boxes, scores, landmarks, valid = self._stage3(img, boxes, valid)
+            h, w = frames.shape[1:3]
+            lim = img.new_tensor([w - 1, h - 1, w - 1, h - 1])
+            boxes = torch.minimum(boxes.clamp_min(0), lim)
+            return {
+                "bboxes": boxes,
+                "scores": torch.where(valid, scores, torch.zeros_like(scores)),
+                "landmarks": landmarks,
+                "valid": valid,
+            }

@@ -1,0 +1,61 @@
+"""Batched image ops: colour conversion and model-input normalization.
+
+Counterpart of `facerecognitionpipeline_tpu/ops/image.py` (NHWC tensors,
+any leading batch dims).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from facerecognitionpipeline_tpu_torch.ops.numerics import div
+
+# ITU-R BT.601 luma weights, identical to cv2.COLOR_RGB2GRAY.
+_GRAY_WEIGHTS = (0.299, 0.587, 0.114)
+
+
+def rgb_to_gray(images: torch.Tensor) -> torch.Tensor:
+    """[..., H, W, 3] RGB (any real dtype) -> [..., H, W] float32."""
+    w = torch.tensor(_GRAY_WEIGHTS, dtype=torch.float32, device=images.device)
+    return torch.matmul(images.float(), w)
+
+
+def normalize_face_batch(
+    faces_rgb: torch.Tensor, dtype: torch.dtype = torch.float32
+) -> torch.Tensor:
+    """uint8/float RGB faces [..., H, W, 3] -> BGR, (x - 127.5) / 127.5, in
+    `dtype`. BGR order because the imported IR weights were trained on it."""
+    x = faces_rgb.flip(-1).float()
+    x = div(x - 127.5, 127.5)
+    return x.to(dtype)
+
+
+def i420_to_rgb(yuv: torch.Tensor, height: int, width: int) -> torch.Tensor:
+    """Planar I420 [..., H*3//2, W] uint8 (cv2 layout: Y plane, then the
+    quarter-res U and V planes each packed into H//4 rows of width W) ->
+    RGB float32 [..., H, W, 3] in [0, 255]. Studio-swing BT.601 with
+    nearest chroma upsampling, as cv2.COLOR_YUV2RGB_I420."""
+    h, w = height, width
+    if h % 4 or w % 2:
+        raise ValueError(
+            f"i420_to_rgb requires height % 4 == 0 and width % 2 == 0, "
+            f"got {h}x{w}"
+        )
+    *lead, rows, cols = yuv.shape
+    if rows != h * 3 // 2 or cols != w:
+        raise ValueError(f"expected [..., {h * 3 // 2}, {w}], got {tuple(yuv.shape)}")
+    x = yuv.float()
+    y = x[..., :h, :]
+    u = x[..., h:h + h // 4, :].reshape(*lead, h // 2, w // 2)
+    v = x[..., h + h // 4:, :].reshape(*lead, h // 2, w // 2)
+
+    def up2(p):
+        return p.repeat_interleave(2, dim=-1).repeat_interleave(2, dim=-2)
+
+    yf = 1.164 * (y - 16.0)
+    u = up2(u) - 128.0
+    v = up2(v) - 128.0
+    r = yf + 1.596 * v
+    g = yf - 0.392 * u - 0.813 * v
+    b = yf + 2.017 * u
+    return torch.stack([r, g, b], dim=-1).clamp(0.0, 255.0)

@@ -1,0 +1,160 @@
+"""Batched similarity-transform face alignment.
+
+Counterpart of `facerecognitionpipeline_tpu/ops/warp.py`: the closed-form
+similarity fit, the stage-A source windows with the integer-window snap,
+the stage-B coefficients, the plain `crop_resize` (the detector's
+half-resolution R-net source frame) and the two-kernel batch alignment
+`align_faces_batch` (K1 for stage A, K2 for stage B).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from facerecognitionpipeline_tpu_torch.ops.crop_kernel import (
+    crop_resize_kernel,
+    crop_resize_plain,
+)
+from facerecognitionpipeline_tpu_torch.ops.numerics import rdiv
+from facerecognitionpipeline_tpu_torch.ops.warp_kernel import warp_patches_kernel
+
+# The reference pipeline's fractional 5-point template (left eye, right
+# eye, nose, left mouth, right mouth), scaled by the output size.
+_REFERENCE_FRACTIONS = np.array(
+    [[0.34, 0.46], [0.66, 0.46], [0.50, 0.61], [0.37, 0.74], [0.63, 0.74]],
+    dtype=np.float32,
+)
+
+
+def reference_template(output_size: int = 112) -> np.ndarray:
+    """The 5-point template scaled to `output_size` ([5, 2] float32)."""
+    return _REFERENCE_FRACTIONS * float(output_size)
+
+
+def similarity_transform(src: torch.Tensor, dst: torch.Tensor) -> torch.Tensor:
+    """Least-squares non-reflective similarity mapping src [F,K,2] onto dst
+    ([K,2] or [F,K,2]) -> forward affine matrices [F,2,3] (the
+    cv2.estimateAffinePartial2D convention)."""
+    src = src.float()
+    dst = dst.float().to(src.device).expand(src.shape)
+    src_mean = src.mean(dim=1, keepdim=True)
+    dst_mean = dst.mean(dim=1, keepdim=True)
+    x = src - src_mean
+    y = dst - dst_mean
+    denom = (x * x).sum(dim=(1, 2))
+    denom = torch.where(denom > 0, denom, torch.ones_like(denom))
+    a = (x * y).sum(dim=(1, 2)) / denom
+    b = (x[:, :, 0] * y[:, :, 1] - x[:, :, 1] * y[:, :, 0]).sum(dim=1) / denom
+    rot = torch.stack(
+        [torch.stack([a, -b], dim=-1), torch.stack([b, a], dim=-1)], dim=1
+    )  # [F,2,2]
+    t = dst_mean[:, 0, :] - torch.einsum("fij,fj->fi", rot, src_mean[:, 0, :])
+    return torch.cat([rot, t[:, :, None]], dim=2)
+
+
+def invert_affine(m: torch.Tensor) -> torch.Tensor:
+    """Invert batched 2x3 affine matrices [F,2,3]."""
+    a = m[:, :, :2]
+    t = m[:, :, 2]
+    det = a[:, 0, 0] * a[:, 1, 1] - a[:, 0, 1] * a[:, 1, 0]
+    det = torch.where(det.abs() > 1e-12, det, torch.full_like(det, 1e-12))
+    inv = torch.stack(
+        [
+            torch.stack([a[:, 1, 1], -a[:, 0, 1]], dim=-1),
+            torch.stack([-a[:, 1, 0], a[:, 0, 0]], dim=-1),
+        ],
+        dim=1,
+    ) / det[:, None, None]
+    inv_t = -torch.einsum("fij,fj->fi", inv, t)
+    return torch.cat([inv, inv_t[:, :, None]], dim=2)
+
+
+def source_windows(
+    matrices: torch.Tensor, out_h: int, out_w: int, patch_size: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Stage-A source windows: forward maps [F,2,3] -> (inverse maps
+    [F,2,3], boxes [F,4]). A window snaps to an integer offset of exactly
+    `patch_size` pixels whenever the face's source extent (plus a 2 px
+    margin) fits it, which makes the stage-A hat weights one-hot: a
+    lossless pixel copy."""
+    k = patch_size
+    inv = invert_affine(matrices)
+    corners = torch.tensor(
+        [[0, 0], [out_w - 1, 0], [0, out_h - 1], [out_w - 1, out_h - 1]],
+        dtype=torch.float32, device=matrices.device,
+    )  # (x, y)
+    src_c = torch.einsum("fij,kj->fki", inv[:, :, :2], corners) + inv[:, None, :, 2]
+    pad = 2.0
+
+    def axis_box(lo, hi):
+        lo = lo - pad
+        hi = hi + pad
+        fits = (hi - lo) <= k
+        start = torch.floor(0.5 * (lo + hi) - 0.5 * k + 0.5)
+        return torch.where(fits, start, lo), torch.where(fits, start + k, hi)
+
+    x1, x2 = axis_box(src_c[:, :, 0].amin(dim=1), src_c[:, :, 0].amax(dim=1))
+    y1, y2 = axis_box(src_c[:, :, 1].amin(dim=1), src_c[:, :, 1].amax(dim=1))
+    return inv, torch.stack([x1, y1, x2, y2], dim=1)
+
+
+def warp_coeffs(
+    matrices: torch.Tensor, out_h: int, out_w: int, patch_size: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Stage-B geometry: forward maps [F,2,3] -> (stage-A boxes [F,4],
+    coeffs [F,6]) such that output pixel (x, y) samples patch coordinates
+    px = a0*x + a1*y + a2, py = b0*x + b1*y + b2."""
+    k = patch_size
+    inv, boxes = source_windows(matrices, out_h, out_w, k)
+    x1, y1, x2, y2 = boxes.unbind(1)
+    sw = rdiv(k, (x2 - x1).clamp_min(1e-6))
+    sh = rdiv(k, (y2 - y1).clamp_min(1e-6))
+    coeffs = torch.stack(
+        [
+            inv[:, 0, 0] * sw,
+            inv[:, 0, 1] * sw,
+            (inv[:, 0, 2] + 0.5 - x1) * sw - 0.5,
+            inv[:, 1, 0] * sh,
+            inv[:, 1, 1] * sh,
+            (inv[:, 1, 2] + 0.5 - y1) * sh - 0.5,
+        ],
+        dim=1,
+    )
+    return boxes, coeffs
+
+
+def crop_resize(
+    image: torch.Tensor,
+    boxes: torch.Tensor,
+    out_size: int,
+    compute_dtype: torch.dtype = torch.float32,
+) -> torch.Tensor:
+    """Crop boxes [N,4] from ONE frame [H,W,C] and resize to
+    [N,out,out,C] float32 (bilinear, half-pixel centres, zero outside).
+    Plain PyTorch, the counterpart of the JAX package's XLA `crop_resize`
+    (operands and rows in `compute_dtype`, float32 sums)."""
+    return crop_resize_plain(image[None], boxes[None], out_size, compute_dtype)[0]
+
+
+def align_faces_batch(
+    images: torch.Tensor,
+    landmarks: torch.Tensor,
+    template: torch.Tensor,
+    output_size: int = 112,
+    patch_size: int = 128,
+) -> torch.Tensor:
+    """Whole-batch alignment, the counterpart of `align_faces_batch_pallas`:
+    images [B,H,W,C] float32, landmarks [B,F,5,2] -> [B,F,out,out,C]
+    float32. Stage A cuts a patch per face with K1 (`crop_resize_kernel`),
+    stage B warps every patch with K2 (`warp_patches_kernel`)."""
+    b, f = landmarks.shape[:2]
+    mats = similarity_transform(landmarks.reshape(b * f, 5, 2), template)
+    boxes, coeffs = warp_coeffs(mats, output_size, output_size, patch_size)
+    patches = crop_resize_kernel(images, boxes.reshape(b, f, 4), patch_size)
+    c = patches.shape[-1]
+    out = warp_patches_kernel(
+        patches.reshape(b * f, patch_size, patch_size, c),
+        coeffs, output_size, output_size,
+    )
+    return out.reshape(b, f, output_size, output_size, c)

@@ -1,0 +1,110 @@
+"""Stage-B affine warp of face patches: kernel K2 and its plain version.
+
+Replaces `facerecognitionpipeline_tpu/ops/pallas_warp.py::warp_patches_affine`
+(its `pl.pallas_call` in `_warp_patches_affine`). The CUDA kernel is
+`csrc/warp_patches.cu`: a 4-tap gather per output pixel, bound by
+device-memory bytes (one read of the float32 patches, one write of the
+float32 faces).
+
+Semantics, shared by the kernel and `warp_patches_plain`: patch coordinates
+of output pixel (x, y) are px = a0*x + a1*y + a2, py = b0*x + b1*y + b2
+(coefficients from `ops/warp.py::warp_coeffs`); rows = sum_u bf16(P) *
+bf16(hat(px-u)) in float32 and KEPT float32; out = sum_v rows * hat(py-v)
+with the column weights in float32. Taps outside the patch contribute
+nothing. Used once per serving step (alignment stage B).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from facerecognitionpipeline_tpu_torch.ops import cuda_build
+
+LAUNCHES = cuda_build.LaunchCounter()
+
+#: faces per dense chunk of the plain version (bounds its [F,O,K,C] rows)
+_PLAIN_CHUNK = 8
+
+
+def _hat(p: torch.Tensor, k: int) -> torch.Tensor:
+    """p [...] -> [..., k] weights max(0, 1-|p-i|) over i in [0, k)."""
+    ids = torch.arange(k, dtype=torch.float32, device=p.device)
+    return (1.0 - (p[..., None] - ids).abs()).clamp_min(0.0)
+
+
+def _pixel_coords(coeffs: torch.Tensor, out_h: int, out_w: int):
+    """coeffs [F,6] -> (px, py) [F, out_h*out_w], row-major pixels, each
+    as (a0*x + a1*y) + a2 with separate float32 multiplies and adds."""
+    dev = coeffs.device
+    o = torch.arange(out_h * out_w, device=dev)
+    x = (o % out_w).float()
+    y = (o // out_w).float()
+    c = coeffs.float()
+    px = c[:, 0:1] * x + c[:, 1:2] * y + c[:, 2:3]
+    py = c[:, 3:4] * x + c[:, 4:5] * y + c[:, 5:6]
+    return px, py
+
+
+def warp_patches_plain(
+    patches: torch.Tensor, coeffs: torch.Tensor, out_h: int, out_w: int
+) -> torch.Tensor:
+    """patches [F,K,K,C], coeffs [F,6] -> [F,out_h,out_w,C] float32, as a
+    dense float32 matmul on bf16-rounded operands (rows, kept float32) and
+    a multiply-then-sum over v. Each rows sum has at most two non-zero
+    exact products, so it agrees with the kernel to the bit; the column sum
+    rounds each product first, as the kernel does."""
+    f, k, _, c = patches.shape
+    px, py = _pixel_coords(coeffs, out_h, out_w)
+    p16 = patches.float().to(torch.bfloat16).float()
+    outs = []
+    for s in range(0, f, _PLAIN_CHUNK):
+        e = min(f, s + _PLAIN_CHUNK)
+        wu = _hat(px[s:e], k).to(torch.bfloat16).float()  # [f,O,K(u)]
+        wy = _hat(py[s:e], k)  # [f,O,K(v)]
+        # rows[f, o, v, c] = sum_u wu[f, o, u] P[f, v, u, c]
+        rows = torch.einsum("fou,fvuc->fovc", wu, p16[s:e])
+        outs.append((rows * wy[..., None]).sum(dim=2))
+    out = torch.cat(outs) if outs else patches.new_zeros((0, out_h * out_w, c))
+    return out.reshape(f, out_h, out_w, c)
+
+
+def warp_patches_kernel(
+    patches: torch.Tensor, coeffs: torch.Tensor, out_h: int, out_w: int
+) -> torch.Tensor:
+    """K2: patches [F,K,K,C] float32, coeffs [F,6] float32 ->
+    [F,out_h,out_w,C] float32.
+
+    CUDA tensors launch the CUDA kernel (and count the launch); CPU tensors
+    take `warp_patches_plain`. Any other device raises."""
+    if patches.dim() != 4 or patches.shape[1] != patches.shape[2]:
+        raise ValueError(f"expected square patches [F,K,K,C], got {tuple(patches.shape)}")
+    if coeffs.shape != (patches.shape[0], 6):
+        raise ValueError(f"expected coeffs [F,6], got {tuple(coeffs.shape)}")
+    if patches.device.type == "cpu":
+        return warp_patches_plain(patches, coeffs, out_h, out_w)
+    if patches.device.type != "cuda":
+        raise ValueError(f"warp_patches_kernel: unsupported device {patches.device}")
+    if patches.dtype != torch.float32 or coeffs.dtype != torch.float32:
+        raise TypeError("warp_patches_kernel takes float32 patches and coeffs")
+    if coeffs.device != patches.device:
+        raise ValueError("patches and coeffs must be on the same device")
+    f, k, _, c = patches.shape
+    patches = patches.contiguous()
+    coeffs = coeffs.contiguous()
+    out = torch.empty((f, out_h, out_w, c), dtype=torch.float32, device=patches.device)
+    if out.numel() == 0:
+        return out
+    fn = cuda_build.load("warp_patches").frp_warp_patches
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    stream = torch.cuda.current_stream(patches.device).cuda_stream
+    rc = fn(
+        patches.data_ptr(), coeffs.data_ptr(), out.data_ptr(),
+        f, k, c, out_h, out_w, stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"warp_patches kernel launch failed (cudaError {rc})")
+    LAUNCHES.bump()
+    return out

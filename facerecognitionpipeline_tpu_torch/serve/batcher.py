@@ -1,0 +1,353 @@
+"""Device batcher: coalesce concurrent client frames into one fused step.
+
+Counterpart of `facerecognitionpipeline_tpu/serve/batcher.py`, the server's
+request path. Three stages, one thread each, so host<->device copies overlap
+device compute:
+
+  submit()  -> ingress queue
+  transfer  -> stack whatever frames are queued into a pinned host buffer
+               and upload the group on a side CUDA stream (one copy per
+               group, not per frame); an event marks its completion
+  dispatch  -> drain uploaded groups, make the compute stream wait on their
+               events, concatenate and pad to a bucket size, run the step
+  complete  -> copy the small result fields to the host on a third stream,
+               fan futures out; bulky fields (aligned crops, embeddings)
+               stay on the device behind lazy per-item views
+
+On a CPU device the same stages run without streams.
+"""
+
+from __future__ import annotations
+
+import queue
+import threading
+import time
+from concurrent.futures import Future, InvalidStateError
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+_STOPPED = "DeviceBatcher stopped before this frame ran"
+_LAZY_KEYS = ("aligned", "embeddings", "landmarks", "embedding_norms")
+
+
+def _fail_futures(futs, err: BaseException) -> None:
+    """Set `err` on every unresolved future, tolerating races with other
+    setters (stop() and a stage thread may fail the same future)."""
+    for fut in futs:
+        if not fut.done():
+            try:
+                fut.set_exception(err)
+            except InvalidStateError:
+                pass
+
+
+class _LazySlice:
+    """View of one item of a device-resident batch tensor; `np.asarray`
+    fetches exactly that slice. Holds the batch tensor until dropped."""
+
+    def __init__(self, dev: torch.Tensor, idx=()):
+        self._dev = dev
+        self._idx = tuple(idx)
+
+    def __getitem__(self, i):
+        return _LazySlice(self._dev, self._idx + (i,))
+
+    @property
+    def shape(self):
+        probe = np.broadcast_to(np.empty((), np.uint8), tuple(self._dev.shape))
+        return probe[self._idx].shape
+
+    def __array__(self, dtype=None, copy=None):
+        if copy is False:
+            raise ValueError("_LazySlice materializes a device fetch; copy=False cannot be honored")
+        t = self._dev[self._idx] if self._idx else self._dev
+        arr = t.cpu().numpy()
+        return arr.astype(dtype) if dtype is not None else arr
+
+
+def _to_host(tree):
+    if isinstance(tree, dict):
+        return {k: _to_host(v) for k, v in tree.items()}
+    return tree.cpu().numpy()
+
+
+def _item(tree, i):
+    if isinstance(tree, dict):
+        return {k: _item(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+class DeviceBatcher:
+    """Pipelined batching front of the recognition step."""
+
+    def __init__(
+        self,
+        engine,
+        gallery_provider,
+        max_batch: int = 8,
+        max_wait_ms: float = 5.0,
+        top_k: int = 3,
+        bucket_sizes: Optional[Sequence[int]] = None,
+    ):
+        """gallery_provider() -> (templates, valid) device tensors, or
+        (templates, valid, ids); with ids, each result carries the id list
+        captured at dispatch as result["gallery_ids"]."""
+        self.engine = engine
+        self.gallery_provider = gallery_provider
+        self.max_batch = max_batch
+        self.max_wait_s = max_wait_ms / 1000.0
+        self.top_k = top_k
+        self.device = engine.device
+        self.bucket_sizes = sorted({min(b, max_batch) for b in (bucket_sizes or (1, max_batch))})
+        if max_batch not in self.bucket_sizes:
+            self.bucket_sizes.append(max_batch)
+
+        self._ingress: queue.Queue = queue.Queue()
+        self._ready: queue.Queue = queue.Queue()
+        self._done: queue.Queue = queue.Queue()
+        self._stop = threading.Event()
+        self._threads: list[threading.Thread] = []
+        self._frame_shape = None  # set by warmup
+        self._carry = None  # overflow group held for the next dispatch
+        self._dispatch_count = 0
+        cuda = self.device.type == "cuda"
+        self._h2d_stream = torch.cuda.Stream(self.device) if cuda else None
+        self._d2h_stream = torch.cuda.Stream(self.device) if cuda else None
+
+    # ----------------------------------------------------------- lifecycle
+
+    def start(self) -> None:
+        if self._threads:
+            return
+        if self._stop.is_set():
+            raise RuntimeError(
+                "DeviceBatcher cannot restart after stop(); create a new DeviceBatcher"
+            )
+        for target, name in (
+            (self._transfer_run, "batcher-transfer"),
+            (self._dispatch_run, "batcher-dispatch"),
+            (self._complete_run, "batcher-complete"),
+        ):
+            t = threading.Thread(target=target, name=name, daemon=True)
+            t.start()
+            self._threads.append(t)
+
+    def stop(self) -> None:
+        """Stop the stage threads and fail every future still in flight."""
+        self._stop.set()
+        for t in self._threads:
+            t.join(timeout=5.0)
+        self._threads = []
+        err = RuntimeError(_STOPPED)
+        if self._carry is not None:
+            _fail_futures(self._carry[2], err)
+            self._carry = None
+        for q, pick in (
+            (self._ready, lambda e: e[2]),
+            (self._ingress, lambda e: [e[1]]),
+            (self._done, lambda e: e[2]),
+        ):
+            while True:
+                try:
+                    entry = q.get_nowait()
+                except queue.Empty:
+                    break
+                _fail_futures(pick(entry), err)
+
+    def submit(self, frame: np.ndarray) -> Future:
+        """frame at the engine's det size (host uint8) -> Future of this
+        frame's slice of the step output (host arrays and lazy views)."""
+        fut: Future = Future()
+        err = RuntimeError(_STOPPED)
+        if self._stop.is_set():
+            fut.set_exception(err)
+            return fut
+        self._ingress.put((frame, fut))
+        if self._stop.is_set():
+            _fail_futures([fut], err)  # raced with stop()'s drain
+        return fut
+
+    def warmup(self, det_size: tuple[int, int]) -> None:
+        """Run every bucket size once before taking traffic (first-use
+        costs: kernel builds, cuDNN algorithm selection, allocator growth)."""
+        h, w = det_size
+        snapshot = self.gallery_provider()
+        self._frame_shape = tuple(self.engine.host_frame_shape(h, w))
+        for b in self.bucket_sizes:
+            out = self.engine.process_frames(
+                np.zeros((b, *self._frame_shape), np.uint8),
+                snapshot[0], snapshot[1], gallery_k=self.top_k,
+            )
+            out["match_scores"].cpu()
+
+    # ------------------------------------------------------------- stage 1
+
+    def _upload(self, frames: list) -> tuple[torch.Tensor, Optional[torch.cuda.Event]]:
+        """Stack on the host and upload as ONE copy; returns the device
+        tensor and the event that marks the copy done (None on CPU)."""
+        if self._h2d_stream is None:
+            return torch.from_numpy(np.stack(frames)), None
+        host = torch.empty(
+            (len(frames), *frames[0].shape), dtype=torch.uint8, pin_memory=True
+        )
+        np.stack(frames, out=host.numpy())
+        with torch.cuda.stream(self._h2d_stream):
+            dev = host.to(self.device, non_blocking=True)
+            ev = torch.cuda.Event()
+            ev.record(self._h2d_stream)
+        return dev, ev
+
+    def _transfer_run(self) -> None:
+        while not self._stop.is_set():
+            try:
+                frame, fut = self._ingress.get(timeout=0.1)
+            except queue.Empty:
+                continue
+            frames, futs = [frame], [fut]
+            while len(frames) < self.max_batch:
+                try:
+                    f2, u2 = self._ingress.get_nowait()
+                except queue.Empty:
+                    break
+                frames.append(f2)
+                futs.append(u2)
+            # a malformed frame fails only its own future
+            ref = self._frame_shape or frames[0].shape
+            bad = [
+                k for k, f in enumerate(frames)
+                if f.shape != ref or f.dtype != np.uint8
+            ]
+            if bad:
+                err = ValueError(
+                    f"frame shape/dtype mismatch in transfer group: expected {ref} uint8"
+                )
+                _fail_futures([futs[k] for k in bad], err)
+                frames = [f for k, f in enumerate(frames) if k not in bad]
+                futs = [u for k, u in enumerate(futs) if k not in bad]
+                if not frames:
+                    continue
+            try:
+                dev, ev = self._upload(frames)
+                self._ready.put((dev, ev, futs))
+                if self._stop.is_set():  # put-then-recheck against stop()
+                    while True:
+                        try:
+                            _, _, futs2 = self._ready.get_nowait()
+                        except queue.Empty:
+                            break
+                        _fail_futures(futs2, RuntimeError(_STOPPED))
+            except Exception as e:  # noqa: BLE001 - scoped to these futures
+                _fail_futures(futs, e)
+
+    # ------------------------------------------------------------- stage 2
+
+    def _drain(self) -> list:
+        """Uploaded groups until max_batch frames are in hand or the
+        batching window closes; a group that would overflow is carried."""
+        groups = []
+        if self._carry is not None:
+            groups.append(self._carry)
+            self._carry = None
+        else:
+            try:
+                groups.append(self._ready.get(timeout=0.1))
+            except queue.Empty:
+                return groups
+        n = int(groups[0][0].shape[0])
+        t0 = time.perf_counter()
+        while n < self.max_batch:
+            remaining = self.max_wait_s - (time.perf_counter() - t0)
+            if remaining <= 0:
+                break
+            try:
+                g = self._ready.get(timeout=remaining)
+            except queue.Empty:
+                break
+            gn = int(g[0].shape[0])
+            if n + gn > self.max_batch:
+                self._carry = g
+                break
+            groups.append(g)
+            n += gn
+        return groups
+
+    def _bucket(self, n: int) -> int:
+        for b in self.bucket_sizes:
+            if b >= n:
+                return b
+        return self.max_batch
+
+    def _dispatch_run(self) -> None:
+        while not self._stop.is_set():
+            groups = self._drain()
+            if not groups:
+                continue
+            items = [fut for _, _, futs in groups for fut in futs]
+            try:
+                parts = []
+                for dev, ev, _ in groups:
+                    if ev is not None:
+                        torch.cuda.current_stream(self.device).wait_event(ev)
+                        dev.record_stream(torch.cuda.current_stream(self.device))
+                    parts.append(dev)
+                n = sum(int(p.shape[0]) for p in parts)
+                b = self._bucket(n)
+                if b > n:
+                    parts.append(parts[0].new_zeros((b - n, *parts[0].shape[1:])))
+                batch = parts[0] if len(parts) == 1 else torch.cat(parts)
+                snapshot = self.gallery_provider()
+                gallery_ids = snapshot[2] if len(snapshot) > 2 else None
+                self._dispatch_count = (self._dispatch_count + 1) % (1 << 30)
+                out = self.engine.process_frames(
+                    batch, snapshot[0], snapshot[1], gallery_k=self.top_k,
+                    rotation=self._dispatch_count,
+                )
+                ev = None
+                if self.device.type == "cuda":
+                    ev = torch.cuda.Event()
+                    ev.record(torch.cuda.current_stream(self.device))
+                self._done.put((out, ev, items, gallery_ids))
+                if self._stop.is_set():  # put-then-recheck against stop()
+                    while True:
+                        try:
+                            entry = self._done.get_nowait()
+                        except queue.Empty:
+                            break
+                        _fail_futures(entry[2], RuntimeError(_STOPPED))
+            except Exception as e:  # noqa: BLE001 - scoped to this batch
+                _fail_futures(items, e)
+        if self._carry is not None:
+            _fail_futures(self._carry[2], RuntimeError(_STOPPED))
+            self._carry = None
+
+    # ------------------------------------------------------------- stage 3
+
+    def _complete_run(self) -> None:
+        while not self._stop.is_set():
+            try:
+                out, ev, items, gallery_ids = self._done.get(timeout=0.1)
+            except queue.Empty:
+                continue
+            try:
+                out = dict(out)
+                lazy = {k: out.pop(k) for k in _LAZY_KEYS if k in out}
+                if ev is not None:
+                    with torch.cuda.stream(self._d2h_stream):
+                        self._d2h_stream.wait_event(ev)
+                        host = _to_host(out)
+                else:
+                    host = _to_host(out)
+                for i, fut in enumerate(items):
+                    result = _item(host, i)
+                    for k, v in lazy.items():
+                        result[k] = _LazySlice(v, (i,))
+                    if gallery_ids is not None:
+                        result["gallery_ids"] = gallery_ids
+                    try:
+                        fut.set_result(result)
+                    except InvalidStateError:
+                        pass  # cancelled by its client; others still fan out
+            except Exception as e:  # noqa: BLE001 - scoped to this batch
+                _fail_futures(items, e)

@@ -1,0 +1,114 @@
+"""Boundaries of the PyTorch port: what it imports, where it runs, and the
+committed smoke fixture."""
+
+import ast
+import os
+import re
+import shutil
+import subprocess
+import sys
+
+import pytest
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT = os.path.join(REPO, "facerecognitionpipeline_tpu_torch")
+# the JAX package, but not the port whose name starts the same way
+FORBIDDEN = re.compile(r"^(jax|jaxlib|flax|optax|facerecognitionpipeline_tpu(?!_torch))(\.|$)")
+
+
+def _port_sources():
+    for root, _, files in os.walk(PORT):
+        for f in files:
+            if f.endswith(".py"):
+                yield os.path.join(root, f)
+    yield os.path.join(REPO, "chip_smoke.py")
+
+
+def test_port_never_imports_jax_or_the_jax_package():
+    bad = []
+    n = 0
+    for path in _port_sources():
+        n += 1
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""]
+                assert node.level == 0, f"{path}: relative import"
+            else:
+                continue
+            bad += [f"{os.path.relpath(path, REPO)}: {m}" for m in names if FORBIDDEN.match(m)]
+    assert n > 20
+    assert not bad, bad
+
+
+def test_import_pattern_tells_the_packages_apart():
+    assert FORBIDDEN.match("facerecognitionpipeline_tpu.ops.warp")
+    assert FORBIDDEN.match("facerecognitionpipeline_tpu")
+    assert FORBIDDEN.match("jax.numpy")
+    assert not FORBIDDEN.match("facerecognitionpipeline_tpu_torch.ops.warp")
+    assert not FORBIDDEN.match("jaxtyping_like")
+
+
+@pytest.mark.parametrize("entry", ["detector", "embedder", "gallery"])
+def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch, entry):
+    from facerecognitionpipeline_tpu_torch.gallery.search import DeviceGallery
+    from facerecognitionpipeline_tpu_torch.models.detector import MTCNNDetector
+    from facerecognitionpipeline_tpu_torch.pipeline.embedder import FaceEmbedder
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    make = {
+        "detector": lambda **kw: MTCNNDetector(det_size=(64, 64), **kw),
+        "embedder": lambda **kw: FaceEmbedder("ir_micro", random_ok=True, **kw),
+        "gallery": lambda **kw: DeviceGallery(**kw),
+    }[entry]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make()
+    assert make(device="cpu").device.type == "cpu"
+
+
+def test_engine_and_batcher_follow_their_parts_device():
+    from facerecognitionpipeline_tpu_torch.gallery.search import DeviceGallery
+    from facerecognitionpipeline_tpu_torch.models.detector import MTCNNDetector
+    from facerecognitionpipeline_tpu_torch.pipeline.embedder import FaceEmbedder
+    from facerecognitionpipeline_tpu_torch.pipeline.engine import RecognitionEngine
+    from facerecognitionpipeline_tpu_torch.serve.batcher import DeviceBatcher
+
+    det = MTCNNDetector(det_size=(64, 64), min_face_size=20, max_faces=2, device="cpu")
+    emb = FaceEmbedder("ir_micro", random_ok=True, device="cpu")
+    eng = RecognitionEngine(det, emb)
+    assert eng.device.type == "cpu" and eng.align_impl == "kernel"
+    b = DeviceBatcher(eng, DeviceGallery(device="cpu").device_snapshot)
+    assert b.device.type == "cpu" and b.bucket_sizes == [1, 8]
+
+
+def test_smoke_fixture_regenerates_byte_for_byte():
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    try:
+        import make_smoke_scenes
+    finally:
+        sys.path.pop(0)
+    with open(make_smoke_scenes.OUT_PATH, "rb") as f:
+        committed = f.read()
+    assert len(committed) <= 1_500_000
+    assert make_smoke_scenes.to_bytes(make_smoke_scenes.build()) == committed
+
+
+def test_chip_smoke_fails_without_a_card_or_the_repo(tmp_path):
+    """No CUDA card here: the script exits non-zero and prints no result.
+    Alone in a directory it fails too (here at the same check; on a card,
+    at the import of the port)."""
+    if torch.cuda.is_available():
+        pytest.skip("this process has a CUDA card")
+    alone = tmp_path / "chip_smoke.py"
+    shutil.copy(os.path.join(REPO, "chip_smoke.py"), alone)
+    for script in (os.path.join(REPO, "chip_smoke.py"), str(alone)):
+        r = subprocess.run(
+            [sys.executable, script], capture_output=True, text=True, timeout=120,
+            cwd=os.path.dirname(script),
+        )
+        assert r.returncode != 0
+        assert '"ok"' not in r.stdout

@@ -1,0 +1,294 @@
+"""The port's fused serving step against the JAX engine, on the CPU.
+
+Both engines get the same detector weights (pretrained/mtcnn_dr.npz), the
+same ir_micro embedder weights (the JAX random init, carried over with
+models/convert.py), the same bf16 gallery and the same frames (tiles of
+the port's smoke fixture). The JAX side runs its Pallas kernels in
+interpret mode (crop_impl='pallas' with bf16, align_impl='pallas'); the
+port's wrappers take their kernels' plain versions on CPU tensors. The JAX
+step is compiled with XLA's excess precision off, so that its bf16 rounds
+where its code says (with it on, XLA:CPU keeps fused intermediates in f32,
+which moves its own landmarks by up to ~1 px against its op-by-op run).
+
+The detections are compared first (face_valid equal, boxes and landmarks
+within 1 px). A sub-pixel landmark difference shifts the aligned crop, so
+align -> gate -> embed -> match is then held to the JAX step on the JAX
+step's OWN detections: quality_ok equal on valid slots, aligned crops within
++-1 on >= 99% of pixels (the round and clip after alignment), embeddings
+cosine >= 0.99, and top-1 match_idx equal where the top-1/top-2 margin
+exceeds 5e-3.
+"""
+
+import os
+import threading
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from facerecognitionpipeline_tpu.models.detector import MTCNNDetector as JaxDetector
+from facerecognitionpipeline_tpu.pipeline.embedder import FaceEmbedder as JaxEmbedder
+from facerecognitionpipeline_tpu.pipeline.engine import RecognitionEngine as JaxEngine
+from facerecognitionpipeline_tpu_torch.gallery.search import DeviceGallery, cosine_topk
+from facerecognitionpipeline_tpu_torch.models.detector import MTCNNDetector
+from facerecognitionpipeline_tpu_torch.pipeline.embedder import FaceEmbedder
+from facerecognitionpipeline_tpu_torch.pipeline.engine import RecognitionEngine
+from facerecognitionpipeline_tpu_torch.serve.batcher import DeviceBatcher
+
+torch.set_num_threads(2)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+WEIGHTS = os.path.join(REPO, "pretrained", "mtcnn_dr.npz")
+FIXTURE = os.path.join(
+    REPO, "facerecognitionpipeline_tpu_torch", "testdata", "smoke_scenes.npz"
+)
+DET = dict(det_size=(160, 160), max_faces=4, min_face_size=40)
+
+
+@pytest.fixture(scope="module")
+def frames():
+    with np.load(FIXTURE) as d:
+        return np.ascontiguousarray(d["tiles"][:3])
+
+
+@pytest.fixture(scope="module")
+def pair():
+    """(jax_engine_parts, port_detector, port_embedder) on the same weights."""
+    jdet = JaxDetector(
+        **DET, dtype=jnp.bfloat16, weights_path=WEIGHTS, crop_impl="pallas"
+    )
+    jemb = JaxEmbedder("ir_micro", dtype=jnp.bfloat16, random_ok=True)
+    tdet = MTCNNDetector(
+        **DET, dtype=torch.bfloat16, weights_path=WEIGHTS, crop_impl="kernel",
+        device="cpu",
+    )
+    vars_np = {"params": _to_numpy(jemb.variables["params"])}
+    temb = FaceEmbedder(
+        "ir_micro", dtype=torch.bfloat16, variables=vars_np, device="cpu"
+    )
+    return jdet, jemb, tdet, temb
+
+
+@pytest.fixture(scope="module")
+def gallery():
+    rng = np.random.default_rng(7)
+    t = rng.normal(size=(40, 512)).astype(np.float32)
+    t /= np.linalg.norm(t, axis=1, keepdims=True)
+    return t
+
+
+def _to_numpy(tree):
+    if isinstance(tree, dict):
+        return {k: _to_numpy(v) for k, v in tree.items()}
+    return np.asarray(tree)
+
+
+def _templates(t):
+    """(JAX bf16 [128,512], valid) and (port bf16, valid) of one gallery."""
+    dg = DeviceGallery(device="cpu")
+    dg.rebuild([str(i) for i in range(len(t))], t)
+    tt, tv, _ = dg.device_snapshot()
+    jt = jnp.asarray(tt.float().numpy()).astype(jnp.bfloat16)
+    return (jt, jnp.asarray(tv.numpy())), (tt, tv)
+
+
+def _jax_step(eng, frames, templates, valid, k, rotation=0):
+    """The JAX engine's step, compiled without excess precision."""
+    args = (
+        eng.detector.variables, eng.embedder.variables, templates, valid,
+        jnp.asarray(frames),
+    )
+    rot = jnp.asarray(rotation, jnp.int32)
+    compiled = (
+        jax.jit(eng._step_impl, static_argnames=("gallery_k",))
+        .lower(*args, gallery_k=k, rotation=rot)
+        .compile(compiler_options={"xla_allow_excess_precision": False})
+    )
+    return compiled(*args, rotation=rot)
+
+
+def _np(tree):
+    if isinstance(tree, dict):
+        return {k: _np(v) for k, v in tree.items()}
+    return tree.numpy() if isinstance(tree, torch.Tensor) else np.asarray(tree)
+
+
+def _assert_step_parity(teng, frames, a, b, tt, tv, top_k, rotation=0):
+    """a: the JAX step's outputs; b: the port's step on the same frames."""
+    a, b = _np(a), _np(b)
+    assert set(a) == set(b)
+    assert set(a["quality_metrics"]) == set(b["quality_metrics"])
+    # detection
+    np.testing.assert_array_equal(b["face_valid"], a["face_valid"])
+    valid = a["face_valid"]
+    assert valid.any(), "fixture frames must hold detections"
+    np.testing.assert_allclose(b["bboxes"][valid], a["bboxes"][valid], atol=1.0)
+    np.testing.assert_allclose(b["landmarks"][valid], a["landmarks"][valid], atol=1.0)
+    # align -> gate -> embed -> match on the JAX step's own detections
+    det = {
+        "bboxes": a["bboxes"], "scores": a["det_scores"],
+        "landmarks": a["landmarks"], "valid": a["face_valid"],
+    }
+    with torch.inference_mode():
+        r = _np(teng._recognize(
+            torch.from_numpy(np.asarray(frames, np.float32)),
+            {k: torch.from_numpy(np.array(v)) for k, v in det.items()},
+            tt, tv, top_k, rotation,
+        ))
+    np.testing.assert_array_equal(r["quality_ok"][valid], a["quality_ok"][valid])
+    np.testing.assert_array_equal(r["embedded"], a["embedded"])
+    diff = np.abs(r["aligned"].astype(np.int16) - a["aligned"].astype(np.int16))
+    assert (diff[valid] <= 1).mean() >= 0.99
+    emb = r["embedded"]
+    ea, eb = a["embeddings"][emb], r["embeddings"][emb]
+    cos = (ea * eb).sum(-1) / (
+        np.linalg.norm(ea, axis=-1) * np.linalg.norm(eb, axis=-1) + 1e-12
+    )
+    assert cos.min() >= 0.99, cos
+    sa = a["match_scores"][emb]
+    clear = (sa[:, 0] - sa[:, 1]) > 5e-3
+    assert clear.any()
+    np.testing.assert_array_equal(
+        r["match_idx"][emb][clear, 0], a["match_idx"][emb][clear, 0]
+    )
+    assert a["match_scores"].shape[-1] == r["match_scores"].shape[-1] == top_k
+
+
+def test_step_matches_jax(pair, frames, gallery):
+    jdet, jemb, tdet, temb = pair
+    (jt, jv), (tt, tv) = _templates(gallery)
+    jeng = JaxEngine(jdet, jemb, top_k=3, align_impl="pallas")
+    teng = RecognitionEngine(tdet, temb, top_k=3)
+    a = _jax_step(jeng, frames, jt, jv, 3)
+    b = teng.process_frames(frames, tt, tv)
+    _assert_step_parity(teng, frames, a, b, tt, tv, 3)
+
+
+@pytest.mark.parametrize("rotation", [0, 1])
+def test_step_embed_budget_matches_jax(pair, frames, gallery, rotation):
+    jdet, jemb, tdet, temb = pair
+    (jt, jv), (tt, tv) = _templates(gallery)
+    jeng = JaxEngine(jdet, jemb, top_k=2, align_impl="pallas", embed_budget=1)
+    teng = RecognitionEngine(tdet, temb, top_k=2, embed_budget=1)
+    a = _jax_step(jeng, frames, jt, jv, 2, rotation=rotation)
+    b = teng.process_frames(frames, tt, tv, rotation=rotation)
+    _assert_step_parity(teng, frames, a, b, tt, tv, 2, rotation)
+    assert b["embedded"].sum(dim=1).le(1).all()
+
+
+def test_i420_step_matches_rgb_of_same_frame(pair, frames, gallery):
+    """I420 input: the port converts on the device exactly as the JAX
+    package does, so the step on I420 equals the step on its RGB image."""
+    from facerecognitionpipeline_tpu.serve.rawproto import rgb_to_i420
+    from facerecognitionpipeline_tpu_torch.ops.image import i420_to_rgb
+
+    _, _, tdet, temb = pair
+    (_, _), (tt, tv) = _templates(gallery)
+    yuv = np.stack([rgb_to_i420(f) for f in frames])
+    rgb = i420_to_rgb(torch.from_numpy(yuv), 160, 160)
+    e420 = RecognitionEngine(tdet, temb, top_k=2, input_format="i420")
+    ergb = RecognitionEngine(tdet, temb, top_k=2)
+    assert e420.host_frame_shape(160, 160) == (240, 160)
+    a = e420.process_frames(yuv, tt, tv)
+    b = ergb.step(tt, tv, rgb, gallery_k=2)
+    for k in ("bboxes", "face_valid", "aligned", "embeddings", "match_idx"):
+        np.testing.assert_array_equal(a[k].numpy(), b[k].numpy())
+
+
+def test_unported_options_raise(pair):
+    _, _, tdet, temb = pair
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        RecognitionEngine(tdet, temb, gallery_impl="streaming")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        RecognitionEngine(tdet, temb, mesh=object())
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        RecognitionEngine(tdet, temb, shard_gallery=True)
+    eng = RecognitionEngine(tdet, temb)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        eng._match(torch.zeros(1, 1, 512), (torch.zeros(128, 512), torch.ones(128)),
+                   torch.ones(128, dtype=torch.bool), 1)
+    with pytest.raises(ValueError):
+        RecognitionEngine(tdet, temb, embed_budget=5)
+
+
+def test_gallery_search_matches_jax(gallery):
+    from facerecognitionpipeline_tpu.gallery.search import cosine_topk as jax_topk
+
+    rng = np.random.default_rng(3)
+    q = rng.normal(size=(6, 512)).astype(np.float32)
+    q[0] = gallery[5] * 3.0  # planted: exact top-1
+    dg = DeviceGallery(device="cpu")
+    dg.rebuild([f"s{i}" for i in range(len(gallery))], gallery)
+    t, v, ids = dg.device_snapshot()
+    assert t.dtype == torch.bfloat16 and t.shape == (128, 512)
+    s, i = cosine_topk(torch.from_numpy(q), t, v, 4)
+    js, ji = jax_topk(
+        jnp.asarray(q), jnp.asarray(t.float().numpy()).astype(jnp.bfloat16),
+        jnp.asarray(v.numpy()), 4,
+    )
+    np.testing.assert_allclose(s.numpy(), np.asarray(js), atol=1e-5)
+    np.testing.assert_array_equal(i.numpy(), np.asarray(ji))
+    assert i[0, 0] == 5 and s[0, 0] > 0.99
+    scores, names = dg.search(q, top_k=3)
+    assert names[0][0] == "s5" and scores.shape == (6, 3)
+
+
+def test_topk_ties_break_to_lower_index():
+    """Padded rows all score -1e9: top-k must list them lowest index first,
+    as jax.lax.top_k does."""
+    import jax
+
+    from facerecognitionpipeline_tpu_torch.ops.nms import top_k
+
+    x = np.array([[0.5, -1e9, 0.5, -1e9, 0.7, -1e9, -1e9, 0.5]], np.float32)
+    tv, ti = top_k(torch.from_numpy(x), 8)
+    jv, ji = jax.lax.top_k(jnp.asarray(x), 8)
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+    np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
+
+
+def test_batcher_matches_direct_step(pair, frames, gallery):
+    """Frames from two client threads through DeviceBatcher give the same
+    results as the direct step on each frame."""
+    _, _, tdet, temb = pair
+    dg = DeviceGallery(device="cpu")
+    dg.rebuild([str(i) for i in range(len(gallery))], gallery)
+    eng = RecognitionEngine(tdet, temb, top_k=3)
+    batcher = DeviceBatcher(eng, dg.device_snapshot, max_batch=4, max_wait_ms=20)
+    batcher.warmup((160, 160))
+    batcher.start()
+    inputs = [frames[i % len(frames)] for i in range(6)]
+    futs = [None] * len(inputs)
+    try:
+        def client(offset):
+            for i in range(offset, len(inputs), 2):
+                futs[i] = batcher.submit(inputs[i])
+
+        threads = [threading.Thread(target=client, args=(o,)) for o in (0, 1)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=30)
+            assert not t.is_alive()
+        results = [f.result(timeout=120) for f in futs]
+    finally:
+        batcher.stop()
+    t, v, ids = dg.device_snapshot()
+    direct = eng.process_frames(np.stack(frames), t, v)
+    for i, r in enumerate(results):
+        j = i % len(frames)
+        assert r["gallery_ids"] == ids
+        np.testing.assert_array_equal(r["face_valid"], direct["face_valid"][j].numpy())
+        np.testing.assert_array_equal(r["match_idx"], direct["match_idx"][j].numpy())
+        np.testing.assert_allclose(
+            r["bboxes"], direct["bboxes"][j].numpy(), atol=1e-4
+        )
+        np.testing.assert_allclose(
+            np.asarray(r["embeddings"]), direct["embeddings"][j].numpy(), atol=1e-3
+        )
+        assert r["aligned"].shape == (4, 112, 112, 3)
+    late = batcher.submit(frames[0])
+    with pytest.raises(RuntimeError, match="stopped"):
+        late.result(timeout=5)
