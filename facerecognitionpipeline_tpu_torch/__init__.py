@@ -2,10 +2,12 @@
 
 The counterpart of `facerecognitionpipeline_tpu` (the JAX package, which
 stays the reference): the fused detect -> align -> gate -> embed -> match
-serving step (`pipeline.engine.RecognitionEngine`) and its request batcher
-(`serve.batcher.DeviceBatcher`). The two Pallas kernels on that path are
-hand-written CUDA kernels here (`csrc/`, bound in `ops/crop_kernel.py` and
-`ops/warp_kernel.py`).
+serving step (`pipeline.engine.RecognitionEngine`), its request batcher
+(`serve.batcher.DeviceBatcher`) and the gallery store
+(`gallery.manager.GalleryManager` on `gallery.search.DeviceGallery`). The
+four Pallas kernels of the JAX package are hand-written CUDA kernels here
+(`csrc/`, bound in `ops/crop_kernel.py`, `ops/warp_kernel.py` and
+`ops/gallery_kernel.py`).
 
 Layouts at public functions match the JAX package (NHWC frames and faces,
 [B,N,4] boxes, [B,F,5,2] landmarks). Entry points default to

@@ -20,11 +20,12 @@ import time
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "kernels")
-KERNEL_NAMES = ("crop_resize", "warp_patches")
+KERNEL_NAMES = ("crop_resize", "warp_patches", "gallery_topk", "gallery_topk_int8")
 
 # No --use_fast_math: division stays correctly rounded. -fmad=false keeps
-# the coordinate arithmetic uncontracted (the sources also use the
-# explicit _rn intrinsics).
+# the resamplers' coordinate arithmetic uncontracted (the sources also use
+# the explicit _rn intrinsics); the gallery kernels' products run on the
+# tensor cores, which the flag does not touch.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
     "-fmad=false", "-shared", "-Xcompiler", "-fPIC",

@@ -18,7 +18,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from facerecognitionpipeline_tpu_torch.gallery.search import cosine_topk
+from facerecognitionpipeline_tpu_torch.gallery.search import _local_topk, template_rows
 from facerecognitionpipeline_tpu_torch.ops.image import i420_to_rgb, normalize_face_batch
 from facerecognitionpipeline_tpu_torch.ops.nms import top_k
 from facerecognitionpipeline_tpu_torch.ops.quality import QualityConfig, quality_check
@@ -42,30 +42,37 @@ class RecognitionEngine:
         embed_budget: Optional[int] = None,
         shard_gallery: bool = False,
         gallery_impl: str = "auto",
+        gallery_chunk: int = 4096,
+        gallery_streaming_threshold: int = 32768,
     ):
         """Arguments as in the JAX engine, where ported:
 
         align_impl: 'kernel' (K1 stage A + K2 stage B; the counterpart of
-        the JAX 'pallas') or 'auto' (= 'kernel'). gallery_impl: 'dense' or
-        'auto' (= dense in this port). embed_budget: None embeds every
-        slot; K <= max_faces embeds the K best eligible slots per frame,
-        with the `rotation` window of the JAX engine.
+        the JAX 'pallas') or 'auto' (= 'kernel'). embed_budget: None embeds
+        every slot; K <= max_faces embeds the K best eligible slots per
+        frame, with the `rotation` window of the JAX engine.
+
+        gallery_impl: 'dense' (one matmul + top-k, which stores the [Q, G]
+        similarity matrix), 'streaming' (kernel K3 of ops/gallery_kernel:
+        one read of the gallery, no [Q, G] matrix; padded rows must divide
+        `gallery_chunk`) or 'auto' (default): streaming on a CUDA device for
+        bf16 templates of at least `gallery_streaming_threshold` padded rows
+        that divide `gallery_chunk`, dense otherwise. An (int8 codes [G,D],
+        per-row scales [G]) pair (DeviceGallery quantize='int8') overrides
+        gallery_impl: it streams through kernel K4 whenever its rows divide
+        `gallery_chunk` and takes the dense dequantising matmul otherwise.
+        `DeviceGallery.device_snapshot` serves the bf16 copy (or the pair)
+        at streaming scale. On a CPU device the streaming arms run the
+        kernels' plain versions.
 
         Not ported yet (NotImplementedError, see ROADMAP.md): `mesh` and
-        `shard_gallery` (multi-GPU, queue 1 item 15), gallery_impl=
-        'streaming' and int8 (codes, scales) templates (kernels K3/K4,
-        queue 2)."""
+        `shard_gallery` (multi-GPU, queue 1)."""
         if mesh is not None or shard_gallery:
             raise NotImplementedError(
                 "mesh / shard_gallery: multi-GPU serving is queued in "
                 "ROADMAP.md (queue 1, multi-GPU)"
             )
-        if gallery_impl == "streaming":
-            raise NotImplementedError(
-                "gallery_impl='streaming' needs kernel K3, queued in "
-                "ROADMAP.md (queue 2)"
-            )
-        if gallery_impl not in ("auto", "dense"):
+        if gallery_impl not in ("auto", "dense", "streaming"):
             raise ValueError(f"unknown gallery_impl {gallery_impl!r}")
         if align_impl == "auto":
             align_impl = "kernel"
@@ -84,6 +91,12 @@ class RecognitionEngine:
         self.align_impl = align_impl
         self.align_patch = align_patch
         self.gallery_impl = gallery_impl
+        self.gallery_chunk = gallery_chunk
+        self.gallery_streaming_threshold = gallery_streaming_threshold
+        # 'auto' streams only where the kernel runs: the plain version's
+        # chunk loop (what 'streaming' means on the CPU) is slower there
+        # than the dense matmul
+        self._stream_on_auto = self.device.type == "cuda"
         max_faces = detector.max_faces
         if embed_budget is not None:
             if not 1 <= embed_budget <= max_faces:
@@ -113,14 +126,32 @@ class RecognitionEngine:
     # ------------------------------------------------------------ device step
 
     def _match(self, feats, templates, valid, k):
-        """[B, X, D] features -> (scores [B, X, k], idx [B, X, k])."""
-        if isinstance(templates, tuple):
-            raise NotImplementedError(
-                "int8 (codes, scales) templates need kernel K4, queued in "
-                "ROADMAP.md (queue 2)"
+        """[B, X, D] features -> (scores [B, X, k] float32, idx [B, X, k]
+        int64), dense or through the streaming kernels (see `__init__`)."""
+        g = template_rows(templates)
+        if isinstance(templates, tuple):  # (int8 codes, row scales)
+            streaming = g >= self.gallery_chunk and g % self.gallery_chunk == 0
+        elif self.gallery_impl == "streaming":
+            streaming = True
+        elif self.gallery_impl == "dense":
+            streaming = False
+        else:
+            streaming = (
+                self._stream_on_auto
+                and templates.dtype == torch.bfloat16
+                and g >= self.gallery_streaming_threshold
+                and g % self.gallery_chunk == 0
+            )
+        if streaming and g % self.gallery_chunk:
+            raise ValueError(
+                f"gallery_impl='streaming' needs padded rows % gallery_chunk "
+                f"== 0, got {g} rows with chunk {self.gallery_chunk}"
             )
         b, x, d = feats.shape
-        scores, idx = cosine_topk(feats.reshape(b * x, d), templates, valid, k)
+        scores, idx = _local_topk(
+            feats.reshape(b * x, d), templates, valid, k,
+            streaming=streaming, chunk=self.gallery_chunk,
+        )
         return scores.reshape(b, x, k), idx.reshape(b, x, k)
 
     def step(self, templates, templates_valid, frames, gallery_k: int, rotation: int = 0):
@@ -231,13 +262,14 @@ class RecognitionEngine:
     def process_frames(
         self,
         frames,
-        gallery_templates: torch.Tensor,
+        gallery_templates,
         gallery_valid: torch.Tensor,
         gallery_k: Optional[int] = None,
         rotation: int = 0,
     ) -> dict:
         """Frames (numpy or tensor; [B,H,W,3] uint8 for 'rgb', [B,H*3//2,W]
-        for 'i420') -> the device result dict. `rotation` is the
+        for 'i420') -> the device result dict. `gallery_templates` is a
+        [G, D] tensor or an int8 (codes, scales) pair. `rotation` is the
         embed-budget fairness counter (ignored without a budget)."""
         if isinstance(frames, np.ndarray):
             frames = torch.from_numpy(frames)

@@ -104,3 +104,120 @@ def test_k2_in_align_matches_plain(dev, gen):
     patches = crop_resize_plain(frames, boxes.reshape(2, 4, 4), 128)
     ref = warp_patches_plain(patches.reshape(-1, 128, 128, 3), coeffs, 112, 112)
     assert float((out - ref.reshape(out.shape)).abs().max()) <= 1e-3
+
+
+# ------------------------------------------------- K3 / K4: gallery top-k
+
+
+def _gallery(rng, g, n_invalid):
+    t = rng.normal(size=(g, 512)).astype(np.float32)
+    t /= np.linalg.norm(t, axis=1, keepdims=True)
+    valid = np.ones(g, bool)
+    if n_invalid:
+        valid[-n_invalid:] = False
+        t[-n_invalid:] = 0
+    return t, valid
+
+
+def _assert_topk_agrees(kv, ki, pv, pi, tol):
+    """Values within `tol`; indices equal wherever the plain version's
+    neighbouring scores are further apart than `tol`."""
+    assert ki.dtype == torch.int64 and kv.dtype == torch.float32
+    assert float((kv - pv).abs().max()) <= tol
+    gap = (pv[:, :-1] - pv[:, 1:]).abs() > 2 * tol
+    clear = torch.ones_like(pi, dtype=torch.bool)
+    clear[:, :-1] &= gap
+    clear[:, 1:] &= gap
+    assert torch.equal(ki[clear], pi[clear])
+
+
+@pytest.mark.parametrize("q,g,k", [(128, 65536, 3), (1, 8192, 8), (70, 4096 + 32, 5)])
+def test_k3_matches_plain(dev, gen, q, g, k):
+    from facerecognitionpipeline_tpu_torch.ops import gallery_kernel as gk
+
+    t, valid = _gallery(gen, g, 100)
+    t[700] = t[100]  # a tie: lower index first
+    queries = gen.normal(size=(q, 512)).astype(np.float32)
+    queries[0] = t[100] * 2.0
+    tt = torch.from_numpy(t).to(dev).to(torch.bfloat16)
+    vv = torch.from_numpy(valid).to(dev)
+    qq = torch.from_numpy(queries).to(dev)
+    n0 = gk.LAUNCHES.count
+    kv, ki = gk.streaming_cosine_topk(qq, tt, vv, top_k=k, chunk=32)
+    torch.cuda.synchronize()
+    assert gk.LAUNCHES.count == n0 + 1
+    pv, pi = gk.streaming_cosine_topk_plain(
+        qq, tt, vv, top_k=k, chunk=1024 if g % 1024 == 0 else 32
+    )
+    _assert_topk_agrees(kv, ki, pv, pi, 2e-5)
+    assert int(ki[0, 0]) == 100 and (k < 2 or int(ki[0, 1]) == 700)
+    assert int(ki.max()) < g - 100
+
+
+@pytest.mark.parametrize("q,g,k", [(128, 65536, 3), (1, 8192, 8), (130, 4096 + 32, 5)])
+def test_k4_equals_plain_to_the_bit(dev, gen, q, g, k):
+    from facerecognitionpipeline_tpu_torch.ops import gallery_kernel as gk
+
+    t, valid = _gallery(gen, g, 100)
+    t[700] = t[100]
+    queries = gen.normal(size=(q, 512)).astype(np.float32)
+    queries[0] = t[100] * 2.0
+    codes, scales = gk.quantize_templates(torch.from_numpy(t).to(dev))
+    vv = torch.from_numpy(valid).to(dev)
+    qq = torch.from_numpy(queries).to(dev)
+    n0 = gk.LAUNCHES_INT8.count
+    kv, ki = gk.streaming_cosine_topk_int8(qq, codes, scales, vv, top_k=k, chunk=32)
+    torch.cuda.synchronize()
+    assert gk.LAUNCHES_INT8.count == n0 + 1
+    pv, pi = gk.streaming_cosine_topk_int8_plain(
+        qq, codes, scales, vv, top_k=k, chunk=1024 if g % 1024 == 0 else 32
+    )
+    assert torch.equal(kv, pv) and torch.equal(ki, pi)
+    assert int(ki[0, 0]) == 100 and (k < 2 or int(ki[0, 1]) == 700)
+
+
+def test_gallery_kernels_fewer_valid_rows_than_k(dev, gen):
+    """Surplus slots hold the sentinel (-1e9, index 0), as the plain
+    versions and the JAX functions return them."""
+    from facerecognitionpipeline_tpu_torch.ops import gallery_kernel as gk
+
+    t, _ = _gallery(gen, 256, 0)
+    valid = np.zeros(256, bool)
+    valid[[7, 200]] = True
+    tt = torch.from_numpy(t).to(dev)
+    vv = torch.from_numpy(valid).to(dev)
+    qq = torch.from_numpy(t[[200, 3]]).to(dev)
+    kv, ki = gk.streaming_cosine_topk(qq, tt.to(torch.bfloat16), vv, top_k=4, chunk=64)
+    assert ki[0].tolist()[:1] == [200] and sorted(ki[0].tolist()[:2]) == [7, 200]
+    assert ki[:, 2:].eq(0).all() and kv[:, 2:].eq(-1e9).all()
+    codes, scales = gk.quantize_templates(tt)
+    kv8, ki8 = gk.streaming_cosine_topk_int8(qq, codes, scales, vv, top_k=4, chunk=64)
+    pv8, pi8 = gk.streaming_cosine_topk_int8_plain(qq, codes, scales, vv, top_k=4, chunk=64)
+    assert torch.equal(kv8, pv8) and torch.equal(ki8, pi8)
+    assert ki8[:, 2:].eq(0).all() and kv8[:, 2:].eq(-1e9).all()
+
+
+def test_gallery_kernels_refuse_what_they_do_not_take(dev, gen):
+    from facerecognitionpipeline_tpu_torch.ops import gallery_kernel as gk
+
+    t, valid = _gallery(gen, 256, 0)
+    tt = torch.from_numpy(t).to(dev)
+    vv = torch.from_numpy(valid).to(dev)
+    qq = tt[:2].clone()
+    codes, scales = gk.quantize_templates(tt)
+    n3, n4 = gk.LAUNCHES.count, gk.LAUNCHES_INT8.count
+    with pytest.raises(TypeError, match="bf16"):
+        gk.streaming_cosine_topk(qq, tt, vv, top_k=2, chunk=64)  # float32 rows
+    with pytest.raises(ValueError, match="top_k"):
+        gk.streaming_cosine_topk(qq, tt.to(torch.bfloat16), vv, top_k=9, chunk=64)
+    with pytest.raises(ValueError, match="multiple of the chunk"):
+        gk.streaming_cosine_topk(qq, tt.to(torch.bfloat16), vv, top_k=2, chunk=100)
+    with pytest.raises(ValueError, match="one device"):
+        gk.streaming_cosine_topk(qq, tt.to(torch.bfloat16), vv.cpu(), top_k=2, chunk=64)
+    with pytest.raises(TypeError, match="int8"):
+        gk.streaming_cosine_topk_int8(qq, tt, scales, vv, top_k=2, chunk=64)
+    with pytest.raises(TypeError, match="float32"):
+        gk.streaming_cosine_topk_int8(qq, codes, scales.double(), vv, top_k=2, chunk=64)
+    assert (gk.LAUNCHES.count, gk.LAUNCHES_INT8.count) == (n3, n4)
+    s, i = gk.streaming_cosine_topk(qq[:0], tt.to(torch.bfloat16), vv, top_k=2, chunk=64)
+    assert s.shape == i.shape == (0, 2)

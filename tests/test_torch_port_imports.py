@@ -28,6 +28,10 @@ def _port_sources():
 def test_port_never_imports_jax_or_the_jax_package():
     bad = []
     n = 0
+    scanned = {os.path.relpath(p, PORT) for p in _port_sources()}
+    for module in ("ops/gallery_kernel.py", "gallery/manager.py", "gallery/search.py",
+                   "pipeline/engine.py", "ops/cuda_build.py"):
+        assert module in scanned, module
     for path in _port_sources():
         n += 1
         with open(path) as f:
@@ -53,8 +57,9 @@ def test_import_pattern_tells_the_packages_apart():
     assert not FORBIDDEN.match("jaxtyping_like")
 
 
-@pytest.mark.parametrize("entry", ["detector", "embedder", "gallery"])
-def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch, entry):
+@pytest.mark.parametrize("entry", ["detector", "embedder", "gallery", "manager"])
+def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch, tmp_path, entry):
+    from facerecognitionpipeline_tpu_torch.gallery.manager import GalleryManager
     from facerecognitionpipeline_tpu_torch.gallery.search import DeviceGallery
     from facerecognitionpipeline_tpu_torch.models.detector import MTCNNDetector
     from facerecognitionpipeline_tpu_torch.pipeline.embedder import FaceEmbedder
@@ -64,10 +69,24 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch, entry):
         "detector": lambda **kw: MTCNNDetector(det_size=(64, 64), **kw),
         "embedder": lambda **kw: FaceEmbedder("ir_micro", random_ok=True, **kw),
         "gallery": lambda **kw: DeviceGallery(**kw),
+        "manager": lambda **kw: GalleryManager(
+            str(tmp_path / "g.pkl"), verbose=False, **kw
+        )._device,
     }[entry]
     with pytest.raises(RuntimeError, match="device='cpu'"):
         make()
     assert make(device="cpu").device.type == "cpu"
+
+
+def test_gallery_kernels_are_registered_with_their_sources():
+    from facerecognitionpipeline_tpu_torch.ops import cuda_build
+
+    assert cuda_build.KERNEL_NAMES == (
+        "crop_resize", "warp_patches", "gallery_topk", "gallery_topk_int8"
+    )
+    for name in cuda_build.KERNEL_NAMES:
+        assert os.path.exists(os.path.join(cuda_build.CSRC_DIR, f"{name}.cu"))
+        assert os.path.basename(cuda_build._lib_path(name)).startswith(f"lib{name}-")
 
 
 def test_engine_and_batcher_follow_their_parts_device():

@@ -85,13 +85,23 @@ def _to_numpy(tree):
     return np.asarray(tree)
 
 
-def _templates(t):
-    """(JAX bf16 [128,512], valid) and (port bf16, valid) of one gallery."""
+def _templates(t, kind="bf16"):
+    """(JAX templates [128,512], valid) and (port templates, valid) of one
+    gallery: the same bf16 rows, or with kind='int8' each package's own
+    quantised (codes, scales) pair of the float32 rows."""
     dg = DeviceGallery(device="cpu")
     dg.rebuild([str(i) for i in range(len(t))], t)
     tt, tv, _ = dg.device_snapshot()
+    assert tt.dtype == torch.float32
+    jv = jnp.asarray(tv.numpy())
+    if kind == "int8":
+        from facerecognitionpipeline_tpu.ops.pallas_gallery import quantize_templates as jq
+        from facerecognitionpipeline_tpu_torch.ops.gallery_kernel import quantize_templates
+
+        return (jq(jnp.asarray(tt.numpy())), jv), (quantize_templates(tt), tv)
+    tt = tt.to(torch.bfloat16)
     jt = jnp.asarray(tt.float().numpy()).astype(jnp.bfloat16)
-    return (jt, jnp.asarray(tv.numpy())), (tt, tv)
+    return (jt, jv), (tt, tv)
 
 
 def _jax_step(eng, frames, templates, valid, k, rotation=0):
@@ -197,20 +207,76 @@ def test_i420_step_matches_rgb_of_same_frame(pair, frames, gallery):
         np.testing.assert_array_equal(a[k].numpy(), b[k].numpy())
 
 
+@pytest.mark.parametrize("kind", ["streaming", "int8"])
+def test_step_with_a_streamed_gallery_matches_jax(pair, frames, gallery, kind):
+    """The whole step with the gallery matched through the streaming arms:
+    gallery_impl='streaming' on bf16 rows (K3), and an int8 (codes, scales)
+    pair (K4), which streams whatever gallery_impl says."""
+    jdet, jemb, tdet, temb = pair
+    (jt, jv), (tt, tv) = _templates(gallery, "int8" if kind == "int8" else "bf16")
+    impl = "streaming" if kind == "streaming" else "auto"
+    jeng = JaxEngine(jdet, jemb, top_k=3, align_impl="pallas", gallery_impl=impl,
+                     gallery_chunk=64)
+    teng = RecognitionEngine(tdet, temb, top_k=3, gallery_impl=impl, gallery_chunk=64)
+    a = _jax_step(jeng, frames, jt, jv, 3)
+    b = teng.process_frames(frames, tt, tv)
+    assert b["match_idx"].dtype == torch.int64 and b["match_scores"].dtype == torch.float32
+    _assert_step_parity(teng, frames, a, b, tt, tv, 3)
+
+
+def test_step_embed_budget_with_an_int8_pair(pair, frames, gallery):
+    """Budget and pair together: unembedded slots report score -1 and index
+    0 in one index type, embedded slots match like the full step."""
+    _, _, tdet, temb = pair
+    (_, _), (tt, tv) = _templates(gallery, "int8")
+    full = RecognitionEngine(tdet, temb, top_k=2, gallery_chunk=64)
+    budget = RecognitionEngine(tdet, temb, top_k=2, gallery_chunk=64, embed_budget=1)
+    a = full.process_frames(frames, tt, tv)
+    b = budget.process_frames(frames, tt, tv)
+    emb = b["embedded"]
+    assert emb.any() and emb.sum(dim=1).le(1).all()
+    assert b["match_idx"].dtype == torch.int64
+    assert torch.equal(b["match_idx"][emb], a["match_idx"][emb])
+    np.testing.assert_allclose(
+        b["match_scores"][emb].numpy(), a["match_scores"][emb].numpy(), atol=1e-6
+    )
+    assert (b["match_scores"][~emb] == -1.0).all() and (b["match_idx"][~emb] == 0).all()
+
+
 def test_unported_options_raise(pair):
     _, _, tdet, temb = pair
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        RecognitionEngine(tdet, temb, gallery_impl="streaming")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         RecognitionEngine(tdet, temb, mesh=object())
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         RecognitionEngine(tdet, temb, shard_gallery=True)
-    eng = RecognitionEngine(tdet, temb)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        eng._match(torch.zeros(1, 1, 512), (torch.zeros(128, 512), torch.ones(128)),
-                   torch.ones(128, dtype=torch.bool), 1)
     with pytest.raises(ValueError):
         RecognitionEngine(tdet, temb, embed_budget=5)
+    with pytest.raises(ValueError, match="gallery_impl"):
+        RecognitionEngine(tdet, temb, gallery_impl="sharded")
+
+
+def test_streaming_and_pair_options_now_work(pair):
+    """gallery_impl='streaming' and an int8 pair reach the streaming arms
+    (their plain versions here) and agree with the dense match."""
+    from facerecognitionpipeline_tpu_torch.ops.gallery_kernel import quantize_templates
+
+    _, _, tdet, temb = pair
+    rng = np.random.default_rng(5)
+    t = rng.normal(size=(128, 512)).astype(np.float32)
+    t /= np.linalg.norm(t, axis=1, keepdims=True)
+    tt = torch.from_numpy(t)
+    valid = torch.ones(128, dtype=torch.bool)
+    feats = tt[[3, 77, 100, 9]].reshape(1, 4, 512)
+    dense = RecognitionEngine(tdet, temb, gallery_impl="dense")
+    stream = RecognitionEngine(tdet, temb, gallery_impl="streaming", gallery_chunk=64)
+    assert (stream.gallery_chunk, stream.gallery_streaming_threshold) == (64, 32768)
+    ds, di = dense._match(feats, tt.to(torch.bfloat16), valid, 2)
+    ss, si = stream._match(feats, tt.to(torch.bfloat16), valid, 2)
+    ps, pi = dense._match(feats, quantize_templates(tt), valid, 2)
+    assert di[0, :, 0].tolist() == si[0, :, 0].tolist() == pi[0, :, 0].tolist() == [3, 77, 100, 9]
+    assert si.dtype == pi.dtype == di.dtype == torch.int64
+    np.testing.assert_allclose(ss.numpy(), ds.numpy(), atol=1e-5)
+    np.testing.assert_allclose(ps.numpy(), ds.numpy(), atol=3e-3)
 
 
 def test_gallery_search_matches_jax(gallery):
@@ -222,12 +288,9 @@ def test_gallery_search_matches_jax(gallery):
     dg = DeviceGallery(device="cpu")
     dg.rebuild([f"s{i}" for i in range(len(gallery))], gallery)
     t, v, ids = dg.device_snapshot()
-    assert t.dtype == torch.bfloat16 and t.shape == (128, 512)
+    assert t.shape == (128, 512)
     s, i = cosine_topk(torch.from_numpy(q), t, v, 4)
-    js, ji = jax_topk(
-        jnp.asarray(q), jnp.asarray(t.float().numpy()).astype(jnp.bfloat16),
-        jnp.asarray(v.numpy()), 4,
-    )
+    js, ji = jax_topk(jnp.asarray(q), jnp.asarray(t.numpy()), jnp.asarray(v.numpy()), 4)
     np.testing.assert_allclose(s.numpy(), np.asarray(js), atol=1e-5)
     np.testing.assert_array_equal(i.numpy(), np.asarray(ji))
     assert i[0, 0] == 5 and s[0, 0] > 0.99
@@ -292,3 +355,30 @@ def test_batcher_matches_direct_step(pair, frames, gallery):
     late = batcher.submit(frames[0])
     with pytest.raises(RuntimeError, match="stopped"):
         late.result(timeout=5)
+
+
+def test_batcher_carries_an_int8_pair_to_the_step(pair, frames, gallery):
+    """A provider that serves (codes, scales) templates: the batcher hands
+    the pair to the step untouched, in warmup and in dispatch."""
+    _, _, tdet, temb = pair
+    dg = DeviceGallery(device="cpu", streaming_threshold=32, quantize="int8")
+    dg.STREAM_CHUNK = 64
+    dg.rebuild([str(i) for i in range(len(gallery))], gallery)
+    t, v, ids = dg.device_snapshot()
+    assert isinstance(t, tuple) and t[0].dtype == torch.int8 and t[0].shape == (64, 512)
+    eng = RecognitionEngine(tdet, temb, top_k=3, gallery_chunk=64)
+    batcher = DeviceBatcher(eng, dg.device_snapshot, max_batch=2, max_wait_ms=20)
+    batcher.warmup((160, 160))
+    batcher.start()
+    try:
+        results = [batcher.submit(f).result(timeout=120) for f in frames[:2]]
+    finally:
+        batcher.stop()
+    direct = eng.process_frames(np.stack(frames[:2]), t, v)
+    for j, r in enumerate(results):
+        assert r["gallery_ids"] == ids
+        np.testing.assert_array_equal(r["face_valid"], direct["face_valid"][j].numpy())
+        np.testing.assert_array_equal(r["match_idx"], direct["match_idx"][j].numpy())
+        np.testing.assert_allclose(
+            r["match_scores"], direct["match_scores"][j].numpy(), atol=1e-6
+        )
