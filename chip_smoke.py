@@ -1,22 +1,30 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port on one NVIDIA GPU and check it end to end.
 
-    python3 chip_smoke.py    # needs one CUDA card
+    python3 chip_smoke.py                # needs one CUDA card
 
 Phases, in order; any failure exits non-zero before the final line:
   1. build the CUDA kernels (K1 crop_resize, K2 warp_patches, K3
-     gallery_topk, K4 gallery_topk_int8) with nvcc, all at once;
+     gallery_topk, K4 gallery_topk_int8) with nvcc, all at once, and print
+     what the assembler reports (registers, spills);
   2. hold each kernel against its plain PyTorch version on the card, at the
      shapes the serving step gives it, and time kernel, plain version and a
      PyTorch yardstick (F.grid_sample; matmul + topk with the similarity
-     matrix stored) beside the kernel's bound. K3 and K4 run at 128 queries
-     x 1 048 576 gallery rows and at one small odd shape;
+     matrix stored) beside the kernel's bound. K1 and K2 must equal their
+     plain versions to the bit, there and at odd shapes (channel counts,
+     non-square frames, boxes off the frame, rotations to 90 degrees, more
+     faces than SMs; a patch too large for shared memory, off a 16-byte
+     address or not a multiple of 16 bytes long is refused); their
+     device time alone is read from torch.profiler, warm and with the L2
+     cache flushed, beside the host's cost of one wrapper call. K3 and K4
+     run at 128 queries x 1 048 576 gallery rows and at one small odd shape;
   3. the fused serving step at the server's build: ir_101 (seeded random
      weights), bf16, det_size 640x640, 16 face slots, min face 40, top-3,
      a 1024-row float32 gallery (dense match), B=8 frames composed from the
      in-repo smoke fixture. Checks detection recall against the fixture's
      ground truth, planted gallery matches, finite outputs, and that every
-     step launched K1 three times and K2 once; times the step;
+     step launched K1 three times and K2 once; times the step, and reads
+     K1's and K2's device time inside the step from torch.profiler;
   4. 16 requests from two client threads through DeviceBatcher, each held
      against the direct step on the same frame;
   5. the same step against a DeviceGallery of 1 048 576 identities, once
@@ -78,6 +86,65 @@ def cuda_time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_time_ms(fn, match: str, iters: int = 10, flush=None):
+    """Device time per call of `fn` spent in kernels whose name contains
+    `match`, from torch.profiler (None where the profiler saw none). With
+    `flush`, that runs before every call to evict the L2 cache; its own
+    kernels do not match and are not counted."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            if flush is not None:
+                flush()
+            fn()
+        torch.cuda.synchronize()
+    us = sum(
+        e.self_device_time_total for e in prof.key_averages()
+        if e.device_type == DeviceType.CUDA and match in e.key
+    )
+    return us / iters / 1e3 if us > 0 else None
+
+
+def host_enqueue_ms(fn, iters: int = 50) -> float:
+    """Host-clock time of one call of `fn` with no synchronisation inside
+    the loop: what the wrapper costs the host to enqueue its launch."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    ms = 1e3 * (time.perf_counter() - t0) / iters
+    torch.cuda.synchronize()
+    return ms
+
+
+def resampler_times(kernel, library, plain, kernel_name: str, plain_iters: int,
+                    flush) -> dict:
+    """Times of one resampler call shape: kernel, library call and kernel
+    again in turns (CUDA events over 20 back-to-back calls, inputs warm in
+    L2 where they fit), the kernel's device time alone warm and with the
+    L2 cache evicted by `flush` before every launch, and the host's enqueue
+    cost."""
+    ms = cuda_time_ms(kernel)
+    library_ms = cuda_time_ms(library)
+    return {
+        "ms": ms, "library_ms": library_ms, "ms_again": cuda_time_ms(kernel),
+        "plain_ms": cuda_time_ms(plain, iters=plain_iters),
+        "device_ms": device_time_ms(kernel, kernel_name),
+        "cold_device_ms": device_time_ms(kernel, kernel_name, flush=flush),
+        "library_device_ms": device_time_ms(library, "grid_sampler"),
+        "host_ms": host_enqueue_ms(kernel),
+    }
 
 
 def mosaics(fixture: dict, n: int):
@@ -144,7 +211,8 @@ def grid_for_coeffs(coeffs, k, oh, ow):
 
 
 def kernel_phase(fixture) -> dict:
-    """Phase 2: kernels vs plain versions at the serving step's shapes."""
+    """Phase 2: kernels vs plain versions at the serving step's shapes (held
+    to max |kernel - plain| = 0) and at odd shapes."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -194,12 +262,15 @@ def kernel_phase(fixture) -> dict:
     )[:, 0].contiguous()
     k1_cases = [
         # (label, frames, boxes, k, tolerance)
-        ("rnet k=24", small, rand_boxes(256, 12.0, 160.0, h // 2), 24, 1e-5),
-        ("onet k=48", img, rand_boxes(96, 24.0, 320.0, h), 48, 1e-5),
-        ("align_a k=128", frames, align_boxes.reshape(BATCH, MAX_FACES, 4), 128, 1e-3),
+        ("rnet k=24", small, rand_boxes(256, 12.0, 160.0, h // 2), 24, 0.0),
+        ("onet k=48", img, rand_boxes(96, 24.0, 320.0, h), 48, 0.0),
+        ("align_a k=128", frames, align_boxes.reshape(BATCH, MAX_FACES, 4), 128, 0.0),
     ]
     report = {"crop_resize": [], "warp_patches": []}
     patches = None
+    # five times the 50 MB L2: reading and writing it evicts what was there
+    flush_buf = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    flush = lambda: flush_buf.add_(1)  # noqa: E731
     for label, src, boxes, k, tol in k1_cases:
         out = crop_resize_kernel(src, boxes, k)
         ref = crop_resize_plain(src, boxes, k)
@@ -218,15 +289,16 @@ def kernel_phase(fixture) -> dict:
         grid = grid_for_boxes(boxes, k, hh, ww)
         report["crop_resize"].append({
             "shape": label, "err": err,
-            "ms": cuda_time_ms(lambda: crop_resize_kernel(src, boxes, k)),
-            "plain_ms": cuda_time_ms(lambda: crop_resize_plain(src, boxes, k), iters=5),
-            "library_ms": cuda_time_ms(
-                lambda: F.grid_sample(src_nchw, grid, align_corners=False)
+            **resampler_times(
+                lambda: crop_resize_kernel(src, boxes, k),
+                lambda: F.grid_sample(src_nchw, grid, align_corners=False),
+                lambda: crop_resize_plain(src, boxes, k),
+                "crop_resize", plain_iters=5, flush=flush,
             ),
             "bytes": nbytes, "flops": flops, "peak": F32_FLOPS_PER_S,
         })
 
-    tol = 1e-3  # 0..255 scale
+    tol = 0.0  # every sum has at most two exact products: equal to the bit
     out = warp_patches_kernel(patches, coeffs, 112, 112)
     ref = warp_patches_plain(patches, coeffs, 112, 112)
     torch.cuda.synchronize()
@@ -239,18 +311,145 @@ def kernel_phase(fixture) -> dict:
     grid = grid_for_coeffs(coeffs, 128, 112, 112)
     report["warp_patches"].append({
         "shape": "align_b 128->112", "err": err,
-        "ms": cuda_time_ms(lambda: warp_patches_kernel(patches, coeffs, 112, 112)),
-        "plain_ms": cuda_time_ms(
-            lambda: warp_patches_plain(patches, coeffs, 112, 112), iters=3
-        ),
-        "library_ms": cuda_time_ms(
-            lambda: F.grid_sample(p_nchw, grid, align_corners=False)
+        **resampler_times(
+            lambda: warp_patches_kernel(patches, coeffs, 112, 112),
+            lambda: F.grid_sample(p_nchw, grid, align_corners=False),
+            lambda: warp_patches_plain(patches, coeffs, 112, 112),
+            "warp_patches", plain_iters=3, flush=flush,
         ),
         "bytes": 4 * (patches.numel() + coeffs.numel() + out.numel()),
         "flops": out.numel() * 12, "peak": F32_FLOPS_PER_S,
     })
     print_bounds(report, "F.grid_sample")
+    odd_shape_phase()
     return report
+
+
+def rotation_coeffs(n: int, k: int, out: int, max_deg: float, g, shift: float = 0.0):
+    """[n,6] coefficients that rotate an out x out face about the centre of
+    a k x k patch by angles spread over [-max_deg, max_deg], scaled so the
+    face covers most of the patch, and moved by `shift` patch pixels."""
+    import math
+
+    import torch
+
+    th = torch.linspace(-max_deg, max_deg, n) * (math.pi / 180.0)
+    sc = (k / out) * (0.8 + 0.2 * torch.rand(n, generator=g))
+    a0, a1 = sc * torch.cos(th), -sc * torch.sin(th)
+    b0, b1 = sc * torch.sin(th), sc * torch.cos(th)
+    mid = (out - 1) / 2.0
+    a2 = (k - 1) / 2.0 - (a0 + a1) * mid + shift
+    b2 = (k - 1) / 2.0 - (b0 + b1) * mid + shift
+    return torch.stack([a0, a1, a2, b0, b1, b2], dim=1).float()
+
+
+def odd_shape_phase() -> None:
+    """Phase 2, the shapes the serving step does not use: every one must
+    equal its plain version to the bit (K2's shapes take both of its store
+    paths), and K2 must refuse the patches its bulk copy cannot take."""
+    import torch
+
+    from facerecognitionpipeline_tpu_torch.ops.crop_kernel import (
+        crop_resize_kernel,
+        crop_resize_plain,
+    )
+    from facerecognitionpipeline_tpu_torch.ops.warp_kernel import (
+        warp_patches_kernel,
+        warp_patches_plain,
+    )
+
+    dev = torch.device(DEVICE)
+    g = torch.Generator(device="cpu").manual_seed(3)
+
+    def frames(b, h, w, c):
+        return (255 * torch.rand((b, h, w, c), generator=g)).to(dev)
+
+    def boxes(b, n, h, w):
+        x1 = -6 + (w - 2) * torch.rand((b, n), generator=g)
+        y1 = -6 + (h - 2) * torch.rand((b, n), generator=g)
+        bw = 3 + w * torch.rand((b, n), generator=g)
+        bh = 3 + h * torch.rand((b, n), generator=g)
+        return torch.stack([x1, y1, x1 + bw, y1 + bh], -1).to(dev)
+
+    edge = torch.tensor([[
+        [-50.0, -50.0, -10.0, -10.0],  # wholly outside, up and left
+        [70.0, 10.0, 90.0, 30.0],  # wholly outside, to the right
+        [-7.5, -3.25, 20.0, 18.0],  # hangs over two edges
+        [40.0, 30.0, 70.5, 55.0],  # hangs over the other two
+        [30.0, 20.0, 10.0, 5.0],  # degenerate: x2 < x1, y2 < y1
+        [-1e30, -1e30, 1e30, 1e30],  # far larger than the frame
+        [8.0, 4.0, 32.0, 28.0],  # an integer 24-pixel window
+    ]]).to(dev)
+    k1_cases = [
+        ("k=7 C=3, 33x45 frames", frames(2, 33, 45, 3), None, 7),
+        ("C=1", frames(2, 40, 56, 1), None, 12),
+        ("C=4", frames(1, 24, 31, 4), None, 8),
+        ("N=1", frames(3, 64, 64, 3), 1, 24),
+        ("boxes outside, degenerate, integer window", frames(1, 48, 64, 3), edge, 24),
+    ]
+    for label, src, bx, k in k1_cases:
+        b, h, w, c = src.shape
+        if bx is None or isinstance(bx, int):
+            bx = boxes(b, bx or 5, h, w)
+        ref = crop_resize_plain(src, bx, k)
+        out = crop_resize_kernel(src, bx, k)
+        torch.cuda.synchronize()
+        err = float((out - ref).abs().max())
+        if err != 0.0 or not torch.isfinite(out).all():
+            fail(f"K1 odd shape '{label}': max|kernel-plain| {err}")
+        if bx is edge:  # the integer window is a pixel copy of bf16(frame)
+            want = src[0, 4:28, 8:32].to(torch.bfloat16).float()
+            if not torch.equal(out[0, 6], want) or float(out[0, :2].abs().max()) != 0.0:
+                fail("K1: the integer window is not a copy, or an outside box is not 0")
+    print(f"[kernels] K1 crop_resize: {len(k1_cases)} odd shapes equal their plain "
+          f"version to the bit")
+
+    def patches(f, k, c):
+        return (255 * torch.rand((f, k, k, c), generator=g)).to(dev)
+
+    unaligned = torch.empty(2 * 16 * 16 * 3 + 1, device=dev)
+    unaligned[1:] = patches(2, 16, 3).reshape(-1)
+    k2_cases = [
+        # (label, patches, coeffs, out size)
+        ("128->112, rotations to 90 deg", patches(16, 128, 3),
+         rotation_coeffs(16, 128, 112, 90.0, g), 112),
+        ("128->112, pixels outside the patch", patches(8, 128, 3),
+         rotation_coeffs(8, 128, 112, 30.0, g, shift=-40.0), 112),
+        ("K=64", patches(4, 64, 3), rotation_coeffs(4, 64, 112, 20.0, g), 112),
+        ("F=1", patches(1, 128, 3), rotation_coeffs(1, 128, 112, 10.0, g), 112),
+        ("F=130", patches(130, 128, 3), rotation_coeffs(130, 128, 112, 45.0, g), 112),
+        ("K=8 C=3 -> 5x5 (75 floats per face: direct stores)", patches(3, 8, 3),
+         rotation_coeffs(3, 8, 5, 15.0, g), 5),
+        ("C=1 -> 27x27 (direct stores)", patches(2, 32, 1),
+         rotation_coeffs(2, 32, 27, 25.0, g), 27),
+        ("C=4", patches(2, 32, 4), rotation_coeffs(2, 32, 28, 25.0, g), 28),
+    ]
+    for label, pt, cf, o in k2_cases:
+        cf = cf.to(dev)
+        ref = warp_patches_plain(pt, cf, o, o)
+        out = warp_patches_kernel(pt, cf, o, o)
+        torch.cuda.synchronize()
+        err = float((out - ref).abs().max())
+        if err != 0.0 or not torch.isfinite(out).all():
+            fail(f"K2 odd shape '{label}': max|kernel-plain| {err}")
+    refused = [
+        # (label, patches, out size, what the message must name)
+        ("a 160x160x3 patch", patches(1, 160, 3), 112, "shared memory"),
+        ("a patch off a 16-byte address", unaligned[1:].view(2, 16, 16, 3), 12,
+         "16-byte address"),
+        ("a 7x7x3 patch (588 bytes)", patches(3, 7, 3), 5, "multiple of 16 bytes"),
+    ]
+    for label, pt, o, names in refused:
+        cf = rotation_coeffs(pt.shape[0], pt.shape[1], o, 5.0, g).to(dev)
+        try:
+            warp_patches_kernel(pt, cf, o, o)
+        except ValueError as e:
+            if names not in str(e):
+                fail(f"K2 refused {label} without naming the rule: {e}")
+        else:
+            fail(f"K2 took {label}, which its kernel cannot")
+    print(f"[kernels] K2 warp_patches: {len(k2_cases)} odd shapes equal their plain "
+          f"version to the bit; refused: {', '.join(r[0] for r in refused)}")
 
 
 def print_bounds(report: dict, library: str) -> None:
@@ -265,6 +464,16 @@ def print_bounds(report: dict, library: str) -> None:
             print(f"[timing] {name} {r['shape']}: kernel {r['ms']:.4f} ms, "
                   f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), plain "
                   f"{r['plain_ms']:.4f} ms, {library} {r['library_ms']:.4f} ms")
+            if "device_ms" in r:
+                def ms(v):
+                    return "not measured" if v is None else f"{v:.4f} ms"
+
+                print(f"[timing] {name} {r['shape']}: kernel again after the library "
+                      f"call {r['ms_again']:.4f} ms; device time of the kernel alone "
+                      f"{ms(r['device_ms'])} warm in L2, {ms(r['cold_device_ms'])} with "
+                      f"L2 flushed before each launch ({library} alone "
+                      f"{ms(r['library_device_ms'])}); host enqueue {r['host_ms']:.4f} ms "
+                      f"per wrapper call")
 
 
 def make_gallery(rows: int, seed: int = 0):
@@ -418,10 +627,12 @@ def gallery_kernel_phase(gal) -> dict:
 
 
 def breakdown(engine, frames, templates, valid, iters: int = 5,
-              match_label: str = "match (dense top-k)") -> None:
+              match_label: str = "match (dense top-k)") -> dict:
     """Where the step's time goes: each layer timed alone (host clock
     around synchronized calls, median of `iters`), then the device's busy
-    share over whole steps from torch.profiler (kernel time / wall time)."""
+    share over whole steps from torch.profiler (kernel time / wall time).
+    Returns the device time per step of K1 (its three launches) and K2
+    inside the profiled steps, in ms by kernel name."""
     import torch
 
     from facerecognitionpipeline_tpu_torch.ops.image import normalize_face_batch
@@ -473,7 +684,7 @@ def breakdown(engine, frames, templates, valid, iters: int = 5,
     dev_us = sum(e.self_device_time_total for e in events)
     if dev_us <= 0:
         print("[breakdown] device busy share: not measured (profiler saw no device time)")
-        return
+        return {}
     launches = sum(e.count for e in events)
     print(f"[breakdown] device busy {dev_us / wall_us:.3f} of wall over 3 profiled steps "
           f"({dev_us / 3e3:.3f} ms device time and {launches / 3:.0f} device events per "
@@ -482,6 +693,13 @@ def breakdown(engine, frames, templates, valid, iters: int = 5,
     for e in top:
         print(f"[breakdown]   {e.self_device_time_total / 3e3:8.3f} ms/step  "
               f"x{e.count // 3:<5d} {e.key[:90]}")
+    in_step = {}
+    for name in ("crop_resize", "warp_patches"):
+        mine = [e for e in events if name in e.key]
+        in_step[name] = sum(e.self_device_time_total for e in mine) / 3e3
+        print(f"[breakdown]   {name} inside the step: {in_step[name]:.4f} ms device time "
+              f"per step over {sum(e.count for e in mine) // 3} launches per step")
+    return in_step
 
 
 def serving_phases(fixture, report) -> dict:
@@ -587,7 +805,7 @@ def serving_phases(fixture, report) -> dict:
           f"steps ({BATCH * 1e3 / p50:.1f} frames/s)")
     report["launches"] = launches
     report["step_p50_ms"] = p50
-    breakdown(engine, frames, t, v)
+    report["in_step_device_ms"] = breakdown(engine, frames, t, v)
 
     # phase 4: requests through the batcher, from two client threads
     direct = engine.process_frames(frames, t, v)
@@ -837,6 +1055,10 @@ def main() -> int:
     print(f"[build] kernels built in {time.perf_counter() - t0:.1f} s "
           f"(per kernel, from the parallel start: "
           f"{ {k: round(s, 1) for k, s in took.items()} })")
+    for name, log in cuda_build.BUILD_LOGS.items():
+        for line in log.splitlines():  # registers, shared memory, spills
+            if "registers" in line or "spill" in line or "warning" in line.lower():
+                print(f"[build] {name}: {line.strip()}")
     with np.load(os.path.join(
         REPO, "facerecognitionpipeline_tpu_torch", "testdata", "smoke_scenes.npz"
     )) as z:
@@ -869,6 +1091,10 @@ def main() -> int:
         "gallery_topk_int8": ("facerecognitionpipeline_tpu_torch/csrc/gallery_topk_int8.cu",
                               "facerecognitionpipeline_tpu/ops/pallas_gallery.py:207"),
     }
+    # K1's and K2's first designs (one thread per output pixel), as timed when
+    # they were the port's kernels: NVIDIA H100 80GB HBM3, 700 W, the same
+    # shapes and the same 20-launch event timing. History, not of this run.
+    print("[history] first design, ms per step: crop_resize 0.1703, warp_patches 0.0430")
     kernels = []
     for name in sources:
         # times and bounds are of the shapes one serving step calls the
@@ -894,6 +1120,14 @@ def main() -> int:
             "library_ms": sum(r["library_ms"] for r in rows),
             "shapes": [r["shape"] for r in all_rows],
         })
+        if name in ("crop_resize", "warp_patches"):
+            kernels[-1].update({
+                "in_step_device_ms": report["in_step_device_ms"].get(name),
+                **{key: (None if any(r[key] is None for r in rows)
+                         else sum(r[key] for r in rows))
+                   for key in ("ms_again", "device_ms", "cold_device_ms",
+                               "library_device_ms", "host_ms")},
+            })
         if kernels[-1]["launches"] < 1:
             fail(f"the main path never launched {name}")
     print(json.dumps({

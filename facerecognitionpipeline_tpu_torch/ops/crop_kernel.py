@@ -3,9 +3,16 @@ version.
 
 Replaces `facerecognitionpipeline_tpu/ops/pallas_crop.py::crop_resize_pallas`
 (its `pl.pallas_call` in `_crop_resize_pallas`). The CUDA kernel is
-`csrc/crop_resize.cu`: a 4-tap gather per output sample, bound by
+`csrc/crop_resize.cu`: a 4-tap gather per output sample, bound on an H100 by
 device-memory bytes (one read of the float32 frames, one write of the
-float32 crops; see the source note there for the design).
+float32 crops), not by arithmetic, so the tensor cores have no part in it.
+Its design keeps the instructions per byte low: a grid of (box, band of
+output rows); the separable taps of a block computed once into shared-memory
+tables (`K*C + rows` coordinate chains per block, not two per pixel); one
+thread per output float with the lanes of a warp on consecutive floats, so
+loads touch few cache lines and stores are contiguous; zero-weight taps not
+loaded. `crop_launch_geometry` holds the launch arithmetic, where the CPU
+tests reach it.
 
 Semantics, shared by the kernel and `crop_resize_plain`: boxes (x1,y1,x2,y2)
 in frame pixels, half-pixel centres, hat weights max(0, 1-|p-i|), zero
@@ -22,6 +29,8 @@ serving step: R-net crops (k=24), O-net crops (k=48) and alignment stage A
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -29,6 +38,54 @@ from facerecognitionpipeline_tpu_torch.ops import cuda_build
 from facerecognitionpipeline_tpu_torch.ops.numerics import div, round_to
 
 LAUNCHES = cuda_build.LaunchCounter()
+
+#: output floats one block aims at: enough to spread the tap tables' cost,
+#: few enough that every serving call gives the 132 SMs many blocks each.
+#: Timed on an H100 with bands of 4 to 48 rows: 24 rows at k=24, 16 at k=48
+#: and 8 or 16 at k=128 were the fastest, which this value gives.
+_BLOCK_FLOATS = 3072
+_MAX_THREADS = 256  # the kernel's __launch_bounds__
+_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+
+
+class CropGeometry(NamedTuple):
+    """How one `frp_crop_resize` launch is cut (see `csrc/crop_resize.cu`)."""
+
+    grid: tuple[int, int]  # (boxes, bands of output rows)
+    band_rows: int  # output rows per band (the last band may hold fewer)
+    threads: int  # per block
+    smem_bytes: int  # the two tap tables, 16 bytes per entry
+
+
+@functools.lru_cache(maxsize=64)
+def crop_launch_geometry(
+    b: int, n: int, h: int, w: int, c: int, k: int
+) -> CropGeometry:
+    """The launch geometry of K1 for frames [b,h,w,c], n boxes per frame and
+    k x k crops. Raises ValueError for what the kernel's 32-bit offsets,
+    CUDA's grid limits or a block's shared memory do not hold."""
+    if min(b, n, h, w, c, k) < 1:
+        raise ValueError("crop_resize_kernel: every dimension must be at least 1")
+    kc = k * c
+    if h * w * c >= 2**31 or k * kc >= 2**31 or b * n >= 2**31:
+        raise ValueError(
+            "crop_resize_kernel: a frame, a crop or the box count exceeds the "
+            "kernel's 32-bit offsets (2**31 floats)"
+        )
+    bands = -(-k // max(1, _BLOCK_FLOATS // kc))
+    band_rows = -(-k // bands)
+    bands = -(-k // band_rows)
+    if bands > 65535:
+        raise ValueError(f"crop_resize_kernel: {bands} bands exceed CUDA's grid limit")
+    threads = min(_MAX_THREADS, 32 * -(-band_rows * kc // 32))
+    smem = 16 * (kc + band_rows)
+    if smem > cuda_build.SMEM_LIMIT_BYTES:
+        raise ValueError(
+            f"crop_resize_kernel: the tap tables of a {k}x{k}x{c} crop need {smem} "
+            f"bytes of shared memory, over the {cuda_build.SMEM_LIMIT_BYTES} a "
+            f"block may use"
+        )
+    return CropGeometry((b * n, bands), band_rows, threads, smem)
 
 
 def hat_weights(
@@ -113,14 +170,12 @@ def _launch(images: torch.Tensor, boxes: torch.Tensor, k: int) -> torch.Tensor:
     out = torch.empty((b, n, k, k, c), dtype=torch.float32, device=images.device)
     if out.numel() == 0:
         return out
-    lib = cuda_build.load("crop_resize")
-    fn = lib.frp_crop_resize
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    stream = torch.cuda.current_stream(images.device).cuda_stream
+    geo = crop_launch_geometry(b, n, h, w, c, k)
+    fn = cuda_build.function("crop_resize", "frp_crop_resize", _ARGTYPES)
     rc = fn(
         images.data_ptr(), boxes.data_ptr(), out.data_ptr(),
-        b, h, w, c, n, k, stream,
+        b, h, w, c, n, k, geo.band_rows, geo.threads, geo.smem_bytes,
+        torch.cuda.current_stream(images.device).cuda_stream,
     )
     if rc != 0:
         raise RuntimeError(f"crop_resize kernel launch failed (cudaError {rc})")

@@ -20,19 +20,26 @@ import time
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "kernels")
+#: shared memory one block may use on an H100 (static + dynamic)
+SMEM_LIMIT_BYTES = 232_448
 KERNEL_NAMES = ("crop_resize", "warp_patches", "gallery_topk", "gallery_topk_int8")
 
 # No --use_fast_math: division stays correctly rounded. -fmad=false keeps
 # the resamplers' coordinate arithmetic uncontracted (the sources also use
 # the explicit _rn intrinsics); the gallery kernels' products run on the
-# tensor cores, which the flag does not touch.
+# tensor cores, which the flag does not touch. -Xptxas -v makes the
+# assembler report each kernel's registers, shared memory and spills; the
+# report of a build is kept in BUILD_LOGS.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
-    "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
+    "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
+_fns: dict[tuple[str, str], object] = {}
+#: compiler output of the libraries this process built, by kernel name
+BUILD_LOGS: dict[str, str] = {}
 
 
 class LaunchCounter:
@@ -102,6 +109,7 @@ def build_all(names=KERNEL_NAMES) -> dict[str, float]:
         if proc.returncode != 0:
             errors.append(f"nvcc failed for {name}.cu:\n{log}")
             continue
+        BUILD_LOGS[name] = log
         os.replace(tmp, out)
     if errors:
         raise RuntimeError("\n".join(errors))
@@ -119,3 +127,16 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(path)
             _libs[name] = lib
         return lib
+
+
+def function(name: str, symbol: str, argtypes: list) -> object:
+    """The C function `symbol` of kernel `name`'s library, returning int,
+    with its argument types set once: a launch then costs the host one
+    dictionary lookup, not a lock and a new `argtypes` list."""
+    fn = _fns.get((name, symbol))
+    if fn is None:
+        fn = getattr(load(name), symbol)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _fns[(name, symbol)] = fn
+    return fn

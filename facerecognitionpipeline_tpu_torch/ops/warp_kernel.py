@@ -2,9 +2,18 @@
 
 Replaces `facerecognitionpipeline_tpu/ops/pallas_warp.py::warp_patches_affine`
 (its `pl.pallas_call` in `_warp_patches_affine`). The CUDA kernel is
-`csrc/warp_patches.cu`: a 4-tap gather per output pixel, bound by
+`csrc/warp_patches.cu`: a 4-tap gather per output pixel, bound on an H100 by
 device-memory bytes (one read of the float32 patches, one write of the
-float32 faces).
+float32 faces), not by arithmetic, so the tensor cores have no part in it.
+Its design: one face per block with the whole patch brought into shared
+memory by Hopper's bulk asynchronous copy in 16 KB chunks (each patch byte
+leaves device memory once, every tap is a shared-memory read, and pixels
+start as soon as their chunks have arrived); coefficients read once per
+block; one thread per output pixel; float4 stores through a per-warp staging
+buffer. `warp_launch_geometry` holds the launch arithmetic, where the CPU
+tests reach it; a patch too large for a block's shared memory, or one the
+bulk copy cannot take (not 16-byte aligned, or not a multiple of 16 bytes
+long), is refused.
 
 Semantics, shared by the kernel and `warp_patches_plain`: patch coordinates
 of output pixel (x, y) are px = a0*x + a1*y + a2, py = b0*x + b1*y + b2
@@ -17,12 +26,73 @@ nothing. Used once per serving step (alignment stage B).
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
 from facerecognitionpipeline_tpu_torch.ops import cuda_build
 
 LAUNCHES = cuda_build.LaunchCounter()
+
+_MAX_THREADS = 1024  # the kernel's __launch_bounds__
+_BARRIER_BYTES = 256  # 32 mbarriers ahead of the patch
+_CHUNK_FLOATS = 4096  # floats per bulk copy (16 KB)
+_MAX_CHUNKS = 32  # one bit each in a thread's mask of arrived chunks
+_STATIC_SMEM_BYTES = 64  # the kernel's own static shared memory, rounded up
+_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+
+
+class WarpGeometry(NamedTuple):
+    """How one `frp_warp_patches` launch is cut (see `csrc/warp_patches.cu`)."""
+
+    grid: int  # one block per face
+    threads: int  # per block, a multiple of 32
+    vec: int  # 4: float4 stores through the warps' staging buffers; 1: direct
+    chunks: int  # 16 KB pieces of one patch
+    smem_bytes: int  # dynamic: barriers + patch + staging
+
+
+@functools.lru_cache(maxsize=64)
+def warp_launch_geometry(
+    f: int, k: int, c: int, out_h: int, out_w: int
+) -> WarpGeometry:
+    """The launch geometry of K2 for f patches [k,k,c] warped to
+    [out_h,out_w,c], with float4 stores where a face's float count allows
+    them. Raises ValueError for a patch that does not fit a block's shared
+    memory or whose byte count the bulk copy cannot take, and for what the
+    kernel's 32-bit offsets do not hold."""
+    if min(f, k, c, out_h, out_w) < 1:
+        raise ValueError("warp_patches_kernel: every dimension must be at least 1")
+    patch_floats = k * k * c
+    face_floats = out_h * out_w * c
+    if face_floats >= 2**31 or f * 6 >= 2**31:
+        raise ValueError(
+            "warp_patches_kernel: a face or the face count exceeds the kernel's "
+            "32-bit offsets"
+        )
+    if patch_floats % 4:
+        raise ValueError(
+            f"warp_patches_kernel: a {k}x{k}x{c} float32 patch is {patch_floats * 4} "
+            f"bytes; the kernel's bulk copy takes patches that are a multiple of "
+            f"16 bytes long and start on a 16-byte address"
+        )
+    threads = min(_MAX_THREADS, 32 * -(-(out_h * out_w) // 32))
+    chunks = -(-patch_floats // _CHUNK_FLOATS)
+    base = _BARRIER_BYTES + 4 * patch_floats
+    staging = threads * c * 4
+    limit = cuda_build.SMEM_LIMIT_BYTES - _STATIC_SMEM_BYTES
+    # float4 stores where they are possible and still fit
+    vec = 4 if face_floats % 4 == 0 and base + staging <= limit else 1
+    smem = base + (staging if vec == 4 else 0)
+    if smem > limit or chunks > _MAX_CHUNKS:
+        raise ValueError(
+            f"warp_patches_kernel: a {k}x{k}x{c} float32 patch needs {smem} bytes "
+            f"of shared memory in {chunks} chunks; a block may use {limit} bytes "
+            f"and {_MAX_CHUNKS} chunks"
+        )
+    return WarpGeometry(f, threads, vec, chunks, smem)
+
 
 #: faces per dense chunk of the plain version (bounds its [F,O,K,C] rows)
 _PLAIN_CHUNK = 8
@@ -77,7 +147,9 @@ def warp_patches_kernel(
     [F,out_h,out_w,C] float32.
 
     CUDA tensors launch the CUDA kernel (and count the launch); CPU tensors
-    take `warp_patches_plain`. Any other device raises."""
+    take `warp_patches_plain`. Any other device raises, and so does a patch
+    on the card that is too large for a block's shared memory, or not
+    16-byte aligned, or not a multiple of 16 bytes long."""
     if patches.dim() != 4 or patches.shape[1] != patches.shape[2]:
         raise ValueError(f"expected square patches [F,K,K,C], got {tuple(patches.shape)}")
     if coeffs.shape != (patches.shape[0], 6):
@@ -96,13 +168,17 @@ def warp_patches_kernel(
     out = torch.empty((f, out_h, out_w, c), dtype=torch.float32, device=patches.device)
     if out.numel() == 0:
         return out
-    fn = cuda_build.load("warp_patches").frp_warp_patches
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    stream = torch.cuda.current_stream(patches.device).cuda_stream
+    geo = warp_launch_geometry(f, k, c, out_h, out_w)
+    if patches.data_ptr() % 16:
+        raise ValueError(
+            "warp_patches_kernel: the kernel's bulk copy takes patches that "
+            "start on a 16-byte address (copy the view into a tensor of its own)"
+        )
+    fn = cuda_build.function("warp_patches", "frp_warp_patches", _ARGTYPES)
     rc = fn(
         patches.data_ptr(), coeffs.data_ptr(), out.data_ptr(),
-        f, k, c, out_h, out_w, stream,
+        f, k, c, out_h, out_w, geo.threads, geo.vec, geo.smem_bytes,
+        torch.cuda.current_stream(patches.device).cuda_stream,
     )
     if rc != 0:
         raise RuntimeError(f"warp_patches kernel launch failed (cudaError {rc})")

@@ -8,9 +8,13 @@ JAX package, so it also runs on a machine that has only PyTorch:
 
 (`--noconftest` because tests/conftest.py sets up JAX.) Tolerances: K1 and
 K2 agree with their plain versions to the bit (every sum has at most two
-exact bf16 x bf16 products), held at 1e-5 on unit-scale data and 1e-3 on
-the 0..255 scale.
+exact bf16 x bf16 products). The `*_to_the_bit` tests hold them to exactly
+that, at the serving step's shapes and at odd ones (K2's take both of its
+store paths); the older tests hold 1e-5 on unit-scale
+data and 1e-3 on the 0..255 scale.
 """
+
+import math
 
 import numpy as np
 import pytest
@@ -27,7 +31,10 @@ from facerecognitionpipeline_tpu_torch.ops.warp import (
     similarity_transform,
     warp_coeffs,
 )
-from facerecognitionpipeline_tpu_torch.ops.warp_kernel import warp_patches_plain
+from facerecognitionpipeline_tpu_torch.ops.warp_kernel import (
+    warp_patches_kernel,
+    warp_patches_plain,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -104,6 +111,125 @@ def test_k2_in_align_matches_plain(dev, gen):
     patches = crop_resize_plain(frames, boxes.reshape(2, 4, 4), 128)
     ref = warp_patches_plain(patches.reshape(-1, 128, 128, 3), coeffs, 112, 112)
     assert float((out - ref.reshape(out.shape)).abs().max()) <= 1e-3
+
+
+# ------------------------------- K1 / K2: equal to the plain versions, bit for bit
+
+
+def _assert_bit_equal(out, ref):
+    torch.cuda.synchronize()
+    assert out.shape == ref.shape and bool(torch.isfinite(out).all())
+    assert float((out - ref).abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("b,n,s,k", [
+    (8, 256, 320, 24),  # R-net crops
+    (8, 96, 640, 48),  # O-net crops
+    (8, 16, 640, 128),  # alignment stage A
+])
+def test_k1_serving_shapes_to_the_bit(dev, gen, b, n, s, k):
+    img = torch.from_numpy(gen.uniform(-1, 1, (b, s, s, 3)).astype(np.float32)).to(dev)
+    boxes = torch.from_numpy(_boxes(gen, b, n, s, lo=12.0)).to(dev)
+    ref = crop_resize_plain(img, boxes, k)
+    n0 = crop_kernel.LAUNCHES.count
+    _assert_bit_equal(crop_resize_kernel(img, boxes, k), ref)
+    assert crop_kernel.LAUNCHES.count == n0 + 1
+
+
+@pytest.mark.parametrize("b,n,h,w,c,k", [
+    (2, 5, 33, 45, 3, 7),  # k*c not a multiple of 4, a non-square frame
+    (2, 5, 40, 56, 1, 12),  # one channel
+    (1, 3, 24, 31, 4, 8),  # four channels
+    (3, 1, 64, 48, 3, 24),  # one box per frame
+    (1, 2, 20, 20, 3, 130),  # upsampling, more bands than one
+])
+def test_k1_odd_shapes_to_the_bit(dev, gen, b, n, h, w, c, k):
+    img = torch.from_numpy(gen.uniform(0, 255, (b, h, w, c)).astype(np.float32)).to(dev)
+    x1 = gen.uniform(-6, w - 2, (b, n))
+    y1 = gen.uniform(-6, h - 2, (b, n))
+    boxes = np.stack(
+        [x1, y1, x1 + gen.uniform(3, w, (b, n)), y1 + gen.uniform(3, h, (b, n))], -1
+    ).astype(np.float32)
+    boxes = torch.from_numpy(boxes).to(dev)
+    ref = crop_resize_plain(img, boxes, k)
+    _assert_bit_equal(crop_resize_kernel(img, boxes, k), ref)
+
+
+def test_k1_boxes_outside_degenerate_and_snapped_to_the_bit(dev, gen):
+    img = torch.from_numpy(gen.uniform(0, 255, (1, 48, 64, 3)).astype(np.float32)).to(dev)
+    boxes = torch.tensor([[
+        [-50.0, -50.0, -10.0, -10.0],  # wholly outside, up and left
+        [70.0, 10.0, 90.0, 30.0],  # wholly outside, to the right
+        [-7.5, -3.25, 20.0, 18.0],  # hangs over two edges
+        [40.0, 30.0, 70.5, 55.0],  # hangs over the other two
+        [30.0, 20.0, 10.0, 5.0],  # degenerate: x2 < x1 and y2 < y1
+        [-1e30, -1e30, 1e30, 1e30],  # far larger than the frame
+        [8.0, 4.0, 32.0, 28.0],  # the integer-snapped lossless window
+    ]]).to(dev)
+    ref = crop_resize_plain(img, boxes, 24)
+    out = crop_resize_kernel(img, boxes, 24)
+    _assert_bit_equal(out, ref)
+    assert float(out[0, :2].abs().max()) == 0.0
+    assert torch.equal(out[0, 6], img[0, 4:28, 8:32].to(torch.bfloat16).float())
+
+
+def _rotations(rng, n, k, out, max_deg, shift=0.0):
+    """[n,6] coefficients turning an out x out face about the centre of a
+    k x k patch by angles spread over [-max_deg, max_deg]."""
+    th = np.linspace(-max_deg, max_deg, n) * (math.pi / 180.0)
+    sc = (k / out) * rng.uniform(0.8, 1.0, n)
+    a0, a1, b0, b1 = sc * np.cos(th), -sc * np.sin(th), sc * np.sin(th), sc * np.cos(th)
+    mid = (out - 1) / 2.0
+    a2 = (k - 1) / 2.0 - (a0 + a1) * mid + shift
+    b2 = (k - 1) / 2.0 - (b0 + b1) * mid + shift
+    return np.stack([a0, a1, a2, b0, b1, b2], axis=1).astype(np.float32)
+
+
+@pytest.mark.parametrize("f,k,c,out,max_deg,shift", [
+    (128, 128, 3, 112, 20.0, 0.0),  # the serving call
+    (16, 128, 3, 112, 90.0, 0.0),  # rotations up to 90 degrees
+    (8, 128, 3, 112, 30.0, -40.0),  # pixels outside the patch
+    (4, 64, 3, 112, 20.0, 0.0),  # K=64
+    (1, 128, 3, 112, 10.0, 0.0),  # one face
+    (130, 128, 3, 112, 45.0, 0.0),  # more faces than SMs
+    (3, 8, 3, 5, 15.0, 0.0),  # 75 floats per face: direct stores, no float4
+    (2, 32, 1, 27, 25.0, 0.0),  # one channel, 729 floats per face
+    (2, 32, 4, 28, 25.0, 0.0),  # four channels
+    (1, 138, 3, 112, 5.0, 0.0),  # the patch fits, its staging does not
+])
+def test_k2_to_the_bit(dev, gen, f, k, c, out, max_deg, shift):
+    patches = torch.from_numpy(gen.uniform(0, 255, (f, k, k, c)).astype(np.float32)).to(dev)
+    coeffs = torch.from_numpy(_rotations(gen, f, k, out, max_deg, shift)).to(dev)
+    ref = warp_patches_plain(patches, coeffs, out, out)
+    n0 = warp_kernel.LAUNCHES.count
+    _assert_bit_equal(warp_patches_kernel(patches, coeffs, out, out), ref)
+    assert warp_kernel.LAUNCHES.count == n0 + 1
+
+
+def test_k2_refuses_patches_off_a_16_byte_address(dev, gen):
+    """A view that starts 4 bytes into its storage cannot take the bulk copy:
+    it is refused with the rule named; a copy of its own is taken."""
+    flat = torch.from_numpy(gen.uniform(0, 255, 2 * 16 * 16 * 3 + 1).astype(np.float32)).to(dev)
+    patches = flat[1:].view(2, 16, 16, 3)
+    assert patches.data_ptr() % 16 == 4
+    coeffs = torch.from_numpy(_rotations(gen, 2, 16, 12, 12.0)).to(dev)
+    n0 = warp_kernel.LAUNCHES.count
+    with pytest.raises(ValueError, match="16-byte address"):
+        warp_patches_kernel(patches, coeffs, 12, 12)
+    assert warp_kernel.LAUNCHES.count == n0
+    ref = warp_patches_plain(patches, coeffs, 12, 12)
+    _assert_bit_equal(warp_patches_kernel(patches.clone(), coeffs, 12, 12), ref)
+
+
+def test_k2_refuses_a_patch_over_shared_memory(dev, gen):
+    patches = torch.zeros((1, 160, 160, 3), device=dev)
+    coeffs = torch.from_numpy(_rotations(gen, 1, 160, 112, 5.0)).to(dev)
+    n0 = warp_kernel.LAUNCHES.count
+    with pytest.raises(ValueError, match="shared memory"):
+        warp_patches_kernel(patches, coeffs, 112, 112)
+    with pytest.raises(ValueError, match="multiple of 16 bytes"):
+        warp_patches_kernel(patches[:, :7, :7], coeffs, 5, 5)
+    assert warp_kernel.LAUNCHES.count == n0
 
 
 # ------------------------------------------------- K3 / K4: gallery top-k

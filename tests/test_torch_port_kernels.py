@@ -311,3 +311,155 @@ def test_build_flags():
     assert cuda_build.BUILD_DIR.endswith("build/kernels")
     paths = {cuda_build._lib_path(n) for n in cuda_build.KERNEL_NAMES}
     assert len(paths) == len(cuda_build.KERNEL_NAMES)
+
+
+# ------------------------------------------------- launch geometry (K1, K2)
+#
+# The arithmetic of a launch lives in Python (`crop_launch_geometry`,
+# `warp_launch_geometry`) so that it is tested here, where no card is: the
+# serving step's shapes and the odd ones the card tests launch.
+
+from facerecognitionpipeline_tpu_torch.ops.crop_kernel import crop_launch_geometry
+from facerecognitionpipeline_tpu_torch.ops.warp_kernel import warp_launch_geometry
+
+_SMS = 132  # streaming multiprocessors of an H100
+_K1_SERVING = [  # (b, n, h, w, c, k): R-net, O-net, alignment stage A
+    (8, 256, 320, 320, 3, 24), (8, 96, 640, 640, 3, 48), (8, 16, 640, 640, 3, 128),
+]
+_K1_ODD = [
+    (2, 5, 33, 45, 3, 7), (2, 5, 40, 56, 1, 12), (1, 3, 24, 31, 4, 8),
+    (3, 1, 64, 64, 3, 24), (1, 1, 8, 8, 3, 1), (1, 2, 64, 64, 3, 1000),
+    (1, 1, 16, 16, 1, 4096),
+]
+
+
+@pytest.mark.parametrize("shape", _K1_SERVING + _K1_ODD)
+def test_k1_launch_geometry(shape):
+    b, n, h, w, c, k = shape
+    geo = crop_launch_geometry(*shape)
+    boxes, bands = geo.grid
+    assert boxes == b * n and 1 <= boxes < 2**31 and 1 <= bands <= 65535
+    # every output row lies in exactly one band
+    assert (bands - 1) * geo.band_rows < k <= bands * geo.band_rows
+    assert geo.threads % 32 == 0 and 32 <= geo.threads <= 256
+    assert geo.threads - 32 < geo.band_rows * k * c  # no warp without a float
+    assert geo.smem_bytes == 16 * (k * c + geo.band_rows)
+    assert geo.smem_bytes <= cuda_build.SMEM_LIMIT_BYTES == 232_448
+
+
+@pytest.mark.parametrize("shape", _K1_SERVING)
+def test_k1_serving_geometry_fills_the_card(shape):
+    """Each serving launch gives every SM several blocks, and no block has
+    more than a few thousand floats behind one set of tap tables."""
+    geo = crop_launch_geometry(*shape)
+    k, c = shape[5], shape[4]
+    assert geo.grid[0] * geo.grid[1] >= 4 * _SMS
+    assert geo.band_rows * k * c <= 3072
+    assert geo.band_rows == {24: 24, 48: 16, 128: 8}[k]
+    assert geo.threads == 256
+
+
+@pytest.mark.parametrize("shape,match", [
+    ((1, 1, 40000, 40000, 3, 8), "32-bit"),  # a frame of more than 2**31 floats
+    ((1, 1, 64, 64, 3, 30000), "32-bit"),  # a crop of more than 2**31 floats
+    ((1, 1, 64, 64, 4, 4000), "shared memory"),  # tap tables over 227 KB
+    ((1, 0, 64, 64, 3, 8), "at least 1"),
+])
+def test_k1_geometry_refuses(shape, match):
+    with pytest.raises(ValueError, match=match):
+        crop_launch_geometry(*shape)
+
+
+_K2_SHAPES = [  # (f, k, c, out_h, out_w): the serving call first
+    (128, 128, 3, 112, 112), (1, 128, 3, 112, 112), (130, 128, 3, 112, 112),
+    (4, 64, 3, 112, 112), (3, 8, 3, 5, 5), (2, 32, 1, 28, 28), (2, 32, 4, 28, 28),
+    (2, 16, 3, 12, 12), (1, 138, 3, 112, 112),
+]
+
+
+@pytest.mark.parametrize("shape", _K2_SHAPES)
+def test_k2_launch_geometry(shape):
+    f, k, c, oh, ow = shape
+    geo = warp_launch_geometry(*shape)
+    assert geo.grid == f  # one block per face
+    assert geo.threads % 32 == 0 and 32 <= geo.threads <= 1024
+    assert geo.threads - 32 < oh * ow  # no warp without a pixel
+    assert geo.chunks <= 32 and (geo.chunks - 1) * 4096 < k * k * c <= geo.chunks * 4096
+    patch_bytes = 4 * k * k * c
+    assert patch_bytes % 16 == 0  # the bulk copy's rule
+    staging = geo.threads * c * 4 if geo.vec == 4 else 0
+    assert geo.smem_bytes == 256 + patch_bytes + staging
+    assert geo.smem_bytes + 64 <= cuda_build.SMEM_LIMIT_BYTES
+    if geo.vec == 4:
+        assert (oh * ow * c) % 4 == 0
+    else:  # direct stores: no float4 possible, or no room for the staging
+        assert (oh * ow * c) % 4 or 256 + patch_bytes + geo.threads * c * 4 + 64 > 232_448
+
+
+def test_k2_serving_geometry():
+    geo = warp_launch_geometry(128, 128, 3, 112, 112)
+    assert geo == (128, 1024, 4, 12, 256 + 196608 + 12288)
+
+
+@pytest.mark.parametrize("shape,vec", [
+    ((128, 128, 3, 112, 112), 4),  # the serving call: float4 through staging
+    ((3, 8, 3, 5, 5), 1),  # 75 floats per face: no float4 possible
+    ((2, 32, 1, 27, 27), 1),  # 729 floats per face
+    ((1, 138, 3, 112, 112), 1),  # the patch fits, its staging does not
+    ((2, 32, 4, 27, 27), 4),  # four channels: any face is a multiple of 4
+])
+def test_k2_store_path_follows_the_shapes(shape, vec):
+    assert warp_launch_geometry(*shape).vec == vec
+
+
+@pytest.mark.parametrize("k,c", [(160, 3), (140, 3), (256, 1)])
+def test_k2_refuses_a_patch_over_shared_memory(k, c):
+    """No banded variant: a patch that does not fit one block's shared
+    memory is refused with the limit named, never sent to the plain version."""
+    with pytest.raises(ValueError, match="shared memory.*232384"):
+        warp_launch_geometry(4, k, c, 112, 112)
+
+
+@pytest.mark.parametrize("k,c", [(7, 3), (5, 1), (9, 2), (3, 3)])
+def test_k2_refuses_a_patch_the_bulk_copy_cannot_take(k, c):
+    """A patch that is not a multiple of 16 bytes long is refused with the
+    rule named, never sent to the plain version."""
+    with pytest.raises(ValueError, match="multiple of 16 bytes.*16-byte address"):
+        warp_launch_geometry(3, k, c, 5, 5)
+
+
+def test_k2_geometry_refuses_empty_dimensions():
+    with pytest.raises(ValueError, match="at least 1"):
+        warp_launch_geometry(0, 8, 3, 8, 8)
+
+
+def test_cpu_wrappers_take_the_plain_versions(rng):
+    """The card's rules (a patch of a multiple of 16 bytes, on a 16-byte
+    address) bind the kernel alone: CPU tensors take the plain version
+    whatever their shape or address, and no launch is counted."""
+    img = torch.from_numpy(rng.uniform(-1, 1, (1, 16, 16, 3)).astype(np.float32))
+    boxes = torch.tensor([[[1.0, 2.0, 9.0, 12.0]]])
+    n1, n2 = crop_kernel.LAUNCHES.count, warp_kernel.LAUNCHES.count
+    assert torch.equal(crop_resize_kernel(img, boxes, 4), crop_resize_plain(img, boxes, 4))
+    patches, coeffs = _k2_inputs(rng, 2, 7)  # 147 floats per patch
+    flat = torch.zeros(patches.size + 1)
+    flat[1:] = torch.from_numpy(patches).reshape(-1)
+    p, c = flat[1:].view(2, 7, 7, 3), torch.from_numpy(coeffs)
+    assert torch.equal(warp_patches_kernel(p, c, 4, 4), warp_patches_plain(p, c, 4, 4))
+    assert (crop_kernel.LAUNCHES.count, warp_kernel.LAUNCHES.count) == (n1, n2)
+
+
+def test_launch_functions_are_configured_once(monkeypatch):
+    """`cuda_build.function` sets a C function's argument types at its first
+    use and hands the same object back afterwards."""
+    class Lib:
+        def __init__(self):
+            self.frp_x = lambda *a: 0
+
+    loads = []
+    monkeypatch.setattr(cuda_build, "load", lambda name: loads.append(name) or Lib())
+    monkeypatch.setattr(cuda_build, "_fns", {})
+    import ctypes
+    fn = cuda_build.function("k", "frp_x", [ctypes.c_int])
+    assert fn.argtypes == [ctypes.c_int] and fn.restype is ctypes.c_int
+    assert cuda_build.function("k", "frp_x", [ctypes.c_int]) is fn and loads == ["k"]
