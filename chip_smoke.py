@@ -17,7 +17,12 @@ Phases, in order; any failure exits non-zero before the final line:
      address or not a multiple of 16 bytes long is refused); their
      device time alone is read from torch.profiler, warm and with the L2
      cache flushed, beside the host's cost of one wrapper call. K3 and K4
-     run at 128 queries x 1 048 576 gallery rows and at one small odd shape;
+     run at 128 queries x 1 048 576 gallery rows (K3 also at 64 queries),
+     at one small shape and at odd ones (query counts around the tile sizes,
+     a gallery that ends inside a tile, depths that end inside a K-panel,
+     top_k 1 and 8, no valid row, a gallery view off a 16-byte address
+     refused); the device time of their stream and merge kernels alone and
+     of the query preparation around them is read from torch.profiler;
   3. the fused serving step at the server's build: ir_101 (seeded random
      weights), bf16, det_size 640x640, 16 face slots, min face 40, top-3,
      a 1024-row float32 gallery (dense match), B=8 frames composed from the
@@ -41,6 +46,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -476,6 +482,29 @@ def print_bounds(report: dict, library: str) -> None:
                       f"per wrapper call")
 
 
+def print_build_report(name: str, log: str) -> None:
+    """What `-Xptxas -v` said of each kernel of one library: registers,
+    shared memory, stack and spills. A spill in a streaming kernel (its
+    accumulators live in registers) is printed as a warning."""
+    entry = "?"
+    for line in log.splitlines():
+        line = line.strip()
+        if "Compiling entry function" in line:
+            mangled = line.split("'")[1]
+            entry = next((n for n in ("stream_topk_kernel", "merge_topk_kernel",
+                                      "crop_resize", "warp_patches") if n in mangled), mangled)
+            length = re.search(r"TraitsELi(\d+)E", mangled)
+            if length:  # the list length this instance of the kernel keeps
+                entry += f"<list of {length.group(1)}>"
+        elif "registers" in line or "spill" in line or "smem" in line:
+            print(f"[build] {name} {entry}: {line.replace('ptxas info    : ', '')}")
+            if "spill" in line and "0 bytes spill stores, 0 bytes spill loads" not in line \
+                    and entry.startswith("stream_topk_kernel"):
+                print(f"[build] WARNING: {name} {entry} spills registers: {line}")
+        elif "warning" in line.lower():
+            print(f"[build] {name}: {line}")
+
+
 def make_gallery(rows: int, seed: int = 0):
     """rows x 512 float32 unit rows on the card, from a seed."""
     import torch
@@ -622,8 +651,115 @@ def gallery_kernel_phase(gal) -> dict:
             "bytes": 4 * qd + rows * (512 + 4 + 1) + out_bytes,
             "flops": 2 * q.shape[0] * rows * 512, "peak": INT8_OPS_PER_S,
         })
+        if rows == big:
+            k3 = lambda: gk.streaming_cosine_topk(  # noqa: E731
+                q, tb_s, valid_s, top_k=k, chunk=STREAM_CHUNK)
+            k3_q64 = lambda: gk.streaming_cosine_topk(  # noqa: E731
+                q[:64], tb_s, valid_s, top_k=k, chunk=STREAM_CHUNK)
+            k4 = lambda: gk.streaming_cosine_topk_int8(  # noqa: E731
+                q, codes_s, scales_s, valid_s, top_k=k, chunk=STREAM_CHUNK)
+            prep3 = lambda: gk.normalize_queries(q).contiguous()  # noqa: E731
+            prep4 = lambda: gk._quantize_rows(gk.normalize_queries(q))  # noqa: E731
+            for name, fn, prep in (("gallery_topk", k3, prep3), ("gallery_topk_int8", k4, prep4)):
+                report[name][-1].update({
+                    "ms_again": cuda_time_ms(fn),
+                    "stream_device_ms": device_time_ms(fn, "stream_topk_kernel"),
+                    "merge_device_ms": device_time_ms(fn, "merge_topk_kernel"),
+                    "prep_device_ms": device_time_ms(prep, ""),
+                    "prep_host_ms": host_enqueue_ms(prep),
+                    "host_ms": host_enqueue_ms(fn),
+                })
+            report["gallery_topk"][-1].update({
+                "q64_ms": cuda_time_ms(k3_q64),
+                "q64_stream_device_ms": device_time_ms(k3_q64, "stream_topk_kernel"),
+            })
+    gallery_odd_shapes(gk, tb, codes, scales)
     print_bounds(report, "matmul+topk" if int_mm is None else "matmul/_int_mm+topk")
+    for name in ("gallery_topk", "gallery_topk_int8"):
+        r = report[name][0]
+
+        def ms(v):
+            return "not measured" if v is None else f"{v:.4f} ms"
+
+        print(f"[timing] {name} {r['shape']}: the call again {r['ms_again']:.4f} ms; device "
+              f"time alone: stream kernel {ms(r['stream_device_ms'])}, merge kernel "
+              f"{ms(r['merge_device_ms'])}, the query preparation around them "
+              f"{ms(r['prep_device_ms'])} (host {r['prep_host_ms']:.4f} ms); host enqueue "
+              f"{r['host_ms']:.4f} ms per wrapper call")
+    r = report["gallery_topk"][0]
+    print(f"[timing] gallery_topk at Q=64 (one block per gallery tile): {r['q64_ms']:.4f} ms, "
+          f"stream kernel {'not measured' if r['q64_stream_device_ms'] is None else format(r['q64_stream_device_ms'], '.4f')} ms; "
+          f"at Q=128 two blocks read each tile")
     return report
+
+
+def gallery_odd_shapes(gk, tb, codes, scales) -> None:
+    """Phase 2, K3 and K4 at the shapes the serving step does not use: query
+    counts around the kernels' tiles of 64 and 128, a gallery that ends
+    inside a 64-row tile, depths that end inside a 128-byte K-panel, top_k 1
+    and 8, fewer valid rows than top_k and none. K4 must equal its plain
+    version to the bit, K3 within K3_TOL with equal indices on clear slots."""
+    import torch
+
+    g = torch.Generator(device=DEVICE).manual_seed(5)
+    cases = [
+        # (Q, G, D, top_k, valid rows: None = all but the last 10)
+        (64, 4096 + 32, 512, 3, None), (65, 4096 + 32, 512, 8, None),
+        (129, 32, 512, 1, None), (200, 4096 + 32, 512, 5, None),
+        (128, 8192, 96, 3, None), (128, 8192, 160, 3, None),
+        (7, 256, 32, 4, [3, 200]), (5, 4096, 512, 3, []),
+    ]
+    for nq, rows, d, k, keep in cases:
+        q = torch.randn((nq, d), generator=g, device=DEVICE)
+        valid = torch.ones(rows, dtype=torch.bool, device=DEVICE)
+        if keep is None:
+            valid[-10:] = False
+        else:
+            valid[:] = False
+            valid[keep] = True
+        shape = f"Q={nq} G={rows} D={d} k={k}" + ("" if keep is None else f" valid={len(keep)}")
+        chunk = 32
+        t3, c4 = tb[:rows, :d].contiguous(), codes[:rows, :d].contiguous()
+        s4 = scales[:rows].contiguous()
+        if rows > 16:
+            t3[rows - 9], c4[rows - 9] = t3[1], c4[1]  # an invalid twin of row 1
+            q[0] = t3[1].float() * 2.0
+        kv, ki = gk.streaming_cosine_topk(q, t3, valid, top_k=k, chunk=chunk)
+        pv, pi = gk.streaming_cosine_topk_plain(q, t3, valid, top_k=k, chunk=chunk)
+        torch.cuda.synchronize()
+        err = float((kv - pv).abs().max())
+        gap = (pv[:, :-1] - pv[:, 1:]).abs() > 2 * K3_TOL
+        clear = torch.ones_like(pi, dtype=torch.bool)
+        clear[:, :-1] &= gap
+        clear[:, 1:] &= gap
+        if not err <= K3_TOL or not torch.equal(ki[clear], pi[clear]):
+            fail(f"K3 odd shape {shape}: max|kernel-plain| {err}")
+        kv8, ki8 = gk.streaming_cosine_topk_int8(q, c4, s4, valid, top_k=k, chunk=chunk)
+        pv8, pi8 = gk.streaming_cosine_topk_int8_plain(q, c4, s4, valid, top_k=k, chunk=chunk)
+        torch.cuda.synchronize()
+        if not torch.equal(kv8, pv8) or not torch.equal(ki8, pi8):
+            fail(f"K4 odd shape {shape}: not equal to its plain version to the bit")
+        for name, v, i in (("K3", kv, ki), ("K4", kv8, ki8)):
+            n_valid = int(valid.sum())
+            if n_valid < k and not (bool((v[:, n_valid:] == -1e9).all())
+                                    and bool((i[:, n_valid:] == 0).all())):
+                fail(f"{name} odd shape {shape}: surplus slots are not (-1e9, 0)")
+            if not bool(valid[i[v > -1e9]].all()):
+                fail(f"{name} odd shape {shape}: a masked row was returned")
+    # a gallery view that starts off a 16-byte address is refused, not copied
+    flat = torch.zeros(64 * 512 + 1, dtype=torch.int8, device=DEVICE)
+    off = flat[1:].view(64, 512)
+    ones = torch.ones(64, device=DEVICE)
+    try:
+        gk.streaming_cosine_topk_int8(
+            torch.randn((2, 512), device=DEVICE), off, ones, ones.bool(), top_k=2, chunk=32)
+    except ValueError as e:
+        if "16-byte" not in str(e):
+            fail(f"K4 refused a gallery off a 16-byte address without naming the rule: {e}")
+    else:
+        fail("K4 took a gallery view that starts off a 16-byte address")
+    print(f"[kernels] K3/K4: {len(cases)} odd shapes agree with their plain versions (K4 to "
+          f"the bit); a gallery off a 16-byte address is refused")
 
 
 def breakdown(engine, frames, templates, valid, iters: int = 5,
@@ -694,8 +830,10 @@ def breakdown(engine, frames, templates, valid, iters: int = 5,
         print(f"[breakdown]   {e.self_device_time_total / 3e3:8.3f} ms/step  "
               f"x{e.count // 3:<5d} {e.key[:90]}")
     in_step = {}
-    for name in ("crop_resize", "warp_patches"):
+    for name in ("crop_resize", "warp_patches", "stream_topk_kernel", "merge_topk_kernel"):
         mine = [e for e in events if name in e.key]
+        if not mine and name.endswith("topk_kernel"):
+            continue  # the dense match launches no streaming kernel
         in_step[name] = sum(e.self_device_time_total for e in mine) / 3e3
         print(f"[breakdown]   {name} inside the step: {in_step[name]:.4f} ms device time "
               f"per step over {sum(e.count for e in mine) // 3} launches per step")
@@ -1056,9 +1194,7 @@ def main() -> int:
           f"(per kernel, from the parallel start: "
           f"{ {k: round(s, 1) for k, s in took.items()} })")
     for name, log in cuda_build.BUILD_LOGS.items():
-        for line in log.splitlines():  # registers, shared memory, spills
-            if "registers" in line or "spill" in line or "warning" in line.lower():
-                print(f"[build] {name}: {line.strip()}")
+        print_build_report(name, log)
     with np.load(os.path.join(
         REPO, "facerecognitionpipeline_tpu_torch", "testdata", "smoke_scenes.npz"
     )) as z:
@@ -1095,6 +1231,10 @@ def main() -> int:
     # they were the port's kernels: NVIDIA H100 80GB HBM3, 700 W, the same
     # shapes and the same 20-launch event timing. History, not of this run.
     print("[history] first design, ms per step: crop_resize 0.1703, warp_patches 0.0430")
+    # K3's and K4's earlier design (wmma on 32-row tiles, a cp.async ring of
+    # two, the score tile folded out of shared memory), same card model and
+    # limit, same shapes and timing.
+    print("[history] earlier design, ms per call: gallery_topk 2.4066, gallery_topk_int8 1.3388")
     kernels = []
     for name in sources:
         # times and bounds are of the shapes one serving step calls the
@@ -1127,6 +1267,13 @@ def main() -> int:
                          else sum(r[key] for r in rows))
                    for key in ("ms_again", "device_ms", "cold_device_ms",
                                "library_device_ms", "host_ms")},
+            })
+        else:  # K3, K4: one call shape per step
+            kernels[-1].update({
+                key: rows[0].get(key) for key in (
+                    "ms_again", "stream_device_ms", "merge_device_ms", "prep_device_ms",
+                    "prep_host_ms", "host_ms", "q64_ms", "q64_stream_device_ms")
+                if key in rows[0]
             })
         if kernels[-1]["launches"] < 1:
             fail(f"the main path never launched {name}")

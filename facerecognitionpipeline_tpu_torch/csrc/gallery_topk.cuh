@@ -9,50 +9,86 @@
 // score matrix is never written to device memory, and the gallery is read
 // from device memory once per query tile (once in all for K4 at Q <= 128).
 //
-// How, on this card: blocks run in no order and share nothing, so there is
-// no running top-k carried along a sequential grid as on the TPU. Instead
-//   * block (x, y) owns query tile y (QT rows, staged once in shared
-//     memory) and every gridDim.x-th gallery tile of TN = 32 rows starting
-//     at tile x. The gallery tiles stream through a two-deep shared-memory
-//     ring filled with cp.async, so the next tile loads while this one is
-//     multiplied;
-//   * the 8 warps of the block multiply the tile on the tensor cores
-//     (nvcuda::wmma 16x16x16) into a [QT, TN] score tile in shared memory;
-//   * each warp then folds the tile into the running top-KMAX lists of the
-//     query rows it owns (lists in shared memory for the whole kernel): lane
-//     = gallery row of the tile, one ballot finds the few scores that beat
-//     the row's current KMAX-th, and lane 0 inserts them. The tile's valid
-//     bytes (and row scales) ride in the same cp.async ring as its rows;
-//   * at the end each block writes its lists to a [gridDim.x, Qpad, KMAX]
-//     scratch tensor, and `merge_topk_kernel` folds the gridDim.x lists of a
-//     query into the final [Q, k].
+// What bounds it on an H100: the gallery's bytes (one read of 1 GB in bf16 or
+// 0.5 GB in int8 at a million rows); the products fit under that time only
+// on the warpgroup tensor-core path, and only if nothing else stands between
+// two tiles. So, per block (one per SM, persistent, 384 threads):
+//   * block (x, y) owns query tile y and every gridDim.x-th gallery tile of
+//     TM = 64 rows starting at tile x. Its queries are written once into
+//     shared memory in the 128-byte swizzled, K-major layout wgmma reads, as
+//     two operand blocks of 64 rows: K4 query rows 0-63 and 64-127 (int8
+//     codes); K3 the hi and the lo bf16 part of its 64 queries;
+//   * one producer warp keeps two rings of 8 KB stages full, one per consumer
+//     warpgroup, feeding whichever has a free stage (a warpgroup that is
+//     folding holds back only its own ring). A stage is one K-panel (64
+//     gallery rows x 128 bytes of depth) brought by one TMA tensor copy that
+//     completes on the stage's `full` mbarrier; a tile is D*sizeof(T)/128
+//     consecutive stages of the ring of the warpgroup that takes it. The
+//     tile's valid bytes and row scales ride on its first stage's barrier as
+//     plain bulk copies (a ragged last tile: ordinary loads). Depth and rows
+//     past the gallery's edge arrive as zeros from the tensor map;
+//   * two consumer warpgroups take the block's tiles in turn. Each starts
+//     wgmma.mma_async m64n64 per 32 bytes of depth with a block of 64 query
+//     rows as A and the 64 gallery rows as B (K4: two query blocks into two
+//     accumulators; K3: hi then lo into one, so the sum of the two parts is
+//     the accumulator's own), hands a stage back through its `empty`
+//     mbarrier as soon as the products that read it have completed, and
+//     then folds its accumulators while the other warpgroup multiplies;
+//   * the fold never leaves registers. With the queries as A, a query row
+//     belongs to one quad of lanes of one warp: a thread holds 16 of the
+//     tile's 64 scores for each of its queries. It applies the row scale,
+//     compares with the query's threshold in shared memory (the best k-th
+//     score either warpgroup has so far) and masks with valid: 16 bits per
+//     query, no branch, one ballot per tile. Only a score at or above the
+//     threshold is offered to the warpgroup's top-k list of that query, by
+//     the four lanes of the quad in turn (no other lane ever writes that
+//     list). The threshold is a filter only: every list comparison is the
+//     strict total order below, so a stale or lost threshold update lets
+//     more through and changes no result. An offer is a chain of dependent
+//     operations run by one warp, so its length is what the fold costs:
+//     the list length is a template parameter (1, 2, 3, 4 or 8 entries, the
+//     shortest that holds the call's k) and the list code is straight-line
+//     register code;
+//   * at the end a block merges the two warpgroups' lists per query and
+//     writes one list to scratch [Q, gridDim.x, list length];
+//     `merge_topk_kernel` folds a query's gridDim.x lists with one warp:
+//     lanes read them side by side, keep a list each and combine by
+//     shuffles.
 // Every comparison uses the same strict total order (value descending, then
 // index ascending; gallery indices are unique), so the result does not
-// depend on the order the blocks ran in, and ties go to the lower index. No
-// atomics anywhere.
+// depend on the order blocks, warpgroups or warps ran in, and ties go to the
+// lower index. No atomics anywhere.
 #pragma once
 
+#include <cuda.h>  // CUtensorMap and its enums; the encoder is looked up at run time
 #include <cuda_bf16.h>
-#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
-#include <mma.h>
+
+#include <cstdint>
 
 namespace frp {
 
-constexpr int KMAX = 8;        // longest top-k list the kernels keep
-constexpr int TN = 32;         // gallery rows per tile
-constexpr int THREADS = 256;   // 8 warps
-constexpr int WARPS = THREADS / 32;
-constexpr int SLD = TN + 4;    // score-tile row stride (wmma wants 16 bytes)
-constexpr float NEG = -1e9f;   // score of a masked row, and the sentinel
+constexpr int KMAX = 8;               // longest top-k list the kernels keep
+constexpr int TM = 64;                // gallery rows per tile (wgmma N)
+constexpr int QROWS = 128;            // staged query rows: two wgmma A blocks
+constexpr int PANEL_BYTES = 128;      // depth bytes per stage: one swizzle row
+constexpr int STAGE_BYTES = TM * PANEL_BYTES;    // 8 KB of gallery
+constexpr int QBLOCK_BYTES = 64 * PANEL_BYTES;      // one A block of a panel
+constexpr int QPANEL_BYTES = QROWS * PANEL_BYTES;   // 16 KB of queries
+constexpr int SIDE_BYTES = TM + TM * 4;  // a tile's valid bytes, then scales
+constexpr int CONSUMER_WGS = 2;       // consumer warpgroups
+constexpr int THREADS = 384;          // and the producer's warpgroup
+constexpr int MIN_STAGES = 4;         // in all: an even count, half per ring
+constexpr int MAX_STAGES = 16;
+constexpr float NEG = -1e9f;          // score of a masked row, and the sentinel
+constexpr int ENCODE_FAILED = 100000; // + CUresult: the tensor map was refused
 
-// A running top-KMAX list, best first: values v[KMAX] and indices i[KMAX],
-// in shared memory (the stream kernel) or in a thread's own arrays (the
-// merge kernel, where the unrolled loops keep them in registers).
 __device__ __forceinline__ bool before(float av, int ai, float bv, int bi) {
   return av > bv || (av == bv && ai < bi);
 }
 
+// A running top-KMAX list in a thread's own arrays, best first (the unrolled
+// loops keep it in registers).
 __device__ __forceinline__ void topk_init(float* v, int* i) {
 #pragma unroll
   for (int j = 0; j < KMAX; ++j) {
@@ -79,24 +115,223 @@ __device__ __forceinline__ void topk_insert(float* v, int* i, float cv,
   }
 }
 
+// Offer a thread's candidates for one query (bit t of `pm`: score v[t], row
+// i0 + 8 (t / 2) + t % 2) to a warpgroup's list of that query in shared
+// memory (KL entries, best first): the list is read into registers once,
+// every candidate put in its place there, and the list written back; then
+// the query's threshold is raised to the list's last value. The other
+// warpgroup may write the threshold at the same time: either value is a
+// KL-th best of real rows, so either is a sound filter.
+template <int KL>
+__device__ __forceinline__ void list_offer(float* lv, int* li,
+                                           volatile float* thr, unsigned pm,
+                                           const float (&v)[16], int i0) {
+  const float seen = *thr;
+  float tv[KL];
+  int ti[KL];
+#pragma unroll
+  for (int j = 0; j < KL; ++j) {
+    tv[j] = lv[j];
+    ti[j] = li[j];
+  }
+  while (pm != 0) {
+    const int t = __ffs(pm) - 1;
+    pm &= pm - 1;
+    // v[t] by a tree of selects (a register array takes no run-time index)
+    float a8[8], a4[4];
+#pragma unroll
+    for (int u = 0; u < 8; ++u) a8[u] = (t & 1) ? v[2 * u + 1] : v[2 * u];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) a4[u] = (t & 2) ? a8[2 * u + 1] : a8[2 * u];
+    const float b0 = (t & 4) ? a4[1] : a4[0];
+    const float b1 = (t & 4) ? a4[3] : a4[2];
+    const float cv = (t & 8) ? b1 : b0;
+    const int ci = i0 + 8 * (t >> 1) + (t & 1);
+    if (!before(cv, ci, tv[KL - 1], ti[KL - 1])) continue;  // behind the last
+    // its place: behind the entries that precede it (the list is sorted)
+    int pos = 0;
+#pragma unroll
+    for (int j = 0; j < KL; ++j) pos += before(tv[j], ti[j], cv, ci) ? 1 : 0;
+#pragma unroll
+    for (int j = KL - 1; j > 0; --j) {
+      tv[j] = j < pos ? tv[j] : (j == pos ? cv : tv[j - 1]);
+      ti[j] = j < pos ? ti[j] : (j == pos ? ci : ti[j - 1]);
+    }
+    tv[0] = pos > 0 ? tv[0] : cv;
+    ti[0] = pos > 0 ? ti[0] : ci;
+  }
+#pragma unroll
+  for (int j = 0; j < KL; ++j) {
+    lv[j] = tv[j];
+    li[j] = ti[j];
+  }
+  if (tv[KL - 1] > seen) *thr = tv[KL - 1];
+}
+
+// ---- PTX: shared addresses, mbarriers, bulk copies, wgmma -----------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint32_t bar,
+                                                      uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   bar),
+               "r"(bytes)
+               : "memory");
+}
+
+// Wait until the phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// Whether the phase of parity `parity` has completed; never blocks.
+__device__ __forceinline__ bool mbar_test(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "mbarrier.test_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n"
+      "}\n"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
+// One TMA copy of the tensor map's box at (col, row) into shared memory.
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map,
+                                            uint32_t bar, int col, int row) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(col), "r"(row)
+      : "memory");
+}
+
+// `bytes` (a multiple of 16, both addresses 16-byte aligned) to shared memory.
+__device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// wgmma descriptor of a K-major operand in the 128-byte swizzled layout:
+// rows of 128 bytes, groups of 8 rows 1024 bytes apart.
+__device__ __forceinline__ uint64_t wgmma_desc(uint32_t addr) {
+  uint64_t d = static_cast<uint64_t>((addr & 0x3FFFFu) >> 4);
+  d |= static_cast<uint64_t>(16 >> 4) << 16;    // leading offset: unused here
+  d |= static_cast<uint64_t>(1024 >> 4) << 32;  // stride between 8-row groups
+  d |= static_cast<uint64_t>(1) << 62;          // 128-byte swizzle
+  return d;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+#define FRP_L8(M, b) \
+  M(b), M(b + 1), M(b + 2), M(b + 3), M(b + 4), M(b + 5), M(b + 6), M(b + 7)
+#define FRP_L32(M) FRP_L8(M, 0), FRP_L8(M, 8), FRP_L8(M, 16), FRP_L8(M, 24)
+#define FRP_ACC_REGS                         \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, "        \
+  "%8, %9, %10, %11, %12, %13, %14, %15, "   \
+  "%16, %17, %18, %19, %20, %21, %22, %23, " \
+  "%24, %25, %26, %27, %28, %29, %30, %31}"
+#define FRP_F(i) "+f"(d[i])
+#define FRP_R(i) "+r"(d[i])
+
+// Keeps the compiler from moving reads or writes of an accumulator across
+// the asynchronous products.
+__device__ __forceinline__ void acc_fence(float (&d)[32]) {
+  asm volatile("" : FRP_L32(FRP_F)::"memory");
+}
+__device__ __forceinline__ void acc_fence(int (&d)[32]) {
+  asm volatile("" : FRP_L32(FRP_R)::"memory");
+}
+
+// Both traits stage 128 operand rows per K-panel, two A blocks of 64 rows;
+// `stage_chunk` writes 16 bytes of depth of query row r at the swizzled
+// place of chunk c16 of its 128-byte row.
+
 // Traits of kernel K3: float32 unit queries against bf16 rows. The query is
 // split as q = hi + lo + r with hi = bf16(q), lo = bf16(q - hi), |r| <=
-// 2^-17 |q|, and both products accumulate into one float32 accumulator, so
-// the score is that of the float32 query to ~1e-6 (a bf16 x bf16 product is
-// exact in float32).
+// 2^-17 |q|; hi is A block 0 and lo A block 1, both multiplied into the same
+// accumulator, whose float32 sum is the float32 query's score to ~1e-6 (a
+// bf16 x bf16 product is exact in float32).
 struct Bf16Traits {
-  using T = __nv_bfloat16;   // shared-memory operand type
   using Acc = float;
-  using QIn = float;         // query type in device memory
-  static constexpr int QT = 64;
-  static constexpr int NSPLIT = 2;
+  using QIn = float;  // query type in device memory
+  static constexpr int QT = 64;    // queries per block
+  static constexpr int ACCS = 1;   // accumulators: the two A blocks share one
+  static constexpr int ELEM = 2;   // bytes per gallery value
+  static constexpr CUtensorMapDataType MAP_TYPE =
+      CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
 
-  static __device__ __forceinline__ void stage_query(const QIn* src, T* dst,
-                                                     int split_stride) {
-    const float q = src ? *src : 0.0f;
-    const T hi = __float2bfloat16_rn(q);
-    dst[0] = hi;
-    dst[split_stride] = __float2bfloat16_rn(q - __bfloat162float(hi));
+  static __device__ __forceinline__ void stage_chunk(const QIn* src,
+                                                     unsigned char* qpanel,
+                                                     int r, int c16) {
+    __align__(16) __nv_bfloat16 hi[8];
+    __align__(16) __nv_bfloat16 lo[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const float q = src ? src[e] : 0.0f;
+      hi[e] = __float2bfloat16_rn(q);
+      lo[e] = __float2bfloat16_rn(q - __bfloat162float(hi[e]));
+    }
+    const int at = r * PANEL_BYTES + ((c16 ^ (r & 7)) << 4);
+    *reinterpret_cast<uint4*>(qpanel + at) = *reinterpret_cast<uint4*>(hi);
+    *reinterpret_cast<uint4*>(qpanel + at + QBLOCK_BYTES) =
+        *reinterpret_cast<uint4*>(lo);
+  }
+
+  // d (+)= A[64 x 16] * B[64 x 16]^T, both K-major bf16 in shared memory
+  static __device__ __forceinline__ void mma(Acc (&d)[32], uint64_t da,
+                                             uint64_t db, int accumulate) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " FRP_ACC_REGS
+        ", %32, %33, p, 1, 1, 0, 0;\n"
+        "}\n"
+        : FRP_L32(FRP_F)
+        : "l"(da), "l"(db), "r"(accumulate));
   }
 
   static __device__ __forceinline__ float score(Acc s, float) { return s; }
@@ -105,17 +340,37 @@ struct Bf16Traits {
 // Traits of kernel K4: int8 query codes against int8 row codes. The dot is
 // an exact s8 x s8 -> s32 tensor-core product (|dot| <= 512 * 127^2 < 2^24,
 // so its float32 conversion is exact too) and is multiplied by the row's
-// dequantisation scale: one rounding in all.
+// dequantisation scale: one rounding in all. A block 0 holds query rows
+// 0-63 and A block 1 rows 64-127, each with its own accumulator.
 struct Int8Traits {
-  using T = signed char;
   using Acc = int;
   using QIn = signed char;
   static constexpr int QT = 128;
-  static constexpr int NSPLIT = 1;
+  static constexpr int ACCS = 2;
+  static constexpr int ELEM = 1;
+  static constexpr CUtensorMapDataType MAP_TYPE = CU_TENSOR_MAP_DATA_TYPE_UINT8;
 
-  static __device__ __forceinline__ void stage_query(const QIn* src, T* dst,
-                                                     int) {
-    dst[0] = src ? *src : static_cast<signed char>(0);
+  static __device__ __forceinline__ void stage_chunk(const QIn* src,
+                                                     unsigned char* qpanel,
+                                                     int r, int c16) {
+    const uint4 v = src ? *reinterpret_cast<const uint4*>(src)
+                        : make_uint4(0u, 0u, 0u, 0u);
+    *reinterpret_cast<uint4*>(qpanel + r * PANEL_BYTES +
+                              ((c16 ^ (r & 7)) << 4)) = v;
+  }
+
+  // d (+)= A[64 x 32] * B[64 x 32]^T, both K-major int8 in shared memory
+  static __device__ __forceinline__ void mma(Acc (&d)[32], uint64_t da,
+                                             uint64_t db, int accumulate) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 " FRP_ACC_REGS
+        ", %32, %33, p;\n"
+        "}\n"
+        : FRP_L32(FRP_R)
+        : "l"(da), "l"(db), "r"(accumulate));
   }
 
   static __device__ __forceinline__ float score(Acc s, float scale) {
@@ -123,248 +378,459 @@ struct Int8Traits {
   }
 };
 
+// Shared memory of a block, from a 1024-byte aligned base: the queries
+// [panels][QROWS rows x 128 bytes], the two rings [stages][TM rows x 128
+// bytes] (the first half of the stages is warpgroup 0's), a tile's valid
+// bytes and scales per stage, the two warpgroups' lists [2][QT][k] (values,
+// then indices; k is the list length the kernel was built for), the
+// thresholds [QT], the barriers (full then empty, per stage).
+// ops/gallery_kernel.py::gallery_launch_geometry computes the same sum.
 template <typename Tr>
 struct Layout {
-  using T = typename Tr::T;
-  using Acc = typename Tr::Acc;
-  static constexpr int PAD = 16 / sizeof(T);  // 16 bytes: no bank conflicts
-  static constexpr int NQB = Tr::QT / 16;     // 16-row query blocks
-  static constexpr int KH = WARPS / NQB;      // warps splitting the depth
-  static_assert(NQB * KH == WARPS && KH >= 1, "8 warps must tile QT x depth");
-
-  static __host__ __device__ size_t q_elems(int D) {
-    return static_cast<size_t>(Tr::NSPLIT) * Tr::QT * (D + PAD);
+  static __host__ __device__ int panels(int D) {
+    return (D * Tr::ELEM + PANEL_BYTES - 1) / PANEL_BYTES;
   }
-  static __host__ __device__ size_t g_elems(int D) {
-    return static_cast<size_t>(2) * TN * (D + PAD);
-  }
-  static __host__ __device__ size_t s_elems() {
-    return static_cast<size_t>(KH) * Tr::QT * SLD;
-  }
-  // operands, score tile, the lists, and per ring slot TN scales + TN valid
-  static __host__ __device__ size_t smem_bytes(int D) {
-    return (q_elems(D) + g_elems(D)) * sizeof(T) + s_elems() * sizeof(Acc) +
-           static_cast<size_t>(Tr::QT) * KMAX * (sizeof(float) + sizeof(int)) +
-           2 * TN * (sizeof(float) + 1);
+  static __host__ __device__ size_t bytes(int D, int k, int stages) {
+    return 1024 + static_cast<size_t>(panels(D)) * QPANEL_BYTES +
+           static_cast<size_t>(stages) * (STAGE_BYTES + SIDE_BYTES + 16) +
+           static_cast<size_t>(CONSUMER_WGS) * Tr::QT * k * 8 + Tr::QT * 4;
   }
 };
 
-// Start the asynchronous copy of gallery tile `tile` into ring slot `dst`
-// ([TN, D + PAD]) with its scales and valid bytes; rows past G are zeroed
-// and invalid.
-template <typename T>
-__device__ __forceinline__ void load_tile(
-    const T* __restrict__ gallery, const float* __restrict__ scales,
-    const unsigned char* __restrict__ valid, T* dst, float* sdst,
-    unsigned char* vdst, long long tile, int G, int D, int ld) {
-  const int per_row = D * static_cast<int>(sizeof(T)) / 16;  // 16-byte pieces
-  const long long row0 = tile * TN;
-  for (int p = threadIdx.x; p < TN * per_row; p += THREADS) {
-    const int r = p / per_row;
-    const int c = (p % per_row) * (16 / static_cast<int>(sizeof(T)));
-    T* d = dst + r * ld + c;
-    if (row0 + r < G) {
-      __pipeline_memcpy_async(d, gallery + (row0 + r) * D + c, 16);
-    } else {
-      *reinterpret_cast<uint4*>(d) = make_uint4(0u, 0u, 0u, 0u);
-    }
-  }
-  const int t = threadIdx.x;
-  if (row0 + TN <= G) {
-    if (t < TN / 16) {
-      __pipeline_memcpy_async(vdst + t * 16, valid + row0 + t * 16, 16);
-    } else if (scales != nullptr && t < TN / 16 + TN / 4) {
-      const int c = (t - TN / 16) * 4;
-      __pipeline_memcpy_async(sdst + c, scales + row0 + c, 16);
-    }
-  } else if (t < TN) {  // the ragged last tile
-    const bool in = row0 + t < G;
-    vdst[t] = in ? valid[row0 + t] : static_cast<unsigned char>(0);
-    if (scales != nullptr) sdst[t] = in ? scales[row0 + t] : 0.0f;
-  }
-}
-
-// queries [Q, D] (Tr::QIn), gallery [G, D] (Tr::T), scales [G] or null,
-// valid [G] bytes -> part_v / part_i [gridDim.x, gridDim.y * QT, KMAX].
-// D % 32 == 0; gallery, scales and valid 16-byte aligned.
-template <typename Tr>
+// queries [Q, D] (Tr::QIn), the gallery [G, D] through `gmap` (box TM rows x
+// 128 bytes, 128-byte swizzle, zeros outside), scales [G] or null, valid [G]
+// bytes -> part_v / part_i [Q, gridDim.x, KL], the KL best per query and
+// block. D % 32 == 0; queries, scales and valid 16-byte aligned; `stages`
+// even. KL is a template parameter because the list code is all unrolled
+// register arrays: its length decides what an insertion costs.
+template <typename Tr, int KL>
 __global__ void __launch_bounds__(THREADS, 1)
-    stream_topk_kernel(const typename Tr::QIn* __restrict__ queries,
-                       const typename Tr::T* __restrict__ gallery,
+    stream_topk_kernel(const __grid_constant__ CUtensorMap gmap,
+                       const typename Tr::QIn* __restrict__ queries,
                        const float* __restrict__ scales,
                        const unsigned char* __restrict__ valid,
                        float* __restrict__ part_v, int* __restrict__ part_i,
-                       int Q, int G, int D) {
-  using namespace nvcuda;
-  using L = Layout<Tr>;
-  using T = typename Tr::T;
+                       int Q, int G, int D, int stages) {
   using Acc = typename Tr::Acc;
+  constexpr int k = KL;
   constexpr int QT = Tr::QT;
+  constexpr int ACCS = Tr::ACCS;
 
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  const int ld = D + L::PAD;
-  T* qs = reinterpret_cast<T*>(smem_raw);             // [NSPLIT, QT, ld]
-  T* gs = qs + L::q_elems(D);                         // [2, TN, ld]
-  Acc* ss = reinterpret_cast<Acc*>(gs + L::g_elems(D));  // [KH, QT, SLD]
-  float* tv = reinterpret_cast<float*>(ss + L::s_elems());  // [QT, KMAX]
-  int* ti = reinterpret_cast<int*>(tv + QT * KMAX);         // [QT, KMAX]
-  float* scs = reinterpret_cast<float*>(ti + QT * KMAX);    // [2, TN]
-  unsigned char* vs = reinterpret_cast<unsigned char*>(scs + 2 * TN);  // [2, TN]
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm =
+      smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
+  const int panels = Layout<Tr>::panels(D);
+  const int half = stages / 2;  // stages of one warpgroup's ring
+  unsigned char* qs = sm;
+  unsigned char* ring = qs + panels * QPANEL_BYTES;
+  unsigned char* side = ring + stages * STAGE_BYTES;
+  float* lv = reinterpret_cast<float*>(side + stages * SIDE_BYTES);
+  int* li = reinterpret_cast<int*>(lv + CONSUMER_WGS * QT * k);
+  float* thr = reinterpret_cast<float*>(li + CONSUMER_WGS * QT * k);
+  const uint32_t bars = smem_u32(thr + QT);  // full[stages], empty[stages]
 
   const int q0 = blockIdx.y * QT;
-  const long long n_tiles = (static_cast<long long>(G) + TN - 1) / TN;
-
-  // first tile on its way, then the queries
-  long long tile = blockIdx.x;
-  if (tile < n_tiles)
-    load_tile<T>(gallery, scales, valid, gs, scs, vs, tile, G, D, ld);
-  __pipeline_commit();
-  for (int p = threadIdx.x; p < QT * D; p += THREADS) {
-    const int r = p / D, c = p % D;
-    const typename Tr::QIn* src =
-        (q0 + r < Q) ? queries + static_cast<long long>(q0 + r) * D + c
-                     : nullptr;
-    Tr::stage_query(src, qs + r * ld + c, QT * ld);
-  }
-
-  if (threadIdx.x < QT)
-    topk_init(tv + threadIdx.x * KMAX, ti + threadIdx.x * KMAX);
-
+  const long long n_tiles = (static_cast<long long>(G) + TM - 1) / TM;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  const int qb = warp % L::NQB;   // this warp's 16 query rows
-  const int kh = warp / L::NQB;   // and its share of the depth
-  const int ksteps = D / 16 / L::KH;
+  const int wg = warp / 4;
 
-  int buf = 0;
-  for (; tile < n_tiles; tile += gridDim.x, buf ^= 1) {
-    const long long next = tile + gridDim.x;
-    if (next < n_tiles)
-      load_tile<T>(gallery, scales, valid, gs + (buf ^ 1) * TN * ld,
-                   scs + (buf ^ 1) * TN, vs + (buf ^ 1) * TN, next, G, D, ld);
-    __pipeline_commit();
-    __pipeline_wait_prior(1);  // all but the copy just started: this tile
-    __syncthreads();
-
-    const T* gt = gs + buf * TN * ld;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, Acc> acc[TN / 16];
-#pragma unroll
-    for (int j = 0; j < TN / 16; ++j) wmma::fill_fragment(acc[j], static_cast<Acc>(0));
-    for (int ks = kh * ksteps; ks < (kh + 1) * ksteps; ++ks) {
-      const int k0 = ks * 16;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, T, wmma::col_major>
-          b[TN / 16];
-#pragma unroll
-      for (int j = 0; j < TN / 16; ++j)
-        wmma::load_matrix_sync(b[j], gt + j * 16 * ld + k0, ld);
-#pragma unroll
-      for (int s = 0; s < Tr::NSPLIT; ++s) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, T, wmma::row_major> a;
-        wmma::load_matrix_sync(a, qs + (s * QT + qb * 16) * ld + k0, ld);
-#pragma unroll
-        for (int j = 0; j < TN / 16; ++j)
-          wmma::mma_sync(acc[j], a, b[j], acc[j]);
-      }
+  // the queries, swizzled as wgmma reads them; rows past Q and depth past D
+  // are zeros
+  {
+    const int chunks = panels * 8;                // 16-byte chunks per row
+    const int filled = D * Tr::ELEM / 16;         // of which hold data
+    constexpr int PER = 16 / Tr::ELEM;            // values per chunk
+    for (int p = threadIdx.x; p < QT * chunks; p += THREADS) {
+      const int r = p / chunks, ch = p % chunks;
+      const typename Tr::QIn* src =
+          (q0 + r < Q && ch < filled)
+              ? queries + static_cast<long long>(q0 + r) * D + ch * PER
+              : nullptr;
+      Tr::stage_chunk(src, qs + (ch / 8) * QPANEL_BYTES, r, ch % 8);
     }
-#pragma unroll
-    for (int j = 0; j < TN / 16; ++j)
-      wmma::store_matrix_sync(ss + (kh * QT + qb * 16) * SLD + j * 16, acc[j],
-                              SLD, wmma::mem_row_major);
-    __syncthreads();
+  }
+  for (int p = threadIdx.x; p < CONSUMER_WGS * QT * k; p += THREADS) {
+    lv[p] = NEG;
+    li[p] = 0;
+  }
+  // a query row past Q is never offered anything
+  if (threadIdx.x < QT)
+    thr[threadIdx.x] = (q0 + threadIdx.x < Q) ? NEG : __int_as_float(0x7f800000);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(bars + 8 * s, 1);             // the producer
+      mbar_init(bars + 8 * (stages + s), 4);  // the four warps of a warpgroup
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  // the staged queries are read by the tensor cores (the asynchronous proxy)
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncthreads();
 
-    // warp w folds the tile into the lists of rows w, w + 8, ...: lane =
-    // gallery row of the tile. A new row has a higher index than every
-    // listed one, so only a strictly greater score can enter.
-    static_assert(TN == 32, "one lane per gallery row of the tile");
-    {
-      const bool row_ok = vs[buf * TN + lane] != 0;
-      const float scale = scales != nullptr ? scs[buf * TN + lane] : 1.0f;
-      const int base = static_cast<int>(tile * TN);
-      for (int r = warp; r < QT && q0 + r < Q; r += WARPS) {
-        Acc s = ss[r * SLD + lane];
+  if (wg == CONSUMER_WGS) {
+    // ---- producer: one warp keeps both rings full -------------------------
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (warp != 4 * CONSUMER_WGS) return;
+    // One panel into ring w if its next stage is free. Each ring has its
+    // own cursor (tile, panel, stage, phase), so a warpgroup that is busy
+    // folding holds back only its own ring.
+    auto feed = [&](const int w, long long& tile, int& p, int& s,
+                    uint32_t& ph) {
+      if (tile >= n_tiles) return;
+      const int at = w * half + s;
+      const uint32_t empty = bars + 8 * (stages + at);
+      if (!__any_sync(0xffffffffu, mbar_test(empty, ph ^ 1))) return;
+      mbar_wait(empty, ph ^ 1);  // every lane has seen the stage free
+      const uint32_t full = bars + 8 * at;
+      const int row0 = static_cast<int>(tile * TM);
+      const bool whole = row0 + TM <= G;
+      unsigned char* sd = side + at * SIDE_BYTES;
+      uint32_t bytes = STAGE_BYTES;
+      if (p == 0) {
+        if (whole) {
+          bytes += TM + (scales != nullptr ? TM * 4 : 0);
+        } else {  // the ragged last tile: rows past G are invalid
+          for (int r = lane; r < TM; r += 32) {
+            const bool in = row0 + r < G;
+            sd[r] = in ? valid[row0 + r] : static_cast<unsigned char>(0);
+            if (scales != nullptr)
+              reinterpret_cast<float*>(sd + TM)[r] =
+                  in ? scales[row0 + r] : 0.0f;
+          }
+          __syncwarp();
+        }
+      }
+      if (lane == 0) {
+        mbar_arrive_expect_tx(full, bytes);
+        tma_load_2d(smem_u32(ring + at * STAGE_BYTES), &gmap, full,
+                    p * (PANEL_BYTES / Tr::ELEM), row0);
+        if (p == 0 && whole) {
+          bulk_copy(smem_u32(sd), valid + row0, TM, full);
+          if (scales != nullptr)
+            bulk_copy(smem_u32(sd + TM), scales + row0, TM * 4, full);
+        }
+      }
+      if (++s == half) {
+        s = 0;
+        ph ^= 1;
+      }
+      if (++p == panels) {
+        p = 0;
+        tile += 2 * gridDim.x;
+      }
+    };
+    long long t0 = blockIdx.x, t1 = t0 + gridDim.x;
+    int p0 = 0, p1 = 0, s0 = 0, s1 = 0;
+    uint32_t ph0 = 0, ph1 = 0;
+    while (t0 < n_tiles || t1 < n_tiles) {
+      feed(0, t0, p0, s0, ph0);
+      feed(1, t1, p1, s1, ph1);
+    }
+  } else {
+    // ---- consumers: two warpgroups, every other tile each -----------------
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    Acc d[ACCS][32];
 #pragma unroll
-        for (int h = 1; h < L::KH; ++h) s += ss[(h * QT + r) * SLD + lane];
-        const float v = Tr::score(s, scale);
-        unsigned m = __ballot_sync(0xffffffffu,
-                                   row_ok && v > tv[r * KMAX + KMAX - 1]);
-        while (m != 0) {
-          const int src = __ffs(m) - 1;
-          m &= m - 1;
-          const float cv = __shfl_sync(0xffffffffu, v, src);
-          if (lane == 0)
-            topk_insert(tv + r * KMAX, ti + r * KMAX, cv, base + src);
+    for (int a = 0; a < ACCS; ++a)
+#pragma unroll
+      for (int j = 0; j < 32; ++j) d[a][j] = 0;
+    float* my_v = lv + wg * QT * k;
+    int* my_i = li + wg * QT * k;
+    const int qrow = 16 * (warp & 3) + (lane >> 2);  // its query row of an A block
+    const int cq = 2 * (lane & 3);  // its gallery rows of a tile: 8 j + cq + e
+    const uint32_t ring_a = smem_u32(ring + wg * half * STAGE_BYTES);
+    const uint32_t qs_a = smem_u32(qs);
+    const uint32_t full0 = bars + 8 * (wg * half);
+    const uint32_t empty0 = bars + 8 * (stages + wg * half);
+    int s = 0;
+    uint32_t ph = 0;
+    for (long long tile = blockIdx.x + static_cast<long long>(wg) * gridDim.x;
+         tile < n_tiles; tile += 2 * gridDim.x) {
+      unsigned vmask = 0;  // bit 2 j + e: gallery row 8 j + cq + e is valid
+      float sc[16];        // and its scale
+#pragma unroll
+      for (int t = 0; t < 16; ++t) sc[t] = 1.0f;
+      int prev = 0;
+#pragma unroll
+      for (int a = 0; a < ACCS; ++a) acc_fence(d[a]);
+      for (int p = 0; p < panels; ++p) {
+        mbar_wait(full0 + 8 * s, ph);  // the panel has landed
+        if (p == 0) {
+          const unsigned char* sd = side + (wg * half + s) * SIDE_BYTES;
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const unsigned w =
+                *reinterpret_cast<const unsigned short*>(sd + 8 * j + cq);
+            vmask |= ((w & 0xffu) != 0 ? 1u : 0u) << (2 * j);
+            vmask |= ((w >> 8) != 0 ? 1u : 0u) << (2 * j + 1);
+            if (scales != nullptr) {
+              const float2 s2 = *reinterpret_cast<const float2*>(
+                  sd + TM + 4 * (8 * j + cq));
+              sc[2 * j] = s2.x;
+              sc[2 * j + 1] = s2.y;
+            }
+          }
+        }
+        wgmma_fence();
+        const uint64_t dq = wgmma_desc(qs_a + p * QPANEL_BYTES);
+        const uint64_t dg = wgmma_desc(ring_a + s * STAGE_BYTES);
+#pragma unroll
+        for (int kk = 0; kk < PANEL_BYTES / 32; ++kk) {  // 32 bytes of depth
+#pragma unroll
+          for (int blk = 0; blk < 2; ++blk)  // the two A blocks of the panel
+            Tr::mma(d[ACCS == 2 ? blk : 0],
+                    dq + blk * (QBLOCK_BYTES >> 4) + 2 * kk, dg + 2 * kk,
+                    ACCS == 2 ? (p | kk) != 0 : (p | kk | blk) != 0);
+        }
+        wgmma_commit();
+        if (p > 0) {  // the panel before this one has been multiplied
+          wgmma_wait<1>();
+          __syncwarp();
+          if (lane == 0) mbar_arrive(empty0 + 8 * prev);
+        }
+        prev = s;
+        if (++s == half) {
+          s = 0;
+          ph ^= 1;
+        }
+      }
+      wgmma_wait<0>();
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty0 + 8 * prev);
+#pragma unroll
+      for (int a = 0; a < ACCS; ++a) acc_fence(d[a]);
+
+      // the fold, out of the accumulators: register 4 j + e + 2 h of an
+      // accumulator is query row qrow + 8 h against gallery row 8 j + cq + e.
+      // First every query of the thread (slot 2 a + h) against its
+      // threshold: 16 bits each, no branch.
+      const int i0 = static_cast<int>(tile * TM) + cq;
+      unsigned pm[2 * ACCS];
+      unsigned any = 0;
+#pragma unroll
+      for (int a = 0; a < ACCS; ++a) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const float bar =
+              *reinterpret_cast<volatile float*>(thr + 64 * a + qrow + 8 * h);
+          unsigned bits = 0;
+#pragma unroll
+          for (int t = 0; t < 16; ++t) {
+            const float v =
+                Tr::score(d[a][4 * (t >> 1) + (t & 1) + 2 * h], sc[t]);
+            bits |= (v >= bar ? 1u : 0u) << t;
+          }
+          pm[2 * a + h] = bits & vmask;
+          any |= pm[2 * a + h];
+        }
+      }
+      // Rare: some score passed. The four lanes of a quad share their
+      // queries' lists, so they take turns; in its turn a lane offers what
+      // it has for each of its queries, while the other quads do the same
+      // for theirs.
+      const unsigned m = __ballot_sync(0xffffffffu, any != 0);
+      if (m != 0) {
+        unsigned turns = m | (m >> 16);  // bit t: lane t of some quad
+        turns |= turns >> 8;
+        turns = (turns | (turns >> 4)) & 0xFu;
+        while (turns != 0) {  // the whole warp
+          const int turn = __ffs(turns) - 1;
+          turns &= turns - 1;
+          if ((lane & 3) == turn) {
+#pragma unroll
+            for (int a = 0; a < ACCS; ++a) {
+#pragma unroll
+              for (int h = 0; h < 2; ++h) {
+                if (pm[2 * a + h] == 0) continue;
+                const int q = 64 * a + qrow + 8 * h;
+                float v[16];
+#pragma unroll
+                for (int t = 0; t < 16; ++t)
+                  v[t] = Tr::score(d[a][4 * (t >> 1) + (t & 1) + 2 * h], sc[t]);
+                list_offer<KL>(my_v + q * k, my_i + q * k, thr + q,
+                               pm[2 * a + h], v, i0);
+              }
+            }
+          }
+          __syncwarp();
         }
       }
     }
-    __syncthreads();  // the score tile and this ring slot are free again
-  }
-  __pipeline_wait_prior(0);
-  __syncthreads();  // a block without tiles reaches here with fresh lists
 
-  for (int p = threadIdx.x; p < QT * KMAX; p += THREADS) {
-    const long long at =
-        (static_cast<long long>(blockIdx.x) * gridDim.y * QT + q0) * KMAX + p;
-    part_v[at] = tv[p];
-    part_i[at] = ti[p];
+    // the two warpgroups' lists of a query -> the block's list, in scratch
+    asm volatile("bar.sync 1, 256;\n" ::: "memory");
+    const int r = threadIdx.x;
+    if (r < QT && q0 + r < Q) {
+      float tv[KMAX];
+      int ti[KMAX];
+      topk_init(tv, ti);
+      for (int w = 0; w < CONSUMER_WGS; ++w)
+#pragma unroll
+        for (int j = 0; j < KL; ++j)
+          topk_insert(tv, ti, lv[(w * QT + r) * k + j], li[(w * QT + r) * k + j]);
+      const long long at =
+          (static_cast<long long>(q0 + r) * gridDim.x + blockIdx.x) * k;
+#pragma unroll
+      for (int j = 0; j < KL; ++j) {
+        part_v[at + j] = tv[j];
+        part_i[at + j] = ti[j];
+      }
+    }
   }
 }
 
-// part_v / part_i [n_parts, q_pad, KMAX], each list best first ->
-// out_v / out_i [Q, k]; one thread per query.
+// part_v / part_i [Q, n_parts, kl] -> out_v [Q, k], out_i [Q, k] (int64), k <=
+// kl; one warp per query. The lanes read the query's n_parts * kl entries
+// side by side, keep the best KMAX each, and five shuffle rounds combine the
+// lists. With `q_scale` [Q] (K4: the queries' own dequantisation scales) a
+// finished score is multiplied by its query's scale, one more rounding; the
+// sentinel stays exact.
 __global__ void merge_topk_kernel(const float* __restrict__ part_v,
                                   const int* __restrict__ part_i,
                                   float* __restrict__ out_v,
-                                  int* __restrict__ out_i, int n_parts,
-                                  int q_pad, int Q, int k) {
-  const int q = blockIdx.x * blockDim.x + threadIdx.x;
-  if (q >= Q) return;
+                                  long long* __restrict__ out_i,
+                                  const float* __restrict__ q_scale,
+                                  int n_parts, int kl, int Q, int k) {
+  const int q = (blockIdx.x * blockDim.x + threadIdx.x) / 32;
+  const int lane = threadIdx.x % 32;
+  if (q >= Q) return;  // the whole warp
   float tv[KMAX];
   int ti[KMAX];
   topk_init(tv, ti);
-  for (int p = 0; p < n_parts; ++p) {
-    const long long row = static_cast<long long>(p) * q_pad + q;
+  const int n = n_parts * kl;
+  const long long row = static_cast<long long>(q) * n;
+  for (int e = lane; e < n; e += 32)
+    topk_insert(tv, ti, part_v[row + e], part_i[row + e]);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    float ov[KMAX];
+    int oi[KMAX];
 #pragma unroll
     for (int j = 0; j < KMAX; ++j) {
-      const float v = part_v[row * KMAX + j];
-      const int i = part_i[row * KMAX + j];
-      if (!before(v, i, tv[KMAX - 1], ti[KMAX - 1])) break;  // sorted list
-      topk_insert(tv, ti, v, i);
+      ov[j] = __shfl_xor_sync(0xffffffffu, tv[j], off);
+      oi[j] = __shfl_xor_sync(0xffffffffu, ti[j], off);
     }
-  }
 #pragma unroll
-  for (int j = 0; j < KMAX; ++j) {
-    if (j < k) {
-      out_v[static_cast<long long>(q) * k + j] = tv[j];
-      out_i[static_cast<long long>(q) * k + j] = ti[j];
+    for (int j = 0; j < KMAX; ++j) topk_insert(tv, ti, ov[j], oi[j]);
+  }
+  if (lane == 0) {
+    const float qs = q_scale != nullptr ? q_scale[q] : 1.0f;
+#pragma unroll
+    for (int j = 0; j < KMAX; ++j) {
+      if (j < k) {
+        out_v[static_cast<long long>(q) * k + j] =
+            (q_scale != nullptr && tv[j] > NEG) ? __fmul_rn(tv[j], qs) : tv[j];
+        out_i[static_cast<long long>(q) * k + j] = ti[j];
+      }
     }
   }
 }
 
-// Launch both kernels on `stream`. grid_x blocks share the gallery tiles of
-// each query tile; part_v / part_i hold grid_x * q_tiles * QT * KMAX
-// entries. Returns the cudaError_t of the first failure (0 = success).
-template <typename Tr>
-int launch_stream_topk(const typename Tr::QIn* queries,
-                       const typename Tr::T* gallery, const float* scales,
-                       const unsigned char* valid, float* part_v, int* part_i,
-                       float* out_v, int* out_i, int Q, int G, int D, int k,
-                       int grid_x, void* stream) {
-  if (Q <= 0 || G <= 0 || D <= 0 || D % 32 != 0 || k < 1 || k > KMAX ||
-      grid_x < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = Layout<Tr>::smem_bytes(D);
-  cudaError_t err = cudaFuncSetAttribute(
-      stream_topk_kernel<Tr>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
+// libcuda's cuTensorMapEncodeTiled, looked up once through the runtime
+// (no link against libcuda).
+using EncodeTiledFn = CUresult (*)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+
+inline int tensor_map_encoder(EncodeTiledFn* out) {
+  static EncodeTiledFn cached = nullptr;
+  if (cached == nullptr) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &fn, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
+#endif
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (found != cudaDriverEntryPointSuccess || fn == nullptr)
+      return static_cast<int>(cudaErrorSymbolNotFound);
+    cached = reinterpret_cast<EncodeTiledFn>(fn);
+  }
+  *out = cached;
+  return 0;
+}
+
+// The list length the stream kernel is built with for a call's k: the
+// kernel exists for 1, 2, 3, 4 and 8 entries (ops/gallery_kernel.py holds the
+// same rule).
+inline int list_length(int k) { return k <= 4 ? k : KMAX; }
+
+template <typename Tr, int KL>
+cudaError_t launch_stream(const CUtensorMap& gmap,
+                          const typename Tr::QIn* queries, const float* scales,
+                          const unsigned char* valid, float* part_v,
+                          int* part_i, int Q, int G, int D, int grid_x,
+                          int stages, int smem_bytes, cudaStream_t st) {
+  const cudaError_t err = cudaFuncSetAttribute(
+      stream_topk_kernel<Tr, KL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem_bytes);
+  if (err != cudaSuccess) return err;
   const int q_tiles = (Q + Tr::QT - 1) / Tr::QT;
+  stream_topk_kernel<Tr, KL><<<dim3(grid_x, q_tiles), THREADS, smem_bytes, st>>>(
+      gmap, queries, scales, valid, part_v, part_i, Q, G, D, stages);
+  return cudaGetLastError();
+}
+
+// Launch both kernels on `stream`. grid_x blocks share the gallery tiles of
+// each query tile; part_v / part_i hold Q * grid_x * list_length(k) entries;
+// `stages` and `smem_bytes` come from gallery_launch_geometry; `q_scale` [Q]
+// or null multiplies the finished scores (see merge_topk_kernel). Returns 0, the
+// cudaError_t of the first failure, or ENCODE_FAILED + the CUresult of the
+// tensor map.
+template <typename Tr>
+int launch_stream_topk(const typename Tr::QIn* queries, const void* gallery,
+                       const float* scales, const unsigned char* valid,
+                       float* part_v, int* part_i, float* out_v,
+                       long long* out_i, const float* q_scale, int Q, int G,
+                       int D, int k, int grid_x, int stages, int smem_bytes,
+                       void* stream) {
+  if (Q <= 0 || G <= 0 || D <= 0 || D % 32 != 0 || k < 1 || k > KMAX ||
+      grid_x < 1 || stages < MIN_STAGES || stages > MAX_STAGES ||
+      stages % 2 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int kl = list_length(k);
+  if (static_cast<size_t>(smem_bytes) != Layout<Tr>::bytes(D, kl, stages))
+    return static_cast<int>(cudaErrorInvalidValue);
+
+  EncodeTiledFn encode = nullptr;
+  const int found = tensor_map_encoder(&encode);
+  if (found != 0) return found;
+  CUtensorMap gmap;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(D),
+                              static_cast<cuuint64_t>(G)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(D) * Tr::ELEM};
+  const cuuint32_t box[2] = {PANEL_BYTES / Tr::ELEM, TM};
+  const cuuint32_t elem_strides[2] = {1, 1};
+  const CUresult enc = encode(
+      &gmap, Tr::MAP_TYPE, 2, const_cast<void*>(gallery), dims, strides, box,
+      elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  if (enc != CUDA_SUCCESS) return ENCODE_FAILED + static_cast<int>(enc);
+
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  stream_topk_kernel<Tr><<<dim3(grid_x, q_tiles), THREADS, smem, st>>>(
-      queries, gallery, scales, valid, part_v, part_i, Q, G, D);
-  err = cudaGetLastError();
+  cudaError_t err = cudaErrorInvalidValue;
+#define FRP_LAUNCH(KL)                                                        \
+  case KL:                                                                    \
+    err = launch_stream<Tr, KL>(gmap, queries, scales, valid, part_v, part_i, \
+                                Q, G, D, grid_x, stages, smem_bytes, st);     \
+    break
+  switch (kl) {
+    FRP_LAUNCH(1);
+    FRP_LAUNCH(2);
+    FRP_LAUNCH(3);
+    FRP_LAUNCH(4);
+    FRP_LAUNCH(8);
+  }
+#undef FRP_LAUNCH
   if (err != cudaSuccess) return static_cast<int>(err);
-  merge_topk_kernel<<<(Q + 127) / 128, 128, 0, st>>>(
-      part_v, part_i, out_v, out_i, grid_x, q_tiles * Tr::QT, Q, k);
+  merge_topk_kernel<<<(Q + 3) / 4, 128, 0, st>>>(part_v, part_i, out_v, out_i,
+                                                  q_scale, grid_x, kl, Q, k);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -8,7 +8,19 @@ same public names. Replaces its two `pl.pallas_call`s:
 compute the cosine top-k of a few queries against a gallery of 10^5-10^6
 rows without ever storing the [Q, G] similarity matrix; both are bound by
 device-memory bytes (one read of the gallery), and the int8 pair halves
-those bytes. `csrc/gallery_topk.cuh` describes the design.
+those bytes. What the design does about it on an H100
+(`csrc/gallery_topk.cuh` has the whole of it): one persistent block per SM
+keeps its queries in shared memory in the layout `wgmma` reads, one
+producer warp streams the gallery through two rings of 8 KB stages with
+TMA copies that complete on `mbarrier`s, two consumer warpgroups multiply
+with `wgmma` (query block as A, 64 gallery rows as B) and fold the
+accumulators in registers into per-query top-k lists, and a second kernel
+merges the blocks' lists with one warp per query. The launch arithmetic
+(grid, ring depth, shared-memory bytes, scratch shapes) is
+`gallery_launch_geometry`, where the CPU tests reach it. The tensor map of
+the gallery is encoded in the C function at each launch, through the
+entry point of `cuTensorMapEncodeTiled` that the CUDA runtime hands out (no
+link against libcuda).
 
 Semantics, shared by kernels, plain versions and the JAX functions:
 
@@ -19,7 +31,7 @@ Semantics, shared by kernels, plain versions and the JAX functions:
   the masked rows' own indices that the dense `cosine_topk` returns there;
 * ties go to the lower gallery index;
 * indices come back int64, as from the port's dense `cosine_topk` (the
-  kernels write int32; the wrappers widen).
+  merge kernel writes them so).
 
 Rounding points. K3 and `streaming_cosine_topk_plain` on bf16 rows: the
 float32 unit query is split into hi = bf16(q) and lo = bf16(q - hi), and
@@ -30,8 +42,8 @@ rows (CPU only) the plain version multiplies in float32 without a split,
 as the JAX function does. K4 and `streaming_cosine_topk_int8_plain`: the
 query is quantised per row here (as the JAX wrapper does), the integer dot
 is exact, score = float32(dot) * row_scale rounds once, and the query scale
-multiplies the finished scores (the -1e9 sentinel kept exact); kernel and
-plain version agree to the bit.
+multiplies the finished scores (the -1e9 sentinel kept exact; on the card
+the merge kernel does it); kernel and plain version agree to the bit.
 
 Each wrapper launches its kernel for CUDA tensors (and counts the launch;
 the small merge kernel that follows in the same call is not counted
@@ -42,6 +54,8 @@ anything else. Nothing falls back.
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -188,56 +202,165 @@ def streaming_cosine_topk_int8_plain(
     return _fold_query_scale(out_v, q_scale), out_i
 
 
-def _launch(name, counter, queries, rows, scales, valid, top_k):
-    """Allocate scratch and outputs, launch kernel `name` on the current
-    stream, check its return code, count the launch."""
-    dev = queries.device
-    q, d = queries.shape
-    g = rows.shape[0]
-    if top_k > MAX_TOP_K:
+class GalleryGeometry(NamedTuple):
+    """How one streaming launch is cut (see `csrc/gallery_topk.cuh`)."""
+
+    grid: tuple[int, int]  # (blocks sharing the gallery tiles, query tiles)
+    threads: int  # two consumer warpgroups and the producer's
+    q_tile: int  # query rows per block
+    n_tiles: int  # gallery tiles of 64 rows; block x takes x, x + grid[0], ...
+    panels: int  # ring stages per tile: 128 bytes of depth each
+    stages: int  # 8 KB ring stages in all: half per consumer warpgroup
+    smem_bytes: int  # dynamic shared memory of a block
+    list_len: int  # entries per list the kernel keeps (>= top_k)
+    scratch: tuple[int, int, int]  # per-block lists [Q, grid[0], list_len]
+
+
+#: per kind: (query rows per block, bytes per gallery value)
+_KINDS = {"bf16": (64, 2), "int8": (128, 1)}
+_TILE_ROWS = 64
+_PANEL_BYTES = 128
+_QUERY_PANEL_BYTES = 128 * _PANEL_BYTES  # two blocks of 64 rows: K3 hi, lo
+_STAGE_BYTES = _TILE_ROWS * _PANEL_BYTES
+_SIDE_BYTES = _TILE_ROWS * 5  # a tile's valid bytes and scales, per stage
+_CONSUMER_WGS = 2  # consumer warpgroups: a ring and a set of lists each
+_THREADS = 384
+_MIN_STAGES, _MAX_STAGES = 4, 16
+#: list lengths the stream kernel is built for (`frp::list_length`): a call's
+#: top_k takes the shortest that holds it
+_LIST_LENS = (1, 2, 3, 4, 8)
+
+
+@functools.lru_cache(maxsize=256)
+def gallery_launch_geometry(
+    q: int, g: int, d: int, kind: str, sms: int, top_k: int = MAX_TOP_K
+) -> GalleryGeometry:
+    """The launch geometry of K3 (`kind="bf16"`) or K4 (`"int8"`) for q
+    queries against g rows of depth d on a card with `sms` multiprocessors.
+    Raises ValueError for what the kernels do not take: a depth that is not
+    a multiple of 32 or whose queries leave no room for a ring of
+    `_MIN_STAGES` stages in a block's shared memory, `top_k` outside
+    1..MAX_TOP_K, 2**31 rows or more, an empty dimension."""
+    if kind not in _KINDS:
+        raise ValueError(f"kind must be one of {sorted(_KINDS)}, got {kind!r}")
+    if min(q, g, d, sms) < 1:
+        raise ValueError("the streaming kernel needs q, g, d and sms of at least 1")
+    if not 1 <= top_k <= MAX_TOP_K:
         raise ValueError(
             f"the CUDA kernel keeps at most top_k={MAX_TOP_K}, got {top_k}"
         )
     if d % 32:
         raise ValueError(f"the CUDA kernel needs D % 32 == 0, got D={d}")
+    if g + _TILE_ROWS >= 2**31:
+        raise ValueError(f"the CUDA kernel indexes rows in 32 bits, got G={g}")
+    q_tile, elem = _KINDS[kind]
+    list_len = min(n for n in _LIST_LENS if n >= top_k)
+    panels = -(-d * elem // _PANEL_BYTES)
+    # alignment slack, the queries, the warpgroups' lists, the thresholds
+    fixed = (
+        1024 + panels * _QUERY_PANEL_BYTES
+        + _CONSUMER_WGS * q_tile * list_len * 8 + q_tile * 4
+    )
+    per_stage = _STAGE_BYTES + _SIDE_BYTES + 16  # and two barriers
+    stages = min(_MAX_STAGES, (cuda_build.SMEM_LIMIT_BYTES - fixed) // per_stage)
+    stages -= stages % _CONSUMER_WGS
+    if stages < _MIN_STAGES:
+        raise ValueError(
+            f"the {kind} streaming kernel keeps {fixed} bytes of queries and lists "
+            f"for D={d}, top_k={top_k} in shared memory, which leaves fewer than "
+            f"{_MIN_STAGES} ring stages of the {cuda_build.SMEM_LIMIT_BYTES} bytes "
+            f"a block may use"
+        )
+    q_tiles = -(-q // q_tile)
+    if q_tiles > 65535:
+        raise ValueError(f"{q_tiles} query tiles exceed CUDA's grid limit")
+    n_tiles = -(-g // _TILE_ROWS)
+    # one block per SM (its shared memory fills it); the blocks of one query
+    # tile share out the gallery tiles
+    grid_x = max(1, min(n_tiles, sms // q_tiles))
+    return GalleryGeometry(
+        (grid_x, q_tiles), _THREADS, q_tile, n_tiles, panels, stages,
+        fixed + stages * per_stage, list_len, (q, grid_x, list_len),
+    )
+
+
+@functools.lru_cache(maxsize=8)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+@functools.lru_cache(maxsize=2)
+def _checked_library(name: str) -> str:
+    """Builds and loads kernel `name` and checks, once, that the library
+    agrees with this module's constants."""
+    q_tile = cuda_build.function(name, f"frp_{name}_qtile", [])()
+    kmax = cuda_build.function(name, f"frp_{name}_kmax", [])()
+    kind = "int8" if name.endswith("int8") else "bf16"
+    if q_tile != _KINDS[kind][0] or kmax != MAX_TOP_K:
+        raise RuntimeError(
+            f"the {name} library (query tile {q_tile}, KMAX {kmax}) differs from "
+            f"ops/gallery_kernel.py"
+        )
+    return name
+
+
+_PTR, _INT = ctypes.c_void_p, ctypes.c_int
+_ARGTYPES = {
+    # queries, templates, [scales,] valid, part_v, part_i, out_v, out_i,
+    # [q_scale]; Q, G, D, k, grid_x, stages, smem_bytes; stream
+    "gallery_topk": [_PTR] * 7 + [_INT] * 7 + [_PTR],
+    "gallery_topk_int8": [_PTR] * 9 + [_INT] * 7 + [_PTR],
+}
+_ENCODE_FAILED = 100000  # `frp::ENCODE_FAILED`
+
+
+def _launch(name, counter, queries, rows, scales, valid, top_k, q_scale=None):
+    """Allocate scratch and outputs, launch kernel `name` (and the merge
+    kernel behind it) on the current stream, check the return code, count
+    the launch. A gallery view that is not contiguous or starts off a
+    16-byte address is refused (a copy of 10^6 rows per call is never what
+    the caller wants); the small per-row operands are copied instead."""
+    dev = queries.device
+    q, d = queries.shape
+    g = rows.shape[0]
     for t in (rows, scales, valid):
         if t is not None and t.device != dev:
             raise ValueError("queries, templates, scales and valid must share one device")
     if not rows.is_contiguous() or rows.data_ptr() % 16:
         raise ValueError("templates must be contiguous and 16-byte aligned")
+    kind = "bf16" if scales is None else "int8"
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    # the geometry first: it refuses what the kernel does not take
+    geo = gallery_launch_geometry(q, g, d, kind, _sm_count(index), top_k)
     # the small per-row operands are copied when a view starts off 16 bytes
     if valid.data_ptr() % 16:
         valid = valid.clone()
     if scales is not None and scales.data_ptr() % 16:
         scales = scales.clone()
-    lib = cuda_build.load(name)
-    q_tile = getattr(lib, f"frp_{name}_qtile")()
-    if getattr(lib, f"frp_{name}_kmax")() != MAX_TOP_K:
-        raise RuntimeError(f"MAX_TOP_K differs from the {name} kernel's KMAX")
-    q_tiles = -(-q // q_tile)
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    # one block per SM (the block's shared memory fills it); the blocks of
-    # one query tile share out the gallery tiles
-    grid_x = max(1, min(-(-g // 32), sms // q_tiles))
-    part_v = torch.empty(
-        (grid_x, q_tiles * q_tile, MAX_TOP_K), dtype=torch.float32, device=dev
-    )
-    part_i = torch.empty_like(part_v, dtype=torch.int32)
+    part_v = torch.empty(geo.scratch, dtype=torch.float32, device=dev)
+    part_i = torch.empty(geo.scratch, dtype=torch.int32, device=dev)
     out_v = torch.empty((q, top_k), dtype=torch.float32, device=dev)
-    out_i = torch.empty((q, top_k), dtype=torch.int32, device=dev)
-    fn = getattr(lib, f"frp_{name}")
-    n_ptr = 7 if scales is None else 8
-    fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    out_i = torch.empty((q, top_k), dtype=torch.int64, device=dev)
+    fn = cuda_build.function(_checked_library(name), f"frp_{name}", _ARGTYPES[name])
     ptrs = [queries.data_ptr(), rows.data_ptr()]
     if scales is not None:
         ptrs.append(scales.data_ptr())
     ptrs += [t.data_ptr() for t in (valid, part_v, part_i, out_v, out_i)]
-    rc = fn(*ptrs, q, g, d, top_k, grid_x, torch.cuda.current_stream(dev).cuda_stream)
+    if q_scale is not None:
+        ptrs.append(q_scale.data_ptr())
+    rc = fn(
+        *ptrs, q, g, d, top_k, geo.grid[0], geo.stages, geo.smem_bytes,
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if rc >= _ENCODE_FAILED:
+        raise RuntimeError(
+            f"{name}: cuTensorMapEncodeTiled refused the gallery "
+            f"(CUresult {rc - _ENCODE_FAILED})"
+        )
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed (cudaError {rc})")
     counter.bump()
-    return out_v, out_i.to(torch.int64)
+    return out_v, out_i
 
 
 def _empty(q, top_k, device):
@@ -317,8 +440,8 @@ def streaming_cosine_topk_int8(
         return _empty(0, top_k, queries.device)
     qq, q_scale = _quantize_rows(normalize_queries(queries))
     valid = valid.to(torch.bool).contiguous()
-    out_v, out_i = _launch(
+    # the merge kernel folds the query scale in (`_fold_query_scale`'s rule)
+    return _launch(
         "gallery_topk_int8", LAUNCHES_INT8, qq.contiguous(), templates_q,
-        scales.contiguous(), valid, top_k,
+        scales.contiguous(), valid, top_k, q_scale.contiguous(),
     )
-    return _fold_query_scale(out_v, q_scale), out_i

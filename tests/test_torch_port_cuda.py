@@ -235,8 +235,8 @@ def test_k2_refuses_a_patch_over_shared_memory(dev, gen):
 # ------------------------------------------------- K3 / K4: gallery top-k
 
 
-def _gallery(rng, g, n_invalid):
-    t = rng.normal(size=(g, 512)).astype(np.float32)
+def _gallery(rng, g, n_invalid, d=512):
+    t = rng.normal(size=(g, d)).astype(np.float32)
     t /= np.linalg.norm(t, axis=1, keepdims=True)
     valid = np.ones(g, bool)
     if n_invalid:
@@ -257,14 +257,38 @@ def _assert_topk_agrees(kv, ki, pv, pi, tol):
     assert torch.equal(ki[clear], pi[clear])
 
 
-@pytest.mark.parametrize("q,g,k", [(128, 65536, 3), (1, 8192, 8), (70, 4096 + 32, 5)])
-def test_k3_matches_plain(dev, gen, q, g, k):
+def _planted(gen, q, g, d):
+    """A gallery with its last rows invalid and one duplicated row (a tie:
+    lower index first), and queries of which the first equals that row."""
+    n_bad = 100 if g > 1000 else 4
+    t, valid = _gallery(gen, g, n_bad, d)
+    lo, hi = (100, 700) if g > 1000 else (3, 20)
+    t[hi] = t[lo]
+    queries = gen.normal(size=(q, d)).astype(np.float32)
+    queries[0] = t[lo] * 2.0
+    return t, valid, queries, lo, hi, n_bad
+
+
+# (q, g, k, d): the serving shape cut short, a single query, query counts
+# around K3's tile of 64 and K4's of 128, galleries that end inside a 64-row
+# tile, depths that end inside a 128-byte K-panel, top_k 1 and 8
+_K3_SHAPES = [
+    (128, 65536, 3, 512), (1, 8192, 8, 512), (70, 4096 + 32, 5, 512),
+    (64, 4096, 3, 512), (65, 4096 + 32, 1, 512), (129, 32, 8, 512),
+    (200, 4096 + 32, 3, 96), (128, 8192, 2, 160),
+]
+_K4_SHAPES = [
+    (128, 65536, 3, 512), (1, 8192, 8, 512), (130, 4096 + 32, 5, 512),
+    (64, 4096, 3, 512), (65, 4096 + 32, 1, 512), (129, 32, 8, 512),
+    (200, 4096 + 32, 3, 160), (128, 8192, 4, 96),
+]
+
+
+@pytest.mark.parametrize("q,g,k,d", _K3_SHAPES)
+def test_k3_matches_plain(dev, gen, q, g, k, d):
     from facerecognitionpipeline_tpu_torch.ops import gallery_kernel as gk
 
-    t, valid = _gallery(gen, g, 100)
-    t[700] = t[100]  # a tie: lower index first
-    queries = gen.normal(size=(q, 512)).astype(np.float32)
-    queries[0] = t[100] * 2.0
+    t, valid, queries, lo, hi, n_bad = _planted(gen, q, g, d)
     tt = torch.from_numpy(t).to(dev).to(torch.bfloat16)
     vv = torch.from_numpy(valid).to(dev)
     qq = torch.from_numpy(queries).to(dev)
@@ -276,18 +300,15 @@ def test_k3_matches_plain(dev, gen, q, g, k):
         qq, tt, vv, top_k=k, chunk=1024 if g % 1024 == 0 else 32
     )
     _assert_topk_agrees(kv, ki, pv, pi, 2e-5)
-    assert int(ki[0, 0]) == 100 and (k < 2 or int(ki[0, 1]) == 700)
-    assert int(ki.max()) < g - 100
+    assert int(ki[0, 0]) == lo and (k < 2 or int(ki[0, 1]) == hi)
+    assert int(ki.max()) < g - n_bad
 
 
-@pytest.mark.parametrize("q,g,k", [(128, 65536, 3), (1, 8192, 8), (130, 4096 + 32, 5)])
-def test_k4_equals_plain_to_the_bit(dev, gen, q, g, k):
+@pytest.mark.parametrize("q,g,k,d", _K4_SHAPES)
+def test_k4_equals_plain_to_the_bit(dev, gen, q, g, k, d):
     from facerecognitionpipeline_tpu_torch.ops import gallery_kernel as gk
 
-    t, valid = _gallery(gen, g, 100)
-    t[700] = t[100]
-    queries = gen.normal(size=(q, 512)).astype(np.float32)
-    queries[0] = t[100] * 2.0
+    t, valid, queries, lo, hi, n_bad = _planted(gen, q, g, d)
     codes, scales = gk.quantize_templates(torch.from_numpy(t).to(dev))
     vv = torch.from_numpy(valid).to(dev)
     qq = torch.from_numpy(queries).to(dev)
@@ -299,7 +320,88 @@ def test_k4_equals_plain_to_the_bit(dev, gen, q, g, k):
         qq, codes, scales, vv, top_k=k, chunk=1024 if g % 1024 == 0 else 32
     )
     assert torch.equal(kv, pv) and torch.equal(ki, pi)
-    assert int(ki[0, 0]) == 100 and (k < 2 or int(ki[0, 1]) == 700)
+    assert int(ki[0, 0]) == lo and (k < 2 or int(ki[0, 1]) == hi)
+    assert int(ki.max()) < g - n_bad
+
+
+def test_gallery_kernels_all_rows_invalid(dev, gen):
+    """No valid row: every slot is the sentinel (-1e9, 0), for every query."""
+    from facerecognitionpipeline_tpu_torch.ops import gallery_kernel as gk
+
+    t, _ = _gallery(gen, 4096, 0)
+    tt = torch.from_numpy(t).to(dev)
+    vv = torch.zeros(4096, dtype=torch.bool, device=dev)
+    qq = torch.from_numpy(t[:5]).to(dev)
+    codes, scales = gk.quantize_templates(tt)
+    for kv, ki in (
+        gk.streaming_cosine_topk(qq, tt.to(torch.bfloat16), vv, top_k=3, chunk=64),
+        gk.streaming_cosine_topk_int8(qq, codes, scales, vv, top_k=3, chunk=64),
+    ):
+        assert kv.eq(-1e9).all() and ki.eq(0).all()
+
+
+def test_gallery_kernels_refuse_a_gallery_off_a_16_byte_address(dev, gen):
+    """The TMA copy needs the gallery on a 16-byte address. A view that
+    starts elsewhere is refused by ValueError (a copy of a large gallery per
+    call is never what a caller wants); the small per-row operands (valid,
+    scales) are copied instead, and the result is that of aligned ones."""
+    from facerecognitionpipeline_tpu_torch.ops import gallery_kernel as gk
+
+    t, valid = _gallery(gen, 256, 10)
+    tt = torch.from_numpy(t).to(dev)
+    vv = torch.from_numpy(valid).to(dev)
+    qq = tt[:3].clone()
+    codes, scales = gk.quantize_templates(tt)
+    flat = torch.zeros(256 * 512 + 1, dtype=torch.int8, device=dev)
+    flat[1:] = codes.reshape(-1)
+    n3, n4 = gk.LAUNCHES.count, gk.LAUNCHES_INT8.count
+    with pytest.raises(ValueError, match="16-byte"):
+        gk.streaming_cosine_topk_int8(qq, flat[1:].view(256, 512), scales, vv, top_k=2, chunk=64)
+    flat16 = torch.zeros(256 * 512 + 1, dtype=torch.bfloat16, device=dev)
+    flat16[1:] = tt.to(torch.bfloat16).reshape(-1)
+    with pytest.raises(ValueError, match="16-byte"):
+        gk.streaming_cosine_topk(qq, flat16[1:].view(256, 512), vv, top_k=2, chunk=64)
+    assert (gk.LAUNCHES.count, gk.LAUNCHES_INT8.count) == (n3, n4)
+    # valid and scales off 16 bytes are taken (copied by the wrapper)
+    v_off = torch.zeros(257, dtype=torch.bool, device=dev)
+    v_off[1:] = vv
+    s_off = torch.zeros(257, device=dev)
+    s_off[1:] = scales
+    want = gk.streaming_cosine_topk_int8(qq, codes, scales, vv, top_k=2, chunk=64)
+    got = gk.streaming_cosine_topk_int8(qq, codes, s_off[1:], v_off[1:], top_k=2, chunk=64)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_gallery_kernels_on_two_streams(dev, gen):
+    """Two calls on two streams at once give what one call gives: the
+    kernels keep no state between launches and share no scratch."""
+    from facerecognitionpipeline_tpu_torch.ops import gallery_kernel as gk
+
+    t, valid = _gallery(gen, 65536, 100)
+    tt = torch.from_numpy(t).to(dev)
+    tb = tt.to(torch.bfloat16)
+    vv = torch.from_numpy(valid).to(dev)
+    qq = torch.from_numpy(gen.normal(size=(128, 512)).astype(np.float32)).to(dev)
+    codes, scales = gk.quantize_templates(tt)
+    want3 = gk.streaming_cosine_topk(qq, tb, vv, top_k=3, chunk=64)
+    want4 = gk.streaming_cosine_topk_int8(qq, codes, scales, vv, top_k=3, chunk=64)
+    torch.cuda.synchronize()
+    s1, s2 = torch.cuda.Stream(), torch.cuda.Stream()
+    got = []
+    for _ in range(4):
+        with torch.cuda.stream(s1):
+            a3 = gk.streaming_cosine_topk(qq, tb, vv, top_k=3, chunk=64)
+            a4 = gk.streaming_cosine_topk_int8(qq, codes, scales, vv, top_k=3, chunk=64)
+        with torch.cuda.stream(s2):
+            b4 = gk.streaming_cosine_topk_int8(qq, codes, scales, vv, top_k=3, chunk=64)
+            b3 = gk.streaming_cosine_topk(qq, tb, vv, top_k=3, chunk=64)
+        got.append((a3, a4, b3, b4))
+    torch.cuda.synchronize()
+    for a3, a4, b3, b4 in got:
+        for r in (a3, b3):
+            assert torch.equal(r[0], want3[0]) and torch.equal(r[1], want3[1])
+        for r in (a4, b4):
+            assert torch.equal(r[0], want4[0]) and torch.equal(r[1], want4[1])
 
 
 def test_gallery_kernels_fewer_valid_rows_than_k(dev, gen):
