@@ -37,7 +37,29 @@ Phases, in order; any failure exits non-zero before the final line:
      rows come back top-1 and every step launched its streaming kernel
      once; one embed_budget=4 step on the int8 gallery;
   6. requests through DeviceBatcher with a GalleryManager (add, save, load)
-     as the gallery provider.
+     as the gallery provider;
+  7. the HTTP server on the card, at the same build (ir_101 bf16, 640x640,
+     16 face slots, batch_max 8, buckets (1, 8)), made by
+     FaceRecognitionServer's constructor and served on 127.0.0.1: students
+     enrolled through a GalleryManager file and POST /reload_gallery, then
+     the port's own client over all three transports (base64 PNG to
+     /process_frame, raw rgb24 and raw I420 to /process_frame_raw, the last
+     against a server built with transport='i420'), each from one client
+     (200 requests) and from four client threads at once (100 each). Every
+     answer is held against a direct step of the server's engine on the
+     same frame (face count, boxes within
+     1 px, the enrolled students and no others, attendance.json), the launch
+     counts against the steps dispatched (K1 x3, K2 x1 per step; fewer steps
+     than requests under four clients), /stats against torch.cuda, bad
+     requests against their 400s on a kept-alive connection. Then one server
+     per compact gallery of 1 048 576 identities, each loading one
+     GalleryManager file through its constructor's gallery_path (bf16: K3
+     once per step; gallery_quantize='int8': K4 once per step), 120 requests
+     from one client and 60 each from four. Prints request latency
+     p50/p95 as the client saw it, requests per second, steps dispatched and
+     frames per step, the server monitor's own p50, the share of a request
+     that is not the device step, the host stages timed alone, and the host
+     cost of GalleryManager.device_snapshot.
 Then it prints the card's name and power limit, a JSON line describing the
 kernels, and as its last line {"ok": true, "device": {...}}.
 """
@@ -1172,6 +1194,546 @@ def manager_phase(ctx) -> None:
           f"students, saved and loaded) answered, each equal to the direct step")
 
 
+# ------------------------------------------------------------ phase 7
+
+SERVER_THRESHOLD = 0.9
+# requests of one timed run: (clients, requests each). A p95 is read from at
+# least 200 requests at the enrolled gallery and 120 at 1 048 576 identities.
+SERVER_RUNS = ((1, 200), (4, 100))
+BIG_SERVER_RUNS = ((1, 120), (4, 60))
+
+
+def pct(values, q):
+    import numpy as np
+
+    return float(np.percentile(np.asarray(values, np.float64), q))
+
+
+def start_server(tmp, name, **kw):
+    """A FaceRecognitionServer built by its constructor (it makes its own
+    detector, embedder, engine and batcher on the card) and served on a
+    thread. Returns (server, httpd, thread, url)."""
+    from facerecognitionpipeline_tpu_torch.serve.server import FaceRecognitionServer, serve
+
+    t0 = time.perf_counter()
+    server = FaceRecognitionServer(
+        similarity_threshold=SERVER_THRESHOLD,
+        output_dir=os.path.join(tmp, name, "sessions"),
+        architecture=ARCH,
+        detector_weights=os.path.join(REPO, "pretrained", "mtcnn_dr.npz"),
+        det_size=DET_SIZE, max_faces=MAX_FACES, batch_max=BATCH,
+        batch_buckets=(1, BATCH), device=DEVICE, **kw,
+    )
+    if server.device.type != "cuda" or server.engine.detector.crop_impl != "kernel":
+        fail(f"server {name}: not on the card with the kernels selected")
+    if server.batcher.bucket_sizes != [1, BATCH]:
+        fail(f"server {name}: buckets {server.batcher.bucket_sizes}")
+    httpd = serve(server, "127.0.0.1", 0)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    print(f"[server {name}] built, warmed (buckets {server.batcher.bucket_sizes}) and "
+          f"listening in {time.perf_counter() - t0:.1f} s")
+    return server, httpd, thread, url
+
+
+def stop_server(server, httpd, thread) -> None:
+    httpd.shutdown()
+    httpd.server_close()
+    server.shutdown()
+    thread.join(timeout=30)
+    if thread.is_alive():
+        fail("a server thread did not stop")
+
+
+class StepTimer:
+    """Times every step the server's batcher dispatches while it is open: a
+    pair of CUDA events around `engine.process_frames`, read after the run,
+    so the dispatch thread is not made to wait. The time between the events
+    is the step as the device saw it, its waits for the host included."""
+
+    def __init__(self, server):
+        self.engine = server.engine
+        self.events = []
+
+    def __enter__(self):
+        import torch
+
+        inner = self.engine.process_frames
+
+        def timed(*args, **kwargs):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = inner(*args, **kwargs)
+            end.record()
+            self.events.append((start, end))
+            return out
+
+        self.engine.process_frames = timed
+        return self
+
+    def __exit__(self, *exc):
+        del self.engine.process_frames  # the instance attribute; the method stays
+
+    def ms(self):
+        import torch
+
+        torch.cuda.synchronize()
+        return [s.elapsed_time(e) for s, e in self.events]
+
+
+def direct_faces(server, canvas):
+    """One direct step of the server's engine on one prepared canvas, against
+    the snapshot the batcher would dispatch with: per quality-passing face
+    its box, detection score, embedding and top-1 (id, score)."""
+    import torch
+
+    t, v, ids = server.gallery.device_snapshot()
+    out = server.engine.process_frames(canvas[None], t, v, gallery_k=3)
+    torch.cuda.synchronize()
+    ok = (out["face_valid"][0] & out["quality_ok"][0]).cpu().numpy()
+    boxes = out["bboxes"][0].cpu().numpy()
+    det = out["det_scores"][0].cpu().numpy()
+    emb = out["embeddings"][0].float().cpu().numpy()
+    idx = out["match_idx"][0].cpu().numpy()
+    sc = out["match_scores"][0].cpu().numpy()
+    faces = []
+    for s in range(len(ok)):
+        if ok[s]:
+            i = int(idx[s, 0])
+            faces.append({
+                "bbox": boxes[s], "det": float(det[s]), "emb": emb[s],
+                "top1": ids[i] if 0 <= i < len(ids) else None, "score": float(sc[s, 0]),
+            })
+    return faces
+
+
+def expected_students(faces):
+    """Students the tracker must end up recognizing for these direct faces
+    (the gate attempts a track whose detection score exceeds 0.6), and those
+    it may or may not (a score within 0.01 of a threshold: the served batch
+    is another size than the direct step's, and bf16 sums differ with it)."""
+    sure, maybe = set(), set()
+    for f in faces:
+        if f["top1"] is None or f["det"] <= 0.59 or f["score"] < SERVER_THRESHOLD - 0.01:
+            continue
+        firm = f["det"] > 0.61 and f["score"] >= SERVER_THRESHOLD + 0.01
+        (sure if firm else maybe).add(f["top1"])
+    return sure, maybe - sure
+
+
+def check_response(tag, body, faces, scale) -> None:
+    import numpy as np
+
+    if body["faces_detected"] != len(faces):
+        fail(f"{tag}: faces_detected {body['faces_detected']} != direct step's {len(faces)}")
+    got = np.array([t["bbox"] for t in body["tracks"]], np.float32).reshape(-1, 4)
+    for f in faces:
+        want = f["bbox"] / scale
+        if not len(got) or np.abs(got - want).max(axis=1).min() > 1.0:
+            fail(f"{tag}: no served box within 1 px of the direct step's {want}")
+
+
+def drive_clients(tag, server, url, tmp, image_format, frame, n_clients, n_each,
+                  faces, enrolled):
+    """One session: `n_clients` client threads, `n_each` frames each, every
+    answer checked. Returns the numbers of the run."""
+    import numpy as np
+
+    from facerecognitionpipeline_tpu_torch.ops import crop_kernel, gallery_kernel, warp_kernel
+    from facerecognitionpipeline_tpu_torch.serve.client import FaceRecognitionClient
+
+    session = f"{tag.replace(' ', '_').replace('/', '-')}"
+    clients = [
+        FaceRecognitionClient(
+            server_url=url, session_name=session, synthetic=True, frame_skip=1,
+            display=False, output_dir=os.path.join(tmp, "client", f"c{i}"),
+            image_format=image_format, det_size=DET_SIZE,
+        )
+        for i in range(n_clients)
+    ]
+    if not clients[0].check_server() or not clients[0].init_session():
+        fail(f"{tag}: /health or /init_session failed")
+    counters = {
+        "crop_resize": crop_kernel.LAUNCHES, "warp_patches": warp_kernel.LAUNCHES,
+        "gallery_topk": gallery_kernel.LAUNCHES,
+        "gallery_topk_int8": gallery_kernel.LAUNCHES_INT8,
+    }
+    for c in counters.values():
+        c.reset()
+    steps0 = server.batcher._dispatch_count
+    lat = [[] for _ in clients]
+    bodies = [[] for _ in clients]
+    errors = []
+
+    def run(i):
+        try:
+            for _ in range(n_each):
+                t0 = time.perf_counter()
+                body = clients[i].process_frame(frame)
+                lat[i].append(1e3 * (time.perf_counter() - t0))
+                if body is None:
+                    raise RuntimeError("a frame request was not answered with 200")
+                bodies[i].append(body)
+        except Exception as e:  # noqa: BLE001 - reported below, fails the run
+            errors.append(f"client {i}: {type(e).__name__}: {e}")
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(n_clients)]
+    with StepTimer(server) as timer:
+        w0 = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=300)
+        wall = time.perf_counter() - w0
+    step_ms = timer.ms()
+    if errors or any(th.is_alive() for th in threads):
+        fail(f"{tag}: {errors or 'a client thread hung'}")
+    got = {k: c.count for k, c in counters.items()}
+    steps = server.batcher._dispatch_count - steps0
+    n_req = n_clients * n_each
+
+    for i in range(n_clients):
+        for j, body in enumerate(bodies[i]):
+            check_response(f"{tag} client {i} frame {j}", body, faces, 1.0)
+    sure, maybe = expected_students(faces)
+    if not enrolled <= sure | maybe:
+        fail(f"{tag}: enrolled {sorted(enrolled - sure - maybe)} not expected from the direct step")
+    # by the third frame any client sent, every expected student is there
+    for i in range(n_clients):
+        rec = {r["student_id"] for r in bodies[i][2]["recognized_tracks"].values()}
+        if not sure <= rec or not rec <= sure | maybe:
+            fail(f"{tag} client {i}: recognized {sorted(rec)} by the third frame, "
+                 f"expected {sorted(sure)} (+ maybe {sorted(maybe)})")
+    want = {"crop_resize": 3 * steps, "warp_patches": steps}
+    if any(got[k] != n for k, n in want.items()) or steps < 1 or steps > n_req \
+            or len(step_ms) != steps:
+        fail(f"{tag}: {steps} steps for {n_req} requests launched {got}")
+    if n_clients > 1 and steps >= n_req:
+        fail(f"{tag}: {n_clients} clients at once, yet {steps} steps for {n_req} requests")
+
+    clients[0].finalize_session()
+    for c in clients[1:]:
+        c._session.close()
+    session_dir = os.path.join(server.output_dir, session)
+    with open(os.path.join(session_dir, "attendance.json")) as f:
+        attendance = json.load(f)
+    listed = {r["student_id"] for r in attendance["recognized"]}
+    if not sure <= listed or not listed <= sure | maybe:
+        fail(f"{tag}: attendance.json lists {sorted(listed)}, expected {sorted(sure)}")
+    with open(os.path.join(session_dir, "performance_report_server.json")) as f:
+        perf = json.load(f)
+    if perf["request_statistics"]["total_requests_processed"] != n_req:
+        fail(f"{tag}: the server's report counts "
+             f"{perf['request_statistics']['total_requests_processed']} of {n_req} requests")
+    if not perf["memory_usage"]["gpu_vram"]["available"] or \
+            perf["memory_usage"]["gpu_vram"]["peak_mb"] <= 0:
+        fail(f"{tag}: the report has no device memory from torch.cuda")
+    all_lat = [x for row in lat for x in row]
+    return {
+        "tag": tag, "clients": n_clients, "requests": n_req, "steps": steps,
+        "launches": got, "p50": pct(all_lat, 50), "p95": pct(all_lat, 95),
+        "rps": n_req / wall, "step_p50": pct(step_ms, 50),
+        "server_p50": perf["latency_metrics"]["end_to_end_server"]["p50_ms"],
+        "recognized": len(listed), "unrecognized": len(attendance["unrecognized"]),
+    }
+
+
+def print_run(r) -> None:
+    """One run's line. The share of a request that is not the device step:
+    1 - (p50 of the steps dispatched in this run, from CUDA events) / (p50 of
+    the request as the client saw it)."""
+    share = 1.0 - r["step_p50"] / r["p50"]
+    print(f"[serve] {r['tag']}: {r['requests']} requests from {r['clients']} client(s): "
+          f"client p50 {r['p50']:.3f} ms, p95 {r['p95']:.3f} ms, {r['rps']:.2f} requests/s; "
+          f"{r['steps']} steps, {r['requests'] / r['steps']:.2f} frames per step, step p50 "
+          f"{r['step_p50']:.3f} ms inside the run; server monitor latency_e2e_server_ms "
+          f"p50 {r['server_p50']:.3f}; {share:.3f} of a request is not the device step; "
+          f"launches {r['launches']}; {r['recognized']} students recognized, "
+          f"{r['unrecognized']} tracks unrecognized")
+
+
+def host_stage_times(frame, response) -> None:
+    """The host stages of a request, each timed alone (median of 20): what
+    the server pays besides the queue and the step."""
+    import base64
+
+    import numpy as np
+
+    from facerecognitionpipeline_tpu_torch.serve import rawproto
+    from facerecognitionpipeline_tpu_torch.serve.client import _encode_image_base64
+    from facerecognitionpipeline_tpu_torch.serve.server import _decode_image_b64
+
+    def med(fn):
+        times = []
+        for _ in range(20):
+            t0 = time.perf_counter()
+            fn()
+            times.append(1e3 * (time.perf_counter() - t0))
+        return sorted(times)[10]
+
+    b64 = _encode_image_base64(frame)
+    body = json.dumps({"frame": b64, "frame_count": 1, "timestamp": "t"}).encode()
+    canvas, _ = rawproto.letterbox_rgb(frame, DET_SIZE)
+    yuv = rawproto.rgb_to_i420(canvas)
+    raw = canvas.tobytes()
+    stages = {
+        "client: PNG encode + base64": lambda: _encode_image_base64(frame),
+        "client: letterbox": lambda: rawproto.letterbox_rgb(frame, DET_SIZE),
+        "client: RGB -> I420": lambda: rawproto.rgb_to_i420(canvas),
+        "server: JSON parse of the PNG body": lambda: json.loads(body),
+        "server: base64 + PNG decode": lambda: _decode_image_b64(b64),
+        "server: letterbox": lambda: rawproto.letterbox_rgb(frame, DET_SIZE),
+        "server: frombuffer + reshape (raw)": lambda: np.frombuffer(raw, np.uint8).reshape(
+            DET_SIZE[0], DET_SIZE[1], 3),
+        "server: JSON encode of the response": lambda: json.dumps(response).encode(),
+    }
+    print(f"[serve-host] image codec: cv2; PNG body {len(body)} bytes, rgb24 "
+          f"{len(raw)} bytes, i420 {yuv.nbytes} bytes, response {len(json.dumps(response))} "
+          f"bytes; base64 alone {med(lambda: base64.b64decode(b64)):.3f} ms")
+    for name, fn in stages.items():
+        print(f"[serve-host] {name}: {med(fn):.3f} ms")
+
+
+def snapshot_cost(label, manager) -> None:
+    manager.device_snapshot()
+    times = []
+    for _ in range(20):
+        t0 = time.perf_counter()
+        snap = manager.device_snapshot()
+        times.append(1e3 * (time.perf_counter() - t0))
+    print(f"[serve-host] GalleryManager.device_snapshot with {len(snap[2])} ids "
+          f"({label}): p50 {sorted(times)[10]:.4f} ms, max {max(times):.4f} ms of host "
+          f"time per call (it copies the id list)")
+
+
+def bad_requests(url) -> None:
+    """A bad session name and a short raw body get 400, and the next request
+    on the same connection still parses."""
+    from facerecognitionpipeline_tpu_torch.serve import rawproto
+    from facerecognitionpipeline_tpu_torch.serve.client import HTTPSession
+
+    http = HTTPSession()
+    try:
+        if http.get(f"{url}/health", timeout=10).status_code != 200:
+            fail("/health did not answer 200")
+        conn = next(iter(http._conns.values()))
+        r = http.post(f"{url}/init_session", json={"session_name": "../escape"}, timeout=10)
+        if r.status_code != 400 or "invalid session_name" not in r.text:
+            fail(f"a session name with '..' got {r.status_code}: {r.text[:200]}")
+        r = http.post(
+            f"{url}/process_frame_raw", data=b"\x00" * 1000, timeout=10,
+            headers={rawproto.HEADER_FORMAT: "rgb24",
+                     rawproto.HEADER_WIDTH: str(DET_SIZE[1]),
+                     rawproto.HEADER_HEIGHT: str(DET_SIZE[0]),
+                     rawproto.HEADER_SCALE: "1.0"},
+        )
+        if r.status_code != 400 or "must be exactly" not in r.text:
+            fail(f"a short raw body got {r.status_code}: {r.text[:200]}")
+        r = http.post(f"{url}/process_frame", json={"frame": "AAAA"}, timeout=10)
+        if r.status_code != 400 or "could not decode frame" not in r.text:
+            fail(f"an undecodable frame got {r.status_code}: {r.text[:200]}")
+        r = http.get(f"{url}/health", timeout=10)
+        if r.status_code != 200 or r.json()["status"] != "ok":
+            fail("the request after the bad ones did not parse")
+        if next(iter(http._conns.values())) is not conn:
+            fail("the connection did not survive the 400s")
+        times = []
+        for _ in range(30):
+            t0 = time.perf_counter()
+            http.get(f"{url}/health", timeout=10)
+            times.append(1e3 * (time.perf_counter() - t0))
+        print(f"[serve-host] GET /health round trip on a kept-alive connection: p50 "
+              f"{sorted(times)[15]:.3f} ms, max {max(times):.3f} ms (host clock)")
+    finally:
+        http.close()
+    print("[serve] a '..' session name, a short raw body and an undecodable frame got "
+          "400; the next request on the same connection parsed")
+
+
+def server_phase(ctx, gal, report) -> None:
+    """Phase 7: the HTTP server on the card (see the module docstring)."""
+    import numpy as np
+    import torch
+
+    from facerecognitionpipeline_tpu_torch.gallery.manager import GalleryManager, StudentRecord
+    from facerecognitionpipeline_tpu_torch.serve import rawproto
+    from facerecognitionpipeline_tpu_torch.serve.client import HTTPSession
+
+    frame = ctx["frames_np"][0]
+    rng = np.random.default_rng(5)
+    report["server_launches"] = {}
+    runs = []
+    with tempfile.TemporaryDirectory() as tmp:
+        for transport, formats in (("rgb", ("png", "raw")), ("i420", ("raw-i420",))):
+            name = f"transport={transport}"
+            gallery_path = os.path.join(tmp, name, "gallery", "students.pkl")
+            server, httpd, thread, url = start_server(
+                tmp, name, gallery_path=gallery_path, transport=transport,
+            )
+            try:
+                canvas, scale = rawproto.letterbox_rgb(frame, DET_SIZE)
+                if scale != 1.0 or not np.array_equal(canvas, frame):
+                    fail("a frame at det_size must letterbox to itself")
+                if transport == "i420":
+                    canvas = rawproto.rgb_to_i420(canvas)
+                # enrol through the manager's file: every other face of the
+                # direct step that the tracker's gate will attempt, among
+                # 200 seeded others
+                faces = direct_faces(server, canvas)
+                strong = [f for f in faces if f["det"] > 0.7]
+                if len(strong) < 8:
+                    fail(f"{name}: only {len(strong)} of {len(faces)} faces pass the gate")
+                writer = GalleryManager(gallery_path, verbose=False, device=DEVICE)
+                enrolled = set()
+                for i in range(200):
+                    writer.add_student(
+                        f"other{i:03d}", f"Other {i}",
+                        rng.normal(size=(2, 512)).astype(np.float32),
+                    )
+                    if i % 25 == 0 and i // 25 < len(strong[::2]):
+                        sid = f"face{i // 25:02d}"
+                        writer.add_student(
+                            sid, f"Face {i // 25}",
+                            np.repeat(strong[::2][i // 25]["emb"][None], 2, axis=0),
+                        )
+                        enrolled.add(sid)
+                writer.save()
+                http = HTTPSession()
+                try:
+                    first = http.post(f"{url}/reload_gallery", json={}, timeout=60).json()
+                    second = http.post(f"{url}/reload_gallery", json={}, timeout=60).json()
+                finally:
+                    http.close()
+                if (first.get("status"), second.get("status")) != ("reloaded", "unchanged") \
+                        or first["num_students"] != 200 + len(enrolled):
+                    fail(f"{name}: /reload_gallery answered {first} then {second}")
+                faces = direct_faces(server, canvas)
+                own = {f["top1"] for f in faces if f["score"] > 0.99}
+                if not enrolled <= own:
+                    fail(f"{name}: enrolled faces {sorted(enrolled - own)} are not their "
+                         f"own top-1 in the direct step")
+                print(f"[server {name}] {len(enrolled)} of {len(faces)} faces enrolled among "
+                      f"{first['num_students']} students; /reload_gallery: reloaded, then "
+                      f"unchanged")
+                times = []
+                with StepTimer(server) as timer:
+                    for _ in range(100):
+                        t0 = time.perf_counter()
+                        server.batcher.submit(canvas).result(timeout=120)
+                        times.append(1e3 * (time.perf_counter() - t0))
+                print(f"[serve-host] {name}: DeviceBatcher.submit().result() alone, 100 "
+                      f"frames one at a time (upload, the {server.batcher.max_wait_s * 1e3:.0f} ms "
+                      f"batching window, the step at B=1, results to the host): p50 "
+                      f"{pct(times, 50):.3f} ms, p95 {pct(times, 95):.3f} ms; the step "
+                      f"inside it p50 {pct(timer.ms(), 50):.3f} ms (CUDA events)")
+                for image_format in formats:
+                    for n_clients, n_each in SERVER_RUNS:
+                        tag = f"{image_format} x{n_clients}"
+                        r = drive_clients(tag, server, url, tmp, image_format, frame,
+                                          n_clients, n_each, faces, enrolled)
+                        print_run(r)
+                        runs.append(r)
+                http = HTTPSession()
+                try:
+                    stats = http.get(f"{url}/stats", timeout=10).json()
+                finally:
+                    http.close()
+                allocated = torch.cuda.memory_allocated() / (1024 * 1024)
+                if not stats["current_gpu_vram_mb"] > 0 or \
+                        abs(stats["current_gpu_vram_mb"] - allocated) > 0.5 * allocated:
+                    fail(f"{name}: /stats reports {stats['current_gpu_vram_mb']} MB, "
+                         f"torch.cuda {allocated:.1f} MB")
+                print(f"[server {name}] /stats: current_gpu_vram_mb "
+                      f"{stats['current_gpu_vram_mb']:.1f} (torch.cuda.memory_allocated "
+                      f"{allocated:.1f} MB), peak_gpu_vram_mb {stats['peak_gpu_vram_mb']:.1f}")
+                if transport == "rgb":
+                    bad_requests(url)
+                    snapshot_cost("the enrolled gallery", server.gallery)
+                    http = HTTPSession()
+                    try:
+                        body = http.post(
+                            f"{url}/process_frame_raw", data=frame.tobytes(), timeout=60,
+                            headers={rawproto.HEADER_FORMAT: "rgb24",
+                                     rawproto.HEADER_WIDTH: str(DET_SIZE[1]),
+                                     rawproto.HEADER_HEIGHT: str(DET_SIZE[0]),
+                                     rawproto.HEADER_SCALE: "1.0"},
+                        ).json()
+                    finally:
+                        http.close()
+                    host_stage_times(frame, body)
+            finally:
+                stop_server(server, httpd, thread)
+            del server
+            torch.cuda.empty_cache()
+        for k in ("crop_resize", "warp_patches"):
+            report["server_launches"][k] = sum(r["launches"][k] for r in runs)
+        if any(r["launches"]["gallery_topk"] or r["launches"]["gallery_topk_int8"] for r in runs):
+            fail("a gallery of a few hundred students must take the dense match")
+
+        # the compact galleries of 1 048 576 identities behind the server. The
+        # records are made in bulk as views of the matrix (what add_student
+        # stores for one unit-norm sample) and saved to the manager's pickle
+        # once; each server then loads that file through its own constructor
+        # (gallery_path, gallery_quantize) and makes the device copy itself.
+        gal = gal.cpu().numpy()
+        big = gal.shape[0]
+        now = "2026-01-01T00:00:00"
+        big_path = os.path.join(tmp, "big", "students.pkl")
+        t0 = time.perf_counter()
+        writer = GalleryManager(big_path, verbose=False, device=DEVICE)
+        writer.students = {
+            f"id{i}": StudentRecord(f"id{i}", f"Identity {i}", gal[i:i + 1], gal[i], 1, now, now)
+            for i in range(big)
+        }
+        writer.save()
+        del writer
+        print(f"[server big] GalleryManager file of {big} identities written in "
+              f"{time.perf_counter() - t0:.1f} s ({os.path.getsize(big_path) / 2**30:.2f} GiB)")
+        # phase 5 planted the direct step's embeddings of these faces
+        planted_rows = {f"id{4099 + 131_101 * i}" for i in range(len(ctx["slots"]))
+                        if ctx["slots"][i][0] == 0}
+        for quantize, kernel in ((None, "gallery_topk"), ("int8", "gallery_topk_int8")):
+            label = quantize or "bf16"
+            server, httpd, thread, url = start_server(
+                tmp, f"big-{label}", gallery_path=big_path, gallery_quantize=quantize,
+                transport="rgb",
+            )
+            try:
+                t, v, ids = server.gallery.device_snapshot()
+                if server.gallery.gallery_path != big_path or len(ids) != big or \
+                        (quantize is None and t.dtype != torch.bfloat16) or \
+                        (quantize == "int8" and not (isinstance(t, tuple)
+                                                     and t[0].dtype == torch.int8)):
+                    fail(f"big-{label}: the server's own gallery is not the {label} compact "
+                         f"copy of the file")
+                del t, v, ids
+                snapshot_cost(f"{label} compact copy", server.gallery)
+                faces = direct_faces(server, frame)
+                planted = planted_rows & expected_students(faces)[0]
+                if len(planted) < 4:
+                    fail(f"big-{label}: only {sorted(planted)} of the planted rows "
+                         f"{sorted(planted_rows)} are firm top-1 matches of the direct step")
+                for n_clients, n_each in BIG_SERVER_RUNS:
+                    r = drive_clients(f"raw x{n_clients} {big} ids {label}", server, url, tmp,
+                                      "raw", frame, n_clients, n_each, faces, planted)
+                    other = "gallery_topk_int8" if kernel == "gallery_topk" else "gallery_topk"
+                    if r["launches"][kernel] != r["steps"] or r["launches"][other]:
+                        fail(f"big-{label}: {r['steps']} steps launched {r['launches']}")
+                    print_run(r)
+                    report["server_launches"][kernel] = \
+                        report["server_launches"].get(kernel, 0) + r["launches"][kernel]
+            finally:
+                stop_server(server, httpd, thread)
+            del server
+            torch.cuda.empty_cache()
+    for name, n in report["server_launches"].items():
+        if n < 1:
+            fail(f"the server's path never launched {name}")
+    print(f"[serve] launches on the server's path: {report['server_launches']}")
+
+
 def main() -> int:
     import torch
 
@@ -1188,6 +1750,16 @@ def main() -> int:
     resolve_device("cuda")  # pins the TF32 settings
     print(f"[env] python {sys.version.split()[0]} torch {torch.__version__} "
           f"cuda {torch.version.cuda}")
+    import importlib
+
+    found = []
+    for lib in ("cv2", "requests", "psutil", "PIL"):
+        try:
+            found.append(f"{lib} {getattr(importlib.import_module(lib), '__version__', '?')}")
+        except ImportError:
+            found.append(f"{lib} missing")
+    print(f"[env] optional host libraries: {', '.join(found)} (the port's host codecs need "
+          f"cv2; it reads process memory through psutil where that imports)")
     t0 = time.perf_counter()
     took = cuda_build.build_all()
     print(f"[build] kernels built in {time.perf_counter() - t0:.1f} s "
@@ -1205,8 +1777,9 @@ def main() -> int:
     report.update(gallery_kernel_phase(gal))
     ctx = serving_phases(fixture, report)
     large_gallery_phase(ctx, gal, report)
-    del gal
     manager_phase(ctx)
+    server_phase(ctx, gal, report)
+    del gal
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1249,7 +1822,11 @@ def main() -> int:
             "route": "cuda",
             "source": sources[name][0],
             "replaces": sources[name][1],
+            # launches: over the timed steps of phases 3 (K1, K2) and 5 (K3,
+            # K4); server_launches: over phase 7's served requests. The
+            # counts were set to 0 before each of those and read after.
             "launches": report["launches"][name],
+            "server_launches": report["server_launches"][name],
             "max_abs_err": max(r["err"] for r in all_rows),
             # ms, plain_ms, bound_ms and library_ms are sums over the call
             # shapes of one serving step (K1: R-net, O-net, align stage A)
@@ -1275,8 +1852,8 @@ def main() -> int:
                     "prep_host_ms", "host_ms", "q64_ms", "q64_stream_device_ms")
                 if key in rows[0]
             })
-        if kernels[-1]["launches"] < 1:
-            fail(f"the main path never launched {name}")
+        if kernels[-1]["launches"] < 1 or kernels[-1]["server_launches"] < 1:
+            fail(f"a main path never launched {name}")
     print(json.dumps({
         "kernels": kernels,
         **{k: v for k, v in report.items() if k.startswith("step_p50_ms")},

@@ -1,0 +1,2 @@
+"""Command-line entry points of the port: the recognition server, the camera
+client and the live single-process app."""

@@ -5,8 +5,10 @@ serving configuration: BN folded into the weights (`fold_bn=True`), compute
 in `dtype` (bf16 on the serving path). Weights come from a JAX-format
 `.npz` (`model_path`), from JAX-format variables (`variables`), from a
 converted state dict (`state_dict`), or from a seeded random init
-(`init_seed`; `random_ok` silences the warning). The `.ckpt`/`.onnx`
-importers and the int8 tier are queued in ROADMAP.md.
+(`init_seed`; `random_ok` silences the warning). `model_type` ('adaface' or
+'arcface') names the weights' family; both families share the IR backbones
+built here. The `.ckpt`/`.onnx` importers (with ArcFace's iresnet flavour)
+and the int8 tier are queued in ROADMAP.md.
 
 The float32 parameters are cast to the compute dtype once, on load; the JAX
 package casts them on every call, which gives the same values.
@@ -36,6 +38,7 @@ class FaceEmbedder:
         self,
         architecture: str = "ir_101",
         model_path: Optional[str] = None,
+        model_type: str = "adaface",
         dtype: torch.dtype = torch.float32,
         variables: Optional[dict] = None,
         state_dict: Optional[dict] = None,
@@ -44,7 +47,12 @@ class FaceEmbedder:
         random_ok: bool = False,
         device="cuda",
     ):
+        if model_type not in ("adaface", "arcface"):
+            raise ValueError(
+                f"Unknown model_type: {model_type}. Must be 'adaface' or 'arcface'"
+            )
         self.device = resolve_device(device)
+        self.model_type = model_type
         self.architecture = architecture
         self.input_size = (112, 112)
         self._dtype = dtype

@@ -1,0 +1,1 @@
+"""Online serving: trackers, HTTP server/client, live app, device batcher."""

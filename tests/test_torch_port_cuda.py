@@ -449,3 +449,117 @@ def test_gallery_kernels_refuse_what_they_do_not_take(dev, gen):
     assert (gk.LAUNCHES.count, gk.LAUNCHES_INT8.count) == (n3, n4)
     s, i = gk.streaming_cosine_topk(qq[:0], tt.to(torch.bfloat16), vv, top_k=2, chunk=64)
     assert s.shape == i.shape == (0, 2)
+
+
+# ------------------------------------------------ the HTTP server on the card
+
+
+@pytest.fixture
+def card_server(dev, tmp_path, request):
+    """The port's server built by its constructor on the card (ir_micro,
+    seeded random weights, det 160x160, 4 face slots), served on a thread."""
+    import os
+    import threading
+
+    from facerecognitionpipeline_tpu_torch.serve.server import FaceRecognitionServer, serve
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    srv = FaceRecognitionServer(
+        gallery_path=str(tmp_path / "gallery" / "students.pkl"),
+        similarity_threshold=0.9, output_dir=str(tmp_path / "sessions"),
+        architecture="ir_micro",
+        detector_weights=os.path.join(repo, "pretrained", "mtcnn_dr.npz"),
+        det_size=(160, 160), max_faces=4, batch_max=2, batch_wait_ms=1.0,
+        transport=request.param, device="cuda",
+    )
+    httpd = serve(srv, "127.0.0.1", 0)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    try:
+        yield srv, f"http://127.0.0.1:{httpd.server_address[1]}", tmp_path
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        srv.shutdown()
+        thread.join(timeout=30)
+
+
+@pytest.mark.parametrize(
+    "card_server,image_format",
+    [("rgb", "png"), ("rgb", "raw"), ("rgb", "raw-i420"), ("i420", "raw-i420"), ("i420", "png")],
+    indirect=["card_server"],
+)
+def test_server_on_the_card_recognizes_over_every_transport(card_server, image_format):
+    """One client, three frames: the face count equals a direct step's, the
+    enrolled faces are recognized, every step launched K1 three times and K2
+    once, and the monitor reads device memory from torch.cuda."""
+    import json
+    import os
+
+    from facerecognitionpipeline_tpu_torch.gallery.manager import GalleryManager
+    from facerecognitionpipeline_tpu_torch.serve import rawproto
+    from facerecognitionpipeline_tpu_torch.serve.client import FaceRecognitionClient
+
+    srv, url, tmp_path = card_server
+    assert srv.device.type == "cuda" and srv.engine.detector.crop_impl == "kernel"
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with np.load(os.path.join(
+        repo, "facerecognitionpipeline_tpu_torch", "testdata", "smoke_scenes.npz"
+    )) as z:
+        frame = np.ascontiguousarray(z["tiles"][0])
+    assert frame.shape == (160, 160, 3)
+    # what reaches the engine for this transport
+    canvas = frame
+    if image_format == "raw-i420":
+        canvas = rawproto.i420_to_rgb(rawproto.rgb_to_i420(frame)) \
+            if srv.transport == "rgb" else rawproto.rgb_to_i420(frame)
+    elif srv.transport == "i420":
+        canvas = rawproto.rgb_to_i420(frame)
+    t, v, _ = srv.gallery.device_snapshot()
+    out = srv.engine.process_frames(canvas[None], t, v, gallery_k=3)
+    ok = (out["face_valid"][0] & out["quality_ok"][0]).cpu().numpy()
+    det = out["det_scores"][0].cpu().numpy()
+    emb = out["embeddings"][0].float().cpu().numpy()
+    assert ok.any()
+    writer = GalleryManager(srv.gallery.gallery_path, verbose=False, device="cuda")
+    enrolled = set()
+    for s in np.flatnonzero(ok & (det > 0.7)):
+        writer.add_student(f"face{s}", f"Face {s}", emb[s][None])
+        enrolled.add(f"face{s}")
+    for i in range(20):
+        writer.add_student(f"other{i}", f"Other {i}",
+                           np.random.default_rng(i).normal(size=(1, 512)).astype(np.float32))
+    writer.save()
+    assert enrolled
+
+    client = FaceRecognitionClient(
+        server_url=url, session_name="card", synthetic=True, frame_skip=1, display=False,
+        output_dir=str(tmp_path / "client"), image_format=image_format, det_size=(160, 160),
+    )
+    assert client.check_server() and client.init_session()
+    assert client._session.post(f"{url}/reload_gallery", json={}, timeout=60).json()[
+        "status"] == "reloaded"
+    crop_kernel.LAUNCHES.reset()
+    warp_kernel.LAUNCHES.reset()
+    steps0 = srv.batcher._dispatch_count
+    body = None
+    for _ in range(3):
+        body = client.process_frame(frame)
+        assert body is not None
+        assert body["faces_detected"] == int(ok.sum())
+    steps = srv.batcher._dispatch_count - steps0
+    assert steps == 3
+    assert crop_kernel.LAUNCHES.count == 3 * steps and warp_kernel.LAUNCHES.count == steps
+    recognized = {r["student_id"] for r in body["recognized_tracks"].values()}
+    assert enrolled <= recognized and not any(r.startswith("other") for r in recognized)
+    stats = client._session.get(f"{url}/stats", timeout=10).json()
+    assert stats["current_gpu_vram_mb"] > 0 and stats["total_requests"] == 3
+    client.finalize_session()
+    with open(tmp_path / "sessions" / "card" / "attendance.json") as f:
+        listed = {r["student_id"] for r in json.load(f)["recognized"]}
+    assert enrolled <= listed
+    with open(tmp_path / "sessions" / "card" / "performance_report_server.json") as f:
+        report = json.load(f)
+    assert report["memory_usage"]["gpu_vram"]["available"] is True
+    assert report["session_info"]["model_identifier"] == "ADAFACE_IR_MICRO_CUDA"
+    assert os.listdir(tmp_path / "sessions" / "card" / "recognized_faces")

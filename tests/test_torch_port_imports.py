@@ -30,7 +30,12 @@ def test_port_never_imports_jax_or_the_jax_package():
     n = 0
     scanned = {os.path.relpath(p, PORT) for p in _port_sources()}
     for module in ("ops/gallery_kernel.py", "gallery/manager.py", "gallery/search.py",
-                   "pipeline/engine.py", "ops/cuda_build.py"):
+                   "pipeline/engine.py", "ops/cuda_build.py", "serve/server.py",
+                   "serve/tracker.py", "serve/rawproto.py", "serve/client.py",
+                   "serve/live.py", "telemetry/__init__.py", "telemetry/monitor.py",
+                   "telemetry/faults.py", "cli/face_recognition_server.py",
+                   "cli/face_recognition_client.py", "cli/face_recognition_live.py",
+                   "utils/io.py", "../chip_smoke.py"):
         assert module in scanned, module
     for path in _port_sources():
         n += 1
@@ -45,8 +50,49 @@ def test_port_never_imports_jax_or_the_jax_package():
             else:
                 continue
             bad += [f"{os.path.relpath(path, REPO)}: {m}" for m in names if FORBIDDEN.match(m)]
-    assert n > 20
+    assert n > 30
     assert not bad, bad
+
+
+@pytest.mark.parametrize("module,absent", [
+    ("serve.server", ("cv2", "requests", "jax", "flax", "psutil", "PIL")),
+    ("serve.live", ("cv2", "requests", "jax", "flax")),
+    ("serve.client", ("cv2", "requests", "jax", "flax", "torch")),
+    ("telemetry", ("cv2", "requests", "jax", "flax", "torch")),
+    ("cli.face_recognition_server", ("cv2", "requests", "jax", "flax")),
+])
+def test_importing_the_serving_modules_pulls_in_no_optional_library(module, absent):
+    """cv2, PIL and psutil are looked up at the call that needs them; requests
+    and JAX are never needed."""
+    code = (
+        "import sys\n"
+        f"import facerecognitionpipeline_tpu_torch.{module}\n"
+        f"bad = [m for m in {absent!r} if m in sys.modules]\n"
+        "assert not bad, bad\n"
+    )
+    r = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True, timeout=120,
+        cwd=REPO, env={**os.environ, "PYTHONPATH": REPO},
+    )
+    assert r.returncode == 0, r.stderr[-2000:]
+
+
+@pytest.mark.parametrize("entry", ["server", "live", "monitor"])
+def test_serving_entry_points_default_to_cuda(monkeypatch, tmp_path, entry):
+    from facerecognitionpipeline_tpu_torch.serve.live import LiveFaceRecognition
+    from facerecognitionpipeline_tpu_torch.serve.server import FaceRecognitionServer
+    from facerecognitionpipeline_tpu_torch.telemetry import PerformanceMonitorServer
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    make = {
+        "server": lambda: FaceRecognitionServer(
+            gallery_path=str(tmp_path / "g.pkl"), output_dir=str(tmp_path)),
+        "live": lambda: LiveFaceRecognition(
+            gallery_path=str(tmp_path / "g.pkl"), output_dir=str(tmp_path)),
+        "monitor": lambda: PerformanceMonitorServer("M", "s", str(tmp_path)),
+    }[entry]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make()
 
 
 def test_import_pattern_tells_the_packages_apart():
