@@ -59,9 +59,23 @@ Phases, in order; any failure exits non-zero before the final line:
      p50/p95 as the client saw it, requests per second, steps dispatched and
      frames per step, the server monitor's own p50, the share of a request
      that is not the device step, the host stages timed alone, and the host
-     cost of GalleryManager.device_snapshot.
-Then it prints the card's name and power limit, a JSON line describing the
-kernels, and as its last line {"ok": true, "device": {...}}.
+     cost of GalleryManager.device_snapshot;
+  8. the int8 tier at the same build: MTCNNDetector(quantize='int8') and
+     FaceEmbedder(quantize='int8') calibrated on their synthetic defaults.
+     The int8 product (im2col + cuBLASLt s8 x s8 -> s32) at every distinct
+     int8 layer shape of the step and at odd ones (fewer than 17 rows,
+     K = 27, N = 28) equals its plain version (float64 sums) to the bit,
+     timed apart from its im2col beside a bf16 cuDNN conv of the same shape
+     and the bound by operations; the int8 step: recall, planted rows
+     top-1, K1 x3 and K2 x1 per step, identical embeddings with the plain
+     product, cosine against the bf16 embeddings of the same faces, p50,
+     device time, embed and detect alone beside the bf16 step's; the int8
+     step against 1 048 576 int8 rows (K4 once per step); one server built
+     with quantize='int8' serving 200 raw rgb24 requests, every answer held
+     against its direct int8 step.
+Then it prints the card's name and power limit, a JSON line of phase 8's
+numbers, a JSON line describing the kernels, and as its last line
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -206,6 +220,20 @@ def iou(a, b):
     inter = np.maximum(x2 - x1, 0) * np.maximum(y2 - y1, 0)
     area = lambda z: (z[..., 2] - z[..., 0]) * (z[..., 3] - z[..., 1])  # noqa: E731
     return inter / (area(a) + area(b) - inter)
+
+
+def detection_recall(out, gts):
+    """Recall of a step's detections against the fixture's ground truth at
+    IoU >= 0.5: (recall, hits, faces)."""
+    valid = out["face_valid"].cpu().numpy()
+    boxes = out["bboxes"].cpu().numpy()
+    hits = total = 0
+    for f in range(len(gts)):
+        pb = boxes[f][valid[f]]
+        for gt in gts[f]:
+            total += 1
+            hits += bool(len(pb)) and float(iou(gt, pb).max()) >= 0.5
+    return hits / total, hits, total
 
 
 def grid_for_boxes(boxes, k, h, w):
@@ -785,12 +813,14 @@ def gallery_odd_shapes(gk, tb, codes, scales) -> None:
 
 
 def breakdown(engine, frames, templates, valid, iters: int = 5,
-              match_label: str = "match (dense top-k)") -> dict:
+              match_label: str = "match (dense top-k)", tag: str = "breakdown") -> dict:
     """Where the step's time goes: each layer timed alone (host clock
     around synchronized calls, median of `iters`), then the device's busy
     share over whole steps from torch.profiler (kernel time / wall time).
     Returns the device time per step of K1 (its three launches) and K2
-    inside the profiled steps, in ms by kernel name."""
+    inside the profiled steps, in ms by kernel name, and under "layers",
+    "device_ms" and "busy" the layer medians, the device time per step and
+    the busy share."""
     import torch
 
     from facerecognitionpipeline_tpu_torch.ops.image import normalize_face_batch
@@ -815,6 +845,7 @@ def breakdown(engine, frames, templates, valid, iters: int = 5,
                 torch.randn((b, f, 512), device=f32.device), templates, valid, 3
             ),
         }
+        layer_ms = {}
         for name, fn in layers.items():
             times = []
             for _ in range(iters):
@@ -823,7 +854,8 @@ def breakdown(engine, frames, templates, valid, iters: int = 5,
                 fn()
                 torch.cuda.synchronize()
                 times.append(1e3 * (time.perf_counter() - s0))
-            print(f"[breakdown] {name}: {sorted(times)[iters // 2]:.3f} ms")
+            layer_ms[name] = sorted(times)[iters // 2]
+            print(f"[{tag}] {name}: {layer_ms[name]:.3f} ms")
 
     from torch.profiler import ProfilerActivity, profile
 
@@ -841,23 +873,23 @@ def breakdown(engine, frames, templates, valid, iters: int = 5,
     events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     dev_us = sum(e.self_device_time_total for e in events)
     if dev_us <= 0:
-        print("[breakdown] device busy share: not measured (profiler saw no device time)")
-        return {}
+        print(f"[{tag}] device busy share: not measured (profiler saw no device time)")
+        return {"layers": layer_ms, "device_ms": None, "busy": None}
     launches = sum(e.count for e in events)
-    print(f"[breakdown] device busy {dev_us / wall_us:.3f} of wall over 3 profiled steps "
+    print(f"[{tag}] device busy {dev_us / wall_us:.3f} of wall over 3 profiled steps "
           f"({dev_us / 3e3:.3f} ms device time and {launches / 3:.0f} device events per "
           f"step; profiled wall {wall_us / 3e3:.3f} ms per step)")
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
     for e in top:
-        print(f"[breakdown]   {e.self_device_time_total / 3e3:8.3f} ms/step  "
+        print(f"[{tag}]   {e.self_device_time_total / 3e3:8.3f} ms/step  "
               f"x{e.count // 3:<5d} {e.key[:90]}")
-    in_step = {}
+    in_step = {"layers": layer_ms, "device_ms": dev_us / 3e3, "busy": dev_us / wall_us}
     for name in ("crop_resize", "warp_patches", "stream_topk_kernel", "merge_topk_kernel"):
         mine = [e for e in events if name in e.key]
         if not mine and name.endswith("topk_kernel"):
             continue  # the dense match launches no streaming kernel
         in_step[name] = sum(e.self_device_time_total for e in mine) / 3e3
-        print(f"[breakdown]   {name} inside the step: {in_step[name]:.4f} ms device time "
+        print(f"[{tag}]   {name} inside the step: {in_step[name]:.4f} ms device time "
               f"per step over {sum(e.count for e in mine) // 3} launches per step")
     return in_step
 
@@ -903,15 +935,8 @@ def serving_phases(fixture, report) -> dict:
     print(f"[step] built and warmed in {time.perf_counter() - t0:.1f} s")
 
     # detection recall against the fixture's ground truth
+    recall, hits, total = detection_recall(out, gts)
     valid = out["face_valid"].cpu().numpy()
-    boxes = out["bboxes"].cpu().numpy()
-    hits = total = 0
-    for f in range(BATCH):
-        pb = boxes[f][valid[f]]
-        for gt in gts[f]:
-            total += 1
-            hits += bool(len(pb)) and float(iou(gt, pb).max()) >= 0.5
-    recall = hits / total
     print(f"[step] detection recall {recall:.3f} ({hits}/{total} faces, IoU>=0.5)")
     if recall < 0.8:
         fail(f"recall {recall} < 0.8")
@@ -1001,7 +1026,7 @@ def serving_phases(fixture, report) -> dict:
           f"{r_s:.3f} s, each equal to the direct step")
     return {
         "detector": detector, "embedder": embedder, "engine": engine,
-        "frames": frames, "frames_np": frames_np, "slots": slots,
+        "frames": frames, "frames_np": frames_np, "slots": slots, "gts": gts,
         "emb": torch.from_numpy(emb).to(DEVICE),
     }
 
@@ -1552,6 +1577,53 @@ def bad_requests(url) -> None:
           "400; the next request on the same connection parsed")
 
 
+def enrol_students(name, server, url, canvas, gallery_path, rng):
+    """Enrol through the manager's file: every other face of the server's
+    direct step that the tracker's gate will attempt, among 200 seeded
+    others; POST /reload_gallery twice (reloaded, then unchanged). Returns
+    the direct step's faces after the reload, the enrolled ids and the first
+    reload's answer."""
+    import numpy as np
+
+    from facerecognitionpipeline_tpu_torch.gallery.manager import GalleryManager
+    from facerecognitionpipeline_tpu_torch.serve.client import HTTPSession
+
+    faces = direct_faces(server, canvas)
+    strong = [f for f in faces if f["det"] > 0.7]
+    if len(strong) < 8:
+        fail(f"{name}: only {len(strong)} of {len(faces)} faces pass the gate")
+    writer = GalleryManager(gallery_path, verbose=False, device=DEVICE)
+    enrolled = set()
+    for i in range(200):
+        writer.add_student(
+            f"other{i:03d}", f"Other {i}",
+            rng.normal(size=(2, 512)).astype(np.float32),
+        )
+        if i % 25 == 0 and i // 25 < len(strong[::2]):
+            sid = f"face{i // 25:02d}"
+            writer.add_student(
+                sid, f"Face {i // 25}",
+                np.repeat(strong[::2][i // 25]["emb"][None], 2, axis=0),
+            )
+            enrolled.add(sid)
+    writer.save()
+    http = HTTPSession()
+    try:
+        first = http.post(f"{url}/reload_gallery", json={}, timeout=60).json()
+        second = http.post(f"{url}/reload_gallery", json={}, timeout=60).json()
+    finally:
+        http.close()
+    if (first.get("status"), second.get("status")) != ("reloaded", "unchanged") \
+            or first["num_students"] != 200 + len(enrolled):
+        fail(f"{name}: /reload_gallery answered {first} then {second}")
+    faces = direct_faces(server, canvas)
+    own = {f["top1"] for f in faces if f["score"] > 0.99}
+    if not enrolled <= own:
+        fail(f"{name}: enrolled faces {sorted(enrolled - own)} are not their "
+             f"own top-1 in the direct step")
+    return faces, enrolled, first
+
+
 def server_phase(ctx, gal, report) -> None:
     """Phase 7: the HTTP server on the card (see the module docstring)."""
     import numpy as np
@@ -1578,42 +1650,8 @@ def server_phase(ctx, gal, report) -> None:
                     fail("a frame at det_size must letterbox to itself")
                 if transport == "i420":
                     canvas = rawproto.rgb_to_i420(canvas)
-                # enrol through the manager's file: every other face of the
-                # direct step that the tracker's gate will attempt, among
-                # 200 seeded others
-                faces = direct_faces(server, canvas)
-                strong = [f for f in faces if f["det"] > 0.7]
-                if len(strong) < 8:
-                    fail(f"{name}: only {len(strong)} of {len(faces)} faces pass the gate")
-                writer = GalleryManager(gallery_path, verbose=False, device=DEVICE)
-                enrolled = set()
-                for i in range(200):
-                    writer.add_student(
-                        f"other{i:03d}", f"Other {i}",
-                        rng.normal(size=(2, 512)).astype(np.float32),
-                    )
-                    if i % 25 == 0 and i // 25 < len(strong[::2]):
-                        sid = f"face{i // 25:02d}"
-                        writer.add_student(
-                            sid, f"Face {i // 25}",
-                            np.repeat(strong[::2][i // 25]["emb"][None], 2, axis=0),
-                        )
-                        enrolled.add(sid)
-                writer.save()
-                http = HTTPSession()
-                try:
-                    first = http.post(f"{url}/reload_gallery", json={}, timeout=60).json()
-                    second = http.post(f"{url}/reload_gallery", json={}, timeout=60).json()
-                finally:
-                    http.close()
-                if (first.get("status"), second.get("status")) != ("reloaded", "unchanged") \
-                        or first["num_students"] != 200 + len(enrolled):
-                    fail(f"{name}: /reload_gallery answered {first} then {second}")
-                faces = direct_faces(server, canvas)
-                own = {f["top1"] for f in faces if f["score"] > 0.99}
-                if not enrolled <= own:
-                    fail(f"{name}: enrolled faces {sorted(enrolled - own)} are not their "
-                         f"own top-1 in the direct step")
+                faces, enrolled, first = enrol_students(
+                    name, server, url, canvas, gallery_path, rng)
                 print(f"[server {name}] {len(enrolled)} of {len(faces)} faces enrolled among "
                       f"{first['num_students']} students; /reload_gallery: reloaded, then "
                       f"unchanged")
@@ -1669,6 +1707,7 @@ def server_phase(ctx, gal, report) -> None:
             torch.cuda.empty_cache()
         for k in ("crop_resize", "warp_patches"):
             report["server_launches"][k] = sum(r["launches"][k] for r in runs)
+        report["serve_runs"] = runs
         if any(r["launches"]["gallery_topk"] or r["launches"]["gallery_topk_int8"] for r in runs):
             fail("a gallery of a few hundred students must take the dense match")
 
@@ -1734,6 +1773,369 @@ def server_phase(ctx, gal, report) -> None:
     print(f"[serve] launches on the server's path: {report['server_launches']}")
 
 
+# ------------------------------------------------------------ phase 8
+
+INT8_STEP_ITERS = 12
+INT8_SERVER_REQUESTS = 200
+# int8 layers' shapes that no serving step gives, each held to its plain
+# version as well: one row (K = 45, N = 28), K = 27 with N = 28 (27 rows), and
+# a dense layer of 5 rows with K = 27 and N = 28
+INT8_ODD_SHAPES = (("conv", 1, 3, 3, 5, 3, 1, 0, 28), ("conv", 3, 5, 5, 3, 3, 1, 0, 28),
+                   ("dense", 5, 27, 28))
+
+
+def quant_layers(*modules):
+    from facerecognitionpipeline_tpu_torch.models.irse import QuantConv, QuantDense
+
+    return [m for mod in modules for m in mod.modules() if isinstance(m, (QuantConv, QuantDense))]
+
+
+def int8_step_shapes(engine, frames, t, v) -> dict:
+    """The int8 layers' input shapes in one step of `engine`, with how many
+    layers of the step take each: {("conv", B, H, W, C, k, stride, padding,
+    N) or ("dense", M, K, N): count}."""
+    import torch
+
+    from facerecognitionpipeline_tpu_torch.models.irse import QuantConv
+
+    seen: dict = {}
+
+    def hook(module, inputs):
+        x = inputs[0]
+        if isinstance(module, QuantConv):
+            b, c, h, w = x.shape
+            key = ("conv", b, h, w, c, module.ksize[0], module.stride, module.padding,
+                   module.features)
+        else:
+            key = ("dense", x.shape[0], x.shape[1], module.features)
+        seen[key] = seen.get(key, 0) + 1
+
+    hooks = [m.register_forward_pre_hook(hook)
+             for m in quant_layers(engine.detector.nets, engine.embedder.model)]
+    try:
+        engine.process_frames(frames, t, v)
+        torch.cuda.synchronize()
+    finally:
+        for h in hooks:
+            h.remove()
+    return seen
+
+
+def int8_product_phase(shapes: dict) -> dict:
+    """The int8 product at every distinct shape of the step and at the odd
+    ones: the card route (im2col + cuBLASLt int8) against its plain version
+    (the same im2col, float64 sums) on the same random codes, which must be
+    equal; the im2col and the product timed apart (CUDA events), beside a
+    bf16 cuDNN conv (or matmul) of the same shape and the bound by
+    operations. Returns the sums over one step's layers."""
+    import torch
+    import torch.nn.functional as F
+
+    from facerecognitionpipeline_tpu_torch.ops import int8_gemm
+
+    g = torch.Generator(device=DEVICE).manual_seed(8)
+    total = {"im2col_ms": 0.0, "product_ms": 0.0, "cudnn_bf16_ms": 0.0, "bound_ms": 0.0,
+             "layers": 0}
+    for key, count in list(shapes.items()) + [(k, 0) for k in INT8_ODD_SHAPES]:
+        def codes(*shape):
+            return torch.randint(-127, 128, shape, generator=g, device=DEVICE,
+                                 dtype=torch.int8)
+
+        if key[0] == "conv":
+            _, b, h, w, c, k, stride, pad, n = key
+            x = codes(b, h, w, c)
+            wq = codes(k * k * c, n)
+            packed = int8_gemm.pack_weight(wq)
+            ho = (h + 2 * pad - k) // stride + 1
+            wo = (w + 2 * pad - k) // stride + 1
+            m, kk = b * ho * wo, k * k * c
+
+            def col(x=x, k=k, stride=stride, pad=pad, kp=packed.shape[1]):
+                return int8_gemm.im2col(x, (k, k), stride, pad, kp)
+
+            xb = x.permute(0, 3, 1, 2).to(torch.bfloat16)  # NCHW view, channels last
+            wb = wq.reshape(k, k, c, n).permute(3, 2, 0, 1).to(torch.bfloat16).contiguous()
+
+            def lib(xb=xb, wb=wb, stride=stride, pad=pad):
+                return F.conv2d(xb, wb, stride=stride, padding=pad)
+
+            desc = f"conv {k}x{k}/{stride} pad {pad} [{b},{h},{w},{c}] -> {n}"
+        else:
+            _, m, kk, n = key
+            x = codes(m, kk)
+            wq = codes(kk, n)
+            packed = int8_gemm.pack_weight(wq)
+
+            def col(x=x, kp=packed.shape[1]):
+                return torch.cat([x, x.new_zeros((x.shape[0], kp - x.shape[1]))], dim=1) \
+                    if kp > x.shape[1] else x
+
+            xb = x.to(torch.bfloat16)
+            wb = wq.t().to(torch.bfloat16).contiguous()
+
+            def lib(xb=xb, wb=wb):
+                return F.linear(xb, wb)
+
+            desc = f"dense [{m},{kk}] -> {n}"
+        a = col()
+        int8_gemm.PRODUCTS.reset()
+        got = int8_gemm.int8_product(a, packed, n)
+        if int8_gemm.PRODUCTS.count != 1:
+            fail(f"int8 product {desc} did not take the card route")
+        want = int8_gemm.int8_product(a, packed, n, plain=True)
+        err = int((got.long() - want.long()).abs().max().item()) if got.numel() else 0
+        if got.dtype != torch.int32 or tuple(got.shape) != (m, n) or not torch.equal(got, want):
+            fail(f"int8 product {desc}: card route differs from its plain version "
+                 f"(max |card - plain| {err})")
+        ms_col = cuda_time_ms(col) if a is not x else 0.0
+        ms_prod = cuda_time_ms(lambda a=a, packed=packed, n=n: int8_gemm.int8_product(a, packed, n))
+        ms_lib = cuda_time_ms(lib)
+        bound = 2.0 * m * kk * n / INT8_OPS_PER_S * 1e3
+        print(f"[int8] product {desc} (x{count} per step; M={m} K={kk} N={n}): im2col "
+              f"{ms_col:.4f} ms, product {ms_prod:.4f} ms, bf16 cuDNN "
+              f"{'conv' if key[0] == 'conv' else 'matmul'} {ms_lib:.4f} ms, bound "
+              f"{bound:.4f} ms (operations at 1979 TOPS); max |card - plain| {err}")
+        total["im2col_ms"] += count * ms_col
+        total["product_ms"] += count * ms_prod
+        total["cudnn_bf16_ms"] += count * ms_lib
+        total["bound_ms"] += count * bound
+        total["layers"] += count
+        del a, got, want, x, wq, packed, xb, wb
+    torch.cuda.empty_cache()
+    share = total["im2col_ms"] / (total["im2col_ms"] + total["product_ms"])
+    print(f"[int8] the step's {total['layers']} int8 layers, summed: im2col "
+          f"{total['im2col_ms']:.3f} ms + product {total['product_ms']:.3f} ms (im2col share "
+          f"{share:.3f}); the same shapes as bf16 cuDNN {total['cudnn_bf16_ms']:.3f} ms; bound "
+          f"{total['bound_ms']:.3f} ms; every shape equal to its plain version")
+    return {**total, "im2col_share": share}
+
+
+def int8_phase(ctx, gal, report) -> None:
+    """Phase 8: the int8 tier (see the module docstring)."""
+    import numpy as np
+    import torch
+
+    from facerecognitionpipeline_tpu_torch.gallery.search import DeviceGallery
+    from facerecognitionpipeline_tpu_torch.models.detector import MTCNNDetector
+    from facerecognitionpipeline_tpu_torch.ops import crop_kernel, gallery_kernel, int8_gemm
+    from facerecognitionpipeline_tpu_torch.ops import warp_kernel
+    from facerecognitionpipeline_tpu_torch.pipeline.embedder import FaceEmbedder
+    from facerecognitionpipeline_tpu_torch.pipeline.engine import RecognitionEngine
+
+    res: dict = {}
+    t0 = time.perf_counter()
+    detector = MTCNNDetector(
+        det_size=DET_SIZE, det_thresh=0.5, max_faces=MAX_FACES, min_face_size=40,
+        dtype=torch.bfloat16, device=DEVICE, quantize="int8",
+        weights_path=os.path.join(REPO, "pretrained", "mtcnn_dr.npz"),
+    )
+    torch.cuda.synchronize()
+    res["detector_calibration_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    embedder = FaceEmbedder(ARCH, dtype=torch.bfloat16, random_ok=True, init_seed=0,
+                            quantize="int8", device=DEVICE)
+    torch.cuda.synchronize()
+    res["embedder_calibration_s"] = time.perf_counter() - t0
+    print(f"[int8] MTCNNDetector(quantize='int8') calibrated on 6 synthetic frames and "
+          f"quantized in {res['detector_calibration_s']:.1f} s; FaceEmbedder({ARCH}, "
+          f"quantize='int8') on 64 synthetic crops in {res['embedder_calibration_s']:.1f} s")
+    engine = RecognitionEngine(detector, embedder, top_k=3)
+    if not (detector.quantized and embedder.quantized) or detector.crop_impl != "kernel" \
+            or engine.align_impl != "kernel":
+        fail("the int8 build is not quantized or did not select the kernels")
+    frames, frames_np = ctx["frames"], ctx["frames_np"]
+    rng = np.random.default_rng(8)
+    rows_f32 = rng.normal(size=(GALLERY_ROWS, 512)).astype(np.float32)
+    rows_f32 /= np.linalg.norm(rows_f32, axis=1, keepdims=True)
+    ids = [f"id{i}" for i in range(GALLERY_ROWS)]
+    gallery = DeviceGallery(device=DEVICE)
+    gallery.rebuild(ids, rows_f32)
+    t, v, _ = gallery.device_snapshot()
+
+    # 8a: the int8 product at the step's shapes
+    shapes = int8_step_shapes(engine, frames, t, v)
+    per_step = sum(shapes.values())
+    res["int8_layers_per_step"] = per_step
+    res["product"] = int8_product_phase(shapes)
+
+    # 8b: the quantized step
+    out = engine.process_frames(frames, t, v)
+    recall, hits, total = detection_recall(out, ctx["gts"])
+    print(f"[int8] detection recall {recall:.3f} ({hits}/{total} faces, IoU>=0.5) with the "
+          f"int8 R-net and O-net")
+    if recall < 0.8:
+        fail(f"int8 recall {recall} < 0.8")
+    for key in ("bboxes", "landmarks", "embeddings", "match_scores", "embedding_norms"):
+        if not torch.isfinite(out[key]).all():
+            fail(f"int8 step: non-finite {key}")
+    valid = out["face_valid"].cpu().numpy()
+    emb = out["embeddings"].float().cpu().numpy()
+    slots = [(f, s) for f in range(BATCH) for s in range(MAX_FACES) if valid[f, s]][:8]
+    planted = rows_f32.copy()
+    rows = [100 + 37 * i for i in range(len(slots))]
+    for row, (f, s) in zip(rows, slots):
+        planted[row] = emb[f, s]
+    gallery.rebuild(ids, planted)
+    t, v, _ = gallery.device_snapshot()
+    counters = {
+        "crop_resize": crop_kernel.LAUNCHES, "warp_patches": warp_kernel.LAUNCHES,
+        "gallery_topk": gallery_kernel.LAUNCHES,
+        "gallery_topk_int8": gallery_kernel.LAUNCHES_INT8, "int8_products": int8_gemm.PRODUCTS,
+    }
+    for c in counters.values():
+        c.reset()
+    out, ms8 = timed_steps(engine, frames, t, v, INT8_STEP_ITERS)
+    got = {k: c.count for k, c in counters.items()}
+    want = {"crop_resize": 3 * INT8_STEP_ITERS, "warp_patches": INT8_STEP_ITERS,
+            "gallery_topk": 0, "gallery_topk_int8": 0,
+            "int8_products": per_step * INT8_STEP_ITERS}
+    print(f"[int8] launches over {INT8_STEP_ITERS} int8 steps: {got}")
+    if got != want:
+        fail(f"int8 step: expected {want}, got {got}")
+    res["launches"] = got
+    idx = out["match_idx"].cpu().numpy()
+    sc = out["match_scores"].cpu().numpy()
+    for row, (f, s) in zip(rows, slots):
+        if idx[f, s, 0] != row or sc[f, s, 0] <= 0.99:
+            fail(f"int8 step: planted row {row} came back as {idx[f, s, 0]} ({sc[f, s, 0]})")
+    print(f"[int8] {len(slots)} planted int8 embeddings came back top-1 (min score "
+          f"{min(sc[f, s, 0] for f, s in slots):.5f})")
+
+    # the same step with every int8 layer on the plain product: both sums are
+    # exact, so the embeddings must be identical (cuDNN held deterministic
+    # for the float layers around them)
+    layers = quant_layers(detector.nets, embedder.model)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        card = engine.process_frames(frames, t, v)
+        for m in layers:
+            m.plain = True
+        int8_gemm.PRODUCTS.reset()
+        plain = engine.process_frames(frames, t, v)
+        torch.cuda.synchronize()
+    finally:
+        for m in layers:
+            m.plain = False
+        torch.backends.cudnn.deterministic = deterministic
+    if int8_gemm.PRODUCTS.count:
+        fail("the plain step still took the card route")
+    diff = (card["embeddings"].float() - plain["embeddings"].float()).abs().max().item()
+    if not (torch.equal(card["face_valid"], plain["face_valid"])
+            and torch.equal(card["bboxes"], plain["bboxes"])
+            and torch.equal(card["embeddings"], plain["embeddings"])):
+        fail(f"int8 step: the card's product and the plain product give different answers "
+             f"(embeddings max |diff| {diff})")
+    print("[int8] the same step with the plain product (float64 sums) on the card: identical "
+          "detections and embeddings")
+
+    # int8 against bf16 on the same detected faces
+    ok = card["face_valid"]
+    faces = card["aligned"][ok].float()
+    with torch.inference_mode():
+        e8 = embedder.embed_batch_device(faces)[0]
+        e16 = ctx["embedder"].embed_batch_device(faces)[0]
+    cos = (e8 * e16).sum(-1).float().cpu().numpy()
+    res["cos_int8_bf16_min"] = float(cos.min())
+    res["cos_int8_bf16_median"] = float(np.median(cos))
+    print(f"[int8] cosine of int8 against bf16 embeddings of the same {len(cos)} detected "
+          f"faces: min {cos.min():.5f}, median {np.median(cos):.5f} (random {ARCH} weights; "
+          f"no limit set)")
+
+    # timing, bf16 then int8 again, in this run
+    _, ms16 = timed_steps(ctx["engine"], frames, t, v, INT8_STEP_ITERS)
+    _, ms8b = timed_steps(engine, frames, t, v, INT8_STEP_ITERS)
+    for label, ms in (("int8", ms8), ("bf16", ms16), ("int8 again", ms8b)):
+        p50 = ms[len(ms) // 2]
+        res[f"step_p50_ms_{label.replace(' ', '_')}"] = p50
+        print(f"[int8] fused step B={BATCH} {ARCH} {label}, {GALLERY_ROWS}-row gallery: p50 "
+              f"{p50:.3f} ms, min {ms[0]:.3f}, max {ms[-1]:.3f} over {INT8_STEP_ITERS} steps")
+    bd8 = breakdown(engine, frames, t, v, tag="int8 breakdown")
+    bd16 = breakdown(ctx["engine"], frames, t, v, tag="bf16 breakdown")
+    for label, bd in (("int8", bd8), ("bf16", bd16)):
+        res[f"device_ms_{label}"] = bd["device_ms"]
+        res[f"busy_{label}"] = bd["busy"]
+        for name, ms in bd["layers"].items():
+            res[f"{name.split(' ')[0]}_ms_{label}"] = ms
+    print(f"[int8] device time per step (torch.profiler): int8 {bd8['device_ms']} ms, bf16 "
+          f"{bd16['device_ms']} ms; embed alone {res['embed_ms_int8']:.3f} against "
+          f"{res['embed_ms_bf16']:.3f} ms, detect alone {res['detect_ms_int8']:.3f} against "
+          f"{res['detect_ms_bf16']:.3f} ms")
+    del gallery, t, v, out, card, plain
+
+    # 8c: the all-int8 deployment: the int8 step against 1 048 576 int8 rows
+    big = gal.shape[0]
+    big_rows = [7001 + 131_101 * i for i in range(len(slots))]
+    for row, (f, s) in zip(big_rows, slots):
+        gal[row] = torch.from_numpy(emb[f, s]).to(DEVICE)
+    t0 = time.perf_counter()
+    big_gallery = DeviceGallery(device=DEVICE, quantize="int8")
+    big_gallery.rebuild([f"id{i}" for i in range(big)], gal)
+    t, v, _ = big_gallery.device_snapshot()
+    torch.cuda.synchronize()
+    if not (isinstance(t, tuple) and t[0].dtype == torch.int8):
+        fail("the 1 048 576-row gallery is not the int8 pair")
+    print(f"[int8] int8 DeviceGallery of {big} identities rebuilt in "
+          f"{time.perf_counter() - t0:.2f} s")
+    engine.process_frames(frames, t, v)  # warm
+    for c in counters.values():
+        c.reset()
+    out, ms = timed_steps(engine, frames, t, v, BIG_STEP_ITERS)
+    got = {k: c.count for k, c in counters.items()}
+    want = {"crop_resize": 3 * BIG_STEP_ITERS, "warp_patches": BIG_STEP_ITERS,
+            "gallery_topk": 0, "gallery_topk_int8": BIG_STEP_ITERS,
+            "int8_products": per_step * BIG_STEP_ITERS}
+    if got != want:
+        fail(f"all-int8 step: expected {want}, got {got}")
+    idx = out["match_idx"].cpu().numpy()
+    sc = out["match_scores"].cpu().numpy()
+    for row, (f, s) in zip(big_rows, slots):
+        if idx[f, s, 0] != row or sc[f, s, 0] <= 0.98:
+            fail(f"all-int8 step: planted row {row} came back as {idx[f, s, 0]} ({sc[f, s, 0]})")
+    p50 = ms[len(ms) // 2]
+    res["step_p50_ms_1m_int8_gallery"] = p50
+    res["launches_1m_int8_gallery"] = got
+    print(f"[int8] all-int8 step against {big} int8 rows: {len(slots)} planted rows top-1 (min "
+          f"score {min(sc[f, s, 0] for f, s in slots):.5f}, floor 0.98); launches {got}; p50 "
+          f"{p50:.3f} ms, min {ms[0]:.3f}, max {ms[-1]:.3f} over {BIG_STEP_ITERS} steps")
+    del big_gallery, t, v, out, engine, detector, embedder
+    torch.cuda.empty_cache()
+
+    # 8d: one int8 server, built by its constructor, one raw rgb24 client
+    frame = frames_np[0]
+    with tempfile.TemporaryDirectory() as tmp:
+        gallery_path = os.path.join(tmp, "int8", "gallery", "students.pkl")
+        server, httpd, thread, url = start_server(
+            tmp, "int8", gallery_path=gallery_path, transport="rgb", quantize="int8")
+        try:
+            if not (server.engine.detector.quantized and server.engine.embedder.quantized):
+                fail("the server's quantize='int8' build is not quantized")
+            faces, enrolled, first = enrol_students(
+                "int8", server, url, frame, gallery_path, np.random.default_rng(5))
+            print(f"[int8] server: {len(enrolled)} of {len(faces)} faces of its direct int8 step "
+                  f"enrolled among {first['num_students']} students")
+            int8_gemm.PRODUCTS.reset()
+            r = drive_clients("raw x1 int8", server, url, tmp, "raw", frame, 1,
+                              INT8_SERVER_REQUESTS, faces, enrolled)
+            if int8_gemm.PRODUCTS.count != per_step * r["steps"]:
+                fail(f"int8 server: {int8_gemm.PRODUCTS.count} int8 products over "
+                     f"{r['steps']} steps, expected {per_step} per step")
+            print_run(r)
+        finally:
+            stop_server(server, httpd, thread)
+        del server
+        torch.cuda.empty_cache()
+    bf16 = next(x for x in report["serve_runs"] if x["tag"] == "raw x1")
+    res["server"] = {k: r[k] for k in ("requests", "steps", "p50", "p95", "rps", "step_p50",
+                                       "server_p50", "launches")}
+    res["server_bf16_phase7"] = {k: bf16[k] for k in ("requests", "p50", "p95", "rps",
+                                                      "step_p50")}
+    print(f"[int8] server raw rgb24 x1, {r['requests']} requests: int8 p50 {r['p50']:.3f} ms, "
+          f"p95 {r['p95']:.3f} ms, {r['rps']:.2f} requests/s; bf16 (phase 7) p50 "
+          f"{bf16['p50']:.3f} ms, p95 {bf16['p95']:.3f} ms, {bf16['rps']:.2f} requests/s")
+    report["int8"] = res
+
+
 def main() -> int:
     import torch
 
@@ -1779,6 +2181,7 @@ def main() -> int:
     large_gallery_phase(ctx, gal, report)
     manager_phase(ctx)
     server_phase(ctx, gal, report)
+    int8_phase(ctx, gal, report)
     del gal
 
     smi = subprocess.run(
@@ -1854,6 +2257,7 @@ def main() -> int:
             })
         if kernels[-1]["launches"] < 1 or kernels[-1]["server_launches"] < 1:
             fail(f"a main path never launched {name}")
+    print(json.dumps({"int8": report["int8"]}))
     print(json.dumps({
         "kernels": kernels,
         **{k: v for k, v in report.items() if k.startswith("step_p50_ms")},

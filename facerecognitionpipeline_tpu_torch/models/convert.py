@@ -9,6 +9,13 @@ the mapping is per leaf:
   dense kernel [in, out]  -> weight [out, in]    (+ bias)
   BatchNorm scale/bias    -> weight/bias, batch_stats mean/var -> running_*
   PReLU alpha, Affine scale/shift -> the same names
+  int8 layer {kernel_q, scale, bias, act_scale} -> the same names, the codes
+                          int8 and in the JAX layout (HWIO or [in, out]),
+                          the rest float32 (`irse.QuantConv`/`QuantDense`)
+
+`params_from_state` goes the other way for the float layers the port
+initialises itself, so `models/quantize.py` quantizes the same float32
+tree whichever way the weights came.
 """
 
 from __future__ import annotations
@@ -21,10 +28,20 @@ def _t(x) -> torch.Tensor:
     return torch.from_numpy(np.array(x, dtype=np.float32))
 
 
+_QUANT_KEYS = {"kernel_q", "scale", "bias", "act_scale"}
+
+
 def _params_to_state(params: dict, prefix: str, sd: dict) -> None:
     for name, node in params.items():
         key = f"{prefix}{name}"
-        if "kernel" in node:
+        if "kernel_q" in node:
+            if set(node) != _QUANT_KEYS:
+                raise ValueError(f"{key}: an int8 layer needs {sorted(_QUANT_KEYS)}, "
+                                 f"got {sorted(node)}")
+            sd[f"{key}.kernel_q"] = torch.from_numpy(np.array(node["kernel_q"], dtype=np.int8))
+            for leaf in ("scale", "bias", "act_scale"):
+                sd[f"{key}.{leaf}"] = _t(node[leaf])
+        elif "kernel" in node:
             k = np.asarray(node["kernel"], np.float32)
             if k.ndim == 4:
                 sd[f"{key}.weight"] = _t(k.transpose(3, 2, 0, 1))
@@ -58,17 +75,12 @@ def _stats_to_state(stats: dict, prefix: str, sd: dict) -> None:
 
 
 def detector_state_from_jax(tree: dict) -> dict[str, torch.Tensor]:
-    """{'pnet'|'rnet'|'onet': {'params': ...}} (float detector variables)
-    -> state dict of `models.detector_nets.DetectorNets`."""
+    """{'pnet'|'rnet'|'onet': {'params': ...}} (float or int8-quantized
+    detector variables) -> state dict of `models.detector_nets.DetectorNets`
+    (built with `quantized=True` for the latter)."""
     sd: dict = {}
     for net in ("pnet", "rnet", "onet"):
-        params = tree[net]["params"]
-        if "kernel_q" in params.get("conv1", {}):
-            raise NotImplementedError(
-                "int8 detector variables: the quantized R/O-nets are queued "
-                "in ROADMAP.md (int8 tier)"
-            )
-        _params_to_state(params, f"{net}.", sd)
+        _params_to_state(tree[net]["params"], f"{net}.", sd)
     return sd
 
 
@@ -88,3 +100,37 @@ def backbone_state_from_jax(tree: dict, folded: bool) -> dict[str, torch.Tensor]
     if has_stats:
         _stats_to_state(tree["batch_stats"], "", sd)
     return sd
+
+
+def params_from_state(sd: dict) -> dict:
+    """State dict of float layers without BatchNorm (convs, dense layers,
+    PReLU, Affine) -> JAX-format params, exactly: weight OIHW -> kernel HWIO,
+    [out, in] -> kernel [in, out]; bias, alpha, scale, shift as they are.
+    The inverse of `_params_to_state` on such layers, as float32 numpy."""
+    tree: dict = {}
+    for key, t in sd.items():
+        *path, leaf = key.split(".")
+        node = tree
+        for part in path:
+            node = node.setdefault(part, {})
+        a = t.detach().cpu().numpy().astype(np.float32)
+        if leaf == "weight":
+            if a.ndim == 4:
+                node["kernel"] = a.transpose(2, 3, 1, 0)
+            elif a.ndim == 2:
+                node["kernel"] = a.T
+            else:
+                raise ValueError(f"{key}: a weight of rank {a.ndim} (BatchNorm?) has no "
+                                 f"JAX-format inverse here")
+        elif leaf in ("bias", "alpha", "scale", "shift"):
+            node[leaf] = a
+        else:
+            raise ValueError(f"{key}: no JAX-format inverse for {leaf!r}")
+    return tree
+
+
+def detector_variables_from_state(sd: dict) -> dict:
+    """State dict of the float `DetectorNets` -> JAX-format detector
+    variables {'pnet'|'rnet'|'onet': {'params': ...}}."""
+    tree = params_from_state(sd)
+    return {net: {"params": tree[net]} for net in ("pnet", "rnet", "onet")}

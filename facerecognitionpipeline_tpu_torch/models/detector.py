@@ -11,7 +11,8 @@ vmaps one frame's cascade):
   NMS(min) -> max_faces.
 
 The R-net and O-net crops are kernel K1 (`ops/crop_kernel.py`) when
-`crop_impl='kernel'`.
+`crop_impl='kernel'`. `quantize='int8'` makes R-net and O-net static-scale
+int8 nets (`models/quantize.py`), calibrated on `calib_frames`.
 """
 
 from __future__ import annotations
@@ -24,7 +25,10 @@ from typing import Optional
 import numpy as np
 import torch
 
-from facerecognitionpipeline_tpu_torch.models.convert import detector_state_from_jax
+from facerecognitionpipeline_tpu_torch.models.convert import (
+    detector_state_from_jax,
+    detector_variables_from_state,
+)
 from facerecognitionpipeline_tpu_torch.models.detector_nets import DetectorNets
 from facerecognitionpipeline_tpu_torch.models.layers import lecun_normal_
 from facerecognitionpipeline_tpu_torch.ops.crop_kernel import (
@@ -107,6 +111,8 @@ class MTCNNDetector:
         stage1_keep: int = P_KEEP,
         stage2_keep: int = R_KEEP,
         crop_impl: str = "auto",
+        quantize: Optional[str] = None,
+        calib_frames: Optional[np.ndarray] = None,
         device="cuda",
         init_seed: int = 0,
     ):
@@ -117,7 +123,17 @@ class MTCNNDetector:
         crop_impl: 'kernel' (K1, the counterpart of the JAX 'pallas';
         bf16 by design), 'matmul' (plain dense resample in `dtype`) or
         'auto': 'kernel' on CUDA for a bf16 cascade, else 'matmul'.
-        On CPU tensors 'kernel' runs K1's plain version."""
+        On CPU tensors 'kernel' runs K1's plain version.
+
+        quantize: None or 'int8'. 'int8' quantizes R-net's conv1-3 and fc1
+        and O-net's conv1-4 and fc1 (per-output-channel int8 weights from
+        the float32 variables, static activation scales calibrated on
+        `calib_frames`, raw RGB uint8 [N, H, W, 3] at det_size; default
+        `models/quantize.default_calibration_frames`). Variables that are
+        already quantized load as they are, without calibration; a float
+        detector refuses them. P-net stays float."""
+        if quantize not in (None, "int8"):
+            raise ValueError(f"Unknown quantize mode: {quantize!r} (use 'int8')")
         self.device = resolve_device(device)
         self.det_size = tuple(det_size)
         self.max_faces = max_faces
@@ -147,11 +163,18 @@ class MTCNNDetector:
             )
         self.crop_impl = crop_impl
 
-        nets = DetectorNets()
         if variables is None and weights_path is None:
             weights_path = discover_default_weights()
         if variables is None and weights_path not in (None, "random"):
             variables = load_npz_variables(weights_path)
+        loaded_int8 = self._variables_quantized(variables)
+        if loaded_int8 and quantize != "int8":
+            raise ValueError(
+                "loaded detector variables are int8-quantized; construct "
+                "with quantize='int8' (the float R/O-nets cannot consume "
+                "kernel_q params)"
+            )
+        nets = DetectorNets(quantized=loaded_int8)
         if variables is not None:
             nets.load_state_dict(detector_state_from_jax(variables))
             self.pretrained = True
@@ -164,6 +187,9 @@ class MTCNNDetector:
                 )
             lecun_normal_(nets, torch.Generator().manual_seed(init_seed))
             self.pretrained = False
+        if quantize == "int8" and not loaded_int8:
+            # quantize the float32 weights, not the cast module's
+            float_vars = detector_variables_from_state(nets.state_dict())
         self.nets = nets.to(device=self.device, dtype=dtype).eval()
 
         h, w = self.det_size
@@ -189,6 +215,24 @@ class MTCNNDetector:
             wx = torch.from_numpy(_resize_matrix(pw, sw)).to(self.device)
             self._pyramid_mats.append((round_to(wy, dtype), round_to(wx, dtype)))
             ph, pw = sh, sw
+
+        self.quantized = False
+        if quantize == "int8":
+            if not loaded_int8:
+                from facerecognitionpipeline_tpu_torch.models.quantize import (
+                    default_calibration_frames,
+                    quantize_detector_variables,
+                )
+
+                if calib_frames is None:
+                    calib_frames = default_calibration_frames(det_size=self.det_size)
+                amax = self.calibrate_amax(calib_frames)
+                qnets = DetectorNets(quantized=True)
+                qnets.load_state_dict(detector_state_from_jax(
+                    quantize_detector_variables(float_vars, amax)
+                ))
+                self.nets = qnets.to(device=self.device, dtype=dtype).eval()
+            self.quantized = True
 
     # ------------------------------------------------------------- cascade
 
@@ -297,6 +341,65 @@ class MTCNNDetector:
             torch.gather(landmarks, 1, top_i[..., None, None].expand(b, f, 5, 2)),
             top_scores > _NEG / 2,
         )
+
+    # --------------------------------------------------------- calibration
+
+    @staticmethod
+    def _variables_quantized(variables: Optional[dict]) -> bool:
+        """Whether JAX-format detector variables carry int8 R-net kernels."""
+        try:
+            return "kernel_q" in variables["rnet"]["params"]["conv1"]
+        except (KeyError, TypeError):
+            return False
+
+    def calibrate_amax(self, frames) -> dict:
+        """max |input| of every R-net and O-net conv/fc over calibration
+        frames (raw RGB uint8 [N, H, W, 3] at det_size), for the int8
+        activation scales. Runs the float cascade: conv1 sees the crops of
+        every candidate slot, valid or not; conv2.. and fc1 see the PReLU
+        outputs before pooling (the pools have stride <= window, so this
+        over-estimates only through damped negatives). The max over all
+        frames, as the JAX package's."""
+        if self.quantized:
+            raise RuntimeError(
+                "calibrate_amax needs the float cascade; this detector is "
+                "already quantized"
+            )
+        # layer -> the module whose output it reads (the net itself: its
+        # input, the crops, which already hold values of the cascade dtype)
+        feeds = {
+            "rnet": {"conv1": None, "conv2": "prelu1", "conv3": "prelu2",
+                     "fc1": "prelu3"},
+            "onet": {"conv1": None, "conv2": "prelu1", "conv3": "prelu2",
+                     "conv4": "prelu3", "fc1": "prelu4"},
+        }
+        keys, found, hooks = [], [], []
+
+        def capture(key, of_input):
+            def hook(_module, inputs, out=None):
+                keys.append(key)
+                found.append((inputs[0] if of_input else out).float().abs().amax())
+            return hook
+
+        try:
+            for net, layers in feeds.items():
+                for layer, prelu in layers.items():
+                    if prelu is None:
+                        module = getattr(self.nets, net)
+                        hooks.append(module.register_forward_pre_hook(
+                            capture((net, layer), True)))
+                    else:
+                        module = getattr(getattr(self.nets, net), prelu)
+                        hooks.append(module.register_forward_hook(
+                            capture((net, layer), False)))
+            self.detect_device(torch.as_tensor(np.asarray(frames)).to(self.device))
+        finally:
+            for h in hooks:
+                h.remove()
+        out: dict = {"rnet": {}, "onet": {}}
+        for (net, layer), v in zip(keys, torch.stack(found).cpu().tolist()):
+            out[net][layer] = float(v)
+        return out
 
     def detect_device(self, frames: torch.Tensor) -> dict:
         """frames [B,H,W,3] raw RGB (uint8 or float, at det_size, on the

@@ -1,14 +1,21 @@
-"""P-Net / R-Net / O-Net, the cascaded detector's networks (float only).
+"""P-Net / R-Net / O-Net, the cascaded detector's networks.
 
 Counterpart of `facerecognitionpipeline_tpu/models/detector_nets.py`.
 Inputs and outputs keep the JAX package's NHWC layout; inside, the nets run
 NCHW. VALID convolutions, ceil-mode max pooling, and the channel-major
 (NCHW) flatten before `fc1` that the published MTCNN weights expect.
 
-Each net computes in the dtype of its parameters (the detector casts the
-module once, where flax casts per call). Bias adds run as their own op
-after the conv/matmul, so a bf16 forward rounds where flax does (the
-product, then the sum).
+`quantized=True` makes R-net's conv1-3 and fc1 and O-net's conv1-4 and fc1
+static-scale int8 layers (`irse.QuantConv`/`QuantDense`, weights from
+`models/quantize.py::quantize_detector_variables`), as the JAX package's
+`_conv`/`_dense` factories do; P-net, the PReLUs and the cls/reg/landmark
+heads stay float.
+
+Each net computes in the dtype of its float parameters, read from its first
+PReLU (the detector casts the module once, where flax casts per call; a
+quantized layer has no float weight). Bias adds run as their own op after
+the conv/matmul, so a bf16 forward rounds where flax does (the product,
+then the sum).
 """
 
 from __future__ import annotations
@@ -17,16 +24,34 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from facerecognitionpipeline_tpu_torch.models.irse import QuantConv, QuantDense
 from facerecognitionpipeline_tpu_torch.models.layers import PReLU
 
 
-def _conv(layer: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
+def _conv(layer: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    if isinstance(layer, QuantConv):
+        return layer(x)
     y = F.conv2d(x, layer.weight)
     return y + layer.bias.view(1, -1, 1, 1)
 
 
-def _dense(layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+def _dense(layer: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    if isinstance(layer, QuantDense):
+        return layer(x)
     return F.linear(x, layer.weight) + layer.bias
+
+
+def _make_conv(quantized: bool, in_ch: int, features: int, ksize: int) -> nn.Module:
+    """VALID conv layer: float, or static-scale int8."""
+    if quantized:
+        return QuantConv(in_ch, features, ksize, stride=1, padding=0)
+    return nn.Conv2d(in_ch, features, ksize)
+
+
+def _make_dense(quantized: bool, in_features: int, features: int) -> nn.Module:
+    if quantized:
+        return QuantDense(in_features, features)
+    return nn.Linear(in_features, features)
 
 
 def _pool(x: torch.Tensor, window: int, stride: int) -> torch.Tensor:
@@ -50,7 +75,7 @@ class PNet(nn.Module):
         self.reg = nn.Conv2d(32, 4, 1)
 
     def forward(self, x: torch.Tensor):
-        x = x.to(self.conv1.weight.dtype).permute(0, 3, 1, 2)
+        x = x.to(self.prelu1.alpha.dtype).permute(0, 3, 1, 2)
         x = _pool(self.prelu1(_conv(self.conv1, x)), 2, 2)
         x = self.prelu2(_conv(self.conv2, x))
         x = self.prelu3(_conv(self.conv3, x))
@@ -61,23 +86,24 @@ class PNet(nn.Module):
 
 
 class RNet(nn.Module):
-    """Refine net: 24x24 crops [B,24,24,3] -> (prob [B], reg [B,4])."""
+    """Refine net: 24x24 crops [B,24,24,3] -> (prob [B], reg [B,4]).
+    quantized: int8 conv1-3 and fc1."""
 
-    def __init__(self):
+    def __init__(self, quantized: bool = False):
         super().__init__()
-        self.conv1 = nn.Conv2d(3, 28, 3)
+        self.conv1 = _make_conv(quantized, 3, 28, 3)
         self.prelu1 = PReLU(28)
-        self.conv2 = nn.Conv2d(28, 48, 3)
+        self.conv2 = _make_conv(quantized, 28, 48, 3)
         self.prelu2 = PReLU(48)
-        self.conv3 = nn.Conv2d(48, 64, 2)
+        self.conv3 = _make_conv(quantized, 48, 64, 2)
         self.prelu3 = PReLU(64)
-        self.fc1 = nn.Linear(64 * 3 * 3, 128)
+        self.fc1 = _make_dense(quantized, 64 * 3 * 3, 128)
         self.prelu4 = PReLU(128)
         self.cls = nn.Linear(128, 2)
         self.reg = nn.Linear(128, 4)
 
     def forward(self, x: torch.Tensor):
-        x = x.to(self.conv1.weight.dtype).permute(0, 3, 1, 2)
+        x = x.to(self.prelu1.alpha.dtype).permute(0, 3, 1, 2)
         x = _pool(self.prelu1(_conv(self.conv1, x)), 3, 2)
         x = _pool(self.prelu2(_conv(self.conv2, x)), 3, 2)
         x = self.prelu3(_conv(self.conv3, x))
@@ -88,26 +114,27 @@ class RNet(nn.Module):
 
 class ONet(nn.Module):
     """Output net: 48x48 crops [B,48,48,3] -> (prob [B], reg [B,4],
-    landmarks [B,5,2] as box-relative fractions)."""
+    landmarks [B,5,2] as box-relative fractions). quantized: int8 conv1-4
+    and fc1."""
 
-    def __init__(self):
+    def __init__(self, quantized: bool = False):
         super().__init__()
-        self.conv1 = nn.Conv2d(3, 32, 3)
+        self.conv1 = _make_conv(quantized, 3, 32, 3)
         self.prelu1 = PReLU(32)
-        self.conv2 = nn.Conv2d(32, 64, 3)
+        self.conv2 = _make_conv(quantized, 32, 64, 3)
         self.prelu2 = PReLU(64)
-        self.conv3 = nn.Conv2d(64, 64, 3)
+        self.conv3 = _make_conv(quantized, 64, 64, 3)
         self.prelu3 = PReLU(64)
-        self.conv4 = nn.Conv2d(64, 128, 2)
+        self.conv4 = _make_conv(quantized, 64, 128, 2)
         self.prelu4 = PReLU(128)
-        self.fc1 = nn.Linear(128 * 3 * 3, 256)
+        self.fc1 = _make_dense(quantized, 128 * 3 * 3, 256)
         self.prelu5 = PReLU(256)
         self.cls = nn.Linear(256, 2)
         self.reg = nn.Linear(256, 4)
         self.landmarks = nn.Linear(256, 10)
 
     def forward(self, x: torch.Tensor):
-        x = x.to(self.conv1.weight.dtype).permute(0, 3, 1, 2)
+        x = x.to(self.prelu1.alpha.dtype).permute(0, 3, 1, 2)
         x = _pool(self.prelu1(_conv(self.conv1, x)), 3, 2)
         x = _pool(self.prelu2(_conv(self.conv2, x)), 3, 2)
         x = _pool(self.prelu3(_conv(self.conv3, x)), 2, 2)
@@ -121,10 +148,11 @@ class ONet(nn.Module):
 
 
 class DetectorNets(nn.Module):
-    """The three nets under one module (state-dict prefixes pnet/rnet/onet)."""
+    """The three nets under one module (state-dict prefixes pnet/rnet/onet);
+    `quantized` makes R-net and O-net int8."""
 
-    def __init__(self):
+    def __init__(self, quantized: bool = False):
         super().__init__()
         self.pnet = PNet()
-        self.rnet = RNet()
-        self.onet = ONet()
+        self.rnet = RNet(quantized)
+        self.onet = ONet(quantized)

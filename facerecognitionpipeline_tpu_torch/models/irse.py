@@ -12,9 +12,12 @@ model-zoo architecture):
 
 `folded=True` is the inference structure whose weights come from
 `models/fold.py` (BNs baked into convs and the fc; the pre-conv BN of each
-unit survives as an `Affine`). Input is NHWC [B,112,112,3] normalized BGR;
-the backbone runs NCHW in the dtype of its parameters. The int8 variants of
-the JAX package are not ported yet.
+unit survives as an `Affine`). `quantized=True` (with `folded`) swaps the
+two 3x3 res convs of every unit for `QuantConv`, the JAX package's static-
+scale int8 conv, with weights from `models/quantize.py`. Input is NHWC
+[B,112,112,3] normalized BGR; the backbone runs NCHW in the dtype of its
+float parameters. The fused int8 body (`FusedQuantBody`) and the training
+conv `Int8FwdConv` are queued in ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -25,6 +28,12 @@ import torch
 from torch import nn
 
 from facerecognitionpipeline_tpu_torch.models.layers import Affine, PReLU
+from facerecognitionpipeline_tpu_torch.ops.int8_gemm import (
+    int8_conv2d,
+    int8_linear,
+    pack_weight,
+)
+from facerecognitionpipeline_tpu_torch.ops.numerics import rdiv
 
 BACKBONE_CONFIGS: dict[str, dict[str, Any]] = {
     "ir_micro": {"units": (1, 1, 1, 1), "use_se": False},  # smoke tests only
@@ -42,6 +51,101 @@ BACKBONE_CONFIGS: dict[str, dict[str, Any]] = {
 }
 _STAGE_CHANNELS = (64, 128, 256, 512)
 _EPS = 1e-5
+
+
+def quantize_activation(x: torch.Tensor, inv_scale: torch.Tensor) -> torch.Tensor:
+    """clip(round(x * (1 / act_scale)), -127, 127) as int8, in float32
+    whatever the compute dtype (round half to even, as jnp.round). The
+    float32 scale as a 1-element tensor takes part in type promotion (a
+    0-dim one would not), so a bf16 x is multiplied in float32 without a
+    float32 copy of it first."""
+    q = x * inv_scale.float().reshape(1)
+    return q.round_().clamp_(-127, 127).to(torch.int8)
+
+
+class _QuantLayer(nn.Module):
+    """Buffers of a static-scale int8 layer, named as the JAX package's
+    params: `kernel_q` int8 (HWIO, or [in, out]), `scale` float32 [out]
+    (per output channel), `bias` float32 [out], `act_scale` float32 [] (the
+    calibrated input scale). At load it derives the product's packed weight
+    and, in float32, 1 / act_scale and act_scale * scale. A cast of the
+    module to another float dtype leaves those float32 buffers float32 (the
+    JAX package keeps them float32 whatever the compute dtype); a move to
+    another device moves them.
+
+    `plain=True` makes the layer take the int8 product's plain version on
+    the card too: a check that both give the same sums, not a fallback."""
+
+    _F32 = ("scale", "bias", "act_scale", "inv_act_scale", "out_scale")
+
+    def __init__(self, kernel_shape: tuple[int, ...], features: int):
+        super().__init__()
+        self.features = features
+        self.plain = False
+        self.register_buffer("kernel_q", torch.zeros(kernel_shape, dtype=torch.int8))
+        self.register_buffer("scale", torch.ones(features))
+        self.register_buffer("bias", torch.zeros(features))
+        self.register_buffer("act_scale", torch.ones(()))
+        self.register_buffer("gemm_w", torch.empty(0, dtype=torch.int8), persistent=False)
+        self.register_buffer("inv_act_scale", torch.ones(()), persistent=False)
+        self.register_buffer("out_scale", torch.ones(features), persistent=False)
+        self._derive()
+
+    def _derive(self) -> None:
+        with torch.no_grad():
+            k = self.kernel_q
+            self.gemm_w = pack_weight(k.reshape(-1, k.shape[-1]))
+            self.inv_act_scale = rdiv(1.0, self.act_scale.float())
+            self.out_scale = self.act_scale.float() * self.scale.float()
+
+    def _load_from_state_dict(self, *args, **kwargs):
+        super()._load_from_state_dict(*args, **kwargs)
+        self._derive()
+
+    def _apply(self, fn, recurse=True):
+        keep = {name: self._buffers[name] for name in self._F32}
+        super()._apply(fn, recurse)
+        for name, t in keep.items():
+            self._buffers[name] = t.to(self.kernel_q.device)
+        return self
+
+    def _epilogue(self, y: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        # three ops in the compute dtype, as the JAX package rounds them
+        return y.to(dtype) * self.out_scale.to(dtype) + self.bias.to(dtype)
+
+
+class QuantConv(_QuantLayer):
+    """Static-scale int8 conv (the JAX package's `irse.QuantConv`): the
+    input is quantized with the calibrated `act_scale`, convolved s8 x s8 ->
+    s32 (`ops/int8_gemm.py`) and dequantized into the input's dtype with
+    the bias. NCHW in and out (the product runs NHWC; a channels-last
+    input costs no copy)."""
+
+    def __init__(self, in_ch: int, features: int, kernel_size: int = 3,
+                 stride: int = 1, padding: int = 1):
+        super().__init__((kernel_size, kernel_size, in_ch, features), features)
+        self.ksize = (kernel_size, kernel_size)
+        self.stride = stride
+        self.padding = padding
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xq = quantize_activation(x.permute(0, 2, 3, 1), self.inv_act_scale)
+        y = int8_conv2d(xq, self.gemm_w, self.ksize, self.stride, self.padding,
+                        self.features, plain=self.plain)
+        return self._epilogue(y, x.dtype).permute(0, 3, 1, 2)
+
+
+class QuantDense(_QuantLayer):
+    """Static-scale int8 dense layer (the JAX package's `irse.QuantDense`):
+    x [B, in] -> [B, features] in x's dtype."""
+
+    def __init__(self, in_features: int, features: int):
+        super().__init__((in_features, features), features)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xq = quantize_activation(x, self.inv_act_scale)
+        y = int8_linear(xq, self.gemm_w, self.features, plain=self.plain)
+        return self._epilogue(y, x.dtype)
 
 
 class SEModule(nn.Module):
@@ -65,6 +169,7 @@ class BasicBlockIR(nn.Module):
     def __init__(
         self, in_ch: int, depth: int, stride: int, use_se: bool,
         conv_shortcut: bool = False, folded: bool = False,
+        quantized: bool = False,
     ):
         super().__init__()
         self.stride = stride
@@ -80,13 +185,21 @@ class BasicBlockIR(nn.Module):
             self.res_affine = Affine(in_ch)
         else:
             self.res_bn1 = nn.BatchNorm2d(in_ch, eps=_EPS)
-        self.res_conv1 = nn.Conv2d(in_ch, depth, 3, padding=1, bias=folded)
+        if quantized:
+            # the two 3x3 res convs carry ~99% of the backbone's operations;
+            # everything around them stays in the float compute dtype
+            self.res_conv1 = QuantConv(in_ch, depth, 3, 1, 1)
+        else:
+            self.res_conv1 = nn.Conv2d(in_ch, depth, 3, padding=1, bias=folded)
         if not folded:
             self.res_bn2 = nn.BatchNorm2d(depth, eps=_EPS)
         self.res_prelu = PReLU(depth)
-        self.res_conv2 = nn.Conv2d(
-            depth, depth, 3, stride=stride, padding=1, bias=folded
-        )
+        if quantized:
+            self.res_conv2 = QuantConv(depth, depth, 3, stride, 1)
+        else:
+            self.res_conv2 = nn.Conv2d(
+                depth, depth, 3, stride=stride, padding=1, bias=folded
+            )
         if not folded:
             self.res_bn3 = nn.BatchNorm2d(depth, eps=_EPS)
         self.se = SEModule(depth) if use_se else None
@@ -119,11 +232,18 @@ class IRBackbone(nn.Module):
         use_se: bool = False,
         conv_shortcut: bool = False,
         folded: bool = False,
+        quantized: bool = False,
         embedding_dim: int = 512,
         input_size: int = 112,
     ):
         super().__init__()
+        if quantized and not folded:
+            raise ValueError(
+                "quantized=True requires folded=True (int8 kernels are "
+                "produced from BN-folded weights; see models/quantize.py)."
+            )
         self.folded = folded
+        self.quantized = quantized
         self.input_conv = nn.Conv2d(3, 64, 3, padding=1, bias=folded)
         if not folded:
             self.input_bn = nn.BatchNorm2d(64, eps=_EPS)
@@ -138,6 +258,7 @@ class IRBackbone(nn.Module):
                     BasicBlockIR(
                         in_ch, depth, 2 if unit == 0 else 1, use_se,
                         conv_shortcut=conv_shortcut, folded=folded,
+                        quantized=quantized,
                     ),
                 )
                 self.unit_names.append(name)
@@ -169,8 +290,12 @@ class IRBackbone(nn.Module):
         return x / norm.clamp_min(1e-12), norm
 
 
-def build_backbone(architecture: str, folded: bool = False) -> IRBackbone:
-    """Factory mirroring the zoo's `build_model(arch)` naming."""
+def build_backbone(
+    architecture: str, folded: bool = False, quantized: bool = False
+) -> IRBackbone:
+    """Factory mirroring the zoo's `build_model(arch)` naming. `folded`
+    takes weights from `models/fold.py`; `quantized` (which needs `folded`)
+    takes them from `models/quantize.py::quantize_folded_variables`."""
     if architecture not in BACKBONE_CONFIGS:
         raise ValueError(
             f"Unknown architecture: {architecture}. "
@@ -182,4 +307,5 @@ def build_backbone(architecture: str, folded: bool = False) -> IRBackbone:
         use_se=cfg["use_se"],
         conv_shortcut=cfg.get("conv_shortcut", False),
         folded=folded,
+        quantized=quantized,
     )

@@ -1,4 +1,4 @@
-"""Batched image ops: colour conversion and model-input normalization.
+"""Batched image ops: colour conversion, resize and model-input normalization.
 
 Counterpart of `facerecognitionpipeline_tpu/ops/image.py` (NHWC tensors,
 any leading batch dims).
@@ -7,11 +7,14 @@ any leading batch dims).
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from facerecognitionpipeline_tpu_torch.ops.numerics import div
 
 # ITU-R BT.601 luma weights, identical to cv2.COLOR_RGB2GRAY.
 _GRAY_WEIGHTS = (0.299, 0.587, 0.114)
+
+MODEL_INPUT_SIZE = 112
 
 
 def rgb_to_gray(images: torch.Tensor) -> torch.Tensor:
@@ -28,6 +31,36 @@ def normalize_face_batch(
     x = faces_rgb.flip(-1).float()
     x = div(x - 127.5, 127.5)
     return x.to(dtype)
+
+
+def resize_bilinear(images: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
+    """[..., H, W, C] -> [..., out_h, out_w, C] float32, bilinear with
+    half-pixel centres (src = (dst + 0.5) * scale - 0.5, cv2.INTER_LINEAR's
+    mapping) and no antialiasing, as the JAX package's
+    `jax.image.resize(..., "linear", antialias=False)`. At equal size the
+    images come back as float32, unresampled."""
+    *lead, h, w, c = images.shape
+    x = images.float()
+    if (h, w) == (out_h, out_w):
+        return x
+    x = x.reshape(-1, h, w, c).permute(0, 3, 1, 2)
+    y = F.interpolate(
+        x, size=(out_h, out_w), mode="bilinear", align_corners=False,
+        antialias=False,
+    )
+    return y.permute(0, 2, 3, 1).reshape(*lead, out_h, out_w, c)
+
+
+def preprocess_faces(
+    faces_rgb: torch.Tensor,
+    input_size: int = MODEL_INPUT_SIZE,
+    dtype: torch.dtype = torch.float32,
+) -> torch.Tensor:
+    """RGB face crops [B, H, W, 3] (any real dtype) -> the embedder's input
+    [B, input_size, input_size, 3] in `dtype`, BGR, in [-1, 1]: resized if
+    needed, then normalized."""
+    faces_rgb = resize_bilinear(faces_rgb, input_size, input_size)
+    return normalize_face_batch(faces_rgb, dtype=dtype)
 
 
 def i420_to_rgb(yuv: torch.Tensor, height: int, width: int) -> torch.Tensor:

@@ -55,7 +55,8 @@ class LiveFaceRecognition:
     ):
         """device: as `FaceRecognitionServer` ('cuda' raises without a card;
         ignored when a pre-built `core` is given). quantize /
-        quantize_calib: refused by the core (int8 tier not ported)."""
+        quantize_calib: the int8 embedder and detector, as the server's
+        (ignored with a pre-built `core`)."""
         self.core = core or FaceRecognitionServer(
             gallery_path=gallery_path,
             similarity_threshold=similarity_threshold,

@@ -30,9 +30,12 @@ a stalled client releases its handler thread. Responses carry the same bytes;
 they leave with TCP_NODELAY so that the body does not wait for the client's
 delayed ACK of the headers.
 
+`quantize='int8'` serves the post-training-quantized embedder and detector
+(int8 res convs, int8 R/O-nets; `models/quantize.py`), calibrated on
+synthetic renders or on the aligned crops under `quantize_calib`.
+
 Not ported yet (NotImplementedError at construction, see ROADMAP.md):
-`mesh_data > 1` and `shard_gallery` (multi-GPU serving), `quantize` and
-`quantize_calib` (the int8 embedder/detector tier).
+`mesh_data > 1` and `shard_gallery` (multi-GPU serving).
 """
 
 from __future__ import annotations
@@ -159,8 +162,13 @@ class FaceRecognitionServer:
         per frame instead of every one of the max_faces slots (see the
         RecognitionEngine docstring). Faces beyond the budget are still
         detected/tracked; recognition for them retries on later frames.
-        quantize, quantize_calib: the int8 embedder/detector tier — not
-        ported (NotImplementedError naming ROADMAP.md).
+        quantize: None or 'int8' — post-training-quantized embedder (int8
+        res convs, static calibrated activation scales) AND detector (int8
+        R/O-net convs/fc); see models/quantize.py for the scheme and its
+        calibration caveat.
+        quantize_calib: directory of aligned face crops to calibrate the
+        int8 embedder on (load_calibration_faces; ValueError when it holds
+        none) instead of the synthetic default.
         gallery_quantize: None or 'int8' — at streaming scale (>= 32k ids)
         the device templates become int8 codes + per-row scales, searched
         by the int8 streaming top-k kernel.
@@ -176,12 +184,6 @@ class FaceRecognitionServer:
             raise NotImplementedError(
                 "mesh_data > 1 / shard_gallery: multi-GPU serving is queued "
                 "in ROADMAP.md (queue 1, multi-GPU)"
-            )
-        if quantize is not None or quantize_calib is not None:
-            raise NotImplementedError(
-                "quantize / quantize_calib: the int8 embedder and detector "
-                "tier is queued in ROADMAP.md (queue 1, int8 tier); "
-                "gallery_quantize='int8' is supported"
             )
         self.device = (
             resolve_device(device) if engine is None
@@ -215,14 +217,25 @@ class FaceRecognitionServer:
             from facerecognitionpipeline_tpu_torch.pipeline.embedder import FaceEmbedder
             from facerecognitionpipeline_tpu_torch.pipeline.engine import RecognitionEngine
 
+            # quantize='int8' covers the detector too: its R/O-net convs/fc
+            # calibrate on synthetic full-frame scenes at det_size
             detector = MTCNNDetector(
                 det_size=det_size, det_thresh=0.5, max_faces=max_faces,
                 min_face_size=40, dtype=torch.bfloat16,
-                weights_path=detector_weights, device=self.device,
+                weights_path=detector_weights, quantize=quantize,
+                device=self.device,
             )
+            calib_faces = None
+            if quantize_calib is not None:
+                from facerecognitionpipeline_tpu_torch.models.quantize import (
+                    load_calibration_faces,
+                )
+
+                calib_faces = load_calibration_faces(quantize_calib)
             embedder = FaceEmbedder(
                 architecture=architecture, model_type=model_type,
                 model_path=model_path, dtype=torch.bfloat16,
+                quantize=quantize, calib_faces=calib_faces,
                 device=self.device,
             )
             engine = RecognitionEngine(
@@ -1566,11 +1579,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--quantize", type=str, default=None,
                    choices=["int8"],
                    help="post-training-quantized embedder and detector "
-                        "(not ported: refused, see ROADMAP.md)")
+                        "(int8 res convs and R/O-nets, exact s8 x s8 -> s32 "
+                        "sums; calibrate on real faces for imported weights, "
+                        "see models/quantize.py)")
     p.add_argument("--quantize_calib", type=str, default=None,
                    help="directory of aligned face crops for int8 "
-                        "activation-scale calibration (not ported: "
-                        "refused, see ROADMAP.md)")
+                        "activation-scale calibration (required in practice "
+                        "with --quantize int8 on imported weights)")
     p.add_argument("--max_requests", type=int, default=None,
                    help="recycle the serving worker after this many frame "
                         "requests: the process drains in-flight requests, "

@@ -325,13 +325,27 @@ def test_live_frame_skip_composes_with_recognition_interval(tmp_path):
     assert "1" in app._last_result["recognized_tracks"]
 
 
-def test_live_app_defaults_to_cuda_and_refuses_the_int8_tier(tmp_path, monkeypatch):
+def test_live_app_defaults_to_cuda(tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         LiveFaceRecognition(gallery_path=str(tmp_path / "g.pkl"), output_dir=str(tmp_path))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        LiveFaceRecognition(gallery_path=str(tmp_path / "g.pkl"), output_dir=str(tmp_path),
-                            quantize="int8", device="cpu")
+
+
+def test_live_app_builds_the_int8_tier_on_the_cpu(tmp_path):
+    """quantize='int8' reaches the core: an int8 detector and embedder
+    (calibrated on the synthetic defaults), serving a synthetic frame."""
+    app = LiveFaceRecognition(
+        gallery_path=str(tmp_path / "g.pkl"), output_dir=str(tmp_path), architecture="ir_micro",
+        quantize="int8", device="cpu", synthetic=True, frame_skip=1, max_frames=1,
+        display=False,
+    )
+    try:
+        engine = app.core.engine
+        assert engine.detector.quantized and engine.embedder.quantized
+        assert engine.embedder.model.stage0_unit0.res_conv1.kernel_q.dtype == torch.int8
+        assert app.run() == 0
+    finally:
+        app.core.shutdown()
 
 
 @pytest.mark.parametrize("module,flags", [

@@ -20,7 +20,7 @@ import numpy as np
 import pytest
 import torch
 
-from facerecognitionpipeline_tpu_torch.ops import crop_kernel, warp_kernel
+from facerecognitionpipeline_tpu_torch.ops import crop_kernel, int8_gemm, warp_kernel
 from facerecognitionpipeline_tpu_torch.ops.crop_kernel import (
     crop_resize_kernel,
     crop_resize_plain,
@@ -457,20 +457,22 @@ def test_gallery_kernels_refuse_what_they_do_not_take(dev, gen):
 @pytest.fixture
 def card_server(dev, tmp_path, request):
     """The port's server built by its constructor on the card (ir_micro,
-    seeded random weights, det 160x160, 4 face slots), served on a thread."""
+    seeded random weights, det 160x160, 4 face slots), served on a thread.
+    The parameter is the transport, with '-int8' for quantize='int8'."""
     import os
     import threading
 
     from facerecognitionpipeline_tpu_torch.serve.server import FaceRecognitionServer, serve
 
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    transport, _, quantize = request.param.partition("-")
     srv = FaceRecognitionServer(
         gallery_path=str(tmp_path / "gallery" / "students.pkl"),
         similarity_threshold=0.9, output_dir=str(tmp_path / "sessions"),
         architecture="ir_micro",
         detector_weights=os.path.join(repo, "pretrained", "mtcnn_dr.npz"),
         det_size=(160, 160), max_faces=4, batch_max=2, batch_wait_ms=1.0,
-        transport=request.param, device="cuda",
+        transport=transport, quantize=quantize or None, device="cuda",
     )
     httpd = serve(srv, "127.0.0.1", 0)
     thread = threading.Thread(target=httpd.serve_forever, daemon=True)
@@ -486,10 +488,11 @@ def card_server(dev, tmp_path, request):
 
 @pytest.mark.parametrize(
     "card_server,image_format",
-    [("rgb", "png"), ("rgb", "raw"), ("rgb", "raw-i420"), ("i420", "raw-i420"), ("i420", "png")],
+    [("rgb", "png"), ("rgb", "raw"), ("rgb", "raw-i420"), ("i420", "raw-i420"), ("i420", "png"),
+     ("rgb-int8", "raw")],
     indirect=["card_server"],
 )
-def test_server_on_the_card_recognizes_over_every_transport(card_server, image_format):
+def test_server_on_the_card_recognizes_over_every_transport(card_server, image_format, request):
     """One client, three frames: the face count equals a direct step's, the
     enrolled faces are recognized, every step launched K1 three times and K2
     once, and the monitor reads device memory from torch.cuda."""
@@ -541,6 +544,7 @@ def test_server_on_the_card_recognizes_over_every_transport(card_server, image_f
         "status"] == "reloaded"
     crop_kernel.LAUNCHES.reset()
     warp_kernel.LAUNCHES.reset()
+    int8_gemm.PRODUCTS.reset()
     steps0 = srv.batcher._dispatch_count
     body = None
     for _ in range(3):
@@ -550,6 +554,11 @@ def test_server_on_the_card_recognizes_over_every_transport(card_server, image_f
     steps = srv.batcher._dispatch_count - steps0
     assert steps == 3
     assert crop_kernel.LAUNCHES.count == 3 * steps and warp_kernel.LAUNCHES.count == steps
+    quantized = srv.engine.embedder.quantized
+    assert quantized == srv.engine.detector.quantized == (
+        "int8" in request.node.callspec.params["card_server"])
+    # per int8 step: R-net 4 and O-net 5 int8 layers, two per backbone unit
+    assert int8_gemm.PRODUCTS.count == (steps * (9 + 2 * 4) if quantized else 0)
     recognized = {r["student_id"] for r in body["recognized_tracks"].values()}
     assert enrolled <= recognized and not any(r.startswith("other") for r in recognized)
     stats = client._session.get(f"{url}/stats", timeout=10).json()
@@ -563,3 +572,61 @@ def test_server_on_the_card_recognizes_over_every_transport(card_server, image_f
     assert report["memory_usage"]["gpu_vram"]["available"] is True
     assert report["session_info"]["model_identifier"] == "ADAFACE_IR_MICRO_CUDA"
     assert os.listdir(tmp_path / "sessions" / "card" / "recognized_faces")
+
+
+# ------------------------------------------------ the int8 tier's product
+
+# (faces or crops, input side, in channels, out channels, kernel, stride,
+# padding) of every distinct int8 conv of the serving step: ir_101's res
+# convs at 128 faces (8 frames x 16 slots), R-net's at 2048 candidate crops
+# (8 x 256) and O-net's at 768 (8 x 96); then odd shapes: fewer than 17
+# rows, K = 27 and N = 28, a window that ends inside the image.
+INT8_CONVS = [
+    (128, 112, 64, 64, 3, 1, 1), (128, 112, 64, 64, 3, 2, 1),
+    (128, 56, 64, 64, 3, 1, 1), (128, 56, 64, 128, 3, 1, 1),
+    (128, 56, 128, 128, 3, 2, 1), (128, 28, 128, 128, 3, 1, 1),
+    (128, 28, 128, 256, 3, 1, 1), (128, 28, 256, 256, 3, 2, 1),
+    (128, 14, 256, 256, 3, 1, 1), (128, 14, 256, 512, 3, 1, 1),
+    (128, 14, 512, 512, 3, 2, 1), (128, 7, 512, 512, 3, 1, 1),
+    (2048, 24, 3, 28, 3, 1, 0), (2048, 11, 28, 48, 3, 1, 0), (2048, 4, 48, 64, 2, 1, 0),
+    (768, 48, 3, 32, 3, 1, 0), (768, 23, 32, 64, 3, 1, 0), (768, 10, 64, 64, 3, 1, 0),
+    (768, 4, 64, 128, 2, 1, 0),
+    (1, 3, 5, 28, 3, 1, 0), (3, 5, 3, 28, 3, 1, 0), (2, 9, 7, 12, 3, 2, 1),
+]
+INT8_DENSE = [(2048, 576, 128), (768, 1152, 256), (5, 27, 28), (16, 40, 13)]
+
+
+@pytest.mark.parametrize("b,h,cin,cout,k,stride,pad", INT8_CONVS)
+def test_int8_conv_equals_its_plain_version(dev, b, h, cin, cout, k, stride, pad):
+    g = torch.Generator(device=dev).manual_seed(b * 7 + h + cin + cout)
+    x = torch.randint(-127, 128, (b, h, h, cin), generator=g, device=dev, dtype=torch.int8)
+    w = torch.randint(-127, 128, (k * k * cin, cout), generator=g, device=dev,
+                      dtype=torch.int8)
+    packed = int8_gemm.pack_weight(w)
+    int8_gemm.PRODUCTS.reset()
+    got = int8_gemm.int8_conv2d(x, packed, (k, k), stride, pad, cout)
+    assert int8_gemm.PRODUCTS.count == 1 and got.dtype == torch.int32
+    want = int8_gemm.int8_conv2d(x, packed, (k, k), stride, pad, cout, plain=True)
+    assert int8_gemm.PRODUCTS.count == 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("m,k,n", INT8_DENSE)
+def test_int8_linear_equals_its_plain_version(dev, m, k, n):
+    g = torch.Generator(device=dev).manual_seed(m + k + n)
+    x = torch.randint(-127, 128, (m, k), generator=g, device=dev, dtype=torch.int8)
+    w = torch.randint(-127, 128, (k, n), generator=g, device=dev, dtype=torch.int8)
+    packed = int8_gemm.pack_weight(w)
+    got = int8_gemm.int8_linear(x, packed, n)
+    ref = x.cpu().long() @ w.cpu().long()
+    assert torch.equal(got.cpu().long(), ref)
+    assert torch.equal(got, int8_gemm.int8_linear(x, packed, n, plain=True))
+
+
+def test_int8_product_raises_on_the_card_rather_than_fall_back(dev):
+    a = torch.ones((32, 27), dtype=torch.int8, device=dev)
+    w = torch.ones((28, 27), dtype=torch.int8, device=dev)  # not padded
+    int8_gemm.PRODUCTS.reset()
+    with pytest.raises(ValueError, match="not padded"):
+        int8_gemm.int8_product(a, w, 28)
+    assert int8_gemm.PRODUCTS.count == 0

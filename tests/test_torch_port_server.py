@@ -9,6 +9,9 @@
     rendered scene, both servers over HTTP.
 (c) The bounded mid-body wait of the port's `_read_body`.
 (d) What the port's server refuses at construction.
+(e) The int8 tier: both servers built by their constructors with
+    quantize='int8' (and quantize_calib) over the same weights answer one
+    request script alike.
 
 Everything runs on the CPU (`device="cpu"`); servers bind 127.0.0.1:0.
 """
@@ -623,8 +626,6 @@ def test_client_that_closes_mid_body_gets_no_500(stall_server):
 @pytest.mark.parametrize("kw,what", [
     ({"mesh_data": 2}, "multi-GPU"),
     ({"shard_gallery": True}, "multi-GPU"),
-    ({"quantize": "int8"}, "int8"),
-    ({"quantize_calib": "/nowhere"}, "int8"),
 ])
 def test_unported_options_are_refused_at_construction(tmp_path, kw, what):
     with pytest.raises(NotImplementedError, match="ROADMAP.md") as e:
@@ -863,3 +864,138 @@ def test_real_engine_attendance_agrees(real_run):
     assert abs(t["recognized"][0]["confidence"] - j["recognized"][0]["confidence"]) < 2e-3
     assert t["recognized"][0]["confidence"] > 0.9
     assert t["unrecognized"] == j["unrecognized"] == []
+
+
+# ------------------------------------------------------- (e) the int8 tier
+
+INT8_WEIGHTS = os.path.join(REPO, "pretrained", "mtcnn_dr.npz")
+FIXTURE = os.path.join(REPO, "facerecognitionpipeline_tpu_torch", "testdata",
+                       "smoke_scenes.npz")
+
+
+def _int8_server(mod, tmp, gallery, model_path, calib_dir):
+    return mod.FaceRecognitionServer(
+        gallery=gallery, similarity_threshold=0.8, output_dir=str(tmp / "sessions"),
+        architecture="ir_micro", model_path=model_path, detector_weights=INT8_WEIGHTS,
+        det_size=DET, max_faces=FACES, batch_max=1, batch_wait_ms=1.0,
+        quantize="int8", quantize_calib=calib_dir,
+        **({"device": "cpu"} if mod is tserver else {}),
+    )
+
+
+def _write_calib_crops(root):
+    from facerecognitionpipeline_tpu_torch.models.quantize import default_calibration_faces
+    from facerecognitionpipeline_tpu_torch.utils.io import imwrite_rgb
+
+    os.makedirs(root, exist_ok=True)
+    for i, crop in enumerate(default_calibration_faces(6, seed=2)):
+        imwrite_rgb(os.path.join(root, f"c{i}.png"), crop)
+
+
+@pytest.fixture(scope="module")
+def int8_run(tmp_path_factory):
+    """Both int8 servers, built by their constructors over the same ir_micro
+    .npz, calibration crops and detector weights, through one request
+    script on a fixture tile. The enrolled student is the port's direct int8
+    step's embedding of the tile's face."""
+    import jax
+
+    from facerecognitionpipeline_tpu.models.irse import build_backbone as jax_backbone
+    from facerecognitionpipeline_tpu.utils.io import save_npz_variables
+
+    tmp = tmp_path_factory.mktemp("int8")
+    model_path = str(tmp / "ir_micro.npz")
+    variables = jax_backbone("ir_micro").init(
+        jax.random.PRNGKey(0), np.zeros((1, 112, 112, 3), np.float32))
+    save_npz_variables(model_path, variables)
+    calib_dir = str(tmp / "calib")
+    _write_calib_crops(calib_dir)
+    with np.load(FIXTURE) as d:
+        tile = np.ascontiguousarray(d["tiles"][2])
+
+    tgallery = TGallery(gallery_path=str(tmp / "torch" / "g.pkl"), verbose=False, device="cpu")
+    tsrv = _int8_server(tserver, tmp / "torch", tgallery, model_path, calib_dir)
+    assert tsrv.engine.detector.quantized and tsrv.engine.embedder.quantized
+    t, v, _ = tgallery.device_snapshot()
+    direct = tsrv.engine.process_frames(torch.from_numpy(tile)[None], t, v)
+    ok = (direct["face_valid"][0] & direct["quality_ok"][0]).numpy()
+    assert ok.any(), "the tile's face must pass the gate"
+    emb = direct["embeddings"][0].float().numpy()[ok][:1]
+    others = np.random.default_rng(5).normal(size=(2, 512)).astype(np.float32)
+    jgallery = JGallery(gallery_path=str(tmp / "jax" / "g.pkl"), verbose=False)
+    for g in (tgallery, jgallery):
+        g.add_student("OTHER1", "Other 1", others[0])
+        g.add_student("SYN0002", "Tile 2", emb)
+        g.add_student("OTHER2", "Other 2", others[1])
+    jsrv = _int8_server(jserver, tmp / "jax", jgallery, model_path, calib_dir)
+
+    out = {}
+    for which, mod, srv in (("jax", jserver, jsrv), ("torch", tserver, tsrv)):
+        httpd = mod.serve(srv, host="127.0.0.1", port=0)
+        thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+        thread.start()
+        url = f"http://127.0.0.1:{httpd.server_address[1]}"
+        http = HTTPSession()
+        try:
+            assert http.post(f"{url}/init_session", json={"session_name": "q"},
+                             timeout=30).status_code == 200
+            bodies = []
+            for count in (1, 2, 3):
+                r = http.post(f"{url}/process_frame_raw", timeout=300, data=tile.tobytes(),
+                              headers={rawproto.HEADER_FORMAT: "rgb24",
+                                       rawproto.HEADER_WIDTH: str(DET[1]),
+                                       rawproto.HEADER_HEIGHT: str(DET[0]),
+                                       rawproto.HEADER_SCALE: "1.0",
+                                       rawproto.HEADER_COUNT: str(count)})
+                assert r.status_code == 200, r.text[:300]
+                bodies.append(r.json())
+            assert http.post(f"{url}/finalize", json={}, timeout=30).status_code == 200
+            with open(tmp / which / "sessions" / "q" / "attendance.json") as f:
+                out[which] = (bodies, json.load(f))
+        finally:
+            http.close()
+            httpd.shutdown()
+            httpd.server_close()
+            srv.shutdown()
+            thread.join(timeout=10)
+    return out
+
+
+@pytest.mark.parametrize("frame", [0, 1, 2])
+def test_int8_servers_answer_alike(int8_run, frame):
+    """Same faces, boxes within 1 px, the same recognized student."""
+    j, t = int8_run["jax"][0][frame], int8_run["torch"][0][frame]
+    assert t["faces_detected"] == j["faces_detected"] >= 1
+    assert [tr["track_id"] for tr in t["tracks"]] == [tr["track_id"] for tr in j["tracks"]]
+    for a, b in zip(j["tracks"], t["tracks"]):
+        np.testing.assert_allclose(b["bbox"], a["bbox"], atol=1.0)
+    students = {tid: r["student_id"] for tid, r in t["recognized_tracks"].items()}
+    assert students == {tid: r["student_id"] for tid, r in j["recognized_tracks"].items()}
+
+
+def test_int8_servers_attendance_agrees(int8_run):
+    """The same student in attendance.json. Its confidence is the port's own
+    direct embedding against itself (1.0) on the port's side; on the JAX
+    side, the JAX server's embedding of the same face: each package
+    calibrates in bf16 on its own (activation scales within ~2%), so codes,
+    and the sub-pixel landmarks that place the aligned crop, differ; it must
+    still clear the 0.8 threshold by a margin."""
+    j, t = int8_run["jax"][1], int8_run["torch"][1]
+    assert [s["student_id"] for s in t["recognized"]] == ["SYN0002"]
+    assert [s["student_id"] for s in j["recognized"]] == ["SYN0002"]
+    assert t["recognized"][0]["confidence"] > 0.999
+    assert j["recognized"][0]["confidence"] > 0.9
+
+
+def test_quantize_calib_without_images_is_refused_as_in_jax(tmp_path):
+    """A calibration directory that holds no image: ValueError from both
+    servers' constructors (load_calibration_faces)."""
+    for which, mod in (("jax", jserver), ("torch", tserver)):
+        kw = {"device": "cpu"} if which == "torch" else {}
+        with pytest.raises(ValueError, match="no readable calibration images"):
+            mod.FaceRecognitionServer(
+                gallery_path=str(tmp_path / which / "g.pkl"),
+                output_dir=str(tmp_path / which), architecture="ir_micro",
+                detector_weights=INT8_WEIGHTS, det_size=DET, max_faces=FACES,
+                quantize="int8", quantize_calib=str(tmp_path / "missing"), warmup=False, **kw,
+            )
