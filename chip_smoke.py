@@ -5,8 +5,9 @@
 
 Phases, in order; any failure exits non-zero before the final line:
   1. build the CUDA kernels (K1 crop_resize, K2 warp_patches, K3
-     gallery_topk, K4 gallery_topk_int8) with nvcc, all at once, and print
-     what the assembler reports (registers, spills);
+     gallery_topk, K4 gallery_topk_int8, K3 on float32 rows
+     gallery_topk_f32) with nvcc, all at once, and print what the assembler
+     reports (registers, spills) for every list length;
   2. hold each kernel against its plain PyTorch version on the card, at the
      shapes the serving step gives it, and time kernel, plain version and a
      PyTorch yardstick (F.grid_sample; matmul + topk with the similarity
@@ -22,7 +23,12 @@ Phases, in order; any failure exits non-zero before the final line:
      a gallery that ends inside a tile, depths that end inside a K-panel,
      top_k 1 and 8, no valid row, a gallery view off a 16-byte address
      refused); the device time of their stream and merge kernels alone and
-     of the query preparation around them is read from torch.profiler;
+     of the query preparation around them is read from torch.profiler. K3
+     on float32 rows at 128 x 1 048 576 x 512 within 1e-5 of its plain
+     version, timed beside its bound (operations on CUDA cores) and a stored
+     float32 matmul + topk; K3 (bf16 and float32 rows) and K4 at top_k 16,
+     33 and 64 against their plain versions, with the ring each list length
+     leaves;
   3. the fused serving step at the server's build: ir_101 (seeded random
      weights), bf16, det_size 640x640, 16 face slots, min face 40, top-3,
      a 1024-row float32 gallery (dense match), B=8 frames composed from the
@@ -72,9 +78,25 @@ Phases, in order; any failure exits non-zero before the final line:
      device time, embed and detect alone beside the bf16 step's; the int8
      step against 1 048 576 int8 rows (K4 once per step); one server built
      with quantize='int8' serving 200 raw rgb24 requests, every answer held
-     against its direct int8 step.
-Then it prints the card's name and power limit, a JSON line of phase 8's
-numbers, a JSON line describing the kernels, and as its last line
+     against its direct int8 step;
+  9. enrolment and offline matching with the weight formats users have:
+     seeded ir_101 weights written as an AdaFace Lightning .ckpt (the port's
+     save_adaface_checkpoint) and a JAX-format .npz, seeded iresnet_100
+     weights as an ArcFace .onnx (an initializer-only protobuf written
+     here); 8 students x 4 photos rendered with render_identity_scene (each
+     checked through a bf16 FaceProcessor, K1 twice per image, timed as
+     images per second), enrolled through cli/enroll_students on the card
+     from the .ckpt and from the .npz (the two galleries within 1e-5);
+     face_matcher --single_image and FaceMatcher.match_single_image return
+     each student top-1 at confidence > 0.99; the .onnx embedder on the card
+     against the CPU; FaceMatcher.match_faces_batch against 1 048 576
+     identities, bf16 (K3) then int8 (K4), at top_k 5, 16 and 64: enrolled
+     students top-1, one launch per search, answers equal to the plain
+     version on the same compact rows; the step with gallery_impl=
+     'streaming' on a float32 gallery launches K3 on float32 rows once per
+     step and equals the dense step.
+Then it prints the card's name and power limit, JSON lines of phase 8's and
+phase 9's numbers, a JSON line describing the kernels, and as its last line
 {"ok": true, "device": {...}}.
 """
 
@@ -541,15 +563,16 @@ def print_build_report(name: str, log: str) -> None:
         line = line.strip()
         if "Compiling entry function" in line:
             mangled = line.split("'")[1]
-            entry = next((n for n in ("stream_topk_kernel", "merge_topk_kernel",
-                                      "crop_resize", "warp_patches") if n in mangled), mangled)
-            length = re.search(r"TraitsELi(\d+)E", mangled)
+            entry = next((n for n in ("stream_topk_kernel", "stream_topk_f32_kernel",
+                                      "merge_topk_kernel", "crop_resize", "warp_patches")
+                          if n in mangled), mangled)
+            length = re.search(r"(?:TraitsE|kernelI)Li(\d+)E", mangled)
             if length:  # the list length this instance of the kernel keeps
                 entry += f"<list of {length.group(1)}>"
         elif "registers" in line or "spill" in line or "smem" in line:
             print(f"[build] {name} {entry}: {line.replace('ptxas info    : ', '')}")
             if "spill" in line and "0 bytes spill stores, 0 bytes spill loads" not in line \
-                    and entry.startswith("stream_topk_kernel"):
+                    and entry.startswith("stream_topk"):
                 print(f"[build] WARNING: {name} {entry} spills registers: {line}")
         elif "warning" in line.lower():
             print(f"[build] {name}: {line}")
@@ -587,7 +610,6 @@ def gallery_kernel_phase(gal) -> dict:
     queries[:8] = t[rows_q] * 3.0  # eight queries equal to gallery rows
     tb = t.to(torch.bfloat16)
     codes, scales = gk.quantize_templates(t)
-    del t
 
     def agree(label, kv, ki, pv, pi, tol):
         err = float((kv - pv).abs().max())
@@ -723,6 +745,9 @@ def gallery_kernel_phase(gal) -> dict:
                 "q64_ms": cuda_time_ms(k3_q64),
                 "q64_stream_device_ms": device_time_ms(k3_q64, "stream_topk_kernel"),
             })
+    long_lists_and_float32_rows(gk, report, queries, t, tb, codes, scales, valid,
+                                rows_q, agree)
+    del t
     gallery_odd_shapes(gk, tb, codes, scales)
     print_bounds(report, "matmul+topk" if int_mm is None else "matmul/_int_mm+topk")
     for name in ("gallery_topk", "gallery_topk_int8"):
@@ -741,6 +766,106 @@ def gallery_kernel_phase(gal) -> dict:
           f"stream kernel {'not measured' if r['q64_stream_device_ms'] is None else format(r['q64_stream_device_ms'], '.4f')} ms; "
           f"at Q=128 two blocks read each tile")
     return report
+
+
+def long_lists_and_float32_rows(gk, report, q, t, tb, codes, scales, valid, rows_q,
+                                agree) -> None:
+    """Phase 2, K3 on float32 rows (its own kernel, `csrc/gallery_topk_f32.cu`)
+    at the serving shape, held within 1e-5 of its plain version and timed
+    beside its bound (operations on CUDA cores) and the stored float32
+    matmul + topk; then K3 (bf16 and float32 rows) and K4 at top_k 16, 33 and
+    64, the lists that live in shared memory, against their plain versions,
+    with the ring depth each length leaves."""
+    import torch
+
+    big = t.shape[0]
+    qd = q.shape[0] * 512
+    neg = torch.tensor(-1e9, device=DEVICE)
+    qn = q / torch.linalg.vector_norm(q, dim=1, keepdim=True)
+    k = 3
+
+    def k3f(k=k):
+        return gk.streaming_cosine_topk(q, t, valid, top_k=k, chunk=STREAM_CHUNK)
+
+    def lib_f32(k=k):
+        return torch.topk(torch.where(valid, torch.matmul(qn, t.T), neg), k)
+
+    kv, ki = k3f()
+    pv, pi = gk.streaming_cosine_topk_plain(q, t, valid, top_k=k, chunk=STREAM_CHUNK)
+    torch.cuda.synchronize()
+    shape = f"serving Q={q.shape[0]} G={big} k={k}"
+    err = agree(f"K3 gallery_topk_f32 {shape}", kv, ki, pv, pi, 1e-5)
+    if ki[:8, 0].tolist() != rows_q[:8] or float(kv[:8, 0].min()) < 0.99:
+        fail("K3 on float32 rows: queries equal to gallery rows did not come back top-1")
+    report["gallery_topk_f32"] = [{
+        "shape": shape, "err": err, "in_step": True,
+        "ms": cuda_time_ms(k3f, iters=10),
+        "plain_ms": cuda_time_ms(lambda: gk.streaming_cosine_topk_plain(
+            q, t, valid, top_k=k, chunk=STREAM_CHUNK), iters=2, warmup=1),
+        "library_ms": cuda_time_ms(lib_f32, iters=5, warmup=1),
+        "bytes": 4 * qd + big * (512 * 4 + 1) + q.shape[0] * k * 8,
+        "flops": 2 * q.shape[0] * big * 512, "peak": F32_FLOPS_PER_S,
+        "stream_device_ms": device_time_ms(k3f, "stream_topk_f32_kernel", iters=5),
+        "merge_device_ms": device_time_ms(k3f, "merge_topk_kernel", iters=5),
+    }]
+    r = report["gallery_topk_f32"][0]
+    print(f"[timing] gallery_topk_f32 {shape}: stream kernel "
+          f"{'not measured' if r['stream_device_ms'] is None else format(r['stream_device_ms'], '.4f')}"
+          f" ms device, merge "
+          f"{'not measured' if r['merge_device_ms'] is None else format(r['merge_device_ms'], '.4f')}"
+          f" ms")
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for k in (16, 33, 64):
+        shape = f"long list Q={q.shape[0]} G={big} k={k}"
+        out_bytes = q.shape[0] * k * 8
+        for name, rows, plain_rows, tol, kind in (
+                ("gallery_topk", tb, tb, K3_TOL, "bf16"),
+                ("gallery_topk_f32", t, t, 1e-5, "f32"),
+                ("gallery_topk_int8", codes, codes, 0.0, "int8")):
+            if kind == "int8":
+                def fn(k=k):
+                    return gk.streaming_cosine_topk_int8(q, codes, scales, valid, top_k=k,
+                                                         chunk=STREAM_CHUNK)
+
+                def plain(k=k):
+                    return gk.streaming_cosine_topk_int8_plain(q, codes, scales, valid,
+                                                               top_k=k, chunk=STREAM_CHUNK)
+            else:
+                def fn(k=k, rows=rows):
+                    return gk.streaming_cosine_topk(q, rows, valid, top_k=k, chunk=STREAM_CHUNK)
+
+                def plain(k=k, rows=plain_rows):
+                    return gk.streaming_cosine_topk_plain(q, rows, valid, top_k=k,
+                                                          chunk=STREAM_CHUNK)
+            kv, ki = fn()
+            pv, pi = plain()
+            torch.cuda.synchronize()
+            if kind == "int8":
+                err = float((kv - pv).abs().max())
+                if err != 0.0 or not torch.equal(ki, pi):
+                    fail(f"K4 {shape} is not equal to its plain version to the bit")
+                print(f"[kernels] K4 gallery_topk_int8 {shape}: equal to its plain version")
+            else:
+                err = agree(f"K3 {name} {shape}", kv, ki, pv, pi, tol)
+            geo = gk.gallery_launch_geometry(q.shape[0], big, 512, kind, sms, k)
+            print(f"[kernels] {name} {shape}: list of {geo.list_len}, ring of "
+                  f"{geo.stages} stages, {geo.smem_bytes} bytes of shared memory")
+            elem = {"bf16": 2, "f32": 4, "int8": 1}[kind]
+            report[name].append({
+                "shape": shape, "err": err, "in_step": False,
+                "ms": cuda_time_ms(fn, iters=5, warmup=1),
+                "plain_ms": cuda_time_ms(plain, iters=1, warmup=0),
+                "library_ms": cuda_time_ms(
+                    (lambda k=k: torch.topk(torch.where(valid, torch.matmul(
+                        qn.to(torch.bfloat16), tb.T).float(), neg), k)) if kind != "f32"
+                    else (lambda k=k: lib_f32(k)), iters=3, warmup=1),
+                "bytes": 4 * qd + big * (512 * elem + 1 + (4 if kind == "int8" else 0))
+                + out_bytes,
+                "flops": 2 * q.shape[0] * big * 512,
+                "peak": {"bf16": BF16_FLOPS_PER_S, "f32": F32_FLOPS_PER_S,
+                         "int8": INT8_OPS_PER_S}[kind],
+            })
 
 
 def gallery_odd_shapes(gk, tb, codes, scales) -> None:
@@ -2136,6 +2261,399 @@ def int8_phase(ctx, gal, report) -> None:
     report["int8"] = res
 
 
+# ------------------------------------------------------------ phase 9
+
+ENROL_STUDENTS = 8
+ENROL_PHOTOS = 4
+MATCH_TOP_KS = (5, 16, 64)
+
+
+def onnx_initializers_bytes(tensors: dict) -> bytes:
+    """A minimal ONNX ModelProto whose graph holds only initializers: per
+    tensor a TensorProto with its dims (field 1), data type float32 (2),
+    name (8) and little-endian raw data (9), written from the protobuf wire
+    format (no onnx package). What `models/onnx_import.py` reads."""
+    import numpy as np
+
+    def varint(v):
+        out = b""
+        while True:
+            b, v = v & 0x7F, v >> 7
+            if v:
+                out += bytes([b | 0x80])
+            else:
+                return out + bytes([b])
+
+    def tag(field, wire):
+        return varint((field << 3) | wire)
+
+    def field(num, payload):
+        return tag(num, 2) + varint(len(payload)) + payload
+
+    parts = []
+    for name, arr in tensors.items():
+        arr = np.asarray(arr, np.float32)
+        body = b"".join(tag(1, 0) + varint(d) for d in arr.shape)
+        body += tag(2, 0) + varint(1) + field(8, name.encode()) + field(9, arr.tobytes())
+        parts.append(field(5, body))
+    graph = b"".join(parts)
+    return tag(1, 0) + varint(7) + field(7, graph)
+
+
+def seeded_unfolded_tree(arch: str, seed: int) -> dict:
+    """JAX-format {'params', 'batch_stats'} of the port's unfolded `arch`,
+    weights from a seed."""
+    import torch
+
+    from facerecognitionpipeline_tpu_torch.models.convert import backbone_variables_from_state
+    from facerecognitionpipeline_tpu_torch.models.irse import build_backbone
+    from facerecognitionpipeline_tpu_torch.models.layers import lecun_normal_
+
+    model = build_backbone(arch, folded=False)
+    lecun_normal_(model, torch.Generator().manual_seed(seed))
+    return backbone_variables_from_state(model.state_dict())
+
+
+def render_students(tmp: str, gate) -> list:
+    """ENROL_STUDENTS directories of ENROL_PHOTOS photos. A student is one
+    `render_identity_scene` face, upscaled 3x so it meets the enrolment gate
+    (faces of 60 px, blur 100); the photos differ in a 40 px corner patch, as
+    the JAX package's enrolment tests vary theirs. A face whose best detection
+    fails the gate is drawn again. Returns the photo paths per student."""
+    import cv2
+    import numpy as np
+
+    from facerecognitionpipeline_tpu_torch.train.detector_train import (
+        make_identity,
+        render_identity_scene,
+    )
+
+    rng = np.random.default_rng(9)
+    paths, seed = [], 0
+    while len(paths) < ENROL_STUDENTS:
+        img, *_ = render_identity_scene([make_identity(1000 + seed)], rng, size=160)
+        seed += 1
+        if seed > 200:
+            fail("could not render enough students that pass the enrolment gate")
+        img = cv2.resize(img, (480, 480), interpolation=cv2.INTER_LINEAR)
+        faces = gate.process_numpy(img)
+        if not faces or not faces[0]["is_valid"] or \
+                faces[0]["quality_metrics"]["blur_score"] < 120:
+            continue
+        d = os.path.join(tmp, "enrol", f"student_{len(paths)}")
+        os.makedirs(d)
+        mine = []
+        for i in range(ENROL_PHOTOS):
+            photo = img.copy()
+            photo[:40, :40] = rng.integers(0, 256, (40, 40, 3))
+            mine.append(os.path.join(d, f"photo_{i}.png"))
+            cv2.imwrite(mine[-1], cv2.cvtColor(photo, cv2.COLOR_RGB2BGR))
+        paths.append(mine)
+    return paths
+
+
+def run_cli(main, argv) -> tuple[int, str]:
+    """A CLI's main(argv) with its standard output captured."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = main(argv)
+    return rc, buf.getvalue()
+
+
+def enrolment_phase(ctx, gal, report) -> None:
+    """Phase 9: enrolment and offline matching with the weight formats users
+    have. Seeded ir_101 weights written as an AdaFace Lightning .ckpt (the
+    port's save_adaface_checkpoint) and as a JAX-format .npz, seeded
+    iresnet_100 weights as an ArcFace .onnx; students rendered and enrolled
+    through cli/enroll_students on the card; face_matcher --single_image;
+    the .onnx embedder on the card against the CPU; FaceMatcher against
+    1 048 576 identities, bf16 (K3) then int8 (K4), at top_k 5, 16 and 64;
+    the engine with gallery_impl='streaming' on a float32 gallery (K3 on
+    float32 rows)."""
+    import re as _re
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from facerecognitionpipeline_tpu_torch.cli import enroll_students, face_matcher
+    from facerecognitionpipeline_tpu_torch.gallery.manager import GalleryManager, StudentRecord
+    from facerecognitionpipeline_tpu_torch.models import detector as detector_module
+    from facerecognitionpipeline_tpu_torch.models.detector import MTCNNDetector
+    from facerecognitionpipeline_tpu_torch.models.torch_export import (
+        export_iresnet_statedict,
+        save_adaface_checkpoint,
+    )
+    from facerecognitionpipeline_tpu_torch.ops import crop_kernel, gallery_kernel, warp_kernel
+    from facerecognitionpipeline_tpu_torch.pipeline.embedder import FaceEmbedder
+    from facerecognitionpipeline_tpu_torch.pipeline.engine import RecognitionEngine
+    from facerecognitionpipeline_tpu_torch.pipeline.enrollment import ENROLLMENT_QUALITY_CONFIG
+    from facerecognitionpipeline_tpu_torch.pipeline.matcher import FaceMatcher
+    from facerecognitionpipeline_tpu_torch.pipeline.processor import FaceProcessor
+    from facerecognitionpipeline_tpu_torch.utils.io import save_npz_variables
+
+    t_phase = time.perf_counter()
+    res = {}
+    det_path = os.path.join(REPO, "pretrained", "mtcnn_synthetic.npz")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_enrol_")
+    try:
+        # 9a: the weight files
+        t0 = time.perf_counter()
+        tree = seeded_unfolded_tree(ARCH, 9)
+        ckpt = os.path.join(tmp, "adaface_ir101.ckpt")
+        save_adaface_checkpoint(tree, ARCH, ckpt)
+        npz = os.path.join(tmp, "ir101.npz")
+        save_npz_variables(npz, tree)
+        del tree
+        isd = export_iresnet_statedict(seeded_unfolded_tree("iresnet_100", 10), "iresnet_100")
+        onnx = os.path.join(tmp, "arcface_ir101.onnx")
+        with open(onnx, "wb") as f:
+            f.write(onnx_initializers_bytes(
+                {k: v for k, v in isd.items() if not k.endswith("num_batches_tracked")}))
+        del isd
+        mb = {p: os.path.getsize(p) / 2**20 for p in (ckpt, npz, onnx)}
+        print(f"[enrol] weights written in {time.perf_counter() - t0:.1f} s: AdaFace .ckpt "
+              f"{mb[ckpt]:.0f} MiB, .npz {mb[npz]:.0f} MiB, ArcFace .onnx {mb[onnx]:.0f} MiB")
+
+        # 9b: the students, through a bf16 processor (K1 crops) on the card
+        gate = FaceProcessor(
+            output_size=224, quality_filter_config=dict(ENROLLMENT_QUALITY_CONFIG),
+            detector=MTCNNDetector(weights_path=det_path, dtype=torch.bfloat16, device=DEVICE),
+            device=DEVICE,
+        )
+        if gate.detector.crop_impl != "kernel":
+            fail("a bf16 cascade must take the K1 crop")
+        photos = render_students(tmp, gate)
+        flat = [p for mine in photos for p in mine]
+        for c in (crop_kernel.LAUNCHES, warp_kernel.LAUNCHES):
+            c.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for p in flat:
+            if not gate.process_image(p):
+                fail(f"the bf16 processor found no face in {p}")
+        torch.cuda.synchronize()
+        res["process_image_per_s"] = len(flat) / (time.perf_counter() - t0)
+        res["launches_k1"] = crop_kernel.LAUNCHES.count
+        if res["launches_k1"] != 2 * len(flat) or warp_kernel.LAUNCHES.count:
+            fail(f"the bf16 processor launched K1 {res['launches_k1']} times for "
+                 f"{len(flat)} images (want 2 each) and K2 {warp_kernel.LAUNCHES.count}")
+        print(f"[enrol] {len(flat)} photos of {ENROL_STUDENTS} students through "
+              f"FaceProcessor.process_image (bf16 cascade, 640x640): "
+              f"{res['process_image_per_s']:.2f} images/s; K1 launched {res['launches_k1']} "
+              f"times (R-net and O-net crops of each detect)")
+
+        # 9c: enrol through the CLI, from the .ckpt and from the .npz. The CLI
+        # has no detector flag: its processor takes the first default weights
+        # file, which here is set to the synthetic cascade.
+        galleries = {}
+        saved = detector_module.DEFAULT_DETECTOR_WEIGHTS
+        detector_module.DEFAULT_DETECTOR_WEIGHTS = (det_path,)
+        try:
+            for name, path in (("ckpt", ckpt), ("npz", npz)):
+                gpath = os.path.join(tmp, f"gallery_{name}", "students.pkl")
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                rc, out = run_cli(enroll_students.main, [
+                    "--enrollment_dir", os.path.join(tmp, "enrol"), "--gallery_path", gpath,
+                    "--model_path", path, "--architecture", ARCH, "--augmentations", "1",
+                    "--device", DEVICE])
+                secs = time.perf_counter() - t0
+                summary = [ln for ln in out.splitlines()
+                           if ln.startswith(("ENROLLMENT SUMMARY", "Verification"))]
+                if rc != 0 or not summary:
+                    fail(f"enroll_students --model_path {name} failed:\n{out[-3000:]}")
+                print(f"[enrol] enroll_students --model_path .{name}: {secs:.1f} s "
+                      f"({secs / ENROL_STUDENTS:.2f} s per student, the {ARCH} load and the "
+                      f"detector build included); " + "; ".join(summary))
+                res[f"enrol_s_per_student_{name}"] = secs / ENROL_STUDENTS
+                galleries[name] = GalleryManager(gpath, verbose=False, device=DEVICE)
+        finally:
+            detector_module.DEFAULT_DETECTOR_WEIGHTS = saved
+        a, b = (g.get_all_students() for g in (galleries["ckpt"], galleries["npz"]))
+        want_ids = [f"STU{i + 1:04d}" for i in range(ENROL_STUDENTS)]
+        if sorted(a) != want_ids or sorted(b) != want_ids:
+            fail(f"enrolled ids {sorted(a)} / {sorted(b)}, expected {want_ids}")
+        err = max(float(np.abs(a[s].template_embedding - b[s].template_embedding).max())
+                  for s in a)
+        names = {s: a[s].name for s in a}
+        if err > 1e-5 or any(a[s].name != b[s].name for s in a):
+            fail(f"the .ckpt and .npz galleries differ: max |template diff| {err}")
+        res["ckpt_vs_npz_template_err"] = err
+        print(f"[enrol] the .ckpt and .npz galleries agree: {len(a)} students, same names, "
+              f"max |template difference| {err:.3g} (limit 1e-5)")
+
+        # 9d: face_matcher --single_image re-detects enrolment photos (the CLI
+        # for two students, the same FaceMatcher build for all of them)
+        pattern = _re.compile(r"Face 1: Recognized: (\S+) \((STU\d{4})\) - ([0-9.]+)")
+        gpath = galleries["ckpt"].gallery_path
+        for s in (0, ENROL_STUDENTS - 1):
+            rc, out = run_cli(face_matcher.main, [
+                "--single_image", photos[s][1], "--gallery_path", gpath, "--model_path", ckpt,
+                "--architecture", ARCH, "--detector_weights", det_path, "--top_k", "3",
+                "--device", DEVICE])
+            m = pattern.search(out)
+            if rc != 0 or not m or m.group(2) != want_ids[s] or float(m.group(3)) <= 0.99:
+                fail(f"face_matcher --single_image on student {s}: {out[-2000:]}")
+            print(f"[match] face_matcher --single_image {os.path.basename(photos[s][1])} of "
+                  f"student_{s}: {m.group(0)}")
+        embedder = FaceEmbedder(ARCH, model_path=ckpt, device=DEVICE)
+        matcher = FaceMatcher(embedder=embedder, gallery=galleries["ckpt"],
+                              detector_weights=det_path, device=DEVICE)
+        confidences, crops = [], []
+        for s in range(ENROL_STUDENTS):
+            r = matcher.match_single_image(photos[s][2], top_k=3, save_visualization=False)
+            top = r["matches"][0]["top_matches"][0] if r["num_faces"] else {}
+            if top.get("student_id") != want_ids[s] or top.get("score", 0) <= 0.99:
+                fail(f"student_{s} came back as {top} from its own photo")
+            confidences.append(top["score"])
+            crops.append(matcher._get_processor().process_image(photos[s][2])[0]["aligned_face"])
+        res["single_image_min_confidence"] = min(confidences)
+        print(f"[match] all {ENROL_STUDENTS} students top-1 from their own photos "
+              f"(min confidence {min(confidences):.5f}, limit 0.99)")
+
+        # 9e: the ArcFace .onnx embedder, card against CPU
+        t0 = time.perf_counter()
+        e_card = FaceEmbedder(ARCH, model_type="arcface", model_path=onnx, device=DEVICE)
+        e_cpu = FaceEmbedder(ARCH, model_type="arcface", model_path=onnx, device="cpu")
+        if e_card._build_arch != "iresnet_100":
+            fail(f"an ArcFace .onnx must build iresnet_100, got {e_card._build_arch}")
+        x_card = e_card.extract_embeddings_batch(crops)
+        x_cpu = e_cpu.extract_embeddings_batch(crops)
+        err = float(np.abs(x_card - x_cpu).max())
+        cos = float(np.sum(x_card * x_cpu, axis=1).min())
+        res["onnx_card_vs_cpu_err"] = err
+        if not np.isfinite(x_card).all() or err > 1e-4:
+            fail(f"the .onnx embedder on the card and on the CPU differ by {err}")
+        print(f"[enrol] ArcFace .onnx (iresnet_100) embeddings of {len(crops)} crops: card "
+              f"against CPU max |difference| {err:.3g} (limit 1e-4: float32 sums in "
+              f"other orders), min cosine {cos:.7f}; both built and run in "
+              f"{time.perf_counter() - t0:.1f} s")
+        del e_card, e_cpu
+
+        # 9f: the matcher against 1 048 576 identities, bf16 then int8
+        queries = embedder.extract_embeddings_batch(crops)
+        big = gal.shape[0]
+        others = gal[: big - ENROL_STUDENTS].cpu().numpy()
+        now = "2026-01-01T00:00:00"
+        enrolled = galleries["ckpt"].get_all_students()
+        records = {
+            f"id{i}": StudentRecord(f"id{i}", f"Identity {i}", others[i:i + 1], others[i],
+                                    1, now, now)
+            for i in range(len(others))
+        }
+        records.update(enrolled)
+        counters = {"gallery_topk": gallery_kernel.LAUNCHES,
+                    "gallery_topk_int8": gallery_kernel.LAUNCHES_INT8}
+        res["matcher_launches"] = {}
+        for quantize, kernel, floor in ((None, "gallery_topk", 0.99),
+                                        ("int8", "gallery_topk_int8", 0.98)):
+            label = quantize or "bf16"
+            gm = GalleryManager(os.path.join(tmp, f"big_{label}.pkl"), verbose=False,
+                                device=DEVICE, quantize=quantize)
+            gm.students = dict(records)
+            gm._dirty = True
+            t0 = time.perf_counter()
+            _, v, ids = gm.device_snapshot()
+            torch.cuda.synchronize()
+            compact = gm._device.snapshot()[3]
+            print(f"[match {label}] {len(ids)} identities ({ENROL_STUDENTS} enrolled, the rest "
+                  f"seeded) on the card in {time.perf_counter() - t0:.1f} s")
+            m = FaceMatcher(embedder=embedder, gallery=gm, device=DEVICE)
+            launches = 0
+            for k in MATCH_TOP_KS:
+                for c in counters.values():
+                    c.reset()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                got = m.match_faces_batch(crops, top_k=k)
+                ms = 1e3 * (time.perf_counter() - t0)
+                n = {name: c.count for name, c in counters.items()}
+                launches += n[kernel]
+                if n[kernel] != 1 or sum(n.values()) != 1:
+                    fail(f"{label} k={k}: one search launched {n}")
+                if [r[0][0] for r in got] != want_ids or min(r[0][2] for r in got) <= floor:
+                    fail(f"{label} k={k}: enrolled students did not come back top-1: "
+                         f"{[r[0] for r in got]}")
+                # the same compact rows through the plain version
+                q = torch.from_numpy(queries).to(DEVICE)
+                if quantize:
+                    pv, pi = gallery_kernel.streaming_cosine_topk_int8_plain(
+                        q, compact[0], compact[1], v, top_k=k, chunk=STREAM_CHUNK)
+                else:
+                    pv, pi = gallery_kernel.streaming_cosine_topk_plain(
+                        q, compact, v, top_k=k, chunk=STREAM_CHUNK)
+                pv, pi = pv.cpu().numpy(), pi.cpu().numpy()
+                sv = np.array([[x[2] for x in r] for r in got], np.float32)
+                si = [[x[0] for x in r] for r in got]
+                err = float(np.abs(sv - pv).max())
+                tol = 0.0 if quantize else K3_TOL
+                clear = np.ones(pv.shape, bool)
+                gap = np.abs(pv[:, :-1] - pv[:, 1:]) > 2 * max(tol, 1e-7)
+                clear[:, :-1] &= gap
+                clear[:, 1:] &= gap
+                same = all(si[r][j] == ids[pi[r, j]] for r, j in zip(*np.nonzero(clear)))
+                if err > tol or not same:
+                    fail(f"{label} k={k}: the matcher differs from the plain version "
+                         f"(max |score difference| {err}, ids equal on clear slots: {same})")
+                print(f"[match {label}] match_faces_batch of {len(crops)} crops, top_k={k}: "
+                      f"{ms:.1f} ms host clock (embed, one search, results); "
+                      f"{kernel} launched once; enrolled students top-1 (min "
+                      f"{min(r[0][2] for r in got):.5f}); equal to the plain version on the "
+                      f"same compact rows (max |score difference| {err:.3g}, ids equal on "
+                      f"{int(clear.sum())}/{clear.size} clear slots)")
+            res["matcher_launches"][kernel] = launches
+            del gm, m, compact, v, ids
+            torch.cuda.empty_cache()
+
+        # 9g: gallery_impl='streaming' on a float32 gallery: K3 on float32 rows
+        eng = RecognitionEngine(ctx["detector"], ctx["embedder"], top_k=3,
+                                gallery_impl="streaming", gallery_chunk=128)
+        dense = ctx["engine"]
+        rng = np.random.default_rng(3)
+        small = rng.normal(size=(GALLERY_ROWS, 512)).astype(np.float32)
+        small /= np.linalg.norm(small, axis=1, keepdims=True)
+        emb = ctx["emb"].cpu().numpy()
+        slots = ctx["slots"]
+        for i, (f, s) in enumerate(slots):
+            small[7 + 97 * i] = emb[f, s]
+        t = torch.from_numpy(small).to(DEVICE)
+        vv = torch.ones(GALLERY_ROWS, dtype=torch.bool, device=DEVICE)
+        want = dense.process_frames(ctx["frames"], t, vv)
+        gallery_kernel.LAUNCHES_F32.reset()
+        steps = 3
+        for _ in range(steps):
+            got = eng.process_frames(ctx["frames"], t, vv)
+        torch.cuda.synchronize()
+        res["matcher_launches"]["gallery_topk_f32"] = gallery_kernel.LAUNCHES_F32.count
+        if gallery_kernel.LAUNCHES_F32.count != steps:
+            fail(f"gallery_impl='streaming' on float32 rows launched K3-f32 "
+                 f"{gallery_kernel.LAUNCHES_F32.count} times in {steps} steps")
+        fv = got["face_valid"].cpu().numpy()
+        gs, ws = got["match_scores"].cpu().numpy(), want["match_scores"].cpu().numpy()
+        gi, wi = got["match_idx"].cpu().numpy(), want["match_idx"].cpu().numpy()
+        err = float(np.abs(gs[fv] - ws[fv]).max())
+        gap = np.abs(ws[..., :-1] - ws[..., 1:]) > 1e-5
+        clear = fv[..., None] & np.concatenate([gap, np.ones_like(gap[..., :1])], -1) & \
+            np.concatenate([np.ones_like(gap[..., :1]), gap], -1)
+        if err > 1e-5 or not np.array_equal(gi[clear], wi[clear]):
+            fail(f"the streaming float32 step differs from the dense step ({err})")
+        for i, (f, s) in enumerate(slots):
+            if gi[f, s, 0] != 7 + 97 * i:
+                fail("the streaming float32 step lost a planted row")
+        print(f"[match f32] the step with gallery_impl='streaming' on a {GALLERY_ROWS}-row "
+              f"float32 gallery: K3 on float32 rows launched once per step ({steps} steps), "
+              f"scores within {err:.3g} of the dense step (limit 1e-5), planted rows top-1")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    res["seconds"] = time.perf_counter() - t_phase
+    print(f"[enrol] phase 9 took {res['seconds']:.1f} s")
+    report["enrol"] = res
+
+
 def main() -> int:
     import torch
 
@@ -2182,6 +2700,7 @@ def main() -> int:
     manager_phase(ctx)
     server_phase(ctx, gal, report)
     int8_phase(ctx, gal, report)
+    enrolment_phase(ctx, gal, report)
     del gal
 
     smi = subprocess.run(
@@ -2202,7 +2721,13 @@ def main() -> int:
                          "facerecognitionpipeline_tpu/ops/pallas_gallery.py:277"),
         "gallery_topk_int8": ("facerecognitionpipeline_tpu_torch/csrc/gallery_topk_int8.cu",
                               "facerecognitionpipeline_tpu/ops/pallas_gallery.py:207"),
+        # K3's float32-row case of the same Pallas kernel, a kernel of its own
+        "gallery_topk_f32": ("facerecognitionpipeline_tpu_torch/csrc/gallery_topk_f32.cu",
+                             "facerecognitionpipeline_tpu/ops/pallas_gallery.py:277"),
     }
+    enrol = report["enrol"]
+    matcher_launches = {"crop_resize": enrol["launches_k1"], "warp_patches": 0,
+                        **enrol["matcher_launches"]}
     # K1's and K2's first designs (one thread per output pixel), as timed when
     # they were the port's kernels: NVIDIA H100 80GB HBM3, 700 W, the same
     # shapes and the same 20-launch event timing. History, not of this run.
@@ -2220,16 +2745,23 @@ def main() -> int:
         bound = sum(r["bound_ms"] for r in rows)
         by_bytes = sum(r["bytes"] for r in rows) / HBM_BYTES_PER_S
         by_ops = sum(r["flops"] / r["peak"] for r in rows)
+        f32 = name == "gallery_topk_f32"
         kernels.append({
-            "name": name,
+            "name": "k3_f32" if f32 else name,
             "route": "cuda",
             "source": sources[name][0],
             "replaces": sources[name][1],
             # launches: over the timed steps of phases 3 (K1, K2) and 5 (K3,
-            # K4); server_launches: over phase 7's served requests. The
-            # counts were set to 0 before each of those and read after.
-            "launches": report["launches"][name],
-            "server_launches": report["server_launches"][name],
+            # K4), and for K3 on float32 rows over phase 9's steps with
+            # gallery_impl='streaming'; server_launches: over phase 7's
+            # served requests (no server path streams float32 rows);
+            # matcher_launches: phase 9 (K1 in the bf16 processor's
+            # process_image, K3 and K4 in FaceMatcher.match_faces_batch
+            # against 1 048 576 identities). The counts were set to 0 before
+            # each of those and read after.
+            "launches": matcher_launches[name] if f32 else report["launches"][name],
+            "server_launches": None if f32 else report["server_launches"][name],
+            "matcher_launches": matcher_launches[name],
             "max_abs_err": max(r["err"] for r in all_rows),
             # ms, plain_ms, bound_ms and library_ms are sums over the call
             # shapes of one serving step (K1: R-net, O-net, align stage A)
@@ -2255,9 +2787,12 @@ def main() -> int:
                     "prep_host_ms", "host_ms", "q64_ms", "q64_stream_device_ms")
                 if key in rows[0]
             })
-        if kernels[-1]["launches"] < 1 or kernels[-1]["server_launches"] < 1:
+        if kernels[-1]["launches"] < 1 or (not f32 and kernels[-1]["server_launches"] < 1):
             fail(f"a main path never launched {name}")
+        if name != "warp_patches" and matcher_launches[name] < 1:
+            fail(f"phase 9 never launched {name}")
     print(json.dumps({"int8": report["int8"]}))
+    print(json.dumps({"enrol": enrol}))
     print(json.dumps({
         "kernels": kernels,
         **{k: v for k, v in report.items() if k.startswith("step_p50_ms")},

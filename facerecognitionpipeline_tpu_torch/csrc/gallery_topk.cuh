@@ -46,14 +46,17 @@
 //     strict total order below, so a stale or lost threshold update lets
 //     more through and changes no result. An offer is a chain of dependent
 //     operations run by one warp, so its length is what the fold costs:
-//     the list length is a template parameter (1, 2, 3, 4 or 8 entries, the
-//     shortest that holds the call's k) and the list code is straight-line
-//     register code;
-//   * at the end a block merges the two warpgroups' lists per query and
-//     writes one list to scratch [Q, gridDim.x, list length];
-//     `merge_topk_kernel` folds a query's gridDim.x lists with one warp:
-//     lanes read them side by side, keep a list each and combine by
-//     shuffles.
+//     the list length is a template parameter (1, 2, 3, 4, 8, 16, 32 or 64
+//     entries, the shortest that holds the call's k). Up to 8 entries the
+//     offer is straight-line register code; from 16 it works on the list in
+//     shared memory (a binary search for the place, a shift behind it),
+//     where 64 entries of value and index would not fit in registers beside
+//     the accumulators;
+//   * at the end a block merges the two warpgroups' sorted lists per query
+//     (two cursors) and writes one list to scratch [Q, gridDim.x, list
+//     length]; `merge_topk_kernel` folds a query's gridDim.x sorted lists
+//     with one block: a thread holds the head of one list, the block picks
+//     the best head k times and that list's head moves on.
 // Every comparison uses the same strict total order (value descending, then
 // index ascending; gallery indices are unique), so the result does not
 // depend on the order blocks, warpgroups or warps ran in, and ties go to the
@@ -68,7 +71,8 @@
 
 namespace frp {
 
-constexpr int KMAX = 8;               // longest top-k list the kernels keep
+constexpr int KMAX = 64;              // longest top-k list the kernels keep
+constexpr int KREG = 8;               // longest list offered to in registers
 constexpr int TM = 64;                // gallery rows per tile (wgmma N)
 constexpr int QROWS = 128;            // staged query rows: two wgmma A blocks
 constexpr int PANEL_BYTES = 128;      // depth bytes per stage: one swizzle row
@@ -87,85 +91,175 @@ __device__ __forceinline__ bool before(float av, int ai, float bv, int bi) {
   return av > bv || (av == bv && ai < bi);
 }
 
-// A running top-KMAX list in a thread's own arrays, best first (the unrolled
-// loops keep it in registers).
-__device__ __forceinline__ void topk_init(float* v, int* i) {
+// v[t] of a thread's 16 scores by a tree of selects (a register array takes
+// no run-time index).
+__device__ __forceinline__ float pick16(const float (&v)[16], int t) {
+  float a8[8], a4[4];
 #pragma unroll
-  for (int j = 0; j < KMAX; ++j) {
-    v[j] = NEG;
-    i[j] = 0;
-  }
-}
-
-// Insert (cv, ci): it takes the first slot it precedes, and the entry it
-// displaces moves on down the list the same way. A candidate that precedes
-// nothing leaves the list as it was.
-__device__ __forceinline__ void topk_insert(float* v, int* i, float cv,
-                                            int ci) {
+  for (int u = 0; u < 8; ++u) a8[u] = (t & 1) ? v[2 * u + 1] : v[2 * u];
 #pragma unroll
-  for (int j = 0; j < KMAX; ++j) {
-    if (before(cv, ci, v[j], i[j])) {
-      const float tv = v[j];
-      const int ti = i[j];
-      v[j] = cv;
-      i[j] = ci;
-      cv = tv;
-      ci = ti;
-    }
-  }
+  for (int u = 0; u < 4; ++u) a4[u] = (t & 2) ? a8[2 * u + 1] : a8[2 * u];
+  const float b0 = (t & 4) ? a4[1] : a4[0];
+  const float b1 = (t & 4) ? a4[3] : a4[2];
+  return (t & 8) ? b1 : b0;
 }
 
 // Offer a thread's candidates for one query (bit t of `pm`: score v[t], row
 // i0 + 8 (t / 2) + t % 2) to a warpgroup's list of that query in shared
-// memory (KL entries, best first): the list is read into registers once,
-// every candidate put in its place there, and the list written back; then
-// the query's threshold is raised to the list's last value. The other
-// warpgroup may write the threshold at the same time: either value is a
-// KL-th best of real rows, so either is a sound filter.
+// memory (KL entries, best first), then raise the query's threshold to the
+// list's last value. The other warpgroup may write the threshold at the same
+// time: either value is a KL-th best of real rows, so either is a sound
+// filter. Up to KREG entries the list is read into registers once, every
+// candidate put in its place there, and the list written back; longer lists
+// stay in shared memory (only this lane touches them in its turn).
 template <int KL>
 __device__ __forceinline__ void list_offer(float* lv, int* li,
                                            volatile float* thr, unsigned pm,
                                            const float (&v)[16], int i0) {
   const float seen = *thr;
-  float tv[KL];
-  int ti[KL];
+  if constexpr (KL <= KREG) {
+    float tv[KL];
+    int ti[KL];
 #pragma unroll
-  for (int j = 0; j < KL; ++j) {
-    tv[j] = lv[j];
-    ti[j] = li[j];
-  }
-  while (pm != 0) {
-    const int t = __ffs(pm) - 1;
-    pm &= pm - 1;
-    // v[t] by a tree of selects (a register array takes no run-time index)
-    float a8[8], a4[4];
-#pragma unroll
-    for (int u = 0; u < 8; ++u) a8[u] = (t & 1) ? v[2 * u + 1] : v[2 * u];
-#pragma unroll
-    for (int u = 0; u < 4; ++u) a4[u] = (t & 2) ? a8[2 * u + 1] : a8[2 * u];
-    const float b0 = (t & 4) ? a4[1] : a4[0];
-    const float b1 = (t & 4) ? a4[3] : a4[2];
-    const float cv = (t & 8) ? b1 : b0;
-    const int ci = i0 + 8 * (t >> 1) + (t & 1);
-    if (!before(cv, ci, tv[KL - 1], ti[KL - 1])) continue;  // behind the last
-    // its place: behind the entries that precede it (the list is sorted)
-    int pos = 0;
-#pragma unroll
-    for (int j = 0; j < KL; ++j) pos += before(tv[j], ti[j], cv, ci) ? 1 : 0;
-#pragma unroll
-    for (int j = KL - 1; j > 0; --j) {
-      tv[j] = j < pos ? tv[j] : (j == pos ? cv : tv[j - 1]);
-      ti[j] = j < pos ? ti[j] : (j == pos ? ci : ti[j - 1]);
+    for (int j = 0; j < KL; ++j) {
+      tv[j] = lv[j];
+      ti[j] = li[j];
     }
-    tv[0] = pos > 0 ? tv[0] : cv;
-    ti[0] = pos > 0 ? ti[0] : ci;
-  }
+    while (pm != 0) {
+      const int t = __ffs(pm) - 1;
+      pm &= pm - 1;
+      const float cv = pick16(v, t);
+      const int ci = i0 + 8 * (t >> 1) + (t & 1);
+      if (!before(cv, ci, tv[KL - 1], ti[KL - 1])) continue;  // behind the last
+      // its place: behind the entries that precede it (the list is sorted)
+      int pos = 0;
 #pragma unroll
-  for (int j = 0; j < KL; ++j) {
-    lv[j] = tv[j];
-    li[j] = ti[j];
+      for (int j = 0; j < KL; ++j) pos += before(tv[j], ti[j], cv, ci) ? 1 : 0;
+#pragma unroll
+      for (int j = KL - 1; j > 0; --j) {
+        tv[j] = j < pos ? tv[j] : (j == pos ? cv : tv[j - 1]);
+        ti[j] = j < pos ? ti[j] : (j == pos ? ci : ti[j - 1]);
+      }
+      tv[0] = pos > 0 ? tv[0] : cv;
+      ti[0] = pos > 0 ? ti[0] : ci;
+    }
+#pragma unroll
+    for (int j = 0; j < KL; ++j) {
+      lv[j] = tv[j];
+      li[j] = ti[j];
+    }
+    if (tv[KL - 1] > seen) *thr = tv[KL - 1];
+  } else {
+    while (pm != 0) {
+      const int t = __ffs(pm) - 1;
+      pm &= pm - 1;
+      const float cv = pick16(v, t);
+      const int ci = i0 + 8 * (t >> 1) + (t & 1);
+      if (!before(cv, ci, lv[KL - 1], li[KL - 1])) continue;
+      // the first entry it precedes (the list is sorted, so the test is
+      // false up to that entry and true from it on)
+      int lo = 0, hi = KL - 1;
+      while (lo < hi) {
+        const int mid = (lo + hi) >> 1;
+        if (before(cv, ci, lv[mid], li[mid])) {
+          hi = mid;
+        } else {
+          lo = mid + 1;
+        }
+      }
+      for (int j = KL - 1; j > lo; --j) {
+        lv[j] = lv[j - 1];
+        li[j] = li[j - 1];
+      }
+      lv[lo] = cv;
+      li[lo] = ci;
+    }
+    const float last = lv[KL - 1];
+    if (last > seen) *thr = last;
   }
-  if (tv[KL - 1] > seen) *thr = tv[KL - 1];
+}
+
+// The fold of one tile out of a warpgroup's accumulators: register 4 j + e
+// + 2 h of accumulator a is query row 64 a + qrow + 8 h against gallery row
+// i0 + 8 j + e (the wgmma m64n64 layout; the float32 kernel computes its
+// scores in the same places). First every query of the thread (slot 2 a + h)
+// against its threshold: 16 bits each, no branch. Rare: some score passed.
+// The four lanes of a quad share their queries' lists, so they take turns;
+// in its turn a lane offers what it has for each of its queries, while the
+// other quads do the same for theirs.
+template <typename Tr, int KL>
+__device__ __forceinline__ void fold_tile(
+    const typename Tr::Acc (&d)[Tr::ACCS][32], const float (&sc)[16],
+    unsigned vmask, float* thr, float* my_v, int* my_i, int qrow, int i0,
+    int lane) {
+  constexpr int ACCS = Tr::ACCS;
+  unsigned pm[2 * ACCS];
+  unsigned any = 0;
+#pragma unroll
+  for (int a = 0; a < ACCS; ++a) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float bar =
+          *reinterpret_cast<volatile float*>(thr + 64 * a + qrow + 8 * h);
+      unsigned bits = 0;
+#pragma unroll
+      for (int t = 0; t < 16; ++t) {
+        const float v = Tr::score(d[a][4 * (t >> 1) + (t & 1) + 2 * h], sc[t]);
+        bits |= (v >= bar ? 1u : 0u) << t;
+      }
+      pm[2 * a + h] = bits & vmask;
+      any |= pm[2 * a + h];
+    }
+  }
+  const unsigned m = __ballot_sync(0xffffffffu, any != 0);
+  if (m == 0) return;
+  unsigned turns = m | (m >> 16);  // bit t: lane t of some quad
+  turns |= turns >> 8;
+  turns = (turns | (turns >> 4)) & 0xFu;
+  while (turns != 0) {  // the whole warp
+    const int turn = __ffs(turns) - 1;
+    turns &= turns - 1;
+    if ((lane & 3) == turn) {
+#pragma unroll
+      for (int a = 0; a < ACCS; ++a) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          if (pm[2 * a + h] == 0) continue;
+          const int q = 64 * a + qrow + 8 * h;
+          float v[16];
+#pragma unroll
+          for (int t = 0; t < 16; ++t)
+            v[t] = Tr::score(d[a][4 * (t >> 1) + (t & 1) + 2 * h], sc[t]);
+          list_offer<KL>(my_v + q * KL, my_i + q * KL, thr + q, pm[2 * a + h],
+                         v, i0);
+        }
+      }
+    }
+    __syncwarp();
+  }
+}
+
+// The two warpgroups' sorted lists of query row r ([2][qt][KL] in shared
+// memory) -> the block's KL best, in order, at part_v / part_i + at.
+template <int KL>
+__device__ __forceinline__ void write_block_list(const float* lv, const int* li,
+                                                 int qt, int r, float* part_v,
+                                                 int* part_i, long long at) {
+  const float* av = lv + r * KL;
+  const int* ai = li + r * KL;
+  const float* bv = lv + (qt + r) * KL;
+  const int* bi = li + (qt + r) * KL;
+  int a = 0, b = 0;  // a + b = j < KL, so neither runs past its list
+  for (int j = 0; j < KL; ++j) {
+    const bool take_b = before(bv[b], bi[b], av[a], ai[a]);
+    part_v[at + j] = take_b ? bv[b] : av[a];
+    part_i[at + j] = take_b ? bi[b] : ai[a];
+    if (take_b) {
+      ++b;
+    } else {
+      ++a;
+    }
+  }
 }
 
 // ---- PTX: shared addresses, mbarriers, bulk copies, wgmma -----------------
@@ -401,8 +495,8 @@ struct Layout {
 // 128 bytes, 128-byte swizzle, zeros outside), scales [G] or null, valid [G]
 // bytes -> part_v / part_i [Q, gridDim.x, KL], the KL best per query and
 // block. D % 32 == 0; queries, scales and valid 16-byte aligned; `stages`
-// even. KL is a template parameter because the list code is all unrolled
-// register arrays: its length decides what an insertion costs.
+// even. KL is a template parameter because the list code is unrolled: its
+// length decides what an insertion costs and where the list is kept.
 template <typename Tr, int KL>
 __global__ void __launch_bounds__(THREADS, 1)
     stream_topk_kernel(const __grid_constant__ CUtensorMap gmap,
@@ -601,127 +695,107 @@ __global__ void __launch_bounds__(THREADS, 1)
 #pragma unroll
       for (int a = 0; a < ACCS; ++a) acc_fence(d[a]);
 
-      // the fold, out of the accumulators: register 4 j + e + 2 h of an
-      // accumulator is query row qrow + 8 h against gallery row 8 j + cq + e.
-      // First every query of the thread (slot 2 a + h) against its
-      // threshold: 16 bits each, no branch.
-      const int i0 = static_cast<int>(tile * TM) + cq;
-      unsigned pm[2 * ACCS];
-      unsigned any = 0;
-#pragma unroll
-      for (int a = 0; a < ACCS; ++a) {
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const float bar =
-              *reinterpret_cast<volatile float*>(thr + 64 * a + qrow + 8 * h);
-          unsigned bits = 0;
-#pragma unroll
-          for (int t = 0; t < 16; ++t) {
-            const float v =
-                Tr::score(d[a][4 * (t >> 1) + (t & 1) + 2 * h], sc[t]);
-            bits |= (v >= bar ? 1u : 0u) << t;
-          }
-          pm[2 * a + h] = bits & vmask;
-          any |= pm[2 * a + h];
-        }
-      }
-      // Rare: some score passed. The four lanes of a quad share their
-      // queries' lists, so they take turns; in its turn a lane offers what
-      // it has for each of its queries, while the other quads do the same
-      // for theirs.
-      const unsigned m = __ballot_sync(0xffffffffu, any != 0);
-      if (m != 0) {
-        unsigned turns = m | (m >> 16);  // bit t: lane t of some quad
-        turns |= turns >> 8;
-        turns = (turns | (turns >> 4)) & 0xFu;
-        while (turns != 0) {  // the whole warp
-          const int turn = __ffs(turns) - 1;
-          turns &= turns - 1;
-          if ((lane & 3) == turn) {
-#pragma unroll
-            for (int a = 0; a < ACCS; ++a) {
-#pragma unroll
-              for (int h = 0; h < 2; ++h) {
-                if (pm[2 * a + h] == 0) continue;
-                const int q = 64 * a + qrow + 8 * h;
-                float v[16];
-#pragma unroll
-                for (int t = 0; t < 16; ++t)
-                  v[t] = Tr::score(d[a][4 * (t >> 1) + (t & 1) + 2 * h], sc[t]);
-                list_offer<KL>(my_v + q * k, my_i + q * k, thr + q,
-                               pm[2 * a + h], v, i0);
-              }
-            }
-          }
-          __syncwarp();
-        }
-      }
+      fold_tile<Tr, KL>(d, sc, vmask, thr, my_v, my_i, qrow,
+                        static_cast<int>(tile * TM) + cq, lane);
     }
 
     // the two warpgroups' lists of a query -> the block's list, in scratch
     asm volatile("bar.sync 1, 256;\n" ::: "memory");
     const int r = threadIdx.x;
-    if (r < QT && q0 + r < Q) {
-      float tv[KMAX];
-      int ti[KMAX];
-      topk_init(tv, ti);
-      for (int w = 0; w < CONSUMER_WGS; ++w)
-#pragma unroll
-        for (int j = 0; j < KL; ++j)
-          topk_insert(tv, ti, lv[(w * QT + r) * k + j], li[(w * QT + r) * k + j]);
-      const long long at =
-          (static_cast<long long>(q0 + r) * gridDim.x + blockIdx.x) * k;
-#pragma unroll
-      for (int j = 0; j < KL; ++j) {
-        part_v[at + j] = tv[j];
-        part_i[at + j] = ti[j];
-      }
-    }
+    if (r < QT && q0 + r < Q)
+      write_block_list<KL>(
+          lv, li, QT, r, part_v, part_i,
+          (static_cast<long long>(q0 + r) * gridDim.x + blockIdx.x) * k);
   }
 }
 
-// part_v / part_i [Q, n_parts, kl] -> out_v [Q, k], out_i [Q, k] (int64), k <=
-// kl; one warp per query. The lanes read the query's n_parts * kl entries
-// side by side, keep the best KMAX each, and five shuffle rounds combine the
-// lists. With `q_scale` [Q] (K4: the queries' own dequantisation scales) a
-// finished score is multiplied by its query's scale, one more rounding; the
-// sentinel stays exact.
+// part_v / part_i [Q, n_parts, kl] (each list sorted, best first) -> out_v
+// [Q, k], out_i [Q, k] (int64), k <= kl; one block per query, one thread per
+// list (n_parts <= blockDim.x). A thread holds its list's head; k times the
+// block picks the best head by (value descending, index ascending, list
+// ascending) and that list's head moves on. With `q_scale` [Q] (K4: the
+// queries' own dequantisation scales) a finished score is multiplied by its
+// query's scale, one more rounding; the sentinel stays exact.
 __global__ void merge_topk_kernel(const float* __restrict__ part_v,
                                   const int* __restrict__ part_i,
                                   float* __restrict__ out_v,
                                   long long* __restrict__ out_i,
                                   const float* __restrict__ q_scale,
                                   int n_parts, int kl, int Q, int k) {
-  const int q = (blockIdx.x * blockDim.x + threadIdx.x) / 32;
-  const int lane = threadIdx.x % 32;
-  if (q >= Q) return;  // the whole warp
-  float tv[KMAX];
-  int ti[KMAX];
-  topk_init(tv, ti);
-  const int n = n_parts * kl;
-  const long long row = static_cast<long long>(q) * n;
-  for (int e = lane; e < n; e += 32)
-    topk_insert(tv, ti, part_v[row + e], part_i[row + e]);
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    float ov[KMAX];
-    int oi[KMAX];
-#pragma unroll
-    for (int j = 0; j < KMAX; ++j) {
-      ov[j] = __shfl_xor_sync(0xffffffffu, tv[j], off);
-      oi[j] = __shfl_xor_sync(0xffffffffu, ti[j], off);
-    }
-#pragma unroll
-    for (int j = 0; j < KMAX; ++j) topk_insert(tv, ti, ov[j], oi[j]);
+  constexpr int NONE = 0x7fffffff;  // an exhausted list, or no list
+  const float none_v = __int_as_float(0xff800000);  // -inf
+  __shared__ float wv[32];
+  __shared__ int wi[32], wp[32];
+  __shared__ int winner;
+  const int q = blockIdx.x;
+  const int p = threadIdx.x;
+  const int lane = p % 32, warp = p / 32;
+  const long long base = (static_cast<long long>(q) * n_parts + p) * kl;
+  int head = 0;
+  float hv = none_v;
+  int hi = NONE;
+  if (p < n_parts) {
+    hv = part_v[base];
+    hi = part_i[base];
   }
-  if (lane == 0) {
-    const float qs = q_scale != nullptr ? q_scale[q] : 1.0f;
+  // a before b by (value desc, index asc, list asc): a strict total order
+  auto better = [](float av, int ai, int ap, float bv, int bi, int bp) {
+    return av > bv || (av == bv && (ai < bi || (ai == bi && ap < bp)));
+  };
+  const float qs = q_scale != nullptr ? q_scale[q] : 1.0f;
+  for (int j = 0; j < k; ++j) {
+    float bv = hv;
+    int bi = hi, bp = hi == NONE ? NONE : p;
 #pragma unroll
-    for (int j = 0; j < KMAX; ++j) {
-      if (j < k) {
+    for (int off = 16; off > 0; off >>= 1) {
+      const float ov = __shfl_xor_sync(0xffffffffu, bv, off);
+      const int oi = __shfl_xor_sync(0xffffffffu, bi, off);
+      const int op = __shfl_xor_sync(0xffffffffu, bp, off);
+      if (better(ov, oi, op, bv, bi, bp)) {
+        bv = ov;
+        bi = oi;
+        bp = op;
+      }
+    }
+    if (lane == 0) {
+      wv[warp] = bv;
+      wi[warp] = bi;
+      wp[warp] = bp;
+    }
+    __syncthreads();
+    if (warp == 0) {
+      const bool in = lane < static_cast<int>(blockDim.x / 32);
+      bv = in ? wv[lane] : none_v;
+      bi = in ? wi[lane] : NONE;
+      bp = in ? wp[lane] : NONE;
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) {
+        const float ov = __shfl_xor_sync(0xffffffffu, bv, off);
+        const int oi = __shfl_xor_sync(0xffffffffu, bi, off);
+        const int op = __shfl_xor_sync(0xffffffffu, bp, off);
+        if (better(ov, oi, op, bv, bi, bp)) {
+          bv = ov;
+          bi = oi;
+          bp = op;
+        }
+      }
+      if (lane == 0) {
+        const bool found = bp != NONE;  // always, as n_parts * kl >= k
+        const float v = found ? bv : NEG;
         out_v[static_cast<long long>(q) * k + j] =
-            (q_scale != nullptr && tv[j] > NEG) ? __fmul_rn(tv[j], qs) : tv[j];
-        out_i[static_cast<long long>(q) * k + j] = ti[j];
+            (q_scale != nullptr && v > NEG) ? __fmul_rn(v, qs) : v;
+        out_i[static_cast<long long>(q) * k + j] = found ? bi : 0;
+        winner = bp;
+      }
+    }
+    __syncthreads();
+    if (p == winner) {
+      if (++head < kl) {
+        hv = part_v[base + head];
+        hi = part_i[base + head];
+      } else {
+        hv = none_v;
+        hi = NONE;
       }
     }
   }
@@ -756,10 +830,28 @@ inline int tensor_map_encoder(EncodeTiledFn* out) {
   return 0;
 }
 
-// The list length the stream kernel is built with for a call's k: the
-// kernel exists for 1, 2, 3, 4 and 8 entries (ops/gallery_kernel.py holds the
-// same rule).
-inline int list_length(int k) { return k <= 4 ? k : KMAX; }
+// The list length the stream kernels are built with for a call's k: they
+// exist for 1, 2, 3, 4, 8, 16, 32 and 64 entries (ops/gallery_kernel.py
+// holds the same rule).
+inline int list_length(int k) {
+  if (k <= 4) return k;
+  int kl = KREG;
+  while (kl < k) kl *= 2;
+  return kl;
+}
+
+// The merge kernel after a stream kernel: one block per query, one thread
+// per block list, rounded up to whole warps.
+inline cudaError_t launch_merge(const float* part_v, const int* part_i,
+                                float* out_v, long long* out_i,
+                                const float* q_scale, int n_parts, int kl,
+                                int Q, int k, cudaStream_t st) {
+  if (n_parts > 1024) return cudaErrorInvalidValue;
+  const int threads = 32 * ((n_parts + 31) / 32);
+  merge_topk_kernel<<<Q, threads, 0, st>>>(part_v, part_i, out_v, out_i,
+                                           q_scale, n_parts, kl, Q, k);
+  return cudaGetLastError();
+}
 
 template <typename Tr, int KL>
 cudaError_t launch_stream(const CUtensorMap& gmap,
@@ -826,12 +918,14 @@ int launch_stream_topk(const typename Tr::QIn* queries, const void* gallery,
     FRP_LAUNCH(3);
     FRP_LAUNCH(4);
     FRP_LAUNCH(8);
+    FRP_LAUNCH(16);
+    FRP_LAUNCH(32);
+    FRP_LAUNCH(64);
   }
 #undef FRP_LAUNCH
   if (err != cudaSuccess) return static_cast<int>(err);
-  merge_topk_kernel<<<(Q + 3) / 4, 128, 0, st>>>(part_v, part_i, out_v, out_i,
-                                                  q_scale, grid_x, kl, Q, k);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(
+      launch_merge(part_v, part_i, out_v, out_i, q_scale, grid_x, kl, Q, k, st));
 }
 
 }  // namespace frp

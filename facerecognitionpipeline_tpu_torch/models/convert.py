@@ -15,7 +15,9 @@ the mapping is per leaf:
 
 `params_from_state` goes the other way for the float layers the port
 initialises itself, so `models/quantize.py` quantizes the same float32
-tree whichever way the weights came.
+tree whichever way the weights came; `backbone_variables_from_state` does
+the same for an unfolded backbone with its BatchNorms, the tree
+`models/torch_export.py` writes out.
 """
 
 from __future__ import annotations
@@ -127,6 +129,43 @@ def params_from_state(sd: dict) -> dict:
         else:
             raise ValueError(f"{key}: no JAX-format inverse for {leaf!r}")
     return tree
+
+
+def backbone_variables_from_state(sd: dict) -> dict:
+    """State dict of an unfolded `IRBackbone` -> JAX-format variables
+    {'params', 'batch_stats'}: a BatchNorm's weight/bias -> params
+    scale/bias (none for the affine-less feature BN), running_mean/var ->
+    batch_stats mean/var; every other layer as `params_from_state`. The
+    inverse of `backbone_state_from_jax(..., folded=False)`."""
+    bn_prefixes = {k[: -len(".running_mean")] for k in sd if k.endswith(".running_mean")}
+    rest, params, stats = {}, {}, {}
+    for key, t in sd.items():
+        prefix, _, leaf = key.rpartition(".")
+        if prefix not in bn_prefixes:
+            rest[key] = t
+            continue
+        if leaf == "num_batches_tracked":
+            continue
+        path = prefix.split(".")
+        tree, name = (
+            (stats, {"running_mean": "mean", "running_var": "var"}[leaf])
+            if leaf.startswith("running_")
+            else (params, {"weight": "scale", "bias": "bias"}[leaf])
+        )
+        node = tree
+        for part in path:
+            node = node.setdefault(part, {})
+        node[name] = t.detach().cpu().numpy().astype(np.float32)
+    _merge(params, params_from_state(rest))
+    return {"params": params, "batch_stats": stats}
+
+
+def _merge(into: dict, tree: dict) -> None:
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            _merge(into.setdefault(k, {}), v)
+        else:
+            into[k] = v
 
 
 def detector_variables_from_state(sd: dict) -> dict:

@@ -20,7 +20,7 @@ from __future__ import annotations
 import math
 import os
 import sys
-from typing import Optional
+from typing import List, Optional
 
 import numpy as np
 import torch
@@ -29,7 +29,10 @@ from facerecognitionpipeline_tpu_torch.models.convert import (
     detector_state_from_jax,
     detector_variables_from_state,
 )
-from facerecognitionpipeline_tpu_torch.models.detector_nets import DetectorNets
+from facerecognitionpipeline_tpu_torch.models.detector_nets import (
+    DetectorNets,
+    load_mtcnn_torch_statedict,
+)
 from facerecognitionpipeline_tpu_torch.models.layers import lecun_normal_
 from facerecognitionpipeline_tpu_torch.ops.crop_kernel import (
     crop_resize_kernel,
@@ -38,7 +41,10 @@ from facerecognitionpipeline_tpu_torch.ops.crop_kernel import (
 from facerecognitionpipeline_tpu_torch.ops.nms import nms_mask, top_k, topk_boxes
 from facerecognitionpipeline_tpu_torch.ops.numerics import div, round_to
 from facerecognitionpipeline_tpu_torch.utils.device import resolve_device
-from facerecognitionpipeline_tpu_torch.utils.io import load_npz_variables
+from facerecognitionpipeline_tpu_torch.utils.io import (
+    load_npz_variables,
+    save_npz_variables,
+)
 
 _NEG = -1e9
 
@@ -117,8 +123,10 @@ class MTCNNDetector:
         init_seed: int = 0,
     ):
         """variables: JAX-format detector variables (nested dicts of arrays);
-        weights_path: a JAX-format `.npz`, or "random" for a seeded random
-        init (`init_seed`); neither = the first of DEFAULT_DETECTOR_WEIGHTS.
+        weights_path: a JAX-format `.npz`, a torch file of MTCNN state dicts
+        ({'pnet'|'rnet'|'onet': state dict}, loaded with weights_only=True),
+        or "random" for a seeded random init (`init_seed`); neither = the
+        first of DEFAULT_DETECTOR_WEIGHTS.
 
         crop_impl: 'kernel' (K1, the counterpart of the JAX 'pallas';
         bf16 by design), 'matmul' (plain dense resample in `dtype`) or
@@ -166,7 +174,7 @@ class MTCNNDetector:
         if variables is None and weights_path is None:
             weights_path = discover_default_weights()
         if variables is None and weights_path not in (None, "random"):
-            variables = load_npz_variables(weights_path)
+            variables = self._load_weights(weights_path)
         loaded_int8 = self._variables_quantized(variables)
         if loaded_int8 and quantize != "int8":
             raise ValueError(
@@ -187,9 +195,12 @@ class MTCNNDetector:
                 )
             lecun_normal_(nets, torch.Generator().manual_seed(init_seed))
             self.pretrained = False
-        if quantize == "int8" and not loaded_int8:
-            # quantize the float32 weights, not the cast module's
-            float_vars = detector_variables_from_state(nets.state_dict())
+        # the JAX-format variables of the nets, float32 (the module is cast
+        # to the cascade dtype below); quantize and save_npz read these
+        self.variables = (
+            variables if variables is not None
+            else detector_variables_from_state(nets.state_dict())
+        )
         self.nets = nets.to(device=self.device, dtype=dtype).eval()
 
         h, w = self.det_size
@@ -227,10 +238,9 @@ class MTCNNDetector:
                 if calib_frames is None:
                     calib_frames = default_calibration_frames(det_size=self.det_size)
                 amax = self.calibrate_amax(calib_frames)
+                self.variables = quantize_detector_variables(self.variables, amax)
                 qnets = DetectorNets(quantized=True)
-                qnets.load_state_dict(detector_state_from_jax(
-                    quantize_detector_variables(float_vars, amax)
-                ))
+                qnets.load_state_dict(detector_state_from_jax(self.variables))
                 self.nets = qnets.to(device=self.device, dtype=dtype).eval()
             self.quantized = True
 
@@ -342,6 +352,19 @@ class MTCNNDetector:
             top_scores > _NEG / 2,
         )
 
+    @staticmethod
+    def _load_weights(path: str) -> dict:
+        if path.endswith(".npz"):
+            return load_npz_variables(path)
+        blob = torch.load(path, map_location="cpu", weights_only=True)
+        return load_mtcnn_torch_statedict(blob)
+
+    def save_npz(self, path: str) -> None:
+        """Write the detector's JAX-format variables (float32, or int8 with
+        their scales when quantized) as an `.npz` that either package loads
+        without recalibration."""
+        save_npz_variables(path, self.variables)
+
     # --------------------------------------------------------- calibration
 
     @staticmethod
@@ -419,3 +442,42 @@ class MTCNNDetector:
                 "landmarks": landmarks,
                 "valid": valid,
             }
+
+    def detect(self, image: np.ndarray) -> List[dict]:
+        """One RGB image (any size, numpy) -> list of face dicts, the
+        reference `FaceDetector.detect` schema, best score first.
+
+        The image is letterboxed to det_size on the host with cv2 (as the
+        JAX package does), one frame runs through `detect_device`, and the
+        boxes and landmarks are mapped back to the original image, the
+        boxes clipped to it (a box regressed into the letterbox padding
+        would otherwise map past the image) and cast to int32."""
+        import cv2
+
+        ih, iw = image.shape[:2]
+        dh, dw = self.det_size
+        scale = min(dw / iw, dh / ih)
+        nw, nh = int(round(iw * scale)), int(round(ih * scale))
+        resized = cv2.resize(image.astype(np.float32), (nw, nh))
+        canvas = np.zeros((dh, dw, 3), dtype=np.float32)
+        canvas[:nh, :nw] = resized.reshape(nh, nw, -1)
+        det = self.detect_device(torch.from_numpy(canvas)[None].to(self.device))
+        out = {k: v[0].float().cpu().numpy() if k != "valid" else v[0].cpu().numpy()
+               for k, v in det.items()}
+        results = []
+        for i in range(self.max_faces):
+            if not out["valid"][i]:
+                continue
+            bbox = np.clip(
+                out["bboxes"][i] / scale, 0, [iw - 1, ih - 1, iw - 1, ih - 1]
+            )
+            results.append({
+                "bbox": bbox.astype(np.int32),
+                "landmarks": (out["landmarks"][i] / scale).astype(np.float32),
+                "det_score": float(out["scores"][i]),
+                "pose": None,
+                "age": None,
+                "gender": None,
+            })
+        results.sort(key=lambda r: -r["det_score"])
+        return results

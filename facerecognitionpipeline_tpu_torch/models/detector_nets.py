@@ -20,6 +20,7 @@ then the sum).
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -156,3 +157,70 @@ class DetectorNets(nn.Module):
         self.pnet = PNet()
         self.rnet = RNet(quantized)
         self.onet = ONet(quantized)
+
+
+def _np(v):
+    if hasattr(v, "detach"):
+        v = v.detach().cpu().numpy()
+    return np.asarray(v, dtype=np.float32)
+
+
+def load_mtcnn_torch_statedict(statedicts: dict) -> dict:
+    """Convert public MTCNN torch statedicts into JAX-format detector
+    variables (numpy), as the JAX package's function of the same name;
+    `models/convert.py::detector_state_from_jax` carries them into
+    `DetectorNets`.
+
+    `statedicts` maps 'pnet'/'rnet'/'onet' to torch statedicts using the
+    widely-published naming (conv1..4, prelu1..5, dense4/5/6 or conv4_1-style
+    heads). Conv kernels OIHW->HWIO; dense [out,in]->[in,out].
+    """
+    def conv(sd, k):
+        return {"kernel": _np(sd[f"{k}.weight"]).transpose(2, 3, 1, 0),
+                "bias": _np(sd[f"{k}.bias"])}
+
+    def dense(sd, k):
+        return {"kernel": _np(sd[f"{k}.weight"]).T, "bias": _np(sd[f"{k}.bias"])}
+
+    def prelu(sd, k):
+        return {"alpha": _np(sd[f"{k}.weight"])}
+
+    def pick(sd, *names):
+        for n in names:
+            if f"{n}.weight" in sd:
+                return n
+        raise KeyError(f"none of {names} in statedict")
+
+    p = statedicts["pnet"]
+    pnet = {
+        "conv1": conv(p, "conv1"), "prelu1": prelu(p, "prelu1"),
+        "conv2": conv(p, "conv2"), "prelu2": prelu(p, "prelu2"),
+        "conv3": conv(p, "conv3"), "prelu3": prelu(p, "prelu3"),
+        "cls": conv(p, pick(p, "conv4_1", "cls")),
+        "reg": conv(p, pick(p, "conv4_2", "reg")),
+    }
+    r = statedicts["rnet"]
+    rnet = {
+        "conv1": conv(r, "conv1"), "prelu1": prelu(r, "prelu1"),
+        "conv2": conv(r, "conv2"), "prelu2": prelu(r, "prelu2"),
+        "conv3": conv(r, "conv3"), "prelu3": prelu(r, "prelu3"),
+        "fc1": dense(r, pick(r, "dense4", "fc1")), "prelu4": prelu(r, "prelu4"),
+        "cls": dense(r, pick(r, "dense5_1", "cls")),
+        "reg": dense(r, pick(r, "dense5_2", "reg")),
+    }
+    o = statedicts["onet"]
+    onet = {
+        "conv1": conv(o, "conv1"), "prelu1": prelu(o, "prelu1"),
+        "conv2": conv(o, "conv2"), "prelu2": prelu(o, "prelu2"),
+        "conv3": conv(o, "conv3"), "prelu3": prelu(o, "prelu3"),
+        "conv4": conv(o, "conv4"), "prelu4": prelu(o, "prelu4"),
+        "fc1": dense(o, pick(o, "dense5", "fc1")), "prelu5": prelu(o, "prelu5"),
+        "cls": dense(o, pick(o, "dense6_1", "cls")),
+        "reg": dense(o, pick(o, "dense6_2", "reg")),
+        "landmarks": dense(o, pick(o, "dense6_3", "landmarks")),
+    }
+    return {
+        "pnet": {"params": pnet},
+        "rnet": {"params": rnet},
+        "onet": {"params": onet},
+    }

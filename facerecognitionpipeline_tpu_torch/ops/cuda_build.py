@@ -22,12 +22,14 @@ CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "kernels")
 #: shared memory one block may use on an H100 (static + dynamic)
 SMEM_LIMIT_BYTES = 232_448
-KERNEL_NAMES = ("crop_resize", "warp_patches", "gallery_topk", "gallery_topk_int8")
+KERNEL_NAMES = (
+    "crop_resize", "warp_patches", "gallery_topk", "gallery_topk_int8", "gallery_topk_f32",
+)
 
 # No --use_fast_math: division stays correctly rounded. -fmad=false keeps
 # the resamplers' coordinate arithmetic uncontracted (the sources also use
 # the explicit _rn intrinsics); the gallery kernels' products run on the
-# tensor cores, which the flag does not touch. -Xptxas -v makes the
+# tensor cores, which the flag does not touch, or as explicit __fmaf_rn. -Xptxas -v makes the
 # assembler report each kernel's registers, shared memory and spills; the
 # report of a build is kept in BUILD_LOGS.
 NVCC_FLAGS = (

@@ -3,19 +3,24 @@ versions.
 
 Counterpart of `facerecognitionpipeline_tpu/ops/pallas_gallery.py`, with the
 same public names. Replaces its two `pl.pallas_call`s:
-`_streaming_cosine_topk` (K3, `csrc/gallery_topk.cu`) and
-`_streaming_cosine_topk_int8` (K4, `csrc/gallery_topk_int8.cu`). Both
+`_streaming_cosine_topk` (K3: `csrc/gallery_topk.cu` on bf16 rows,
+`csrc/gallery_topk_f32.cu` on float32 rows) and `_streaming_cosine_topk_int8`
+(K4, `csrc/gallery_topk_int8.cu`). All three
 compute the cosine top-k of a few queries against a gallery of 10^5-10^6
-rows without ever storing the [Q, G] similarity matrix; both are bound by
-device-memory bytes (one read of the gallery), and the int8 pair halves
-those bytes. What the design does about it on an H100
-(`csrc/gallery_topk.cuh` has the whole of it): one persistent block per SM
+rows without ever storing the [Q, G] similarity matrix. The bf16 and int8
+kernels are bound by device-memory bytes (one read of the gallery; the int8
+pair halves those bytes), the float32 one by float32 operations. What the
+design does about it on an H100 (`csrc/gallery_topk.cuh` has the whole of
+it): one persistent block per SM
 keeps its queries in shared memory in the layout `wgmma` reads, one
 producer warp streams the gallery through two rings of 8 KB stages with
 TMA copies that complete on `mbarrier`s, two consumer warpgroups multiply
 with `wgmma` (query block as A, 64 gallery rows as B) and fold the
-accumulators in registers into per-query top-k lists, and a second kernel
-merges the blocks' lists with one warp per query. The launch arithmetic
+accumulators in registers into per-query top-k lists (1 to 64 entries), and
+a second kernel merges the blocks' lists with one block per query. The
+float32-row kernel keeps the tile order, the lists, the fold and the merge,
+and multiplies with float32 FMAs on CUDA cores instead (a tensor-core
+product would round the rows). The launch arithmetic
 (grid, ring depth, shared-memory bytes, scratch shapes) is
 `gallery_launch_geometry`, where the CPU tests reach it. The tensor map of
 the gallery is encoded in the C function at each launch, through the
@@ -38,10 +43,10 @@ float32 unit query is split into hi = bf16(q) and lo = bf16(q - hi), and
 score = sum_d (hi_d + lo_d) * t_d in float32 with exact products. That is
 the float32 query's score to ~1e-6, so crossing into the streaming path
 does not shift scores by a bf16 rounding of the query (~2e-3). On float32
-rows (CPU only) the plain version multiplies in float32 without a split,
-as the JAX function does. K4 and `streaming_cosine_topk_int8_plain`: the
-query is quantised per row here (as the JAX wrapper does), the integer dot
-is exact, score = float32(dot) * row_scale rounds once, and the query scale
+rows the kernel and the plain version multiply in float32 without a split,
+as the JAX function does (sums in another order: ~1e-7 apart). K4 and
+`streaming_cosine_topk_int8_plain`: the query is quantised per row here (as
+the JAX wrapper does), the integer dot is exact, score = float32(dot) * row_scale rounds once, and the query scale
 multiplies the finished scores (the -1e9 sentinel kept exact; on the card
 the merge kernel does it); kernel and plain version agree to the bit.
 
@@ -63,12 +68,13 @@ from facerecognitionpipeline_tpu_torch.ops import cuda_build
 from facerecognitionpipeline_tpu_torch.ops.nms import top_k as stable_top_k
 from facerecognitionpipeline_tpu_torch.ops.numerics import div
 
-#: launches of K3 (bf16) and of K4 (int8)
+#: launches of K3 on bf16 rows, of K4 (int8) and of K3 on float32 rows
 LAUNCHES = cuda_build.LaunchCounter()
 LAUNCHES_INT8 = cuda_build.LaunchCounter()
+LAUNCHES_F32 = cuda_build.LaunchCounter()
 
 #: longest top-k the CUDA kernels keep (`frp::KMAX` in csrc/gallery_topk.cuh)
-MAX_TOP_K = 8
+MAX_TOP_K = 64
 
 _EPS = 1e-8
 _NEG = -1e9
@@ -206,18 +212,18 @@ class GalleryGeometry(NamedTuple):
     """How one streaming launch is cut (see `csrc/gallery_topk.cuh`)."""
 
     grid: tuple[int, int]  # (blocks sharing the gallery tiles, query tiles)
-    threads: int  # two consumer warpgroups and the producer's
+    threads: int  # two consumer warpgroups (and the producer's: bf16, int8)
     q_tile: int  # query rows per block
     n_tiles: int  # gallery tiles of 64 rows; block x takes x, x + grid[0], ...
     panels: int  # ring stages per tile: 128 bytes of depth each
-    stages: int  # 8 KB ring stages in all: half per consumer warpgroup
+    stages: int  # 8 KB ring stages in all: half per consumer warpgroup (f32: 0)
     smem_bytes: int  # dynamic shared memory of a block
     list_len: int  # entries per list the kernel keeps (>= top_k)
     scratch: tuple[int, int, int]  # per-block lists [Q, grid[0], list_len]
 
 
 #: per kind: (query rows per block, bytes per gallery value)
-_KINDS = {"bf16": (64, 2), "int8": (128, 1)}
+_KINDS = {"bf16": (64, 2), "int8": (128, 1), "f32": (64, 4)}
 _TILE_ROWS = 64
 _PANEL_BYTES = 128
 _QUERY_PANEL_BYTES = 128 * _PANEL_BYTES  # two blocks of 64 rows: K3 hi, lo
@@ -225,29 +231,33 @@ _STAGE_BYTES = _TILE_ROWS * _PANEL_BYTES
 _SIDE_BYTES = _TILE_ROWS * 5  # a tile's valid bytes and scales, per stage
 _CONSUMER_WGS = 2  # consumer warpgroups: a ring and a set of lists each
 _THREADS = 384
+_F32_THREADS = 256
+_F32_ROW = 36  # floats per staged gallery row of a 32-float panel
 _MIN_STAGES, _MAX_STAGES = 4, 16
-#: list lengths the stream kernel is built for (`frp::list_length`): a call's
-#: top_k takes the shortest that holds it
-_LIST_LENS = (1, 2, 3, 4, 8)
+#: list lengths the stream kernels are built for (`frp::list_length`): a
+#: call's top_k takes the shortest that holds it
+_LIST_LENS = (1, 2, 3, 4, 8, 16, 32, 64)
 
 
 @functools.lru_cache(maxsize=256)
 def gallery_launch_geometry(
-    q: int, g: int, d: int, kind: str, sms: int, top_k: int = MAX_TOP_K
+    q: int, g: int, d: int, kind: str, sms: int, top_k: int = 8
 ) -> GalleryGeometry:
-    """The launch geometry of K3 (`kind="bf16"`) or K4 (`"int8"`) for q
-    queries against g rows of depth d on a card with `sms` multiprocessors.
-    Raises ValueError for what the kernels do not take: a depth that is not
-    a multiple of 32 or whose queries leave no room for a ring of
-    `_MIN_STAGES` stages in a block's shared memory, `top_k` outside
-    1..MAX_TOP_K, 2**31 rows or more, an empty dimension."""
+    """The launch geometry of K3 (`kind="bf16"`, or `"f32"` for float32
+    rows) or K4 (`"int8"`) for q queries against g rows of depth d on a card
+    with `sms` multiprocessors. Raises ValueError for what the kernels do
+    not take: a depth that is not a multiple of 32 or whose queries and lists
+    leave no room in a block's shared memory (bf16, int8: for a ring of
+    `_MIN_STAGES` stages), `top_k` outside 1..MAX_TOP_K, 2**31 rows or more,
+    an empty dimension."""
     if kind not in _KINDS:
         raise ValueError(f"kind must be one of {sorted(_KINDS)}, got {kind!r}")
     if min(q, g, d, sms) < 1:
         raise ValueError("the streaming kernel needs q, g, d and sms of at least 1")
     if not 1 <= top_k <= MAX_TOP_K:
         raise ValueError(
-            f"the CUDA kernel keeps at most top_k={MAX_TOP_K}, got {top_k}"
+            f"the CUDA streaming kernels keep at most top_k={MAX_TOP_K}, got "
+            f"{top_k}; longer lists are open in ROADMAP.md (F2)"
         )
     if d % 32:
         raise ValueError(f"the CUDA kernel needs D % 32 == 0, got D={d}")
@@ -256,21 +266,35 @@ def gallery_launch_geometry(
     q_tile, elem = _KINDS[kind]
     list_len = min(n for n in _LIST_LENS if n >= top_k)
     panels = -(-d * elem // _PANEL_BYTES)
-    # alignment slack, the queries, the warpgroups' lists, the thresholds
-    fixed = (
-        1024 + panels * _QUERY_PANEL_BYTES
-        + _CONSUMER_WGS * q_tile * list_len * 8 + q_tile * 4
-    )
-    per_stage = _STAGE_BYTES + _SIDE_BYTES + 16  # and two barriers
-    stages = min(_MAX_STAGES, (cuda_build.SMEM_LIMIT_BYTES - fixed) // per_stage)
-    stages -= stages % _CONSUMER_WGS
-    if stages < _MIN_STAGES:
-        raise ValueError(
-            f"the {kind} streaming kernel keeps {fixed} bytes of queries and lists "
-            f"for D={d}, top_k={top_k} in shared memory, which leaves fewer than "
-            f"{_MIN_STAGES} ring stages of the {cuda_build.SMEM_LIMIT_BYTES} bytes "
-            f"a block may use"
+    lists = _CONSUMER_WGS * q_tile * list_len * 8 + q_tile * 4  # and thresholds
+    if kind == "f32":
+        # the queries (rows padded by 4 floats), a panel buffer and a tile's
+        # valid bytes per warpgroup (`frp::f32_smem_bytes`)
+        fixed = (
+            q_tile * (d + 4) * 4 + _CONSUMER_WGS * _TILE_ROWS * (_F32_ROW * 4 + 1)
+            + lists
         )
+        if fixed > cuda_build.SMEM_LIMIT_BYTES:
+            raise ValueError(
+                f"the f32 streaming kernel keeps {fixed} bytes of queries and lists "
+                f"for D={d}, top_k={top_k} in shared memory, over the "
+                f"{cuda_build.SMEM_LIMIT_BYTES} bytes a block may use"
+            )
+        threads, stages, smem = _F32_THREADS, 0, fixed
+    else:
+        # alignment slack, the queries, the warpgroups' lists, the thresholds
+        fixed = 1024 + panels * _QUERY_PANEL_BYTES + lists
+        per_stage = _STAGE_BYTES + _SIDE_BYTES + 16  # and two barriers
+        stages = min(_MAX_STAGES, (cuda_build.SMEM_LIMIT_BYTES - fixed) // per_stage)
+        stages -= stages % _CONSUMER_WGS
+        if stages < _MIN_STAGES:
+            raise ValueError(
+                f"the {kind} streaming kernel keeps {fixed} bytes of queries and "
+                f"lists for D={d}, top_k={top_k} in shared memory, which leaves "
+                f"fewer than {_MIN_STAGES} ring stages of the "
+                f"{cuda_build.SMEM_LIMIT_BYTES} bytes a block may use"
+            )
+        threads, smem = _THREADS, fixed + stages * per_stage
     q_tiles = -(-q // q_tile)
     if q_tiles > 65535:
         raise ValueError(f"{q_tiles} query tiles exceed CUDA's grid limit")
@@ -279,8 +303,8 @@ def gallery_launch_geometry(
     # tile share out the gallery tiles
     grid_x = max(1, min(n_tiles, sms // q_tiles))
     return GalleryGeometry(
-        (grid_x, q_tiles), _THREADS, q_tile, n_tiles, panels, stages,
-        fixed + stages * per_stage, list_len, (q, grid_x, list_len),
+        (grid_x, q_tiles), threads, q_tile, n_tiles, panels, stages, smem,
+        list_len, (q, grid_x, list_len),
     )
 
 
@@ -295,7 +319,7 @@ def _checked_library(name: str) -> str:
     agrees with this module's constants."""
     q_tile = cuda_build.function(name, f"frp_{name}_qtile", [])()
     kmax = cuda_build.function(name, f"frp_{name}_kmax", [])()
-    kind = "int8" if name.endswith("int8") else "bf16"
+    kind = _LIBRARY_KINDS[name]
     if q_tile != _KINDS[kind][0] or kmax != MAX_TOP_K:
         raise RuntimeError(
             f"the {name} library (query tile {q_tile}, KMAX {kmax}) differs from "
@@ -304,12 +328,15 @@ def _checked_library(name: str) -> str:
     return name
 
 
+_LIBRARY_KINDS = {"gallery_topk": "bf16", "gallery_topk_int8": "int8",
+                  "gallery_topk_f32": "f32"}
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {
     # queries, templates, [scales,] valid, part_v, part_i, out_v, out_i,
-    # [q_scale]; Q, G, D, k, grid_x, stages, smem_bytes; stream
+    # [q_scale]; Q, G, D, k, grid_x, [stages,] smem_bytes; stream
     "gallery_topk": [_PTR] * 7 + [_INT] * 7 + [_PTR],
     "gallery_topk_int8": [_PTR] * 9 + [_INT] * 7 + [_PTR],
+    "gallery_topk_f32": [_PTR] * 7 + [_INT] * 6 + [_PTR],
 }
 _ENCODE_FAILED = 100000  # `frp::ENCODE_FAILED`
 
@@ -328,7 +355,7 @@ def _launch(name, counter, queries, rows, scales, valid, top_k, q_scale=None):
             raise ValueError("queries, templates, scales and valid must share one device")
     if not rows.is_contiguous() or rows.data_ptr() % 16:
         raise ValueError("templates must be contiguous and 16-byte aligned")
-    kind = "bf16" if scales is None else "int8"
+    kind = _LIBRARY_KINDS[name]
     index = dev.index if dev.index is not None else torch.cuda.current_device()
     # the geometry first: it refuses what the kernel does not take
     geo = gallery_launch_geometry(q, g, d, kind, _sm_count(index), top_k)
@@ -348,9 +375,9 @@ def _launch(name, counter, queries, rows, scales, valid, top_k, q_scale=None):
     ptrs += [t.data_ptr() for t in (valid, part_v, part_i, out_v, out_i)]
     if q_scale is not None:
         ptrs.append(q_scale.data_ptr())
+    ints = [q, g, d, top_k, geo.grid[0]] + ([] if kind == "f32" else [geo.stages])
     rc = fn(
-        *ptrs, q, g, d, top_k, geo.grid[0], geo.stages, geo.smem_bytes,
-        torch.cuda.current_stream(dev).cuda_stream,
+        *ptrs, *ints, geo.smem_bytes, torch.cuda.current_stream(dev).cuda_stream,
     )
     if rc >= _ENCODE_FAILED:
         raise RuntimeError(
@@ -381,26 +408,31 @@ def streaming_cosine_topk(
     `chunk`; rows unit-norm, zero for padding), valid [G] bool -> (scores
     [Q,top_k] float32, indices [Q,top_k] int64).
 
-    CUDA tensors launch the kernel: templates must be bf16 (the copy
-    `DeviceGallery` serves at streaming scale), D % 32 == 0 and
-    top_k <= MAX_TOP_K, else it raises. CPU tensors take
-    `streaming_cosine_topk_plain` (bf16 or float32 rows, any top_k). Q = 0
-    returns empty results. `chunk` only states the padding contract
+    CUDA tensors launch a kernel: bf16 templates (the copy `DeviceGallery`
+    serves at streaming scale) the tensor-core one, float32 templates the
+    float32 one (`LAUNCHES_F32`); D % 32 == 0 and top_k <= MAX_TOP_K, else
+    it raises. CPU tensors take `streaming_cosine_topk_plain` (bf16 or
+    float32 rows, any top_k). Q = 0 returns empty results. `chunk` only states the padding contract
     (G % chunk == 0); the kernel's own tile is its own."""
     _check_common(queries, templates, valid, top_k, chunk)
     if queries.device.type == "cpu":
         return streaming_cosine_topk_plain(queries, templates, valid, top_k, chunk)
     if queries.device.type != "cuda":
         raise ValueError(f"streaming_cosine_topk: unsupported device {queries.device}")
-    if templates.dtype != torch.bfloat16:
+    if templates.dtype == torch.bfloat16:
+        name, counter = "gallery_topk", LAUNCHES
+    elif templates.dtype == torch.float32:
+        name, counter = "gallery_topk_f32", LAUNCHES_F32
+    else:
         raise TypeError(
-            f"the CUDA streaming kernel takes bf16 templates, got {templates.dtype}"
+            f"the CUDA streaming kernels take bf16 or float32 templates, got "
+            f"{templates.dtype}"
         )
     if queries.shape[0] == 0:
         return _empty(0, top_k, queries.device)
     qn = normalize_queries(queries).contiguous()
     valid = valid.to(torch.bool).contiguous()
-    return _launch("gallery_topk", LAUNCHES, qn, templates, None, valid, top_k)
+    return _launch(name, counter, qn, templates, None, valid, top_k)
 
 
 def streaming_cosine_topk_int8(

@@ -23,6 +23,11 @@ def rgb_to_gray(images: torch.Tensor) -> torch.Tensor:
     return torch.matmul(images.float(), w)
 
 
+def rgb_to_bgr(images: torch.Tensor) -> torch.Tensor:
+    """Flip the channel axis ([..., 3])."""
+    return images.flip(-1)
+
+
 def normalize_face_batch(
     faces_rgb: torch.Tensor, dtype: torch.dtype = torch.float32
 ) -> torch.Tensor:

@@ -4,7 +4,14 @@ Counterpart of `facerecognitionpipeline_tpu/ops/warp.py`: the closed-form
 similarity fit, the stage-A source windows with the integer-window snap,
 the stage-B coefficients, the plain `crop_resize` (the detector's
 half-resolution R-net source frame) and the two-kernel batch alignment
-`align_faces_batch` (K1 for stage A, K2 for stage B).
+`align_faces_batch` (K1 for stage A, K2 for stage B) of the serving step.
+
+The host pipeline's alignment (`FaceProcessor`, enrolment, matching) is the
+gather path: `warp_affine`, `bilinear_sample` (zero or replicate border),
+`warp_affine_single`, `crop_resize_gather` and `align_faces`. The JAX
+package runs these as XLA gathers, no Pallas kernel; here they are plain
+PyTorch on whatever device the image lies on, with the same arithmetic
+order (a product of two terms then a sum, no contraction asked for).
 """
 
 from __future__ import annotations
@@ -122,6 +129,108 @@ def warp_coeffs(
         dim=1,
     )
     return boxes, coeffs
+
+
+def _grid(out_h: int, out_w: int, device) -> tuple[torch.Tensor, torch.Tensor]:
+    ys = torch.arange(out_h, dtype=torch.float32, device=device)
+    xs = torch.arange(out_w, dtype=torch.float32, device=device)
+    gy, gx = torch.meshgrid(ys, xs, indexing="ij")  # [out_h, out_w]
+    return gx, gy
+
+
+def _source_coords(inv: torch.Tensor, gx: torch.Tensor, gy: torch.Tensor):
+    """Inverse maps [F,2,3] over an output grid -> source (sx, sy), each
+    [F, out_h, out_w]: a0 * x + a1 * y + a2, in that order."""
+    def row(r):
+        return (inv[:, r, 0, None, None] * gx + inv[:, r, 1, None, None] * gy
+                + inv[:, r, 2, None, None])
+    return row(0), row(1)
+
+
+def bilinear_sample(
+    image: torch.Tensor, sx: torch.Tensor, sy: torch.Tensor, border: str = "zero"
+) -> torch.Tensor:
+    """Bilinear-sample ONE image [H,W,C] at float coordinates sx, sy (any
+    shape S) -> [*S, C] float32. border='zero' (cv2 BORDER_CONSTANT 0: a
+    tap outside the image reads 0) or 'replicate' (cv2 BORDER_REPLICATE:
+    taps clamp to the edge)."""
+    if border not in ("zero", "replicate"):
+        raise ValueError(f"border must be 'zero' or 'replicate', got {border!r}")
+    h, w, c = image.shape
+    flat = image.float().reshape(h * w, c)
+    x0 = torch.floor(sx)
+    y0 = torch.floor(sy)
+    wx = (sx - x0)[..., None]
+    wy = (sy - y0)[..., None]
+    x0i = x0.to(torch.int64)
+    y0i = y0.to(torch.int64)
+
+    def tap(yi, xi):
+        v = flat[(yi.clamp(0, h - 1) * w + xi.clamp(0, w - 1)).reshape(-1)]
+        v = v.reshape(*sx.shape, c)
+        if border == "zero":
+            inb = (yi >= 0) & (yi < h) & (xi >= 0) & (xi < w)
+            v = v * inb[..., None].float()
+        return v
+
+    top = tap(y0i, x0i) * (1 - wx) + tap(y0i, x0i + 1) * wx
+    bot = tap(y0i + 1, x0i) * (1 - wx) + tap(y0i + 1, x0i + 1) * wx
+    return top * (1 - wy) + bot * wy
+
+
+def warp_affine(
+    images: torch.Tensor, matrices: torch.Tensor, out_h: int, out_w: int
+) -> torch.Tensor:
+    """Batched bilinear affine warp with a zero border: images [B,H,W,C],
+    FORWARD maps [B,2,3] (src -> dst, the cv2.warpAffine convention) ->
+    [B,out_h,out_w,C] float32; output pixel p samples M^-1 p."""
+    gx, gy = _grid(out_h, out_w, images.device)
+    sx, sy = _source_coords(invert_affine(matrices.float()), gx, gy)
+    b, c = images.shape[0], images.shape[-1]
+    if b == 0:
+        return torch.zeros((0, out_h, out_w, c), device=images.device)
+    return torch.stack([bilinear_sample(images[i], sx[i], sy[i]) for i in range(b)])
+
+
+def warp_affine_single(
+    image: torch.Tensor, matrices: torch.Tensor, out_h: int, out_w: int
+) -> torch.Tensor:
+    """F affine-warped crops of ONE image [H,W,C]: FORWARD maps [F,2,3] ->
+    [F,out_h,out_w,C] float32 (zero border), without F image copies."""
+    gx, gy = _grid(out_h, out_w, image.device)
+    sx, sy = _source_coords(invert_affine(matrices.float()), gx, gy)
+    return bilinear_sample(image, sx, sy)
+
+
+def crop_resize_gather(
+    image: torch.Tensor, boxes: torch.Tensor, out_size: int
+) -> torch.Tensor:
+    """Gather crop + resize of boxes [N,4] (x1, y1, x2, y2) from ONE image
+    [H,W,C] -> [N,out,out,C] float32: half-pixel centres, zero border."""
+    boxes = boxes.float()
+    x1, y1, x2, y2 = boxes.unbind(1)
+    bw = (x2 - x1).clamp_min(1e-6)
+    bh = (y2 - y1).clamp_min(1e-6)
+    t = (torch.arange(out_size, dtype=torch.float32, device=image.device) + 0.5) / out_size
+    sx = x1[:, None, None] + bw[:, None, None] * t[None, None, :] - 0.5
+    sy = y1[:, None, None] + bh[:, None, None] * t[None, :, None] - 0.5
+    n = boxes.shape[0]
+    sx = sx.expand(n, out_size, out_size)
+    sy = sy.expand(n, out_size, out_size)
+    return bilinear_sample(image, sx, sy)
+
+
+def align_faces(
+    image: torch.Tensor,
+    landmarks: torch.Tensor,
+    template: torch.Tensor,
+    output_size: int = 112,
+) -> torch.Tensor:
+    """Align every face of ONE image [H,W,C] to the template: landmarks
+    [F,5,2], template [5,2] -> [F,out,out,C] float32 (the vectorized
+    reference `FaceAligner.align`; the host pipeline's path)."""
+    mats = similarity_transform(landmarks, template)
+    return warp_affine_single(image, mats, output_size, output_size)
 
 
 def crop_resize(

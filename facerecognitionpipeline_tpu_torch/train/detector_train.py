@@ -1,10 +1,12 @@
 """The synthetic face renderer of the detector trainer: only what the int8
-calibration needs.
+calibration, the tests and `chip_smoke.py` need.
 
-A copy of `make_identity`, `draw_identity_face` and `render_identity_crop`
-from `facerecognitionpipeline_tpu/train/detector_train.py` (numpy and cv2,
-cv2 imported at the call), so `models/quantize.py::default_calibration_faces`
-renders the same crops byte for byte without the JAX package. The trainer
+A copy of `make_identity`, `draw_identity_face`, `render_identity_crop` and
+`render_identity_scene` from `facerecognitionpipeline_tpu/train/
+detector_train.py` (numpy and cv2, cv2 imported at the call), so
+`models/quantize.py::default_calibration_faces` renders the same crops and
+the enrolment checks the same scenes, byte for byte, without the JAX
+package. The trainer
 itself (patch sampling, the P/R/O-net training loops) is queued in
 ROADMAP.md with the rest of `train/`.
 """
@@ -101,3 +103,29 @@ def render_identity_crop(
     draw_identity_face(img, identity, cx, cy, s, theta)
     gain = rng.uniform(0.8, 1.2)
     return np.clip(img.astype(np.float32) * gain, 0, 255).astype(np.uint8)
+
+
+def render_identity_scene(
+    identities: list,
+    rng: np.random.Generator,
+    size: int = 160,
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray, list]:
+    """Scene with one face per given identity. Returns
+    (image, boxes, landmarks, identity_indices)."""
+    img = rng.integers(0, 100, size=(size, size, 3), dtype=np.uint8)
+    boxes, lms, used = [], [], []
+    for idx, ident in enumerate(identities):
+        fsize = rng.integers(36, 64)
+        s = fsize / 2.0
+        cx = rng.uniform(s + 2, size - s - 2)
+        cy = rng.uniform(s * 1.2 + 2, size - s * 1.2 - 2)
+        if any(abs(cx - b[0]) < s * 2 and abs(cy - b[1]) < s * 2
+               for b in [((bb[0] + bb[2]) / 2, (bb[1] + bb[3]) / 2) for bb in boxes]):
+            continue
+        box, lm = draw_identity_face(
+            img, ident, cx, cy, s, rng.uniform(-0.15, 0.15)
+        )
+        boxes.append(box)
+        lms.append(lm)
+        used.append(idx)
+    return img, np.asarray(boxes, np.float32), np.asarray(lms, np.float32), used

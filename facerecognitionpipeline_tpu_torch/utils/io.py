@@ -82,6 +82,29 @@ def list_images(directory: str) -> list[str]:
 # ------------------------------------------------------------- weight npz
 
 
+def flatten(tree: dict, prefix: str = "") -> dict[str, np.ndarray]:
+    """{'a': {'b': {'c': x}}} -> {'a/b/c': x}."""
+    flat: dict = {}
+    for key, value in tree.items():
+        path = f"{prefix}{key}"
+        if isinstance(value, dict):
+            flat.update(flatten(value, f"{path}/"))
+        else:
+            flat[path] = value
+    return flat
+
+
+def save_npz_variables(path: str, variables: dict) -> None:
+    """Nested dict of arrays -> a flattened plain-array `.npz` ('/'-joined
+    key paths, no pickled objects), the archive `load_npz_variables` and the
+    JAX package's loader read. Written through a file handle: np.savez(str)
+    appends '.npz' to a path without that suffix."""
+    d = os.path.dirname(os.path.abspath(path))
+    os.makedirs(d, exist_ok=True)
+    with open(path, "wb") as f:
+        np.savez(f, **{k: np.asarray(v) for k, v in flatten(variables).items()})
+
+
 def unflatten(flat: dict[str, np.ndarray]) -> dict:
     """{'a/b/c': x} -> {'a': {'b': {'c': x}}}."""
     tree: dict = {}

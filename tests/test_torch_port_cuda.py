@@ -434,10 +434,10 @@ def test_gallery_kernels_refuse_what_they_do_not_take(dev, gen):
     qq = tt[:2].clone()
     codes, scales = gk.quantize_templates(tt)
     n3, n4 = gk.LAUNCHES.count, gk.LAUNCHES_INT8.count
-    with pytest.raises(TypeError, match="bf16"):
-        gk.streaming_cosine_topk(qq, tt, vv, top_k=2, chunk=64)  # float32 rows
-    with pytest.raises(ValueError, match="top_k"):
-        gk.streaming_cosine_topk(qq, tt.to(torch.bfloat16), vv, top_k=9, chunk=64)
+    with pytest.raises(TypeError, match="bf16 or float32"):
+        gk.streaming_cosine_topk(qq, tt.half(), vv, top_k=2, chunk=64)  # float16 rows
+    with pytest.raises(ValueError, match="ROADMAP.md"):
+        gk.streaming_cosine_topk(qq, tt.to(torch.bfloat16), vv, top_k=65, chunk=64)
     with pytest.raises(ValueError, match="multiple of the chunk"):
         gk.streaming_cosine_topk(qq, tt.to(torch.bfloat16), vv, top_k=2, chunk=100)
     with pytest.raises(ValueError, match="one device"):
@@ -630,3 +630,113 @@ def test_int8_product_raises_on_the_card_rather_than_fall_back(dev):
     with pytest.raises(ValueError, match="not padded"):
         int8_gemm.int8_product(a, w, 28)
     assert int8_gemm.PRODUCTS.count == 0
+
+
+# ------------------------------------- K3 on float32 rows, lists up to 64
+
+
+@pytest.mark.parametrize("top_k", [1, 3, 16, 33, 64])
+@pytest.mark.parametrize("shape", [(128, 65536 + 32, 512), (65, 4096, 96), (7, 256, 32)])
+def test_gallery_kernels_long_lists_and_float32_rows(dev, gen, shape, top_k):
+    """K3 on bf16 and on float32 rows within K3_TOL / 1e-5 of their plain
+    versions with equal indices where the scores stand apart; K4 bit-equal."""
+    from facerecognitionpipeline_tpu_torch.ops import gallery_kernel as gk
+
+    nq, rows, d = shape
+    t = gen.normal(size=(rows, d)).astype(np.float32)
+    t /= np.linalg.norm(t, axis=1, keepdims=True)
+    t[rows - 20] = t[3]
+    valid = np.ones(rows, bool)
+    valid[-10:] = False
+    q = gen.normal(size=(nq, d)).astype(np.float32)
+    q[0] = 2 * t[3]
+    tt, vv, qq = (torch.from_numpy(a).to(dev) for a in (t, valid, q))
+    n3, n4, nf = gk.LAUNCHES.count, gk.LAUNCHES_INT8.count, gk.LAUNCHES_F32.count
+    for rows_t, tol in ((tt.to(torch.bfloat16), 2e-5), (tt, 1e-5)):
+        kv, ki = gk.streaming_cosine_topk(qq, rows_t, vv, top_k=top_k, chunk=32)
+        pv, pi = gk.streaming_cosine_topk_plain(qq, rows_t, vv, top_k=top_k, chunk=32)
+        torch.cuda.synchronize()
+        assert float((kv - pv).abs().max()) <= tol
+        gap = (pv[:, :-1] - pv[:, 1:]).abs() > tol
+        clear = torch.ones_like(pi, dtype=torch.bool)
+        clear[:, :-1] &= gap
+        clear[:, 1:] &= gap
+        assert torch.equal(ki[clear], pi[clear])
+        assert ki[0, 0] == 3 and (top_k == 1 or ki[0, 1] == rows - 20)
+    codes, scales = gk.quantize_templates(tt)
+    kv, ki = gk.streaming_cosine_topk_int8(qq, codes, scales, vv, top_k=top_k, chunk=32)
+    pv, pi = gk.streaming_cosine_topk_int8_plain(qq, codes, scales, vv, top_k=top_k, chunk=32)
+    torch.cuda.synchronize()
+    assert torch.equal(kv, pv) and torch.equal(ki, pi)
+    assert (gk.LAUNCHES.count - n3, gk.LAUNCHES_INT8.count - n4,
+            gk.LAUNCHES_F32.count - nf) == (1, 1, 1)
+
+
+def test_float32_rows_fewer_valid_than_k(dev, gen):
+    from facerecognitionpipeline_tpu_torch.ops import gallery_kernel as gk
+
+    t, _ = _gallery(gen, 256, 0)
+    valid = np.zeros(256, bool)
+    valid[[7, 200]] = True
+    tt, vv = torch.from_numpy(t).to(dev), torch.from_numpy(valid).to(dev)
+    qq = torch.from_numpy(t[[200, 3]]).to(dev)
+    for k in (4, 40):
+        kv, ki = gk.streaming_cosine_topk(qq, tt, vv, top_k=k, chunk=64)
+        pv, pi = gk.streaming_cosine_topk_plain(qq, tt, vv, top_k=k, chunk=64)
+        assert torch.equal(ki, pi) and float((kv - pv).abs().max()) <= 1e-5
+        assert ki[:, 2:].eq(0).all() and kv[:, 2:].eq(-1e9).all()
+
+
+def test_bf16_face_processor_launches_k1(dev):
+    """A bf16 cascade takes the kernel crop ('auto'): K1 twice per detect."""
+    import os
+
+    import cv2
+
+    from facerecognitionpipeline_tpu_torch.models.detector import MTCNNDetector
+    from facerecognitionpipeline_tpu_torch.pipeline.processor import FaceProcessor
+    from facerecognitionpipeline_tpu_torch.train.detector_train import (
+        make_identity,
+        render_identity_scene,
+    )
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    det = MTCNNDetector(det_size=(320, 320), dtype=torch.bfloat16, device=dev,
+                        weights_path=os.path.join(repo, "pretrained", "mtcnn_synthetic.npz"))
+    assert det.crop_impl == "kernel"
+    proc = FaceProcessor(output_size=112, detector=det, device=dev, quality_filter_config={
+        "min_det_score": 0.5, "min_face_size": 40, "check_blur": False})
+    img, *_ = render_identity_scene([make_identity(1), make_identity(2)],
+                                    np.random.default_rng(3), size=240)
+    img = cv2.resize(img, (480, 480))
+    n = crop_kernel.LAUNCHES.count
+    faces = proc.process_numpy(img, return_all=True)
+    assert crop_kernel.LAUNCHES.count - n == 2
+    assert len(faces) == 2 and all(f["aligned_face"].shape == (112, 112, 3) for f in faces)
+
+
+def test_face_matcher_at_streaming_scale_launches_k3_once_per_search(dev, gen, tmp_path):
+    """40 000 identities: GalleryManager keeps a bf16 compact copy and every
+    search (match_faces_batch, match_single_face) is one K3 launch."""
+    from facerecognitionpipeline_tpu_torch.gallery.manager import GalleryManager
+    from facerecognitionpipeline_tpu_torch.ops import gallery_kernel as gk
+    from facerecognitionpipeline_tpu_torch.pipeline.embedder import FaceEmbedder
+    from facerecognitionpipeline_tpu_torch.pipeline.matcher import FaceMatcher
+
+    emb = FaceEmbedder("ir_micro", device=dev, random_ok=True)
+    crops = gen.integers(0, 256, (3, 112, 112, 3), dtype=np.uint8)
+    planted = emb.extract_embeddings_batch(crops)
+    t = gen.normal(size=(40000, 512)).astype(np.float32)
+    t /= np.linalg.norm(t, axis=1, keepdims=True)
+    t[[11, 20000, 39999]] = planted
+    gm = GalleryManager(gallery_path=str(tmp_path / "g.pkl"), verbose=False, device=dev)
+    for i in range(40000):
+        gm.add_student(f"ID{i:05d}", f"n{i}", t[i:i + 1])
+    m = FaceMatcher(embedder=emb, gallery=gm, device=dev)
+    n = gk.LAUNCHES.count
+    res = m.match_faces_batch(list(crops), top_k=16)
+    assert gk.LAUNCHES.count - n == 1
+    assert [r[0][0] for r in res] == ["ID00011", "ID20000", "ID39999"]
+    assert all(r[0][2] > 0.99 and len(r) == 16 for r in res)
+    assert m.match_single_face(crops[1], top_k=64)[0][0] == "ID20000"
+    assert gk.LAUNCHES.count - n == 2

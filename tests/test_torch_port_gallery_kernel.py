@@ -28,7 +28,7 @@ _DS = (32, 96, 512)
 @pytest.mark.parametrize("g", _GS)
 @pytest.mark.parametrize("q", _QS)
 def test_gallery_launch_geometry(q, g, d, kind):
-    for top_k in (1, 3, 8):
+    for top_k in (1, 3, 8, 16, 33, 64):
         geo = gallery_launch_geometry(q, g, d, kind, _SMS, top_k)
         grid_x, q_tiles = geo.grid
         assert geo.q_tile == {"bf16": 64, "int8": 128}[kind]
@@ -75,7 +75,7 @@ def test_gallery_serving_geometry():
 
 @pytest.mark.parametrize("args,match", [
     ((4, 4096, 48, "bf16", _SMS, 3), "D % 32"),
-    ((4, 4096, 512, "bf16", _SMS, 9), "top_k"),
+    ((4, 4096, 512, "bf16", _SMS, 65), "ROADMAP.md"),
     ((4, 4096, 512, "bf16", _SMS, 0), "top_k"),
     ((4, 4096, 768, "bf16", _SMS, 3), "shared memory"),  # 192 KB of queries
     ((4, 4096, 2048, "int8", _SMS, 3), "shared memory"),
@@ -88,6 +88,61 @@ def test_gallery_serving_geometry():
 def test_gallery_geometry_refuses(args, match):
     with pytest.raises(ValueError, match=match):
         gallery_launch_geometry(*args)
+
+
+@pytest.mark.parametrize("kind", ["bf16", "int8"])
+@pytest.mark.parametrize("top_k", [9, 16, 17, 32, 33, 64])
+def test_long_lists_keep_a_ring_at_d512(kind, top_k):
+    """Lists of 16, 32 and 64 entries live in shared memory beside the
+    queries; at D = 512 the ring keeps at least _MIN_STAGES stages."""
+    geo = gallery_launch_geometry(128, 1 << 20, 512, kind, _SMS, top_k)
+    assert geo.list_len == min(n for n in (16, 32, 64) if n >= top_k)
+    assert gk._MIN_STAGES <= geo.stages <= gk._MAX_STAGES
+    assert geo.smem_bytes <= cuda_build.SMEM_LIMIT_BYTES
+    assert geo.scratch == (128, geo.grid[0], geo.list_len)
+
+
+def test_long_list_serving_geometry():
+    """The ring depth each list length leaves at 128 x 1 048 576 x 512."""
+    stages = {
+        (kind, k): gallery_launch_geometry(128, 1 << 20, 512, kind, _SMS, k).stages
+        for kind in ("bf16", "int8") for k in (8, 16, 32, 64)
+    }
+    assert stages == {
+        ("bf16", 8): 10, ("bf16", 16): 8, ("bf16", 32): 6, ("bf16", 64): 4,
+        ("int8", 8): 16, ("int8", 16): 14, ("int8", 32): 10, ("int8", 64): 4,
+    }
+
+
+@pytest.mark.parametrize("kind", ["bf16", "int8", "f32"])
+@pytest.mark.parametrize("top_k", [65, 100, 1000])
+def test_top_k_over_64_is_refused_before_a_launch(kind, top_k):
+    """A CUDA-shaped call with top_k > 64 raises from the geometry, which the
+    wrapper computes before it allocates or launches anything."""
+    with pytest.raises(ValueError, match=r"top_k=64.*ROADMAP\.md"):
+        gallery_launch_geometry(128, 1 << 20, 512, kind, _SMS, top_k)
+
+
+@pytest.mark.parametrize("d", _DS)
+@pytest.mark.parametrize("q", _QS)
+def test_f32_launch_geometry(q, d):
+    """K3 on float32 rows: 64 queries per block staged whole (rows padded by
+    4 floats), a 64 x 36-float panel buffer and 64 valid bytes per
+    warpgroup, the lists and thresholds; 256 threads, no ring."""
+    for top_k in (1, 3, 8, 16, 33, 64):
+        geo = gallery_launch_geometry(q, 1 << 20, d, "f32", _SMS, top_k)
+        assert geo.q_tile == 64 and geo.threads == 256 and geo.stages == 0
+        assert geo.panels == d // 32
+        want = 64 * (d + 4) * 4 + 2 * 64 * (36 * 4 + 1) + 2 * 64 * geo.list_len * 8 + 64 * 4
+        assert geo.smem_bytes == want <= cuda_build.SMEM_LIMIT_BYTES
+        q_tiles = -(-q // 64)
+        assert geo.grid == (max(1, _SMS // q_tiles), q_tiles)
+
+
+def test_f32_geometry_refuses_queries_over_shared_memory():
+    assert gallery_launch_geometry(128, 4096, 512, "f32", _SMS, 64).smem_bytes <= 232_448
+    with pytest.raises(ValueError, match="shared memory"):
+        gallery_launch_geometry(128, 4096, 768, "f32", _SMS, 64)
 
 
 def test_gallery_geometry_more_query_tiles_than_sms():
@@ -148,6 +203,29 @@ def _decomposed_int8_topk(queries, codes, scales, valid, top_k, parts):
 
 
 @pytest.mark.parametrize("parts", [1, 2, 66, 132])
+@pytest.mark.parametrize("top_k", [16, 33, 64])
+def test_decomposition_with_long_lists(parts, top_k):
+    """The same decomposition for list lengths past the register lists: 65
+    tiles dealt to the blocks, 40 invalid rows, duplicate rows."""
+    rng = np.random.default_rng(11)
+    g = 4096 + 32
+    t = rng.normal(size=(g, 64)).astype(np.float32)
+    t /= np.linalg.norm(t, axis=1, keepdims=True)
+    for r in (70, 700, 1500, 4000):
+        t[r] = t[5]
+    valid = np.ones(g, bool)
+    valid[-40:] = False
+    queries = rng.normal(size=(5, 64)).astype(np.float32)
+    queries[0] = 3.0 * t[5]
+    codes, scales = gk.quantize_templates(torch.from_numpy(t))
+    qq, vv = torch.from_numpy(queries), torch.from_numpy(valid)
+    want_v, want_i = gk.streaming_cosine_topk_int8_plain(qq, codes, scales, vv, top_k, chunk=32)
+    got_v, got_i = _decomposed_int8_topk(qq, codes, scales, vv, top_k, parts)
+    assert torch.equal(got_v, want_v) and torch.equal(got_i, want_i)
+    assert want_i[0, :5].tolist() == [5, 70, 700, 1500, 4000]
+
+
+@pytest.mark.parametrize("parts", [1, 2, 66, 132])
 @pytest.mark.parametrize("case", ["duplicates", "few_valid", "ragged"])
 def test_decomposition_equals_the_running_version(parts, case):
     """32 to 65 tiles dealt to 1, 2, 66 or 132 blocks: with 66 and 132 some
@@ -184,7 +262,7 @@ def test_cuda_wrappers_read_their_constants_once(monkeypatch):
     calls = []
     answers = {
         "frp_gallery_topk_qtile": 64, "frp_gallery_topk_int8_qtile": 128,
-        "frp_gallery_topk_kmax": 8, "frp_gallery_topk_int8_kmax": 8,
+        "frp_gallery_topk_kmax": 64, "frp_gallery_topk_int8_kmax": 64,
     }
 
     def fake_function(name, symbol, argtypes):

@@ -36,7 +36,12 @@ def test_port_never_imports_jax_or_the_jax_package():
                    "telemetry/faults.py", "cli/face_recognition_server.py",
                    "cli/face_recognition_client.py", "cli/face_recognition_live.py",
                    "utils/io.py", "models/quantize.py", "ops/int8_gemm.py",
-                   "train/detector_train.py", "evalharness/detection.py", "../chip_smoke.py"):
+                   "train/detector_train.py", "evalharness/detection.py",
+                   "models/torch_import.py", "models/onnx_import.py",
+                   "models/torch_export.py", "ops/augment.py", "pipeline/processor.py",
+                   "pipeline/enrollment.py", "pipeline/matcher.py", "serve/capture.py",
+                   "cli/enroll_students.py", "cli/face_matcher.py", "cli/detect_faces.py",
+                   "cli/face_detection.py", "../chip_smoke.py"):
         assert module in scanned, module
     for path in _port_sources():
         n += 1
@@ -96,6 +101,45 @@ def test_serving_entry_points_default_to_cuda(monkeypatch, tmp_path, entry):
         make()
 
 
+@pytest.mark.parametrize("entry", ["processor", "enrollment", "matcher", "capture"])
+def test_host_pipeline_entry_points_default_to_cuda(monkeypatch, tmp_path, entry):
+    from facerecognitionpipeline_tpu_torch.pipeline.enrollment import StudentEnrollment
+    from facerecognitionpipeline_tpu_torch.pipeline.matcher import FaceMatcher
+    from facerecognitionpipeline_tpu_torch.pipeline.processor import FaceProcessor
+    from facerecognitionpipeline_tpu_torch.serve.capture import CameraFaceCapture
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    make = {
+        "processor": lambda **kw: FaceProcessor(det_size=(64, 64), **kw),
+        "enrollment": lambda **kw: StudentEnrollment(
+            gallery_path=str(tmp_path / "g.pkl"), architecture="ir_micro", **kw),
+        "matcher": lambda **kw: FaceMatcher(
+            gallery_path=str(tmp_path / "g.pkl"), architecture="ir_micro", **kw),
+        "capture": lambda **kw: CameraFaceCapture(
+            synthetic=True, output_dir=str(tmp_path / "cap"), display=False, **kw),
+    }[entry]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make()
+
+
+@pytest.mark.parametrize("cli,argv", [
+    ("enroll_students", ["--enrollment_dir", "{tmp}", "--architecture", "ir_micro"]),
+    ("face_matcher", ["--capture_dir", "{tmp}", "--architecture", "ir_micro"]),
+    ("detect_faces", ["--input_dir", "{tmp}", "--output_dir", "{tmp}/out"]),
+    ("face_detection", ["--synthetic", "--no_display", "--max_frames", "1",
+                        "--output_dir", "{tmp}/cap"]),
+])
+def test_new_clis_default_to_cuda_and_raise_without_it(monkeypatch, tmp_path, cli, argv):
+    """Without --device the CLIs ask for the card and raise without one; they
+    never fall back to the CPU."""
+    import importlib
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    main = importlib.import_module(f"facerecognitionpipeline_tpu_torch.cli.{cli}").main
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        main([a.replace("{tmp}", str(tmp_path)) for a in argv])
+
+
 def test_import_pattern_tells_the_packages_apart():
     assert FORBIDDEN.match("facerecognitionpipeline_tpu.ops.warp")
     assert FORBIDDEN.match("facerecognitionpipeline_tpu")
@@ -129,7 +173,8 @@ def test_gallery_kernels_are_registered_with_their_sources():
     from facerecognitionpipeline_tpu_torch.ops import cuda_build
 
     assert cuda_build.KERNEL_NAMES == (
-        "crop_resize", "warp_patches", "gallery_topk", "gallery_topk_int8"
+        "crop_resize", "warp_patches", "gallery_topk", "gallery_topk_int8",
+        "gallery_topk_f32",
     )
     for name in cuda_build.KERNEL_NAMES:
         assert os.path.exists(os.path.join(cuda_build.CSRC_DIR, f"{name}.cu"))

@@ -219,8 +219,12 @@ def test_embedder_loads_jax_npz(rng, tmp_path):
     assert emb.folded and emb.pretrained
     out = emb.extract_embeddings_batch(faces)
     assert _cos(out, ref).min() >= 0.9999
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        FaceEmbedder("ir_micro", model_path=str(tmp_path / "w.ckpt"), device="cpu")
+    # a .ckpt path loads through the importer now; a missing one raises as
+    # in the JAX package
+    for make in (lambda p: JaxEmbedder("ir_micro", model_path=p),
+                 lambda p: FaceEmbedder("ir_micro", model_path=p, device="cpu")):
+        with pytest.raises(FileNotFoundError, match="not found"):
+            make(str(tmp_path / "w.ckpt"))
 
 
 def test_embedder_random_init_is_seeded():
