@@ -95,8 +95,28 @@ Phases, in order; any failure exits non-zero before the final line:
      version on the same compact rows; the step with gallery_impl=
      'streaming' on a float32 gallery launches K3 on float32 rows once per
      step and equals the dense step.
-Then it prints the card's name and power limit, JSON lines of phase 8's and
-phase 9's numbers, a JSON line describing the kernels, and as its last line
+  10. the offline dataset and evaluation path: a classroom dataset of 48
+     enrolled identities (a one-shot photo, 5 few-shot photos and 4 session
+     photos each) and 48 visitors (one photo each), 528 renders of
+     render_identity_scene; seeded ir_101 weights (.npz), the bf16 cascade
+     with pretrained/mtcnn_synthetic.npz; through the CLIs with --device
+     cuda: dataset_preprocessor (K1 twice per photo; images/s),
+     lfw_impostor_helper and segment_dataset over the reviewed labels,
+     embedding_generator (all seven corpus pickles with their JSON twins and
+     generation_summary.json; K1 twice per gallery photo), probe_labeler
+     against the 48 students (dense, against a float32 product), then
+     ProbeLabeler against 1 048 576 identities, bf16 (K3) and int8 (K4), one
+     launch per search, labels and top matches equal to the plain version on
+     the same compact rows; evaluate_models (its files, thresholds 0.20-0.90,
+     max/mean/topk), and evaluate_model on the card against the CPU (scores
+     within 1e-5; counts and rates differ only by decisions within 1e-5 of a
+     threshold or a rival); identity_scores_batch alone at 4096 probes x
+     10 000 identities x 5 x 512 within 1e-5 of float64, timed beside its
+     bound; run_stress_suite over 4 categories with a bf16 cascade (K1).
+     `python3 chip_smoke.py --offline-only` builds the kernels and runs this
+     phase alone.
+Then it prints the card's name and power limit, JSON lines of phase 8's, 9's
+and 10's numbers, a JSON line describing the kernels, and as its last line
 {"ok": true, "device": {...}}.
 """
 
@@ -2654,6 +2674,620 @@ def enrolment_phase(ctx, gal, report) -> None:
     report["enrol"] = res
 
 
+
+# ------------------------------------------------------------ phase 10
+
+# the classroom dataset: a large lecture's roster
+OFFLINE_ENROLLED = 48
+OFFLINE_VISITORS = 48
+OFFLINE_FEW_SHOT = 5
+OFFLINE_SESSIONS = 4  # probe photos per enrolled identity, one per session
+OFFLINE_ANGLES = ("center", "center", "left", "right")  # per session
+OFFLINE_TOP_K = 5
+EVAL_TOL = 1e-5
+SCORER_SHAPE = (4096, 10000, 5)  # probes, identities, embeddings per identity
+STRESS_RUN = ("baseline", "crowded", "occlusion", "hard_negatives")
+STRESS_SCENES = 6
+
+
+def offline_name(prefix: str, i: int) -> str:
+    """'Student_AB': letters only after the prefix, so the corpus's name
+    rule (split at the first numeric part) gives the name back."""
+    return f"{prefix}_{chr(65 + i // 26)}{chr(65 + i % 26)}"
+
+
+def render_offline_dataset(tmp: str) -> tuple:
+    """The classroom dataset: for each enrolled identity a one-shot photo,
+    OFFLINE_FEW_SHOT few-shot photos (dataset/enrollment/{one-shot,few-shot}/
+    <name>/) and one photo per session (raw/<session>/<angle>/<name>.png);
+    each visitor once in one session. Every photo is its own
+    `render_identity_scene` of the identity at 160 px, upscaled 3x."""
+    import cv2
+    import numpy as np
+
+    from facerecognitionpipeline_tpu_torch.train.detector_train import (
+        make_identity,
+        render_identity_scene,
+    )
+
+    rng = np.random.default_rng(10)
+    count = 0
+
+    def photo(path, seed):
+        nonlocal count
+        img, *_ = render_identity_scene([make_identity(seed)], rng, size=160)
+        img = cv2.resize(img, (480, 480), interpolation=cv2.INTER_LINEAR)
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        cv2.imwrite(path, cv2.cvtColor(img, cv2.COLOR_RGB2BGR))
+        count += 1
+
+    enrolled = [offline_name("Student", i) for i in range(OFFLINE_ENROLLED)]
+    visitors = [offline_name("Visitor", i) for i in range(OFFLINE_VISITORS)]
+    for i, name in enumerate(enrolled):
+        photo(os.path.join(tmp, "dataset", "enrollment", "one-shot", name, "photo_0.png"),
+              2000 + i)
+        for j in range(OFFLINE_FEW_SHOT):
+            photo(os.path.join(tmp, "dataset", "enrollment", "few-shot", name,
+                               f"photo_{j}.png"), 2000 + i)
+        for s in range(OFFLINE_SESSIONS):
+            photo(os.path.join(tmp, "raw", f"{s + 1:02d}", OFFLINE_ANGLES[s], f"{name}.png"),
+                  2000 + i)
+    for i, name in enumerate(visitors):
+        s = i % OFFLINE_SESSIONS
+        photo(os.path.join(tmp, "raw", f"{s + 1:02d}", OFFLINE_ANGLES[s], f"{name}.png"),
+              3000 + i)
+    return enrolled, visitors, count
+
+
+def probe_score_matrix(gallery: dict, probes: dict, aggregation: str):
+    """The [P, I] score matrix an identification run computes, on the CPU,
+    with the true identity index of every probe (-1 when not enrolled)."""
+    import numpy as np
+
+    from facerecognitionpipeline_tpu_torch.evalharness.identification import _score_probes
+    from facerecognitionpipeline_tpu_torch.evalharness.metrics import pack_gallery
+
+    names, packed, mask = pack_gallery(gallery, "cpu")
+    data = probes.get("all", probes)
+    rows, truth = [], []
+    for name, d in data.items():
+        for e in np.atleast_2d(np.asarray(d["embeddings"], np.float32)):
+            rows.append(e)
+            truth.append(names.index(name) if name in names else -1)
+    return _score_probes(np.stack(rows), packed, mask, aggregation, 3), np.array(truth)
+
+
+def near_decisions(scores, truth, thresholds) -> int:
+    """Probes whose decision a last-bit difference in a score may flip: the
+    best score within EVAL_TOL of a threshold or of the runner-up, or the
+    true identity's score within EVAL_TOL of another identity's."""
+    import numpy as np
+
+    top = np.sort(scores, axis=1)[:, ::-1]
+    near = np.abs(top[:, :1] - np.asarray(thresholds)[None, :]).min(axis=1) < EVAL_TOL
+    if scores.shape[1] > 1:
+        near |= top[:, 0] - top[:, 1] < EVAL_TOL
+        t = scores[np.arange(len(truth)), np.clip(truth, 0, None)]
+        close = np.abs(scores - t[:, None]) < EVAL_TOL
+        close[np.arange(len(truth)), np.clip(truth, 0, None)] = False
+        near |= (truth >= 0) & close.any(axis=1)
+    return int(near.sum())
+
+
+def close_pairs(values) -> int:
+    """Adjacent pairs of sorted values within EVAL_TOL (an ROC curve's order
+    can swap there)."""
+    import numpy as np
+
+    v = np.sort(np.asarray(values, np.float64))
+    return int((np.diff(v) < EVAL_TOL).sum())
+
+
+def compare_results(tag, got, want, n, near, pairs) -> float:
+    """One evaluation result on the card against the CPU's: score lists
+    within EVAL_TOL; threshold-table counts within `near` probes and rates
+    within near / n; bootstrap CIs within EVAL_TOL; ROC-AUC, AP, d' and EER
+    within EVAL_TOL plus what `near` decisions and `pairs` close pairs may
+    move. Returns the largest score difference."""
+    import numpy as np
+
+    err = 0.0
+    for key in ("genuine_scores", "impostor_scores"):
+        if key in want:
+            a, b = np.asarray(got[key]), np.asarray(want[key])
+            if a.shape != b.shape:
+                fail(f"{tag}: {key} has {a.shape} against {b.shape} on the CPU")
+            if a.size:
+                err = max(err, float(np.abs(a - b).max()))
+    for p, q in zip(got.get("all_predictions", []), want.get("all_predictions", [])):
+        err = max(err, abs(p["score"] - q["score"]))
+    if err > EVAL_TOL:
+        fail(f"{tag}: scores differ from the CPU's by {err} (limit {EVAL_TOL})")
+    slack = EVAL_TOL + near / max(n, 1)
+    gd, wd = got["threshold_results"], want["threshold_results"]
+    if list(gd.columns) != list(wd.columns) or len(gd) != len(wd):
+        fail(f"{tag}: threshold tables of different shapes")
+    for col in wd.columns:
+        a, b = gd[col].to_numpy(np.float64), wd[col].to_numpy(np.float64)
+        limit = near if col in ("tp", "fp", "fn", "tn") else slack
+        if np.abs(a - b).max() > limit:
+            fail(f"{tag}: threshold table column {col} differs by {np.abs(a - b).max()} "
+                 f"(limit {limit}, {near} near decisions)")
+    for key in ("genuine_ci", "impostor_ci"):
+        if key in want and max(abs(x - y) for x, y in zip(got[key], want[key])) > EVAL_TOL:
+            fail(f"{tag}: {key} {got[key]} against {want[key]} on the CPU")
+    for key in ("roc_auc", "average_precision", "dprime", "eer", "separation",
+                "tar_at_far_0.01", "mean_impostor_score"):
+        if key not in want or want[key] is None or got[key] is None:
+            if key in want and (want[key] is None) != (got[key] is None):
+                fail(f"{tag}: {key} defined on one device only")
+            continue
+        limit = slack + pairs / max(n, 1) + EVAL_TOL * abs(want[key])
+        if abs(got[key] - want[key]) > limit:
+            fail(f"{tag}: {key} {got[key]} against {want[key]} on the CPU (limit {limit})")
+    return err
+
+
+def compare_evaluations(card: dict, cpu: dict, corpus: dict, thresholds) -> dict:
+    """evaluate_model on the card against the CPU, result by result."""
+    import numpy as np
+
+    probes, negatives = corpus["probe_positive"], corpus["probe_negative"]
+    seg = corpus["probe_positive_segmented"]
+    worst, n_results, n_near = 0.0, 0, 0
+    for gname, gallery in corpus["galleries"].items():
+        for agg in card["basic_probe"][gname]:
+            scores, truth = probe_score_matrix(gallery, probes, agg)
+            near = near_decisions(scores, truth, thresholds)
+            pairs = close_pairs(scores.max(axis=1))
+            worst = max(worst, compare_results(
+                f"basic_probe {gname} {agg}", card["basic_probe"][gname][agg],
+                cpu["basic_probe"][gname][agg], len(truth), near, pairs))
+            n_near += near
+            n_results += 1
+            if gname in card["impostor"]:
+                neg, _ = probe_score_matrix(
+                    gallery, {n: d for n, d in negatives.items() if len(d["embeddings"])},
+                    agg)
+                best = neg.max(axis=1)
+                near_i = int((np.abs(best[:, None] - np.asarray(thresholds)[None, :])
+                              .min(axis=1) < EVAL_TOL).sum())
+                worst = max(worst, compare_results(
+                    f"impostor {gname} {agg}", card["impostor"][gname][agg],
+                    cpu["impostor"][gname][agg], len(best), near_i, 0))
+                genuine = scores[np.arange(len(truth)), np.clip(truth, 0, None)][truth >= 0]
+                both = np.r_[genuine, best]
+                near_v = int((np.abs(both[:, None] - np.asarray(thresholds)[None, :])
+                              .min(axis=1) < EVAL_TOL).sum())
+                worst = max(worst, compare_results(
+                    f"verification {gname} {agg}", card["verification"][gname][agg],
+                    cpu["verification"][gname][agg], min(len(genuine), len(best)), near_v,
+                    close_pairs(both)))
+                n_near += near_i + near_v
+                n_results += 2
+        for segment, res in card["segmented"].get(gname, {}).items():
+            scores, truth = probe_score_matrix(gallery, {"all": seg[segment]}, "mean")
+            near = near_decisions(scores, truth, thresholds)
+            worst = max(worst, compare_results(
+                f"segmented {gname} {segment}", res, cpu["segmented"][gname][segment],
+                len(truth), near, close_pairs(scores.max(axis=1))))
+            n_near += near
+            n_results += 1
+    return {"results_compared": n_results, "max_score_err": worst, "near_decisions": n_near}
+
+
+def scorer_alone(res: dict) -> None:
+    """identity_scores_batch at SCORER_SHAPE x 512 on the card: within
+    EVAL_TOL of the same function in float64, timed beside its bound (the
+    larger of the float32 operations over the CUDA cores' peak, TF32 off,
+    and the bytes of its inputs and output over the memory rate)."""
+    import torch
+
+    from facerecognitionpipeline_tpu_torch.evalharness.metrics import identity_scores_batch
+
+    p, i, m = SCORER_SHAPE
+    d = 512
+    g = torch.Generator(device=DEVICE).manual_seed(10)
+    probes = torch.randn((p, d), generator=g, device=DEVICE)
+    gallery = torch.randn((i, m, d), generator=g, device=DEVICE)
+    gallery /= torch.linalg.vector_norm(gallery, dim=2, keepdim=True)
+    mask = torch.arange(m, device=DEVICE)[None, :] <= (torch.arange(i, device=DEVICE) % m)[:, None]
+    gallery *= mask[..., None]  # identity j holds 1 + j % 5 embeddings
+    flops = 2.0 * p * i * m * d
+    nbytes = 4.0 * (p * d + i * m * d + p * i) + i * m
+    bound = max(flops / F32_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3
+    res["scorer"] = {"shape": [p, i, m, d], "bound_ms": bound,
+                     "bound_by": "operations" if flops / F32_FLOPS_PER_S >
+                     nbytes / HBM_BYTES_PER_S else "bytes"}
+    g64 = gallery.double()
+    for agg in ("max", "mean", "topk"):
+        out = identity_scores_batch(probes, gallery, mask, agg, 3)
+        ref = identity_scores_batch(probes.double(), g64, mask, agg, 3, dtype=torch.float64)
+        err = float((out.double() - ref).abs().max())
+        if not torch.isfinite(out).all() or out.shape != (p, i) or err > EVAL_TOL:
+            fail(f"identity_scores_batch ({agg}) at {p}x{i}x{m}x{d} is {err} from float64")
+        del out, ref
+        ms = cuda_time_ms(lambda: identity_scores_batch(probes, gallery, mask, agg, 3),
+                          iters=5, warmup=1)
+        res["scorer"][agg] = {"ms": ms, "max_abs_err_vs_f64": err}
+        print(f"[offline] identity_scores_batch {agg} at {p} probes x {i} identities x {m} x "
+              f"{d}: {ms:.3f} ms (bound {bound:.3f} ms by {res['scorer']['bound_by']}), "
+              f"max |float32 - float64| {err:.3g} (limit {EVAL_TOL})")
+    del probes, gallery, g64, mask
+    torch.cuda.empty_cache()
+
+
+def offline_phase(gal, report) -> None:
+    """Phase 10: the offline dataset and evaluation path through its CLIs on
+    the card (dataset_preprocessor, segment_dataset, embedding_generator,
+    probe_labeler, evaluate_models), the labeler against 1 048 576
+    identities (bf16 then int8), the evaluation on the card against the CPU,
+    the device scorer alone at a large shape, and the detector stress
+    suite."""
+    import pickle
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from facerecognitionpipeline_tpu_torch.cli import (
+        dataset_preprocessor,
+        embedding_generator,
+        evaluate_models,
+        lfw_impostor_helper,
+        probe_labeler,
+        segment_dataset,
+    )
+    from facerecognitionpipeline_tpu_torch.evalharness.detection import run_stress_suite
+    from facerecognitionpipeline_tpu_torch.evalharness.pipeline import (
+        DEFAULT_THRESHOLDS,
+        evaluate_model,
+        load_model_corpus,
+    )
+    from facerecognitionpipeline_tpu_torch.gallery.manager import GalleryManager, StudentRecord
+    from facerecognitionpipeline_tpu_torch.models.detector import MTCNNDetector
+    from facerecognitionpipeline_tpu_torch.ops import crop_kernel, gallery_kernel, warp_kernel
+    from facerecognitionpipeline_tpu_torch.pipeline.embedder import FaceEmbedder
+    from facerecognitionpipeline_tpu_torch.pipeline.labeling import ProbeLabeler
+    from facerecognitionpipeline_tpu_torch.utils.io import (
+        imread_rgb,
+        list_images,
+        save_npz_variables,
+    )
+    from facerecognitionpipeline_tpu_torch.utils.xlsx import read_xlsx_rows
+
+    t_phase = time.perf_counter()
+    res = {"launches": {"crop_resize": 0, "warp_patches": 0, "gallery_topk": 0,
+                        "gallery_topk_int8": 0, "gallery_topk_f32": 0}}
+    counters = {"crop_resize": crop_kernel.LAUNCHES, "warp_patches": warp_kernel.LAUNCHES,
+                "gallery_topk": gallery_kernel.LAUNCHES,
+                "gallery_topk_int8": gallery_kernel.LAUNCHES_INT8,
+                "gallery_topk_f32": gallery_kernel.LAUNCHES_F32}
+
+    def reset():
+        for c in counters.values():
+            c.reset()
+        torch.cuda.synchronize()
+
+    def read():
+        torch.cuda.synchronize()
+        n = {k: c.count for k, c in counters.items()}
+        for k, v in n.items():
+            res["launches"][k] += v
+        return n
+
+    det_path = os.path.join(REPO, "pretrained", "mtcnn_synthetic.npz")
+    det_flags = ["--detector_weights", det_path, "--detector_dtype", "bfloat16",
+                 "--device", DEVICE]
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_offline_")
+    try:
+        t0 = time.perf_counter()
+        enrolled, visitors, n_photos = render_offline_dataset(tmp)
+        weights = os.path.join(tmp, "ir101.npz")
+        save_npz_variables(weights, seeded_unfolded_tree(ARCH, 10))
+        print(f"[offline] {n_photos} photos of {len(enrolled)} enrolled identities and "
+              f"{len(visitors)} visitors rendered, seeded {ARCH} weights written, in "
+              f"{time.perf_counter() - t0:.1f} s")
+        raw, prep, out = (os.path.join(tmp, d) for d in ("raw", "prep", "out"))
+        meta_path = os.path.join(prep, "probe_positive_metadata.json")
+        crops_dir = os.path.join(prep, "probe_positive")
+
+        # 10a: dataset_preprocessor, bf16 cascade (K1 twice per photo)
+        n_raw = sum(len(list_images(os.path.join(raw, s, a)))
+                    for s in os.listdir(raw) for a in os.listdir(os.path.join(raw, s)))
+        reset()
+        t0 = time.perf_counter()
+        rc, log = run_cli(dataset_preprocessor.main,
+                          ["--input_dir", raw, "--output_dir", prep] + det_flags)
+        secs = time.perf_counter() - t0
+        n = read()
+        with open(meta_path) as f:
+            meta = json.load(f)
+        first = [e for e in meta if e["face_index"] == 0]  # one per photo with a face
+        if rc != 0 or n["crop_resize"] != 2 * n_raw or n["warp_patches"]:
+            fail(f"dataset_preprocessor: rc {rc}, launches {n} for {n_raw} photos "
+                 f"(want K1 twice each):\n{log[-2000:]}")
+        if len(first) < 0.95 * n_raw:
+            fail(f"dataset_preprocessor found a face in {len(first)} of {n_raw} photos")
+        res["preprocess_images_per_s"] = n_raw / secs
+        print(f"[offline] dataset_preprocessor: {n_raw} photos in {secs:.1f} s "
+              f"({res['preprocess_images_per_s']:.2f} images/s, the detector build "
+              f"included), {len(meta)} crops, a face in {len(first)} photos; K1 launched "
+              f"{n['crop_resize']} times")
+
+        # 10b: the reviewed labels (what label_rename_utility fixes by hand
+        # comes from the photos' names here), visitors half as an LFW-style
+        # tree sampled by lfw_impostor_helper, half as real impostors
+        positive = os.path.join(out, "probe_labeled", "positive")
+        negative = os.path.join(out, "probe_labeled", "negative")
+        lfw_tree = os.path.join(tmp, "lfw")
+        for d in (positive, negative):
+            os.makedirs(d)
+        truth = {e["filename"]: e["source_image"][:-4] for e in meta if e["face_index"] == 0}
+        for fname, who in truth.items():
+            src = os.path.join(crops_dir, fname)
+            if who in enrolled:
+                shutil.copy(src, os.path.join(positive, f"{who}_{fname}"))
+            elif visitors.index(who) % 2:
+                shutil.copy(src, os.path.join(negative, f"{who}_{fname}"))
+            else:
+                os.makedirs(os.path.join(lfw_tree, who))
+                shutil.copy(src, os.path.join(lfw_tree, who, fname))
+        n_lfw = len(os.listdir(lfw_tree))
+        rc, log = run_cli(lfw_impostor_helper.main, [
+            "--lfw_dir", lfw_tree, "--output_dir", negative, "--num_identities", str(n_lfw)])
+        if rc != 0 or len([f for f in os.listdir(negative) if f.startswith("lfw_")]) != n_lfw:
+            fail(f"lfw_impostor_helper: {log[-1000:]}")
+
+        # 10c: segment_dataset over the reviewed positives
+        rc, log = run_cli(segment_dataset.main, [
+            "--input_dir", positive, "--metadata_file", meta_path, "--output_dir",
+            os.path.join(out, "probe_labeled", "segmented"), "--device", DEVICE])
+        done = [ln for ln in log.splitlines() if ln.startswith("SEGMENTATION COMPLETE")]
+        if rc != 0 or not done:
+            fail(f"segment_dataset: {log[-2000:]}")
+        print(f"[offline] segment_dataset: {done[0]}")
+
+        # 10d: embedding_generator (K1 twice per gallery photo, base and
+        # augmented passes)
+        model = f"adaface_{ARCH}"
+        emb_dir = os.path.join(out, "embeddings", model)
+        n_gallery = 2 * len(enrolled) * (1 + OFFLINE_FEW_SHOT)
+        reset()
+        t0 = time.perf_counter()
+        rc, log = run_cli(embedding_generator.main, [
+            "--dataset_root", os.path.join(tmp, "dataset"), "--output_root", out,
+            "--model_type", "adaface", "--architecture", ARCH, "--model_path", weights,
+        ] + det_flags)
+        secs = time.perf_counter() - t0
+        n = read()
+        if rc != 0 or n["crop_resize"] != 2 * n_gallery:
+            fail(f"embedding_generator: rc {rc}, launches {n} for {n_gallery} gallery "
+                 f"photos (want K1 twice each):\n{log[-2000:]}")
+        stems = ["gallery_one-shot_base", "gallery_one-shot_augmented",
+                 "gallery_few-shot_base", "gallery_few-shot_augmented",
+                 "probe_positive_unsegmented", "probe_positive_segmented", "probe_negative"]
+        artifacts = {}
+        for stem in stems:
+            with open(os.path.join(emb_dir, f"{stem}.pkl"), "rb") as f:
+                artifacts[stem] = pickle.load(f)
+            with open(os.path.join(emb_dir, f"{stem}.json")) as f:
+                json.load(f)
+        with open(os.path.join(emb_dir, "generation_summary.json")) as f:
+            summary = json.load(f)
+        n_probe_embs = 0
+        for stem, blob in artifacts.items():
+            groups = blob.values() if stem.startswith(("gallery", "probe_negative")) else \
+                [d for cat in blob.values() for d in cat.values()]
+            for d in groups:
+                e = np.asarray(d["embeddings"])
+                if len(e) and (e.dtype != np.float32 or e.shape[1] != 512
+                               or not np.isfinite(e).all()):
+                    fail(f"{stem}: embeddings {e.dtype} {e.shape}")
+                if stem.startswith("probe"):
+                    n_probe_embs += len(e)
+        want = {"one_shot_base_persons": len(enrolled), "few_shot_base_persons": len(enrolled),
+                "one_shot_augmented_persons": len(enrolled),
+                "few_shot_augmented_persons": len(enrolled)}
+        if summary["gallery"] != want or artifacts["gallery_few-shot_augmented"][
+                enrolled[0]]["embeddings"].shape[0] != 8 * OFFLINE_FEW_SHOT:
+            fail(f"embedding_generator galleries: {summary['gallery']}")
+        res["corpus_images_per_s"] = (n_gallery + n_probe_embs) / secs
+        print(f"[offline] embedding_generator: {n_gallery} gallery photos (detect, align, "
+              f"embed; x8 augmented) and {n_probe_embs} probe crops in {secs:.1f} s "
+              f"({res['corpus_images_per_s']:.2f} images/s, the {ARCH} load included); "
+              f"K1 launched {n['crop_resize']} times; 7 pickles with their JSON twins and "
+              f"generation_summary.json: {summary['probe_negative']}, segmented "
+              f"{summary['probe_positive']['segmented_categories']}")
+
+        # 10e: probe_labeler against the 48 students (dense match)
+        few = artifacts["gallery_few-shot_base"]
+        g48 = os.path.join(tmp, "gallery48", "students.pkl")
+        gm = GalleryManager(g48, verbose=False, device=DEVICE)
+        for j, name in enumerate(enrolled):
+            gm.add_student(f"STU{j + 1:04d}", name, few[name]["embeddings"])
+        gm.save()
+        reset()
+        t0 = time.perf_counter()
+        rc, log = run_cli(probe_labeler.main, [
+            "--probe_dir", crops_dir, "--metadata_file", meta_path, "--gallery_path", g48,
+            "--architecture", ARCH, "--model_path", weights, "--top_k", str(OFFLINE_TOP_K),
+            "--output_dir", os.path.join(tmp, "labeled48"), "--device", DEVICE])
+        secs = time.perf_counter() - t0
+        n = read()
+        if rc != 0 or any(n.values()):
+            fail(f"probe_labeler (48 students): rc {rc}, launches {n}:\n{log[-2000:]}")
+        with open(os.path.join(tmp, "labeled48", "labeling_results.json")) as f:
+            blob = json.load(f)
+        embedder = FaceEmbedder(ARCH, model_path=weights, device=DEVICE)
+        paths = list_images(crops_dir)
+        queries = embedder.extract_embeddings_batch([imread_rgb(p) for p in paths])
+        t, ids = gm.get_gallery_embeddings()
+        dense = queries @ (t / np.linalg.norm(t, axis=1, keepdims=True)).T
+        order = np.argsort(-dense, axis=1, kind="stable")[:, :OFFLINE_TOP_K]
+        err, n_ok = 0.0, 0
+        for r, (p, row) in enumerate(zip(paths, blob["results"])):
+            top = row["top_matches"]
+            err = max(err, max(abs(m["score"] - dense[r, j]) for m, j in zip(top, order[r])))
+            if row["filename"] != os.path.basename(p) or top[0]["student_id"] != ids[order[r, 0]]:
+                if dense[r, order[r, 0]] - dense[r, order[r, 1]] > 2 * EVAL_TOL:
+                    fail(f"probe_labeler (48): {row['filename']} matched {top[0]}")
+            n_ok += truth.get(row["filename"]) == row["matched_name"]
+        if err > EVAL_TOL or blob["summary"]["processed"] != len(paths):
+            fail(f"probe_labeler (48): scores {err} from a float32 dense product")
+        res["labeler_ms_48"] = 1e3 * secs
+        res["labeler_truth_top1_48"] = n_ok / len(paths)
+        print(f"[offline] probe_labeler --top_k {OFFLINE_TOP_K} against {len(enrolled)} "
+              f"students: {len(paths)} crops in {secs:.1f} s (the {ARCH} load included), "
+              f"labels {blob['summary']['label_distribution']}, scores within {err:.3g} of a "
+              f"dense float32 product; matched name = true name for {n_ok}/{len(paths)} "
+              f"(random weights); no streaming kernel (dense match)")
+
+        # 10f: the labeler against 1 048 576 identities, bf16 (K3) then int8 (K4)
+        big = gal.shape[0]
+        others = gal[: big - len(enrolled)].cpu().numpy()
+        now = "2026-01-01T00:00:00"
+        records = {
+            f"id{i}": StudentRecord(f"id{i}", f"Identity {i}", others[i:i + 1], others[i],
+                                    1, now, now)
+            for i in range(len(others))
+        }
+        records.update(gm.get_all_students())
+        del others
+        q = torch.from_numpy(queries).to(DEVICE)
+        for quantize, kernel in ((None, "gallery_topk"), ("int8", "gallery_topk_int8")):
+            label = quantize or "bf16"
+            big_gm = GalleryManager(os.path.join(tmp, f"big_{label}.pkl"), verbose=False,
+                                    device=DEVICE, quantize=quantize)
+            big_gm.students = dict(records)
+            big_gm._dirty = True
+            _, v, big_ids = big_gm.device_snapshot()
+            compact = big_gm._device.snapshot()[3]
+            labeler = ProbeLabeler(embedder=embedder, gallery=big_gm, architecture=ARCH)
+            reset()
+            t0 = time.perf_counter()
+            labeler.process_probe_directory(
+                crops_dir, output_dir=os.path.join(tmp, f"labeled_{label}"),
+                metadata_file=meta_path, copy_files=False, top_k=OFFLINE_TOP_K)
+            secs = time.perf_counter() - t0
+            n = read()
+            if n[kernel] != 1 or sum(n.values()) != 1:
+                fail(f"probe_labeler against {big} ({label}): one search launched {n}")
+            with open(os.path.join(tmp, f"labeled_{label}", "labeling_results.json")) as f:
+                rows = json.load(f)["results"]
+            if quantize:
+                pv, pi = gallery_kernel.streaming_cosine_topk_int8_plain(
+                    q, compact[0], compact[1], v, top_k=OFFLINE_TOP_K, chunk=STREAM_CHUNK)
+            else:
+                pv, pi = gallery_kernel.streaming_cosine_topk_plain(
+                    q, compact, v, top_k=OFFLINE_TOP_K, chunk=STREAM_CHUNK)
+            pv, pi = pv.cpu().numpy(), pi.cpu().numpy()
+            sv = np.array([[m["score"] for m in r["top_matches"]] for r in rows], np.float32)
+            tol = 0.0 if quantize else K3_TOL
+            err = float(np.abs(sv - pv).max())
+            clear = np.ones(pv.shape, bool)
+            gap = np.abs(pv[:, :-1] - pv[:, 1:]) > 2 * max(tol, 1e-7)
+            clear[:, :-1] &= gap
+            clear[:, 1:] &= gap
+            same = all(rows[r]["top_matches"][j]["student_id"] == big_ids[pi[r, j]]
+                       for r, j in zip(*np.nonzero(clear)))
+            labels_ok = all(
+                r["label"] == labeler.determine_label(float(pv[i, 0]))
+                for i, r in enumerate(rows)
+                if min(abs(pv[i, 0] - labeler.sure_threshold),
+                       abs(pv[i, 0] - labeler.unsure_threshold)) > 2 * max(tol, 1e-7))
+            if err > tol or not same or not labels_ok:
+                fail(f"probe_labeler against {big} ({label}) differs from the plain version "
+                     f"(score {err}, ids on clear slots {same}, labels {labels_ok})")
+            for c in counters.values():
+                c.reset()
+            t1 = time.perf_counter()
+            big_gm.search_batch(queries, top_k=OFFLINE_TOP_K)
+            torch.cuda.synchronize()
+            search_ms = 1e3 * (time.perf_counter() - t1)
+            res[f"labeler_ms_{label}"] = 1e3 * secs
+            res[f"search_ms_{label}"] = search_ms
+            print(f"[offline] ProbeLabeler.process_probe_directory against {big} identities "
+                  f"({label}): {len(rows)} crops in {1e3 * secs:.1f} ms (read, embed, one "
+                  f"search, results); the search alone {search_ms:.2f} ms; {kernel} launched "
+                  f"once; equal to the plain version on the same compact rows (max |score "
+                  f"difference| {err:.3g}, ids equal on {int(clear.sum())}/{clear.size} clear "
+                  f"slots, labels equal)")
+            del big_gm, labeler, compact, v, big_ids
+            torch.cuda.empty_cache()
+        del records, q
+
+        # 10g: evaluate_models on the card, then the same corpus on the card
+        # and on the CPU in process
+        eval_dir = os.path.join(out, "evaluation")
+        argv = ["--models", model, "--embeddings_root", os.path.join(out, "embeddings"),
+                "--output_dir", eval_dir, "--device", DEVICE]
+        try:
+            import matplotlib  # noqa: F401
+        except ImportError:
+            argv.append("--no_plots")
+        t0 = time.perf_counter()
+        rc, log = run_cli(evaluate_models.main, argv)
+        res["evaluate_models_s"] = time.perf_counter() - t0
+        files = ["identification_summary.csv", "identification_summary.tex",
+                 "verification_summary.csv", "verification_summary.tex",
+                 "gallery_strategies.csv", "gallery_strategies.tex",
+                 "evaluation_results.json", "evaluation_results.xlsx", "executive_summary.txt"]
+        missing = [f for f in files if not os.path.exists(os.path.join(eval_dir, f))]
+        if rc != 0 or missing:
+            fail(f"evaluate_models: rc {rc}, missing {missing}:\n{log[-2000:]}")
+        sheets = read_xlsx_rows(os.path.join(eval_dir, "evaluation_results.xlsx"))
+        with open(os.path.join(eval_dir, "executive_summary.txt")) as f:
+            exec_summary = f.read()
+        print(f"[offline] evaluate_models --device {DEVICE}: {res['evaluate_models_s']:.1f} s; "
+              f"{len(files)} files, sheets {sorted(sheets)}")
+        print("[offline] " + exec_summary.strip().replace("\n", "\n[offline] "))
+
+        corpus = load_model_corpus(emb_dir)
+        t0 = time.perf_counter()
+        card = evaluate_model(corpus, device=DEVICE)
+        res["evaluate_model_card_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cpu = evaluate_model(corpus, device="cpu")
+        res["evaluate_model_cpu_s"] = time.perf_counter() - t0
+        res["card_vs_cpu"] = compare_evaluations(card, cpu, corpus, DEFAULT_THRESHOLDS)
+        print(f"[offline] evaluate_model on the card ({res['evaluate_model_card_s']:.1f} s) "
+              f"against the CPU ({res['evaluate_model_cpu_s']:.1f} s): "
+              f"{res['card_vs_cpu']['results_compared']} results, threshold tables, rank "
+              f"metrics and CIs equal, scores within {res['card_vs_cpu']['max_score_err']:.3g} "
+              f"(limit {EVAL_TOL}); {res['card_vs_cpu']['near_decisions']} decisions within "
+              f"{EVAL_TOL} of a threshold or a rival")
+        del card, cpu, corpus
+
+        # 10h: the device scorer alone at a large shape
+        scorer_alone(res)
+
+        # 10i: the detector stress suite through a bf16 cascade (K1)
+        detector = MTCNNDetector(weights_path=det_path, dtype=torch.bfloat16, device=DEVICE)
+        reset()
+        t0 = time.perf_counter()
+        stress = run_stress_suite(detector, categories=STRESS_RUN, n_scenes=STRESS_SCENES)
+        secs = time.perf_counter() - t0
+        n = read()
+        if n["crop_resize"] != 2 * len(STRESS_RUN) * STRESS_SCENES:
+            fail(f"run_stress_suite launched {n} for {len(STRESS_RUN) * STRESS_SCENES} scenes")
+        res["stress"] = stress["summary"]
+        for cat, s in stress["summary"].items():
+            if s["recall"] is not None and not 0.0 <= s["recall"] <= 1.0:
+                fail(f"run_stress_suite {cat}: recall {s['recall']}")
+        print(f"[offline] run_stress_suite ({STRESS_SCENES} scenes x {len(STRESS_RUN)} "
+              f"categories, 320 px, bf16 cascade) in {secs:.1f} s, K1 launched "
+              f"{n['crop_resize']} times: " + "; ".join(
+                  f"{c} AP {s['ap'] if s['ap'] is None else round(s['ap'], 4)} recall "
+                  f"{s['recall'] if s['recall'] is None else round(s['recall'], 4)} fp/img "
+                  f"{s['fp_per_image']:.3f}" for c, s in stress["summary"].items()))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    res["seconds"] = time.perf_counter() - t_phase
+    print(f"[offline] phase 10 took {res['seconds']:.1f} s; launches {res['launches']}")
+    report["offline"] = res
+
+
 def main() -> int:
     import torch
 
@@ -2673,13 +3307,15 @@ def main() -> int:
     import importlib
 
     found = []
-    for lib in ("cv2", "requests", "psutil", "PIL"):
+    for lib in ("cv2", "requests", "psutil", "PIL", "pandas", "scipy", "sklearn", "matplotlib"):
         try:
             found.append(f"{lib} {getattr(importlib.import_module(lib), '__version__', '?')}")
         except ImportError:
             found.append(f"{lib} missing")
     print(f"[env] optional host libraries: {', '.join(found)} (the port's host codecs need "
-          f"cv2; it reads process memory through psutil where that imports)")
+          f"cv2; it reads process memory through psutil where that imports; the evaluation "
+          f"harness needs pandas and scipy, computes ROC-AUC and AP without sklearn, and "
+          f"plots only with matplotlib, else evaluate_models runs with --no_plots)")
     t0 = time.perf_counter()
     took = cuda_build.build_all()
     print(f"[build] kernels built in {time.perf_counter() - t0:.1f} s "
@@ -2692,6 +3328,14 @@ def main() -> int:
     )) as z:
         fixture = {k: z[k] for k in z.files}
 
+    if "--offline-only" in sys.argv[1:]:
+        # phase 10 alone, after the build: for work on that phase; prints no
+        # kernels line and no result line
+        report = {}
+        offline_phase(make_gallery(BIG_GALLERY_ROWS), report)
+        print(json.dumps({"offline": report["offline"]}))
+        return 0
+
     report = kernel_phase(fixture)
     gal = make_gallery(BIG_GALLERY_ROWS)
     report.update(gallery_kernel_phase(gal))
@@ -2701,6 +3345,7 @@ def main() -> int:
     server_phase(ctx, gal, report)
     int8_phase(ctx, gal, report)
     enrolment_phase(ctx, gal, report)
+    offline_phase(gal, report)
     del gal
 
     smi = subprocess.run(
@@ -2726,6 +3371,7 @@ def main() -> int:
                              "facerecognitionpipeline_tpu/ops/pallas_gallery.py:277"),
     }
     enrol = report["enrol"]
+    offline_launches = report["offline"]["launches"]
     matcher_launches = {"crop_resize": enrol["launches_k1"], "warp_patches": 0,
                         **enrol["matcher_launches"]}
     # K1's and K2's first designs (one thread per output pixel), as timed when
@@ -2757,11 +3403,15 @@ def main() -> int:
             # served requests (no server path streams float32 rows);
             # matcher_launches: phase 9 (K1 in the bf16 processor's
             # process_image, K3 and K4 in FaceMatcher.match_faces_batch
-            # against 1 048 576 identities). The counts were set to 0 before
-            # each of those and read after.
+            # against 1 048 576 identities); offline_launches: phase 10 (K1
+            # in dataset_preprocessor, embedding_generator and
+            # run_stress_suite; K3 and K4 in ProbeLabeler against 1 048 576
+            # identities). The counts were set to 0 before each of those and
+            # read after.
             "launches": matcher_launches[name] if f32 else report["launches"][name],
             "server_launches": None if f32 else report["server_launches"][name],
             "matcher_launches": matcher_launches[name],
+            "offline_launches": offline_launches[name],
             "max_abs_err": max(r["err"] for r in all_rows),
             # ms, plain_ms, bound_ms and library_ms are sums over the call
             # shapes of one serving step (K1: R-net, O-net, align stage A)
@@ -2791,8 +3441,12 @@ def main() -> int:
             fail(f"a main path never launched {name}")
         if name != "warp_patches" and matcher_launches[name] < 1:
             fail(f"phase 9 never launched {name}")
+        if name in ("crop_resize", "gallery_topk", "gallery_topk_int8") and \
+                offline_launches[name] < 1:
+            fail(f"phase 10 never launched {name}")
     print(json.dumps({"int8": report["int8"]}))
     print(json.dumps({"enrol": enrol}))
+    print(json.dumps({"offline": report["offline"]}))
     print(json.dumps({
         "kernels": kernels,
         **{k: v for k, v in report.items() if k.startswith("step_p50_ms")},

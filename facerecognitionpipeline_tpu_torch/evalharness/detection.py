@@ -1,18 +1,19 @@
-"""Stress-scene rendering of the detection evaluation: only what the int8
-calibration needs.
+"""Detector stress evaluation: synthetic stress scenes and PR metrics.
 
-A copy of `render_stress_scene` and its helpers from
-`facerecognitionpipeline_tpu/evalharness/detection.py` (numpy and cv2, cv2
-imported at the call), so `models/quantize.py::default_calibration_frames`
-renders the same frames byte for byte without the JAX package. The
-precision/recall metrics and the training-scene variant are queued in
-ROADMAP.md with the rest of `evalharness/`.
+Counterpart of `facerecognitionpipeline_tpu/evalharness/detection.py`
+(numpy and cv2, cv2 imported at the call): `render_stress_scene` and its
+helpers, copied so `models/quantize.py::default_calibration_frames` renders
+the same frames byte for byte; greedy IoU matching, the precision/recall
+curve with VOC-interpolated AP, and `run_stress_suite` over any detector
+with `detect(image) -> list of face dicts` (the port's `MTCNNDetector`: a
+bf16 cascade launches K1 twice per scene on the card). The training-scene
+variant `render_stress_training_scene` comes with `train/`.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -273,3 +274,153 @@ STRESS_CATEGORIES = (
     "low_contrast", "noisy", "hard_negatives", "nonface_distractors",
     "domain_shift", "motion_blur",
 )
+
+# -------------------------------------------------------------- evaluation
+
+
+def iou_matrix(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """[N,4] x [M,4] -> [N,M] IoU."""
+    if len(a) == 0 or len(b) == 0:
+        return np.zeros((len(a), len(b)), np.float32)
+    x1 = np.maximum(a[:, None, 0], b[None, :, 0])
+    y1 = np.maximum(a[:, None, 1], b[None, :, 1])
+    x2 = np.minimum(a[:, None, 2], b[None, :, 2])
+    y2 = np.minimum(a[:, None, 3], b[None, :, 3])
+    inter = np.clip(x2 - x1, 0, None) * np.clip(y2 - y1, 0, None)
+    area_a = (a[:, 2] - a[:, 0]) * (a[:, 3] - a[:, 1])
+    area_b = (b[:, 2] - b[:, 0]) * (b[:, 3] - b[:, 1])
+    return inter / np.maximum(area_a[:, None] + area_b[None, :] - inter, 1e-9)
+
+
+def match_detections(
+    pred_boxes: np.ndarray,
+    pred_scores: np.ndarray,
+    gt_boxes: np.ndarray,
+    iou_thresh: float = 0.5,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Greedy score-ordered matching. Returns (scores_desc, is_tp) for this
+    image; each GT matches at most one prediction."""
+    order = np.argsort(-pred_scores)
+    pred_boxes = pred_boxes[order]
+    scores = pred_scores[order]
+    ious = iou_matrix(pred_boxes, gt_boxes)
+    taken = np.zeros(len(gt_boxes), bool)
+    tp = np.zeros(len(pred_boxes), bool)
+    for i in range(len(pred_boxes)):
+        if len(gt_boxes) == 0:
+            break
+        j = int(np.argmax(np.where(taken, -1.0, ious[i])))
+        if not taken[j] and ious[i, j] >= iou_thresh:
+            taken[j] = True
+            tp[i] = True
+    return scores, tp
+
+
+def pr_curve(
+    scores: np.ndarray, is_tp: np.ndarray, n_gt: int
+) -> Dict[str, np.ndarray]:
+    """Precision/recall over the descending-score sweep + VOC-interpolated
+    AP (the standard detection protocol)."""
+    if len(scores) == 0:
+        z = np.zeros(0, np.float32)
+        return {"precision": z, "recall": z, "thresholds": z, "ap": 0.0}
+    order = np.argsort(-scores)
+    tp = np.cumsum(is_tp[order]).astype(np.float64)
+    fp = np.cumsum(~is_tp[order]).astype(np.float64)
+    precision = tp / np.maximum(tp + fp, 1e-9)
+    recall = tp / max(n_gt, 1)
+    # interpolated precision (monotone non-increasing)
+    interp = np.maximum.accumulate(precision[::-1])[::-1]
+    ap = 0.0
+    prev_r = 0.0
+    for p, r in zip(interp, recall):
+        ap += p * (r - prev_r)
+        prev_r = r
+    return {
+        "precision": precision.astype(np.float32),
+        "recall": recall.astype(np.float32),
+        "thresholds": scores[order].astype(np.float32),
+        "ap": float(ap),
+    }
+
+
+def evaluate_detector_category(
+    detector,
+    category: str,
+    n_scenes: int = 12,
+    seed: int = 0,
+    size: int = 320,
+    iou_thresh: float = 0.5,
+    operating_threshold: Optional[float] = None,
+) -> Dict:
+    """Run the detector over one stress suite -> PR metrics."""
+    rng = np.random.default_rng(seed)
+    all_scores: List[np.ndarray] = []
+    all_tp: List[np.ndarray] = []
+    n_gt = 0
+    n_images = 0
+    for _ in range(n_scenes):
+        img, gt = render_stress_scene(rng, category, size=size)
+        faces = detector.detect(img)
+        pb = np.asarray([f["bbox"] for f in faces], np.float32).reshape(-1, 4)
+        ps = np.asarray([f["det_score"] for f in faces], np.float32)
+        s, tp = match_detections(pb, ps, gt, iou_thresh)
+        all_scores.append(s)
+        all_tp.append(tp)
+        n_gt += len(gt)
+        n_images += 1
+    scores = np.concatenate(all_scores) if all_scores else np.zeros(0)
+    is_tp = np.concatenate(all_tp) if all_tp else np.zeros(0, bool)
+    curve = pr_curve(scores, is_tp, n_gt)
+
+    out = {
+        "category": category,
+        "n_images": n_images,
+        "n_gt_faces": int(n_gt),
+        "n_detections": int(len(scores)),
+        "ap": curve["ap"] if n_gt else None,
+        "pr_curve": {
+            "precision": curve["precision"].tolist(),
+            "recall": curve["recall"].tolist(),
+            "thresholds": curve["thresholds"].tolist(),
+        },
+    }
+    if operating_threshold is not None:
+        keep = scores >= operating_threshold
+        tp_k = int(is_tp[keep].sum())
+        fp_k = int((~is_tp[keep]).sum())
+        out["operating_point"] = {
+            "threshold": operating_threshold,
+            "recall": tp_k / n_gt if n_gt else None,
+            "precision": tp_k / max(tp_k + fp_k, 1) if (tp_k + fp_k) else 1.0,
+            "false_positives_per_image": fp_k / max(n_images, 1),
+        }
+    return out
+
+
+def run_stress_suite(
+    detector,
+    categories=STRESS_CATEGORIES,
+    n_scenes: int = 12,
+    seed: int = 0,
+    size: int = 320,
+    operating_threshold: float = 0.5,
+) -> Dict:
+    """Full stress report across categories."""
+    results = {
+        cat: evaluate_detector_category(
+            detector, cat, n_scenes=n_scenes, seed=seed + i, size=size,
+            operating_threshold=operating_threshold,
+        )
+        for i, cat in enumerate(categories)
+    }
+    summary = {}
+    for cat, r in results.items():
+        op = r.get("operating_point", {})
+        summary[cat] = {
+            "ap": r["ap"],
+            "recall": op.get("recall"),
+            "precision": op.get("precision"),
+            "fp_per_image": op.get("false_positives_per_image"),
+        }
+    return {"summary": summary, "detail": results}

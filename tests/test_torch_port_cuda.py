@@ -14,6 +14,7 @@ store paths); the older tests hold 1e-5 on unit-scale
 data and 1e-3 on the 0..255 scale.
 """
 
+import json
 import math
 
 import numpy as np
@@ -740,3 +741,76 @@ def test_face_matcher_at_streaming_scale_launches_k3_once_per_search(dev, gen, t
     assert all(r[0][2] > 0.99 and len(r) == 16 for r in res)
     assert m.match_single_face(crops[1], top_k=64)[0][0] == "ID20000"
     assert gk.LAUNCHES.count - n == 2
+
+
+@pytest.mark.parametrize("aggregation", ["max", "mean", "topk"])
+def test_identity_scores_batch_at_a_large_shape(dev, aggregation):
+    """The evaluation's device scorer at 2048 probes x 6000 identities x 5
+    x 512: within 1e-5 of the same function in float64 and of the CPU."""
+    from facerecognitionpipeline_tpu_torch.evalharness.metrics import identity_scores_batch
+
+    g = torch.Generator(device=dev).manual_seed(4)
+    probes = torch.randn((2048, 512), generator=g, device=dev)
+    gallery = torch.randn((6000, 5, 512), generator=g, device=dev)
+    gallery /= torch.linalg.vector_norm(gallery, dim=2, keepdim=True)
+    mask = torch.arange(5, device=dev)[None, :] <= (torch.arange(6000, device=dev) % 5)[:, None]
+    gallery *= mask[..., None]
+    out = identity_scores_batch(probes, gallery, mask, aggregation, 3)
+    ref = identity_scores_batch(probes.double(), gallery.double(), mask, aggregation, 3,
+                                dtype=torch.float64)
+    assert out.dtype == torch.float32 and out.shape == (2048, 6000)
+    assert float((out.double() - ref).abs().max()) <= 1e-5
+    cpu = identity_scores_batch(probes[:256].cpu(), gallery.cpu(), mask.cpu(), aggregation, 3)
+    assert float((out[:256].cpu() - cpu).abs().max()) <= 1e-5
+
+
+def _streaming_labeler(dev, gen, tmp_path, n_ids=40000):
+    """A ProbeLabeler over 40 000 identities (a bf16 compact copy: K3) with
+    three probe crops planted as rows 11, 20000 and 39999."""
+    import cv2
+
+    from facerecognitionpipeline_tpu_torch.gallery.manager import GalleryManager
+    from facerecognitionpipeline_tpu_torch.pipeline.embedder import FaceEmbedder
+    from facerecognitionpipeline_tpu_torch.pipeline.labeling import ProbeLabeler
+
+    emb = FaceEmbedder("ir_micro", device=dev, random_ok=True)
+    crops = gen.integers(0, 256, (3, 112, 112, 3), dtype=np.uint8)
+    probe_dir = tmp_path / "probes"
+    probe_dir.mkdir()
+    for i, c in enumerate(crops):
+        cv2.imwrite(str(probe_dir / f"p{i}.png"), cv2.cvtColor(c, cv2.COLOR_RGB2BGR))
+    t = gen.normal(size=(n_ids, 512)).astype(np.float32)
+    t /= np.linalg.norm(t, axis=1, keepdims=True)
+    t[[11, 20000, 39999]] = emb.extract_embeddings_batch(crops)
+    gm = GalleryManager(gallery_path=str(tmp_path / "g.pkl"), verbose=False, device=dev)
+    for i in range(n_ids):
+        gm.add_student(f"ID{i:05d}", f"n{i}", t[i:i + 1])
+    return ProbeLabeler(embedder=emb, gallery=gm, device=dev), str(probe_dir), gm
+
+
+def test_probe_labeler_at_streaming_scale_launches_k3_once(dev, gen, tmp_path):
+    from facerecognitionpipeline_tpu_torch.ops import gallery_kernel as gk
+
+    labeler, probe_dir, _ = _streaming_labeler(dev, gen, tmp_path)
+    n = gk.LAUNCHES.count
+    summary = labeler.process_probe_directory(probe_dir, str(tmp_path / "out"), top_k=16)
+    assert gk.LAUNCHES.count - n == 1 and summary["processed"] == 3
+    with open(tmp_path / "out" / "labeling_results.json") as f:
+        results = json.load(f)["results"]
+    assert [r["matched_student_id"] for r in results] == ["ID00011", "ID20000", "ID39999"]
+    assert all(r["label"] == "SURE" and len(r["top_matches"]) == 16 for r in results)
+
+
+def test_probe_labeler_cli_refuses_top_k_over_64_on_the_card(dev, gen, tmp_path):
+    """F2: the streaming kernels keep at most 64 entries; `probe_labeler
+    --top_k 65` against a card-sized gallery meets their ValueError (the JAX
+    Pallas kernel answers; ROADMAP.md F2)."""
+    from facerecognitionpipeline_tpu_torch.cli import probe_labeler
+
+    _, probe_dir, gm = _streaming_labeler(dev, gen, tmp_path)
+    gm.save()
+    argv = ["--probe_dir", probe_dir, "--gallery_path", gm.gallery_path, "--architecture",
+            "ir_micro", "--no_copy", "--device", "cuda"]
+    assert probe_labeler.main(argv + ["--top_k", "64"]) == 0
+    with pytest.raises(ValueError, match="at most top_k=64"):
+        probe_labeler.main(argv + ["--top_k", "65"])

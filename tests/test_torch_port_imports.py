@@ -41,7 +41,15 @@ def test_port_never_imports_jax_or_the_jax_package():
                    "models/torch_export.py", "ops/augment.py", "pipeline/processor.py",
                    "pipeline/enrollment.py", "pipeline/matcher.py", "serve/capture.py",
                    "cli/enroll_students.py", "cli/face_matcher.py", "cli/detect_faces.py",
-                   "cli/face_detection.py", "../chip_smoke.py"):
+                   "cli/face_detection.py", "utils/xlsx.py", "pipeline/preprocessing.py",
+                   "pipeline/segmentation.py", "pipeline/corpus.py", "pipeline/labeling.py",
+                   "evalharness/metrics.py", "evalharness/identification.py",
+                   "evalharness/verification.py", "evalharness/comparison.py",
+                   "evalharness/hardening.py", "evalharness/pipeline.py",
+                   "cli/dataset_preprocessor.py", "cli/segment_dataset.py",
+                   "cli/embedding_generator.py", "cli/probe_labeler.py",
+                   "cli/label_rename_utility.py", "cli/lfw_impostor_helper.py",
+                   "cli/evaluate_models.py", "cli/_detector.py", "../chip_smoke.py"):
         assert module in scanned, module
     for path in _port_sources():
         n += 1
@@ -81,6 +89,79 @@ def test_importing_the_serving_modules_pulls_in_no_optional_library(module, abse
         cwd=REPO, env={**os.environ, "PYTHONPATH": REPO},
     )
     assert r.returncode == 0, r.stderr[-2000:]
+
+
+@pytest.mark.parametrize("module,absent", [
+    ("evalharness.detection", ("pandas", "scipy", "sklearn", "matplotlib", "jax", "cv2")),
+    ("evalharness.pipeline", ("sklearn", "matplotlib", "jax", "flax", "cv2")),
+    ("cli.evaluate_models", ("pandas", "sklearn", "matplotlib", "jax", "cv2")),
+    ("cli.lfw_impostor_helper", ("torch", "cv2", "jax", "pandas")),
+    ("cli.label_rename_utility", ("torch", "cv2", "jax", "pandas")),
+    ("cli.segment_dataset", ("pandas", "cv2", "jax")),
+])
+def test_offline_modules_import_only_what_they_need(module, absent):
+    """The card has no scikit-learn and no matplotlib: the harness computes
+    ROC-AUC and AP itself and plots only when asked. The int8 calibration
+    imports evalharness.detection, which must stay numpy-only."""
+    code = (
+        "import sys\n"
+        f"import facerecognitionpipeline_tpu_torch.{module}\n"
+        f"bad = [m for m in {absent!r} if m in sys.modules]\n"
+        "assert not bad, bad\n"
+    )
+    r = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True, timeout=120,
+        cwd=REPO, env={**os.environ, "PYTHONPATH": REPO},
+    )
+    assert r.returncode == 0, r.stderr[-2000:]
+
+
+@pytest.mark.parametrize("entry", ["preprocessor", "corpus", "labeler", "pack_gallery",
+                                   "identification", "pipeline"])
+def test_offline_entry_points_default_to_cuda(monkeypatch, tmp_path, entry):
+    from facerecognitionpipeline_tpu_torch.evalharness import identification, metrics, pipeline
+    from facerecognitionpipeline_tpu_torch.pipeline.corpus import EmbeddingGenerator
+    from facerecognitionpipeline_tpu_torch.pipeline.labeling import ProbeLabeler
+    from facerecognitionpipeline_tpu_torch.pipeline.preprocessing import DatasetPreprocessor
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    gallery = {"a": {"embeddings": torch.ones(1, 512).numpy()}}
+    make = {
+        "preprocessor": lambda **kw: DatasetPreprocessor(det_size=(64, 64), **kw).processor,
+        "corpus": lambda **kw: EmbeddingGenerator(
+            architecture="ir_micro", output_root=str(tmp_path), **kw).embedder,
+        "labeler": lambda **kw: ProbeLabeler(
+            gallery_path=str(tmp_path / "g.pkl"), architecture="ir_micro", **kw).embedder,
+        "pack_gallery": lambda **kw: metrics.pack_gallery(gallery, **kw)[1],
+        "identification": lambda **kw: identification.evaluate_probes_comprehensive(
+            gallery, {"a": gallery["a"]}, [0.5], **kw),
+        "pipeline": lambda **kw: pipeline.run_complete_evaluation_pipeline(
+            [], str(tmp_path), str(tmp_path / "out"), make_plots=False, **kw),
+    }[entry]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make()
+    assert make(device="cpu") is not None
+
+
+@pytest.mark.parametrize("cli,argv", [
+    ("dataset_preprocessor", ["--input_dir", "{tmp}", "--output_dir", "{tmp}/out"]),
+    ("segment_dataset", ["--input_dir", "{tmp}", "--metadata_file", "{tmp}/m.json",
+                         "--output_dir", "{tmp}/seg"]),
+    ("embedding_generator", ["--dataset_root", "{tmp}", "--output_root", "{tmp}/out",
+                             "--model_type", "adaface", "--architecture", "ir_micro"]),
+    ("probe_labeler", ["--probe_dir", "{tmp}", "--gallery_path", "{tmp}/g.pkl",
+                       "--architecture", "ir_micro"]),
+    ("evaluate_models", ["--models", "m", "--embeddings_root", "{tmp}", "--output_dir",
+                         "{tmp}/ev", "--no_plots"]),
+])
+def test_offline_clis_default_to_cuda_and_raise_without_it(monkeypatch, tmp_path, cli, argv):
+    import importlib
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    module = importlib.import_module(f"facerecognitionpipeline_tpu_torch.cli.{cli}")
+    assert module.build_parser().get_default("device") == "cuda"
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        module.main([a.replace("{tmp}", str(tmp_path)) for a in argv])
 
 
 @pytest.mark.parametrize("entry", ["server", "live", "monitor"])
