@@ -26,9 +26,11 @@ Phases, in order; any failure exits non-zero before the final line:
      of the query preparation around them is read from torch.profiler. K3
      on float32 rows at 128 x 1 048 576 x 512 within 1e-5 of its plain
      version, timed beside its bound (operations on CUDA cores) and a stored
-     float32 matmul + topk; K3 (bf16 and float32 rows) and K4 at top_k 16,
-     33 and 64 against their plain versions, with the ring each list length
-     leaves;
+     float32 matmul + topk; K3 (bf16 and float32 rows) and K4 at top_k 16
+     (lists in shared memory) and 33, 64, 65, 256 and 1024 (lists in
+     device memory) against their plain versions, with the ring each
+     placement leaves, the call's peak memory and the stream and merge
+     kernels' device time;
   3. the fused serving step at the server's build: ir_101 (seeded random
      weights), bf16, det_size 640x640, 16 face slots, min face 40, top-3,
      a 1024-row float32 gallery (dense match), B=8 frames composed from the
@@ -105,9 +107,9 @@ Phases, in order; any failure exits non-zero before the final line:
      embedding_generator (all seven corpus pickles with their JSON twins and
      generation_summary.json; K1 twice per gallery photo), probe_labeler
      against the 48 students (dense, against a float32 product), then
-     ProbeLabeler against 1 048 576 identities, bf16 (K3) and int8 (K4), one
-     launch per search, labels and top matches equal to the plain version on
-     the same compact rows; evaluate_models (its files, thresholds 0.20-0.90,
+     ProbeLabeler (probe_labeler's class) against 1 048 576 identities, bf16
+     (K3) and int8 (K4), at top_k 5 and 65, one launch per search, labels
+     and top matches equal to the plain version on the same compact rows; evaluate_models (its files, thresholds 0.20-0.90,
      max/mean/topk), and evaluate_model on the card against the CPU (scores
      within 1e-5; counts and rates differ only by decisions within 1e-5 of a
      threshold or a rival); identity_scores_batch alone at 4096 probes x
@@ -150,6 +152,9 @@ BIG_GALLERY_ROWS = 1 << 20
 BIG_STEP_ITERS = 6
 STREAM_CHUNK = 4096
 K3_TOL = 2e-5  # two-part bf16 query split, float32 sums in another order
+# top_k of phase 2's long lists: in shared memory (16), then in device
+# memory (33, 64, 65, 256, 1024)
+LONG_TOP_KS = (16, 33, 64, 65, 256, 1024)
 
 
 def fail(msg: str) -> None:
@@ -562,6 +567,12 @@ def print_bounds(report: dict, library: str) -> None:
             print(f"[timing] {name} {r['shape']}: kernel {r['ms']:.4f} ms, "
                   f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), plain "
                   f"{r['plain_ms']:.4f} ms, {library} {r['library_ms']:.4f} ms")
+            if r.get("lists_bytes"):
+                # the bound above counts the device lists' traffic, which is
+                # the design's; the top-k function itself moves the rest
+                own = (r["bytes"] - r["lists_bytes"]) / HBM_BYTES_PER_S
+                print(f"[timing] {name} {r['shape']}: bound of the function without "
+                      f"the lists' bytes {1e3 * max(own, by_ops):.4f} ms")
             if "device_ms" in r:
                 def ms(v):
                     return "not measured" if v is None else f"{v:.4f} ms"
@@ -583,12 +594,16 @@ def print_build_report(name: str, log: str) -> None:
         line = line.strip()
         if "Compiling entry function" in line:
             mangled = line.split("'")[1]
-            entry = next((n for n in ("stream_topk_kernel", "stream_topk_f32_kernel",
-                                      "merge_topk_kernel", "crop_resize", "warp_patches")
+            entry = next((n for n in ("stream_topk_kernel", "merge_topk_kernel",
+                                      "merge_lists_kernel", "crop_resize", "warp_patches")
                           if n in mangled), mangled)
-            length = re.search(r"(?:TraitsE|kernelI)Li(\d+)E", mangled)
+            kind = re.search(r"(Bf16|Int8|F32)Traits", mangled)
+            length = re.search(r"TraitsELi(\d+)E", mangled)
+            if kind:
+                entry += f"<{kind.group(1).lower()}"
             if length:  # the list length this instance of the kernel keeps
-                entry += f"<list of {length.group(1)}>"
+                n = length.group(1)
+                entry += ", lists in device memory>" if n == "0" else f", list of {n}>"
         elif "registers" in line or "spill" in line or "smem" in line:
             print(f"[build] {name} {entry}: {line.replace('ptxas info    : ', '')}")
             if "spill" in line and "0 bytes spill stores, 0 bytes spill loads" not in line \
@@ -632,12 +647,22 @@ def gallery_kernel_phase(gal) -> dict:
     codes, scales = gk.quantize_templates(t)
 
     def agree(label, kv, ki, pv, pi, tol):
-        err = float((kv - pv).abs().max())
+        """Values within tol; indices equal on the clear slots, those whose
+        neighbours in the plain version lie more than 2 tol away. The plain
+        version may hold one entry more than the kernel's k: then the last
+        slot's neighbour below is known too (else it counts as clear)."""
+        k = kv.shape[1]
         gap = (pv[:, :-1] - pv[:, 1:]).abs() > 2 * tol
         clear = torch.ones_like(pi, dtype=torch.bool)
         clear[:, :-1] &= gap
         clear[:, 1:] &= gap
+        pv, pi, clear = pv[:, :k], pi[:, :k], clear[:, :k]
+        err = float((kv - pv).abs().max())
         same = bool(torch.equal(ki[clear], pi[clear]))
+        if not same:
+            bad = (ki != pi) & clear
+            print(f"[kernels] {label}: indices differ on clear slots at "
+                  f"{bad.nonzero()[:8].tolist()}")
         print(f"[kernels] {label}: max|kernel-plain| {err:.3g} (tol {tol:g}), indices "
               f"equal on {int(clear.sum())}/{clear.numel()} clear slots: {same}")
         if not err <= tol or not same:
@@ -756,7 +781,7 @@ def gallery_kernel_phase(gal) -> dict:
                 report[name][-1].update({
                     "ms_again": cuda_time_ms(fn),
                     "stream_device_ms": device_time_ms(fn, "stream_topk_kernel"),
-                    "merge_device_ms": device_time_ms(fn, "merge_topk_kernel"),
+                    "merge_device_ms": device_time_ms(fn, "merge_"),
                     "prep_device_ms": device_time_ms(prep, ""),
                     "prep_host_ms": host_enqueue_ms(prep),
                     "host_ms": host_enqueue_ms(fn),
@@ -790,12 +815,14 @@ def gallery_kernel_phase(gal) -> dict:
 
 def long_lists_and_float32_rows(gk, report, q, t, tb, codes, scales, valid, rows_q,
                                 agree) -> None:
-    """Phase 2, K3 on float32 rows (its own kernel, `csrc/gallery_topk_f32.cu`)
-    at the serving shape, held within 1e-5 of its plain version and timed
-    beside its bound (operations on CUDA cores) and the stored float32
-    matmul + topk; then K3 (bf16 and float32 rows) and K4 at top_k 16, 33 and
-    64, the lists that live in shared memory, against their plain versions,
-    with the ring depth each length leaves."""
+    """Phase 2, K3 on float32 rows (`csrc/gallery_topk_f32.cu` on the shared
+    body) at the serving shape, held within 1e-5 of its plain version and
+    timed beside its bound (operations on CUDA cores) and the stored float32
+    matmul + topk; then K3 (bf16 and float32 rows) and K4 at every top_k of
+    LONG_TOP_KS, against their plain versions, each with where its lists
+    live, the ring depth that leaves, the call's peak device memory and the
+    device time of its stream and merge kernels."""
+    import numpy as np
     import torch
 
     big = t.shape[0]
@@ -825,8 +852,8 @@ def long_lists_and_float32_rows(gk, report, q, t, tb, codes, scales, valid, rows
         "library_ms": cuda_time_ms(lib_f32, iters=5, warmup=1),
         "bytes": 4 * qd + big * (512 * 4 + 1) + q.shape[0] * k * 8,
         "flops": 2 * q.shape[0] * big * 512, "peak": F32_FLOPS_PER_S,
-        "stream_device_ms": device_time_ms(k3f, "stream_topk_f32_kernel", iters=5),
-        "merge_device_ms": device_time_ms(k3f, "merge_topk_kernel", iters=5),
+        "stream_device_ms": device_time_ms(k3f, "stream_topk_kernel", iters=5),
+        "merge_device_ms": device_time_ms(k3f, "merge_", iters=5),
     }]
     r = report["gallery_topk_f32"][0]
     print(f"[timing] gallery_topk_f32 {shape}: stream kernel "
@@ -836,9 +863,9 @@ def long_lists_and_float32_rows(gk, report, q, t, tb, codes, scales, valid, rows
           f" ms")
 
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    for k in (16, 33, 64):
+    for k in LONG_TOP_KS:
         shape = f"long list Q={q.shape[0]} G={big} k={k}"
-        out_bytes = q.shape[0] * k * 8
+        out_bytes = q.shape[0] * k * 12  # float32 scores, int64 indices
         for name, rows, plain_rows, tol, kind in (
                 ("gallery_topk", tb, tb, K3_TOL, "bf16"),
                 ("gallery_topk_f32", t, t, 1e-5, "f32"),
@@ -858,19 +885,33 @@ def long_lists_and_float32_rows(gk, report, q, t, tb, codes, scales, valid, rows
                 def plain(k=k, rows=plain_rows):
                     return gk.streaming_cosine_topk_plain(q, rows, valid, top_k=k,
                                                           chunk=STREAM_CHUNK)
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
             kv, ki = fn()
-            pv, pi = plain()
+            torch.cuda.synchronize()
+            peak_mib = (torch.cuda.max_memory_allocated() - base) / 2**20
+            pv, pi = plain(k + 1)  # one more: the last slot's neighbour below
             torch.cuda.synchronize()
             if kind == "int8":
+                pv, pi = pv[:, :k], pi[:, :k]
                 err = float((kv - pv).abs().max())
                 if err != 0.0 or not torch.equal(ki, pi):
                     fail(f"K4 {shape} is not equal to its plain version to the bit")
                 print(f"[kernels] K4 gallery_topk_int8 {shape}: equal to its plain version")
             else:
                 err = agree(f"K3 {name} {shape}", kv, ki, pv, pi, tol)
+            if ki[0, 0] != rows_q[0] or not torch.isfinite(kv).all():
+                fail(f"{name} {shape}: the planted row did not come back first")
             geo = gk.gallery_launch_geometry(q.shape[0], big, 512, kind, sms, k)
-            print(f"[kernels] {name} {shape}: list of {geo.list_len}, ring of "
-                  f"{geo.stages} stages, {geo.smem_bytes} bytes of shared memory")
+            # lists in device memory are written once by the stream kernel
+            # and read once by the merge: their bytes count in the bound
+            lists_bytes = 2 * 8 * int(np.prod(geo.scratch)) if geo.lists == "device" else 0
+            print(f"[kernels] {name} {shape}: lists in {geo.lists} ({geo.list_len} entries"
+                  f", scratch {tuple(geo.scratch)}), ring of {geo.stages} stages, "
+                  f"{geo.smem_bytes} bytes of shared memory; the call's peak device "
+                  f"memory above what was allocated before it {peak_mib:.1f} MiB (the "
+                  f"[Q, G] matrix would be {q.shape[0] * big * 4 / 2**20:.0f} MiB)")
             elem = {"bf16": 2, "f32": 4, "int8": 1}[kind]
             report[name].append({
                 "shape": shape, "err": err, "in_step": False,
@@ -881,11 +922,18 @@ def long_lists_and_float32_rows(gk, report, q, t, tb, codes, scales, valid, rows
                         qn.to(torch.bfloat16), tb.T).float(), neg), k)) if kind != "f32"
                     else (lambda k=k: lib_f32(k)), iters=3, warmup=1),
                 "bytes": 4 * qd + big * (512 * elem + 1 + (4 if kind == "int8" else 0))
-                + out_bytes,
+                + out_bytes + lists_bytes,
                 "flops": 2 * q.shape[0] * big * 512,
                 "peak": {"bf16": BF16_FLOPS_PER_S, "f32": F32_FLOPS_PER_S,
                          "int8": INT8_OPS_PER_S}[kind],
+                "stream_device_ms": device_time_ms(fn, "stream_topk_kernel", iters=3),
+                "merge_device_ms": device_time_ms(fn, "merge_", iters=3),
+                "peak_mib": peak_mib, "lists": geo.lists, "lists_bytes": lists_bytes,
             })
+            r = report[name][-1]
+            print(f"[timing] {name} {shape}: device time alone: stream kernel "
+                  f"{r['stream_device_ms']} ms, merge kernel {r['merge_device_ms']} ms "
+                  f"(lists in {geo.lists})")
 
 
 def gallery_odd_shapes(gk, tb, codes, scales) -> None:
@@ -2684,6 +2732,7 @@ OFFLINE_FEW_SHOT = 5
 OFFLINE_SESSIONS = 4  # probe photos per enrolled identity, one per session
 OFFLINE_ANGLES = ("center", "center", "left", "right")  # per session
 OFFLINE_TOP_K = 5
+OFFLINE_LONG_TOP_K = 65  # past 64: the lists in device memory
 EVAL_TOL = 1e-5
 SCORER_SHAPE = (4096, 10000, 5)  # probes, identities, embeddings per identity
 STRESS_RUN = ("baseline", "crowded", "occlusion", "hard_negatives")
@@ -3164,55 +3213,62 @@ def offline_phase(gal, report) -> None:
             _, v, big_ids = big_gm.device_snapshot()
             compact = big_gm._device.snapshot()[3]
             labeler = ProbeLabeler(embedder=embedder, gallery=big_gm, architecture=ARCH)
-            reset()
-            t0 = time.perf_counter()
-            labeler.process_probe_directory(
-                crops_dir, output_dir=os.path.join(tmp, f"labeled_{label}"),
-                metadata_file=meta_path, copy_files=False, top_k=OFFLINE_TOP_K)
-            secs = time.perf_counter() - t0
-            n = read()
-            if n[kernel] != 1 or sum(n.values()) != 1:
-                fail(f"probe_labeler against {big} ({label}): one search launched {n}")
-            with open(os.path.join(tmp, f"labeled_{label}", "labeling_results.json")) as f:
-                rows = json.load(f)["results"]
-            if quantize:
-                pv, pi = gallery_kernel.streaming_cosine_topk_int8_plain(
-                    q, compact[0], compact[1], v, top_k=OFFLINE_TOP_K, chunk=STREAM_CHUNK)
-            else:
-                pv, pi = gallery_kernel.streaming_cosine_topk_plain(
-                    q, compact, v, top_k=OFFLINE_TOP_K, chunk=STREAM_CHUNK)
-            pv, pi = pv.cpu().numpy(), pi.cpu().numpy()
-            sv = np.array([[m["score"] for m in r["top_matches"]] for r in rows], np.float32)
-            tol = 0.0 if quantize else K3_TOL
-            err = float(np.abs(sv - pv).max())
-            clear = np.ones(pv.shape, bool)
-            gap = np.abs(pv[:, :-1] - pv[:, 1:]) > 2 * max(tol, 1e-7)
-            clear[:, :-1] &= gap
-            clear[:, 1:] &= gap
-            same = all(rows[r]["top_matches"][j]["student_id"] == big_ids[pi[r, j]]
-                       for r, j in zip(*np.nonzero(clear)))
-            labels_ok = all(
-                r["label"] == labeler.determine_label(float(pv[i, 0]))
-                for i, r in enumerate(rows)
-                if min(abs(pv[i, 0] - labeler.sure_threshold),
-                       abs(pv[i, 0] - labeler.unsure_threshold)) > 2 * max(tol, 1e-7))
-            if err > tol or not same or not labels_ok:
-                fail(f"probe_labeler against {big} ({label}) differs from the plain version "
-                     f"(score {err}, ids on clear slots {same}, labels {labels_ok})")
+            for top_k in (OFFLINE_TOP_K, OFFLINE_LONG_TOP_K):
+                tag = label if top_k == OFFLINE_TOP_K else f"{label}_k{top_k}"
+                reset()
+                t0 = time.perf_counter()
+                labeler.process_probe_directory(
+                    crops_dir, output_dir=os.path.join(tmp, f"labeled_{tag}"),
+                    metadata_file=meta_path, copy_files=False, top_k=top_k)
+                secs = time.perf_counter() - t0
+                n = read()
+                if n[kernel] != 1 or sum(n.values()) != 1:
+                    fail(f"probe_labeler --top_k {top_k} against {big} ({label}): one search "
+                         f"launched {n}")
+                with open(os.path.join(tmp, f"labeled_{tag}", "labeling_results.json")) as f:
+                    rows = json.load(f)["results"]
+                if quantize:
+                    pv, pi = gallery_kernel.streaming_cosine_topk_int8_plain(
+                        q, compact[0], compact[1], v, top_k=top_k, chunk=STREAM_CHUNK)
+                else:
+                    pv, pi = gallery_kernel.streaming_cosine_topk_plain(
+                        q, compact, v, top_k=top_k, chunk=STREAM_CHUNK)
+                pv, pi = pv.cpu().numpy(), pi.cpu().numpy()
+                sv = np.array([[m["score"] for m in r["top_matches"]] for r in rows],
+                              np.float32)
+                tol = 0.0 if quantize else K3_TOL
+                err = float(np.abs(sv - pv).max())
+                clear = np.ones(pv.shape, bool)
+                gap = np.abs(pv[:, :-1] - pv[:, 1:]) > 2 * max(tol, 1e-7)
+                clear[:, :-1] &= gap
+                clear[:, 1:] &= gap
+                same = all(rows[r]["top_matches"][j]["student_id"] == big_ids[pi[r, j]]
+                           for r, j in zip(*np.nonzero(clear)))
+                labels_ok = all(
+                    r["label"] == labeler.determine_label(float(pv[i, 0]))
+                    for i, r in enumerate(rows)
+                    if min(abs(pv[i, 0] - labeler.sure_threshold),
+                           abs(pv[i, 0] - labeler.unsure_threshold)) > 2 * max(tol, 1e-7))
+                if err > tol or not same or not labels_ok or sv.shape[1] != top_k:
+                    fail(f"probe_labeler --top_k {top_k} against {big} ({label}) differs from "
+                         f"the plain version (score {err}, ids on clear slots {same}, labels "
+                         f"{labels_ok}, {sv.shape[1]} matches)")
+                res[f"labeler_ms_{tag}"] = 1e3 * secs
+                print(f"[offline] ProbeLabeler.process_probe_directory (probe_labeler's "
+                      f"class) --top_k {top_k} against {big} identities ({label}): "
+                      f"{len(rows)} crops in {1e3 * secs:.1f} ms; {kernel} launched once; "
+                      f"equal to the plain version on the same compact rows (max |score "
+                      f"difference| {err:.3g}, ids equal on {int(clear.sum())}/{clear.size} "
+                      f"clear slots, labels equal)")
             for c in counters.values():
                 c.reset()
             t1 = time.perf_counter()
             big_gm.search_batch(queries, top_k=OFFLINE_TOP_K)
             torch.cuda.synchronize()
             search_ms = 1e3 * (time.perf_counter() - t1)
-            res[f"labeler_ms_{label}"] = 1e3 * secs
             res[f"search_ms_{label}"] = search_ms
-            print(f"[offline] ProbeLabeler.process_probe_directory against {big} identities "
-                  f"({label}): {len(rows)} crops in {1e3 * secs:.1f} ms (read, embed, one "
-                  f"search, results); the search alone {search_ms:.2f} ms; {kernel} launched "
-                  f"once; equal to the plain version on the same compact rows (max |score "
-                  f"difference| {err:.3g}, ids equal on {int(clear.sum())}/{clear.size} clear "
-                  f"slots, labels equal)")
+            print(f"[offline] the search alone against {big} identities ({label}), top_k "
+                  f"{OFFLINE_TOP_K}: {search_ms:.2f} ms")
             del big_gm, labeler, compact, v, big_ids
             torch.cuda.empty_cache()
         del records, q
@@ -3366,7 +3422,7 @@ def main() -> int:
                          "facerecognitionpipeline_tpu/ops/pallas_gallery.py:277"),
         "gallery_topk_int8": ("facerecognitionpipeline_tpu_torch/csrc/gallery_topk_int8.cu",
                               "facerecognitionpipeline_tpu/ops/pallas_gallery.py:207"),
-        # K3's float32-row case of the same Pallas kernel, a kernel of its own
+        # K3's float32-row case of the same Pallas kernel, on the shared body
         "gallery_topk_f32": ("facerecognitionpipeline_tpu_torch/csrc/gallery_topk_f32.cu",
                              "facerecognitionpipeline_tpu/ops/pallas_gallery.py:277"),
     }
@@ -3382,6 +3438,10 @@ def main() -> int:
     # two, the score tile folded out of shared memory), same card model and
     # limit, same shapes and timing.
     print("[history] earlier design, ms per call: gallery_topk 2.4066, gallery_topk_int8 1.3388")
+    # K3 on float32 rows in its first design (its own body: register-staged
+    # panels, the wgmma layout's 2 x 16 tile), same card model and limit,
+    # 128 x 1 048 576 x 512, k = 3, the same event timing.
+    print("[history] first design, ms per call: gallery_topk_f32 5.3435")
     kernels = []
     for name in sources:
         # times and bounds are of the shapes one serving step calls the

@@ -5,7 +5,7 @@ The JAX package's flags (the reference `face_matcher.py:503-589`:
 --single_image, --top_k, --model_type, --architecture, and --model_path,
 --detector_weights) plus --device (default cuda; cpu for a run without a
 card). --top_k goes to the gallery search: on the card at streaming scale
-the kernels take 1 to 64.
+the kernels take 1 to 1024.
 """
 
 from __future__ import annotations

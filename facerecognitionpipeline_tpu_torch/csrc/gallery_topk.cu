@@ -20,14 +20,14 @@
 // float32 sum over d of (hi_d + lo_d) * t_d, the products exact.
 //
 // Layouts: queries [Q, D] f32 (already unit rows), templates [G, D] bf16,
-// valid [G] bytes, part_v / part_i [Q, grid_x, list length] scratch, out_v
-// [Q, k] f32, out_i [Q, k] int64.
+// valid [G] bytes, part_v / part_i [Q, grid_x, list length] or [Q, 2 grid_x,
+// k] scratch, out_v [Q, k] f32, out_i [Q, k] int64.
 #include "gallery_topk.cuh"
 
 // Query rows one block handles; the wrapper sizes the launch by it.
 extern "C" int frp_gallery_topk_qtile() { return frp::Bf16Traits::QT; }
 
-// Longest top-k the kernel supports.
+// Longest top-k the kernel answers.
 extern "C" int frp_gallery_topk_kmax() { return frp::KMAX; }
 
 // Launches on `stream`; returns 0, the cudaError_t of the launch, or

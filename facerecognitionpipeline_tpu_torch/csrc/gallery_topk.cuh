@@ -1,6 +1,7 @@
 // Streaming cosine top-k against a large gallery: the body shared by kernel
-// K3 (bf16 templates, gallery_topk.cu) and kernel K4 (int8 codes,
-// gallery_topk_int8.cu), and the kernel that merges their partial results.
+// K3 on bf16 rows (gallery_topk.cu), K3 on float32 rows (gallery_topk_f32.cu)
+// and kernel K4 (int8 codes, gallery_topk_int8.cu), and the kernels that
+// merge their partial results.
 //
 // What is computed: for each of Q query rows, the `k` best of G gallery rows
 // by (score descending, row index ascending), where a row's score is its dot
@@ -9,54 +10,76 @@
 // score matrix is never written to device memory, and the gallery is read
 // from device memory once per query tile (once in all for K4 at Q <= 128).
 //
-// What bounds it on an H100: the gallery's bytes (one read of 1 GB in bf16 or
-// 0.5 GB in int8 at a million rows); the products fit under that time only
-// on the warpgroup tensor-core path, and only if nothing else stands between
-// two tiles. So, per block (one per SM, persistent, 384 threads):
+// What bounds it on an H100: the gallery's bytes for bf16 and int8 rows (one
+// read of 1 GB in bf16 or 0.5 GB in int8 at a million rows), float32
+// operations on the CUDA cores for float32 rows (2 * Q * G * D FMAs: 2.05 ms
+// at 128 x 1 048 576 x 512 against 0.64 ms of bytes). So, per block (one
+// per SM, persistent, 384 threads):
 //   * block (x, y) owns query tile y and every gridDim.x-th gallery tile of
 //     TM = 64 rows starting at tile x. Its queries are written once into
-//     shared memory in the 128-byte swizzled, K-major layout wgmma reads, as
-//     two operand blocks of 64 rows: K4 query rows 0-63 and 64-127 (int8
-//     codes); K3 the hi and the lo bf16 part of its 64 queries;
+//     shared memory in the 128-byte swizzled, K-major layout of the gallery
+//     stages: K4 query rows 0-63 and 64-127 (int8 codes) as two wgmma A
+//     blocks; K3 the hi and the lo bf16 part of its 64 queries as two A
+//     blocks; float32 rows their 64 float32 queries, 32 floats per panel;
 //   * one producer warp keeps two rings of 8 KB stages full, one per consumer
 //     warpgroup, feeding whichever has a free stage (a warpgroup that is
 //     folding holds back only its own ring). A stage is one K-panel (64
-//     gallery rows x 128 bytes of depth) brought by one TMA tensor copy that
-//     completes on the stage's `full` mbarrier; a tile is D*sizeof(T)/128
-//     consecutive stages of the ring of the warpgroup that takes it. The
-//     tile's valid bytes and row scales ride on its first stage's barrier as
-//     plain bulk copies (a ragged last tile: ordinary loads). Depth and rows
-//     past the gallery's edge arrive as zeros from the tensor map;
-//   * two consumer warpgroups take the block's tiles in turn. Each starts
-//     wgmma.mma_async m64n64 per 32 bytes of depth with a block of 64 query
-//     rows as A and the 64 gallery rows as B (K4: two query blocks into two
-//     accumulators; K3: hi then lo into one, so the sum of the two parts is
-//     the accumulator's own), hands a stage back through its `empty`
-//     mbarrier as soon as the products that read it have completed, and
-//     then folds its accumulators while the other warpgroup multiplies;
+//     gallery rows x 128 bytes of depth: 64 bf16, 128 int8 or 32 float32
+//     values) brought by one TMA tensor copy that completes on the stage's
+//     `full` mbarrier; a tile is D*sizeof(T)/128 consecutive stages of the
+//     ring of the warpgroup that takes it. The tile's valid bytes and row
+//     scales ride on its first stage's barrier as plain bulk copies (a
+//     ragged last tile: ordinary loads). Depth and rows past the gallery's
+//     edge arrive as zeros from the tensor map;
+//   * two consumer warpgroups take the block's tiles in turn. For bf16 and
+//     int8 each starts wgmma.mma_async m64n64 per 32 bytes of depth with a
+//     block of 64 query rows as A and the 64 gallery rows as B (K4: two
+//     query blocks into two accumulators; K3: hi then lo into one, so the
+//     sum of the two parts is the accumulator's own) and hands a stage back
+//     through its `empty` mbarrier as soon as the products that read it
+//     have completed. For float32 rows a thread computes 32 scores (4
+//     queries x 8 rows) with float32 FMAs read straight from the stage, 4
+//     depths per 16-byte load, hands the stage back when its warp is done
+//     with it, and after the tile trades half its scores with another lane
+//     so that it holds what the wgmma accumulator would (F32Traits). Then
+//     the warpgroup folds its accumulators while the other one multiplies;
 //   * the fold never leaves registers. With the queries as A, a query row
 //     belongs to one quad of lanes of one warp: a thread holds 16 of the
 //     tile's 64 scores for each of its queries. It applies the row scale,
 //     compares with the query's threshold in shared memory (the best k-th
 //     score either warpgroup has so far) and masks with valid: 16 bits per
 //     query, no branch, one ballot per tile. Only a score at or above the
-//     threshold is offered to the warpgroup's top-k list of that query, by
-//     the four lanes of the quad in turn (no other lane ever writes that
-//     list). The threshold is a filter only: every list comparison is the
-//     strict total order below, so a stale or lost threshold update lets
-//     more through and changes no result. An offer is a chain of dependent
-//     operations run by one warp, so its length is what the fold costs:
-//     the list length is a template parameter (1, 2, 3, 4, 8, 16, 32 or 64
-//     entries, the shortest that holds the call's k). Up to 8 entries the
-//     offer is straight-line register code; from 16 it works on the list in
-//     shared memory (a binary search for the place, a shift behind it),
-//     where 64 entries of value and index would not fit in registers beside
-//     the accumulators;
-//   * at the end a block merges the two warpgroups' sorted lists per query
-//     (two cursors) and writes one list to scratch [Q, gridDim.x, list
-//     length]; `merge_topk_kernel` folds a query's gridDim.x sorted lists
-//     with one block: a thread holds the head of one list, the block picks
-//     the best head k times and that list's head moves on.
+//     threshold is offered to the warpgroup's top-k list of that query. The
+//     threshold is a filter only: every list comparison is the strict total
+//     order below, so a stale or lost threshold update lets more through
+//     and changes no result;
+//   * where the list lives depends on its length (`list_length`, and
+//     ops/gallery_kernel.py with the same rule). Up to 8 entries it is read
+//     into registers and every candidate put in place by straight-line
+//     code; 16 entries live in shared memory (a binary search for the
+//     place, a shift behind it), offered to by the four lanes of the quad in
+//     turn. Longer lists (KL == DEVICE_LISTS: any k up to KMAX) live in
+//     device memory, one sorted list of k entries per query and warpgroup,
+//     owned by the one warp that folds that query. The fold appends what
+//     passes the threshold to a buffer of BUF entries per query in shared
+//     memory; when a buffer fills, and once at the end, the owning warp
+//     sorts it (a bitonic sort over its 32 lanes), merges it into the list
+//     from the top down in chunks of 32 x FLUSH_U entries (each entry moves
+//     by the number of candidates that precede it, each candidate lands
+//     between the two entries that bracket it; all 32 lanes at once, and
+//     the merge stops at the first entry nothing precedes), and raises the
+//     threshold to the list's k-th value. No lane ever shifts a list entry
+//     by entry;
+//   * at the end, short lists: a block merges the two warpgroups' sorted
+//     lists per query (two cursors) and writes one list to scratch [Q,
+//     gridDim.x, list length]; `merge_topk_kernel` folds a query's
+//     gridDim.x sorted lists with one block (a thread holds the head of one
+//     list; the block picks the best head k times). Lists in device memory
+//     are already in scratch [Q, 2 gridDim.x, k] (one per block and
+//     warpgroup, padded with sentinels); `merge_lists_kernel` merges a
+//     query's lists pairwise in a fixed tree, one warp per pair, each pair
+//     by merge path (a lane finds where its outputs start by a binary
+//     search on the diagonal, then takes them in order).
 // Every comparison uses the same strict total order (value descending, then
 // index ascending; gallery indices are unique), so the result does not
 // depend on the order blocks, warpgroups or warps ran in, and ties go to the
@@ -71,14 +94,16 @@
 
 namespace frp {
 
-constexpr int KMAX = 64;              // longest top-k list the kernels keep
+constexpr int KMAX = 1024;            // longest top-k the kernels answer
 constexpr int KREG = 8;               // longest list offered to in registers
+constexpr int KSHARED = 16;           // longest list kept in shared memory
+constexpr int DEVICE_LISTS = 0;       // list length that means: device memory
+constexpr int BUF = 32;               // candidates buffered per query (device lists)
+constexpr int FLUSH_U = 4;            // list entries per lane per merge chunk
 constexpr int TM = 64;                // gallery rows per tile (wgmma N)
-constexpr int QROWS = 128;            // staged query rows: two wgmma A blocks
 constexpr int PANEL_BYTES = 128;      // depth bytes per stage: one swizzle row
 constexpr int STAGE_BYTES = TM * PANEL_BYTES;    // 8 KB of gallery
 constexpr int QBLOCK_BYTES = 64 * PANEL_BYTES;      // one A block of a panel
-constexpr int QPANEL_BYTES = QROWS * PANEL_BYTES;   // 16 KB of queries
 constexpr int SIDE_BYTES = TM + TM * 4;  // a tile's valid bytes, then scales
 constexpr int CONSUMER_WGS = 2;       // consumer warpgroups
 constexpr int THREADS = 384;          // and the producer's warpgroup
@@ -262,6 +287,221 @@ __device__ __forceinline__ void write_block_list(const float* lv, const int* li,
   }
 }
 
+// ---- lists in device memory ------------------------------------------------
+
+// What the warps of one warpgroup need to reach their lists in device memory:
+// the candidate buffers [QT][BUF] (values, indices), their fill counts [QT]
+// and the lists' real entries [QT] in shared memory; the list of query row r
+// (of the block's tile) at lv / li + r * stride, k entries, sorted.
+struct DevLists {
+  float* bv;
+  int* bi;
+  int* count;
+  int* fill;
+  float* lv;
+  int* li;
+  long long stride;
+  int k;
+};
+
+// Number of the first n sorted candidates (sv, si) that precede (v, i).
+__device__ __forceinline__ int count_before(const float* sv, const int* si,
+                                            int n, float v, int i) {
+  int lo = 0, hi = n;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (before(sv[mid], si[mid], v, i)) {
+      lo = mid + 1;
+    } else {
+      hi = mid;
+    }
+  }
+  return lo;
+}
+
+// Merge query row r's buffered candidates into its list in device memory;
+// the whole warp, r the same in every lane. The buffer is sorted across the
+// 32 lanes (bitonic), written back in order, and the list rewritten from the
+// top down in chunks of 32 x FLUSH_U entries: entry i (a sentinel from the
+// list's fill on) moves to i + c_i, c_i the number of candidates that
+// precede it, and candidates c_{i-1} .. c_i - 1 land at i + j. A chunk is
+// read whole before any lane writes (the lanes trade c by shuffles, which
+// wait for every lane's reads), and writes only at or above its own lowest
+// position, which every chunk above it has read already; the merge stops
+// below the first entry no candidate precedes. Then the threshold of
+// the query rises to the list's k-th value once the list is full.
+__device__ __forceinline__ void flush_list(int r, const DevLists& L, float* thr,
+                                        int lane) {
+  const int n = L.count[r];
+  if (n == 0) return;
+  float* sv = L.bv + r * BUF;
+  int* si = L.bi + r * BUF;
+  const int k = L.k;
+  const int f = L.fill[r];
+  float* gv = L.lv + r * L.stride;
+  int* gi = L.li + r * L.stride;
+  // the list's lines are most likely out of L2 (the gallery streams
+  // through it): ask for all of them now, while the buffer is sorted, so
+  // that the chunks below wait on L2 and not on device memory
+  for (int at = 32 * lane; at < min(k, f + n); at += 32 * 32) {
+    asm volatile("prefetch.global.L2 [%0];\n" ::"l"(gv + at));
+    asm volatile("prefetch.global.L2 [%0];\n" ::"l"(gi + at));
+  }
+  float cv = lane < n ? sv[lane] : __int_as_float(0xff800000);
+  int ci = lane < n ? si[lane] : 0x7fffffff;
+#pragma unroll
+  for (int size = 2; size <= 32; size <<= 1) {
+#pragma unroll
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      const float ov = __shfl_xor_sync(0xffffffffu, cv, stride);
+      const int oi = __shfl_xor_sync(0xffffffffu, ci, stride);
+      // in a block sorted best first the lower lane keeps the better entry
+      const bool keep_better = ((lane & stride) == 0) == ((lane & size) == 0);
+      if (keep_better == before(ov, oi, cv, ci)) {
+        cv = ov;
+        ci = oi;
+      }
+    }
+  }
+  __syncwarp();
+  if (lane < n) {
+    sv[lane] = cv;
+    si[lane] = ci;
+  }
+  __syncwarp();
+  int hi = min(k, f + n) - 1;
+  while (hi >= 0) {
+    const int lo = max(0, hi - 32 * FLUSH_U + 1);
+    float v[FLUSH_U];
+    int ix[FLUSH_U], c[FLUSH_U], cp[FLUSH_U];
+#pragma unroll
+    for (int u = 0; u < FLUSH_U; ++u) {
+      const int i = lo + 32 * u + lane;
+      const bool real = i <= hi && i < f;
+      v[u] = real ? gv[i] : NEG;
+      ix[u] = real ? gi[i] : 0;
+      c[u] = real ? count_before(sv, si, n, v[u], ix[u]) : n;
+    }
+    // c of the entry just below lane 0's first one
+    int below = 0;
+    if (lane == 0 && lo > 0)
+      below = lo - 1 < f ? count_before(sv, si, n, gv[lo - 1], gi[lo - 1]) : n;
+#pragma unroll
+    for (int u = 0; u < FLUSH_U; ++u) {
+      const int up = __shfl_up_sync(0xffffffffu, c[u], 1);
+      const int last = __shfl_sync(0xffffffffu, u > 0 ? c[u > 0 ? u - 1 : 0] : 0, 31);
+      cp[u] = lane > 0 ? up : (u > 0 ? last : below);
+    }
+    // every lane's reads of the chunk have returned: the shuffles above
+    // took values computed from them, so the writes below need no warp
+    // barrier, only one that keeps the compiler from moving them up (and
+    // the next chunk's reads lie below this chunk's writes)
+    const int stop = __shfl_sync(0xffffffffu, cp[0], 0) == 0;
+    asm volatile("" ::: "memory");
+#pragma unroll
+    for (int u = 0; u < FLUSH_U; ++u) {
+      const int i = lo + 32 * u + lane;
+      if (i > hi) continue;
+      if (i < f && c[u] > 0 && i + c[u] < k) {
+        gv[i + c[u]] = v[u];
+        gi[i + c[u]] = ix[u];
+      }
+      for (int j = cp[u]; j < c[u] && i + j < k; ++j) {
+        gv[i + j] = sv[j];
+        gi[i + j] = si[j];
+      }
+    }
+    if (stop) break;
+    hi = lo - 1;
+  }
+  __syncwarp();  // the list's entries, for lane 0 and for the next flush
+  const int nf = min(k, f + n);
+  if (lane == 0) {
+    L.count[r] = 0;
+    L.fill[r] = nf;
+    if (nf == k) {
+      const float last = gv[k - 1];
+      volatile float* t = thr + r;
+      if (last > *t) *t = last;
+    }
+  }
+  __syncwarp();
+}
+
+// The fold of one tile into lists in device memory (see fold_tile for the
+// thresholds and the score layout). For each query slot of the thread, the
+// four lanes of a quad append what passed to their query's buffer (a prefix
+// sum over the quad gives each its place); whatever does not fit waits while
+// the warp flushes each full buffer, and is appended after.
+template <typename Tr>
+__device__ __forceinline__ void fold_tile_dev(
+    const typename Tr::Acc (&d)[Tr::ACCS][32], const float (&sc)[16],
+    unsigned vmask, float* thr, const DevLists& L, int qrow, int i0,
+    int lane) {
+  constexpr int ACCS = Tr::ACCS;
+  unsigned pm[2 * ACCS];
+  unsigned any = 0;
+#pragma unroll
+  for (int a = 0; a < ACCS; ++a) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float bar =
+          *reinterpret_cast<volatile float*>(thr + 64 * a + qrow + 8 * h);
+      unsigned bits = 0;
+#pragma unroll
+      for (int t = 0; t < 16; ++t) {
+        const float v = Tr::score(d[a][4 * (t >> 1) + (t & 1) + 2 * h], sc[t]);
+        bits |= (v >= bar ? 1u : 0u) << t;
+      }
+      pm[2 * a + h] = bits & vmask;
+      any |= pm[2 * a + h];
+    }
+  }
+  if (__ballot_sync(0xffffffffu, any != 0) == 0) return;
+  const int ql = lane & 3;
+#pragma unroll
+  for (int a = 0; a < ACCS; ++a) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      unsigned bits = pm[2 * a + h];
+      const int r = 64 * a + qrow + 8 * h;
+      float v[16];
+#pragma unroll
+      for (int t = 0; t < 16; ++t)
+        v[t] = Tr::score(d[a][4 * (t >> 1) + (t & 1) + 2 * h], sc[t]);
+      while (__ballot_sync(0xffffffffu, bits != 0) != 0) {
+        const int n = __popc(bits);
+        int pre = n;
+        int x = __shfl_up_sync(0xffffffffu, pre, 1, 4);
+        if (ql >= 1) pre += x;
+        x = __shfl_up_sync(0xffffffffu, pre, 2, 4);
+        if (ql >= 2) pre += x;
+        const int tot = __shfl_sync(0xffffffffu, pre, 3, 4);
+        pre -= n;
+        const int cnt = L.count[r];
+        int take = min(n, max(0, BUF - cnt - pre));
+        int at = r * BUF + cnt + pre;
+        while (take-- > 0) {
+          const int t = __ffs(bits) - 1;
+          bits &= bits - 1;
+          L.bv[at] = pick16(v, t);
+          L.bi[at] = i0 + 8 * (t >> 1) + (t & 1);
+          ++at;
+        }
+        __syncwarp();
+        if (ql == 0) L.count[r] = min(BUF, cnt + tot);
+        __syncwarp();
+        unsigned full = __ballot_sync(0xffffffffu, ql == 0 && cnt + tot >= BUF);
+        while (full != 0) {
+          const int src = __ffs(full) - 1;
+          full &= full - 1;
+          flush_list(__shfl_sync(0xffffffffu, r, src), L, thr, lane);
+        }
+      }
+    }
+  }
+}
+
 // ---- PTX: shared addresses, mbarriers, bulk copies, wgmma -----------------
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -379,9 +619,10 @@ __device__ __forceinline__ void acc_fence(int (&d)[32]) {
   asm volatile("" : FRP_L32(FRP_R)::"memory");
 }
 
-// Both traits stage 128 operand rows per K-panel, two A blocks of 64 rows;
-// `stage_chunk` writes 16 bytes of depth of query row r at the swizzled
-// place of chunk c16 of its 128-byte row.
+// The bf16 and int8 traits stage 128 operand rows per K-panel, two A blocks
+// of 64 rows, the float32 traits 64 rows; `stage_chunk` writes 16 bytes of
+// depth of query row r at the swizzled place of chunk c16 of its 128-byte
+// row, where the gallery's own row r of a stage keeps it too.
 
 // Traits of kernel K3: float32 unit queries against bf16 rows. The query is
 // split as q = hi + lo + r with hi = bf16(q), lo = bf16(q - hi), |r| <=
@@ -394,6 +635,8 @@ struct Bf16Traits {
   static constexpr int QT = 64;    // queries per block
   static constexpr int ACCS = 1;   // accumulators: the two A blocks share one
   static constexpr int ELEM = 2;   // bytes per gallery value
+  static constexpr int QPANEL_BYTES = 128 * PANEL_BYTES;  // hi and lo blocks
+  static constexpr bool WGMMA = true;
   static constexpr CUtensorMapDataType MAP_TYPE =
       CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
 
@@ -442,6 +685,8 @@ struct Int8Traits {
   static constexpr int QT = 128;
   static constexpr int ACCS = 2;
   static constexpr int ELEM = 1;
+  static constexpr int QPANEL_BYTES = 128 * PANEL_BYTES;  // rows 0-63, 64-127
+  static constexpr bool WGMMA = true;
   static constexpr CUtensorMapDataType MAP_TYPE = CU_TENSOR_MAP_DATA_TYPE_UINT8;
 
   static __device__ __forceinline__ void stage_chunk(const QIn* src,
@@ -472,31 +717,137 @@ struct Int8Traits {
   }
 };
 
+// Traits of K3 on float32 rows: float32 unit queries against float32 rows,
+// multiplied in float32 on the CUDA cores (a tensor-core product would round
+// the rows to TF32). A panel is 32 floats of depth: 64 query rows of it, and
+// a stage of 64 gallery rows, both in the 128-byte swizzle.
+//
+// The register tile. A warp owns 16 query rows x 64 gallery rows of a tile,
+// 32 scores a thread. Shared memory hands out 128 bytes per cycle, and a
+// 16-byte load of a warp takes four of those wavefronts (quarter-warps) how
+// many lanes share an address, so a thread costs one wavefront per float it
+// loads a depth. The wgmma layout (2 queries x 16 rows) would load 18 floats
+// per 32 FMAs: 0.56 wavefronts per warp-wide FMA where the SM issues 4 FMAs
+// per wavefront, 2.25x the FMA time. Here lane (g = lane / 4, t = lane % 4)
+// multiplies 4 queries (g, g + 8, g ^ 1, (g ^ 1) + 8 of the warp's 16) by 8
+// rows (8 j + 2 t + (g & 1)): 12 floats per 32 FMAs, 0.375 wavefronts per
+// FMA, 1.5x. Every quarter-warp reads distinct swizzled 16-byte columns (no
+// bank conflict). After the tile's last panel one exchange with lane ^ 4
+// (16 shuffles) puts the scores where the wgmma accumulator keeps them
+// (query g + 8 h, row 8 j + 2 t + e at 4 j + e + 2 h), which is what the
+// fold reads. Sums run over depth in order as fused multiply-adds: exact
+// float32 products, one rounding per step, as the reference's float32 dot.
+struct F32Traits {
+  using Acc = float;
+  using QIn = float;
+  static constexpr int QT = 64;
+  static constexpr int ACCS = 1;
+  static constexpr int ELEM = 4;
+  static constexpr int QPANEL_BYTES = 64 * PANEL_BYTES;
+  static constexpr bool WGMMA = false;
+  static constexpr CUtensorMapDataType MAP_TYPE =
+      CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+
+  static __device__ __forceinline__ void stage_chunk(const QIn* src,
+                                                     unsigned char* qpanel,
+                                                     int r, int c16) {
+    const float4 v = src ? *reinterpret_cast<const float4*>(src)
+                         : make_float4(0.f, 0.f, 0.f, 0.f);
+    *reinterpret_cast<float4*>(qpanel + r * PANEL_BYTES +
+                               ((c16 ^ (r & 7)) << 4)) = v;
+  }
+
+  // d += the panel's products in the compute layout: d[2 j + h] query g +
+  // 8 h, d[16 + 2 j + h] query (g ^ 1) + 8 h, both against row 8 j + 2 t +
+  // (g & 1); qp: the 64 query rows, st: the 64 gallery rows of the stage.
+  static __device__ __forceinline__ void fma_panel(float (&d)[32],
+                                                   const unsigned char* qp,
+                                                   const unsigned char* st,
+                                                   int warp, int lane) {
+    const int g = lane >> 2, t = lane & 3, e0 = g & 1;
+    const unsigned char* q0 = qp + (16 * (warp & 3) + g) * PANEL_BYTES;
+    const unsigned char* q1 = qp + (16 * (warp & 3) + (g ^ 1)) * PANEL_BYTES;
+    const unsigned char* rows = st + (2 * t + e0) * PANEL_BYTES;
+    const int rsw = 2 * t + e0;  // row & 7 of every row of the thread
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      const int qc = (c ^ g) << 4, oc = (c ^ (g ^ 1)) << 4;
+      float4 q[4];
+      q[0] = *reinterpret_cast<const float4*>(q0 + qc);
+      q[1] = *reinterpret_cast<const float4*>(q0 + 8 * PANEL_BYTES + qc);
+      q[2] = *reinterpret_cast<const float4*>(q1 + oc);
+      q[3] = *reinterpret_cast<const float4*>(q1 + 8 * PANEL_BYTES + oc);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float4 r = *reinterpret_cast<const float4*>(
+            rows + 8 * j * PANEL_BYTES + ((c ^ rsw) << 4));
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          float& s = d[16 * (u >> 1) + 2 * j + (u & 1)];
+          s = __fmaf_rn(q[u].x, r.x, s);
+          s = __fmaf_rn(q[u].y, r.y, s);
+          s = __fmaf_rn(q[u].z, r.z, s);
+          s = __fmaf_rn(q[u].w, r.w, s);
+        }
+      }
+    }
+  }
+
+  // The compute layout -> the wgmma accumulator layout (the whole warp).
+  static __device__ __forceinline__ void to_wgmma_layout(float (&d)[32],
+                                                         int lane) {
+    const bool e0 = ((lane >> 2) & 1) != 0;
+    float out[32];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float own = d[2 * j + h];
+        const float got = __shfl_xor_sync(0xffffffffu, d[16 + 2 * j + h], 4);
+        out[4 * j + 2 * h] = e0 ? got : own;
+        out[4 * j + 1 + 2 * h] = e0 ? own : got;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < 32; ++u) d[u] = out[u];
+  }
+
+  static __device__ __forceinline__ float score(Acc s, float) { return s; }
+};
+
 // Shared memory of a block, from a 1024-byte aligned base: the queries
-// [panels][QROWS rows x 128 bytes], the two rings [stages][TM rows x 128
-// bytes] (the first half of the stages is warpgroup 0's), a tile's valid
-// bytes and scales per stage, the two warpgroups' lists [2][QT][k] (values,
-// then indices; k is the list length the kernel was built for), the
-// thresholds [QT], the barriers (full then empty, per stage).
+// [panels][Tr::QPANEL_BYTES], the two rings [stages][TM rows x 128 bytes]
+// (the first half of the stages is warpgroup 0's), a tile's valid bytes and
+// scales per stage, then either the two warpgroups' lists [2][QT][kl]
+// (values, then indices; kl the list length the kernel was built for) or,
+// for lists in device memory, their candidate buffers [2][QT][BUF] (values,
+// then indices), the buffers' counts [2][QT] and the lists' fills [2][QT];
+// the thresholds [QT], the barriers (full then empty, per stage).
 // ops/gallery_kernel.py::gallery_launch_geometry computes the same sum.
 template <typename Tr>
 struct Layout {
   static __host__ __device__ int panels(int D) {
     return (D * Tr::ELEM + PANEL_BYTES - 1) / PANEL_BYTES;
   }
-  static __host__ __device__ size_t bytes(int D, int k, int stages) {
-    return 1024 + static_cast<size_t>(panels(D)) * QPANEL_BYTES +
+  static __host__ __device__ size_t lists(int kl) {
+    return static_cast<size_t>(CONSUMER_WGS) * Tr::QT *
+           (kl == DEVICE_LISTS ? BUF * 8 + 8 : kl * 8);
+  }
+  static __host__ __device__ size_t bytes(int D, int kl, int stages) {
+    return 1024 + static_cast<size_t>(panels(D)) * Tr::QPANEL_BYTES +
            static_cast<size_t>(stages) * (STAGE_BYTES + SIDE_BYTES + 16) +
-           static_cast<size_t>(CONSUMER_WGS) * Tr::QT * k * 8 + Tr::QT * 4;
+           lists(kl) + Tr::QT * 4;
   }
 };
 
 // queries [Q, D] (Tr::QIn), the gallery [G, D] through `gmap` (box TM rows x
 // 128 bytes, 128-byte swizzle, zeros outside), scales [G] or null, valid [G]
-// bytes -> part_v / part_i [Q, gridDim.x, KL], the KL best per query and
-// block. D % 32 == 0; queries, scales and valid 16-byte aligned; `stages`
-// even. KL is a template parameter because the list code is unrolled: its
-// length decides what an insertion costs and where the list is kept.
+// bytes -> part_v / part_i: with lists of KL entries [Q, gridDim.x, KL], the
+// KL best per query and block; with KL == DEVICE_LISTS [Q, 2 gridDim.x, k],
+// the k best per query, block and warpgroup (the lists themselves). D % 32
+// == 0; queries, scales and valid 16-byte aligned; `stages` even. KL is a
+// template parameter because the list code is unrolled: its length decides
+// what an insertion costs and where the list is kept.
 template <typename Tr, int KL>
 __global__ void __launch_bounds__(THREADS, 1)
     stream_topk_kernel(const __grid_constant__ CUtensorMap gmap,
@@ -504,9 +855,10 @@ __global__ void __launch_bounds__(THREADS, 1)
                        const float* __restrict__ scales,
                        const unsigned char* __restrict__ valid,
                        float* __restrict__ part_v, int* __restrict__ part_i,
-                       int Q, int G, int D, int stages) {
+                       int Q, int G, int D, int k, int stages) {
   using Acc = typename Tr::Acc;
-  constexpr int k = KL;
+  constexpr bool DEV = KL == DEVICE_LISTS;
+  constexpr int kl = DEV ? BUF : KL;  // entries per query in shared memory
   constexpr int QT = Tr::QT;
   constexpr int ACCS = Tr::ACCS;
 
@@ -516,11 +868,12 @@ __global__ void __launch_bounds__(THREADS, 1)
   const int panels = Layout<Tr>::panels(D);
   const int half = stages / 2;  // stages of one warpgroup's ring
   unsigned char* qs = sm;
-  unsigned char* ring = qs + panels * QPANEL_BYTES;
+  unsigned char* ring = qs + panels * Tr::QPANEL_BYTES;
   unsigned char* side = ring + stages * STAGE_BYTES;
   float* lv = reinterpret_cast<float*>(side + stages * SIDE_BYTES);
-  int* li = reinterpret_cast<int*>(lv + CONSUMER_WGS * QT * k);
-  float* thr = reinterpret_cast<float*>(li + CONSUMER_WGS * QT * k);
+  int* li = reinterpret_cast<int*>(lv + CONSUMER_WGS * QT * kl);
+  int* counts = li + CONSUMER_WGS * QT * kl;  // device lists: count, fill
+  float* thr = reinterpret_cast<float*>(counts + (DEV ? 2 * CONSUMER_WGS * QT : 0));
   const uint32_t bars = smem_u32(thr + QT);  // full[stages], empty[stages]
 
   const int q0 = blockIdx.y * QT;
@@ -529,8 +882,8 @@ __global__ void __launch_bounds__(THREADS, 1)
   const int lane = threadIdx.x % 32;
   const int wg = warp / 4;
 
-  // the queries, swizzled as wgmma reads them; rows past Q and depth past D
-  // are zeros
+  // the queries, swizzled as the products read them; rows past Q and depth
+  // past D are zeros
   {
     const int chunks = panels * 8;                // 16-byte chunks per row
     const int filled = D * Tr::ELEM / 16;         // of which hold data
@@ -541,12 +894,16 @@ __global__ void __launch_bounds__(THREADS, 1)
           (q0 + r < Q && ch < filled)
               ? queries + static_cast<long long>(q0 + r) * D + ch * PER
               : nullptr;
-      Tr::stage_chunk(src, qs + (ch / 8) * QPANEL_BYTES, r, ch % 8);
+      Tr::stage_chunk(src, qs + (ch / 8) * Tr::QPANEL_BYTES, r, ch % 8);
     }
   }
-  for (int p = threadIdx.x; p < CONSUMER_WGS * QT * k; p += THREADS) {
-    lv[p] = NEG;
-    li[p] = 0;
+  if constexpr (DEV) {
+    for (int p = threadIdx.x; p < 2 * CONSUMER_WGS * QT; p += THREADS) counts[p] = 0;
+  } else {
+    for (int p = threadIdx.x; p < CONSUMER_WGS * QT * kl; p += THREADS) {
+      lv[p] = NEG;
+      li[p] = 0;
+    }
   }
   // a query row past Q is never offered anything
   if (threadIdx.x < QT)
@@ -629,8 +986,15 @@ __global__ void __launch_bounds__(THREADS, 1)
     for (int a = 0; a < ACCS; ++a)
 #pragma unroll
       for (int j = 0; j < 32; ++j) d[a][j] = 0;
-    float* my_v = lv + wg * QT * k;
-    int* my_i = li + wg * QT * k;
+    float* my_v = lv + wg * QT * kl;
+    int* my_i = li + wg * QT * kl;
+    // lists in device memory: this warpgroup's list of query row r of the
+    // tile is number 2 blockIdx.x + wg of row q0 + r
+    const int n_lists = 2 * gridDim.x;
+    const DevLists dl{my_v, my_i, counts + wg * QT, counts + (CONSUMER_WGS + wg) * QT,
+                      part_v + (static_cast<long long>(q0) * n_lists + 2 * blockIdx.x + wg) * k,
+                      part_i + (static_cast<long long>(q0) * n_lists + 2 * blockIdx.x + wg) * k,
+                      static_cast<long long>(n_lists) * k, k};
     const int qrow = 16 * (warp & 3) + (lane >> 2);  // its query row of an A block
     const int cq = 2 * (lane & 3);  // its gallery rows of a tile: 8 j + cq + e
     const uint32_t ring_a = smem_u32(ring + wg * half * STAGE_BYTES);
@@ -648,6 +1012,10 @@ __global__ void __launch_bounds__(THREADS, 1)
       int prev = 0;
 #pragma unroll
       for (int a = 0; a < ACCS; ++a) acc_fence(d[a]);
+      if constexpr (!Tr::WGMMA) {
+#pragma unroll
+        for (int j = 0; j < 32; ++j) d[0][j] = 0;
+      }
       for (int p = 0; p < panels; ++p) {
         mbar_wait(full0 + 8 * s, ph);  // the panel has landed
         if (p == 0) {
@@ -666,22 +1034,29 @@ __global__ void __launch_bounds__(THREADS, 1)
             }
           }
         }
-        wgmma_fence();
-        const uint64_t dq = wgmma_desc(qs_a + p * QPANEL_BYTES);
-        const uint64_t dg = wgmma_desc(ring_a + s * STAGE_BYTES);
+        if constexpr (Tr::WGMMA) {
+          wgmma_fence();
+          const uint64_t dq = wgmma_desc(qs_a + p * Tr::QPANEL_BYTES);
+          const uint64_t dg = wgmma_desc(ring_a + s * STAGE_BYTES);
 #pragma unroll
-        for (int kk = 0; kk < PANEL_BYTES / 32; ++kk) {  // 32 bytes of depth
+          for (int kk = 0; kk < PANEL_BYTES / 32; ++kk) {  // 32 bytes of depth
 #pragma unroll
-          for (int blk = 0; blk < 2; ++blk)  // the two A blocks of the panel
-            Tr::mma(d[ACCS == 2 ? blk : 0],
-                    dq + blk * (QBLOCK_BYTES >> 4) + 2 * kk, dg + 2 * kk,
-                    ACCS == 2 ? (p | kk) != 0 : (p | kk | blk) != 0);
-        }
-        wgmma_commit();
-        if (p > 0) {  // the panel before this one has been multiplied
-          wgmma_wait<1>();
+            for (int blk = 0; blk < 2; ++blk)  // the two A blocks of the panel
+              Tr::mma(d[ACCS == 2 ? blk : 0],
+                      dq + blk * (QBLOCK_BYTES >> 4) + 2 * kk, dg + 2 * kk,
+                      ACCS == 2 ? (p | kk) != 0 : (p | kk | blk) != 0);
+          }
+          wgmma_commit();
+          if (p > 0) {  // the panel before this one has been multiplied
+            wgmma_wait<1>();
+            __syncwarp();
+            if (lane == 0) mbar_arrive(empty0 + 8 * prev);
+          }
+        } else {
+          Tr::fma_panel(d[0], qs + p * Tr::QPANEL_BYTES,
+                        ring + (wg * half + s) * STAGE_BYTES, warp, lane);
           __syncwarp();
-          if (lane == 0) mbar_arrive(empty0 + 8 * prev);
+          if (lane == 0) mbar_arrive(empty0 + 8 * s);
         }
         prev = s;
         if (++s == half) {
@@ -689,23 +1064,50 @@ __global__ void __launch_bounds__(THREADS, 1)
           ph ^= 1;
         }
       }
-      wgmma_wait<0>();
-      __syncwarp();
-      if (lane == 0) mbar_arrive(empty0 + 8 * prev);
+      if constexpr (Tr::WGMMA) {
+        wgmma_wait<0>();
+        __syncwarp();
+        if (lane == 0) mbar_arrive(empty0 + 8 * prev);
+      } else {
+        Tr::to_wgmma_layout(d[0], lane);
+      }
 #pragma unroll
       for (int a = 0; a < ACCS; ++a) acc_fence(d[a]);
 
-      fold_tile<Tr, KL>(d, sc, vmask, thr, my_v, my_i, qrow,
-                        static_cast<int>(tile * TM) + cq, lane);
+      const int i0 = static_cast<int>(tile * TM) + cq;
+      if constexpr (DEV) {
+        fold_tile_dev<Tr>(d, sc, vmask, thr, dl, qrow, i0, lane);
+      } else {
+        fold_tile<Tr, KL>(d, sc, vmask, thr, my_v, my_i, qrow, i0, lane);
+      }
     }
 
-    // the two warpgroups' lists of a query -> the block's list, in scratch
-    asm volatile("bar.sync 1, 256;\n" ::: "memory");
-    const int r = threadIdx.x;
-    if (r < QT && q0 + r < Q)
-      write_block_list<KL>(
-          lv, li, QT, r, part_v, part_i,
-          (static_cast<long long>(q0 + r) * gridDim.x + blockIdx.x) * k);
+    if constexpr (DEV) {
+      // the warp's last flushes, then sentinels behind each list's entries
+      // (row r of an A block: 64 a + 16 (warp & 3) + quad + 8 h)
+#pragma unroll
+      for (int a = 0; a < ACCS; ++a) {
+        for (int slot = 0; slot < 16; ++slot) {
+          const int r = 64 * a + 16 * (warp & 3) + (slot & 7) + 8 * (slot >> 3);
+          if (q0 + r >= Q) continue;
+          flush_list(r, dl, thr, lane);
+          float* gv = dl.lv + r * dl.stride;
+          int* gi = dl.li + r * dl.stride;
+          for (int i = dl.fill[r] + lane; i < k; i += 32) {
+            gv[i] = NEG;
+            gi[i] = 0;
+          }
+        }
+      }
+    } else {
+      // the two warpgroups' lists of a query -> the block's list, in scratch
+      asm volatile("bar.sync 1, 256;\n" ::: "memory");
+      const int r = threadIdx.x;
+      if (r < QT && q0 + r < Q)
+        write_block_list<KL>(
+            lv, li, QT, r, part_v, part_i,
+            (static_cast<long long>(q0 + r) * gridDim.x + blockIdx.x) * KL);
+    }
   }
 }
 
@@ -801,6 +1203,87 @@ __global__ void merge_topk_kernel(const float* __restrict__ part_v,
   }
 }
 
+// Lists in device memory: part_v / part_i [Q, P, k] (each list sorted,
+// padded with sentinels) -> out_v / out_i [Q, k]; one block per query, one
+// warp per pair of lists. Level s merges list m + s into list m for m = 0,
+// 2 s, 4 s, ... (a fixed tree, so the result does not depend on which warp
+// ran when); a warp copies both lists into its part of shared memory, and
+// lane l writes outputs l E .. l E + E - 1 (E = ceil(k / 32)) back over list
+// m: it finds how many of its first output's predecessors come from list m
+// by a binary search along the merge path's diagonal, then takes its
+// outputs in order. List m keeps the ties (only sentinels tie), and
+// a + b = o < k keeps both cursors inside their lists. The last level's
+// list 0 is the answer; `q_scale` as in merge_topk_kernel.
+__global__ void merge_lists_kernel(float* __restrict__ part_v,
+                                   int* __restrict__ part_i,
+                                   float* __restrict__ out_v,
+                                   long long* __restrict__ out_i,
+                                   const float* __restrict__ q_scale, int P,
+                                   int k) {
+  extern __shared__ float4 merge_smem[];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int W = blockDim.x / 32;
+  float* av = reinterpret_cast<float*>(merge_smem) + static_cast<size_t>(warp) * 4 * k;
+  int* ai = reinterpret_cast<int*>(av + k);
+  float* bv = av + 2 * k;
+  int* bi = reinterpret_cast<int*>(av + 3 * k);
+  const int q = blockIdx.x;
+  const long long base = static_cast<long long>(q) * P * k;
+  const int per = (k + 31) / 32;
+  for (int s = 1; s < P; s *= 2) {
+    for (int m = 2 * s * warp; m + s < P; m += 2 * s * W) {
+      float* gav = part_v + base + static_cast<long long>(m) * k;
+      int* gai = part_i + base + static_cast<long long>(m) * k;
+      const float* gbv = part_v + base + static_cast<long long>(m + s) * k;
+      const int* gbi = part_i + base + static_cast<long long>(m + s) * k;
+      for (int t = lane; t < k; t += 32) {
+        av[t] = gav[t];
+        ai[t] = gai[t];
+        bv[t] = gbv[t];
+        bi[t] = gbi[t];
+      }
+      __syncwarp();
+      const int o0 = min(k, lane * per), o1 = min(k, o0 + per);
+      int lo = max(0, o0 - k), hi = min(o0, k);
+      while (lo < hi) {
+        const int mid = (lo + hi) >> 1;
+        if (!before(bv[o0 - 1 - mid], bi[o0 - 1 - mid], av[mid], ai[mid])) {
+          lo = mid + 1;
+        } else {
+          hi = mid;
+        }
+      }
+      int a = lo, b = o0 - lo;
+      for (int o = o0; o < o1; ++o) {
+        const bool take_b = before(bv[b], bi[b], av[a], ai[a]);
+        gav[o] = take_b ? bv[b] : av[a];
+        gai[o] = take_b ? bi[b] : ai[a];
+        if (take_b) {
+          ++b;
+        } else {
+          ++a;
+        }
+      }
+      __syncwarp();
+    }
+    __syncthreads();
+  }
+  const float qs = q_scale != nullptr ? q_scale[q] : 1.0f;
+  for (int t = threadIdx.x; t < k; t += blockDim.x) {
+    const float v = part_v[base + t];
+    out_v[static_cast<long long>(q) * k + t] =
+        (q_scale != nullptr && v > NEG) ? __fmul_rn(v, qs) : v;
+    out_i[static_cast<long long>(q) * k + t] = part_i[base + t];
+  }
+}
+
+// Warps of merge_lists_kernel for lists of k: as many as shared memory holds
+// (16 k bytes each), at most 32.
+inline int merge_lists_warps(int k) {
+  const int w = 232448 / (16 * k);
+  return w < 32 ? w : 32;
+}
+
 // libcuda's cuTensorMapEncodeTiled, looked up once through the runtime
 // (no link against libcuda).
 using EncodeTiledFn = CUresult (*)(
@@ -830,26 +1313,41 @@ inline int tensor_map_encoder(EncodeTiledFn* out) {
   return 0;
 }
 
-// The list length the stream kernels are built with for a call's k: they
-// exist for 1, 2, 3, 4, 8, 16, 32 and 64 entries (ops/gallery_kernel.py
-// holds the same rule).
+// The list length the stream kernels are built with for a call's k: 1, 2,
+// 3, 4, 8 and 16 entries in registers or shared memory, and past KSHARED
+// lists in device memory (DEVICE_LISTS). On an H100 the device lists beat
+// lists of 32 and 64 in shared memory at k = 33 and 64, and lose to the
+// list of 16 at k = 16 (PERF.md); ops/gallery_kernel.py holds the same rule.
 inline int list_length(int k) {
+  if (k > KSHARED) return DEVICE_LISTS;
   if (k <= 4) return k;
   int kl = KREG;
   while (kl < k) kl *= 2;
   return kl;
 }
 
-// The merge kernel after a stream kernel: one block per query, one thread
-// per block list, rounded up to whole warps.
-inline cudaError_t launch_merge(const float* part_v, const int* part_i,
-                                float* out_v, long long* out_i,
-                                const float* q_scale, int n_parts, int kl,
-                                int Q, int k, cudaStream_t st) {
-  if (n_parts > 1024) return cudaErrorInvalidValue;
-  const int threads = 32 * ((n_parts + 31) / 32);
+// The merge kernel after a stream kernel. Short lists: one block per query,
+// one thread per block list, rounded up to whole warps. Lists in device
+// memory: one block per query, merge_lists_warps(k) warps.
+inline cudaError_t launch_merge(float* part_v, int* part_i, float* out_v,
+                                long long* out_i, const float* q_scale,
+                                int grid_x, int kl, int Q, int k,
+                                cudaStream_t st) {
+  if (kl == DEVICE_LISTS) {
+    const int warps = merge_lists_warps(k);
+    const int smem = warps * 16 * k;
+    const cudaError_t err = cudaFuncSetAttribute(
+        merge_lists_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    merge_lists_kernel<<<Q, 32 * warps, smem, st>>>(part_v, part_i, out_v,
+                                                    out_i, q_scale,
+                                                    2 * grid_x, k);
+    return cudaGetLastError();
+  }
+  if (grid_x > 1024) return cudaErrorInvalidValue;
+  const int threads = 32 * ((grid_x + 31) / 32);
   merge_topk_kernel<<<Q, threads, 0, st>>>(part_v, part_i, out_v, out_i,
-                                           q_scale, n_parts, kl, Q, k);
+                                           q_scale, grid_x, kl, Q, k);
   return cudaGetLastError();
 }
 
@@ -857,7 +1355,7 @@ template <typename Tr, int KL>
 cudaError_t launch_stream(const CUtensorMap& gmap,
                           const typename Tr::QIn* queries, const float* scales,
                           const unsigned char* valid, float* part_v,
-                          int* part_i, int Q, int G, int D, int grid_x,
+                          int* part_i, int Q, int G, int D, int k, int grid_x,
                           int stages, int smem_bytes, cudaStream_t st) {
   const cudaError_t err = cudaFuncSetAttribute(
       stream_topk_kernel<Tr, KL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -865,14 +1363,15 @@ cudaError_t launch_stream(const CUtensorMap& gmap,
   if (err != cudaSuccess) return err;
   const int q_tiles = (Q + Tr::QT - 1) / Tr::QT;
   stream_topk_kernel<Tr, KL><<<dim3(grid_x, q_tiles), THREADS, smem_bytes, st>>>(
-      gmap, queries, scales, valid, part_v, part_i, Q, G, D, stages);
+      gmap, queries, scales, valid, part_v, part_i, Q, G, D, k, stages);
   return cudaGetLastError();
 }
 
 // Launch both kernels on `stream`. grid_x blocks share the gallery tiles of
-// each query tile; part_v / part_i hold Q * grid_x * list_length(k) entries;
-// `stages` and `smem_bytes` come from gallery_launch_geometry; `q_scale` [Q]
-// or null multiplies the finished scores (see merge_topk_kernel). Returns 0, the
+// each query tile; part_v / part_i hold Q * grid_x * list_length(k)
+// entries, or Q * 2 * grid_x * k with lists in device memory; `stages` and
+// `smem_bytes` come from gallery_launch_geometry; `q_scale` [Q] or null
+// multiplies the finished scores (see merge_topk_kernel). Returns 0, the
 // cudaError_t of the first failure, or ENCODE_FAILED + the CUresult of the
 // tensor map.
 template <typename Tr>
@@ -880,8 +1379,8 @@ int launch_stream_topk(const typename Tr::QIn* queries, const void* gallery,
                        const float* scales, const unsigned char* valid,
                        float* part_v, int* part_i, float* out_v,
                        long long* out_i, const float* q_scale, int Q, int G,
-                       int D, int k, int grid_x, int stages, int smem_bytes,
-                       void* stream) {
+                       int D, int k, int grid_x, int stages,
+                       int smem_bytes, void* stream) {
   if (Q <= 0 || G <= 0 || D <= 0 || D % 32 != 0 || k < 1 || k > KMAX ||
       grid_x < 1 || stages < MIN_STAGES || stages > MAX_STAGES ||
       stages % 2 != 0)
@@ -910,17 +1409,16 @@ int launch_stream_topk(const typename Tr::QIn* queries, const void* gallery,
 #define FRP_LAUNCH(KL)                                                        \
   case KL:                                                                    \
     err = launch_stream<Tr, KL>(gmap, queries, scales, valid, part_v, part_i, \
-                                Q, G, D, grid_x, stages, smem_bytes, st);     \
+                                Q, G, D, k, grid_x, stages, smem_bytes, st);  \
     break
   switch (kl) {
+    FRP_LAUNCH(DEVICE_LISTS);
     FRP_LAUNCH(1);
     FRP_LAUNCH(2);
     FRP_LAUNCH(3);
     FRP_LAUNCH(4);
     FRP_LAUNCH(8);
     FRP_LAUNCH(16);
-    FRP_LAUNCH(32);
-    FRP_LAUNCH(64);
   }
 #undef FRP_LAUNCH
   if (err != cudaSuccess) return static_cast<int>(err);

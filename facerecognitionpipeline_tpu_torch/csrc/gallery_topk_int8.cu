@@ -23,13 +23,14 @@
 //
 // Layouts: queries [Q, D] int8 codes, codes [G, D] int8, scales [G] f32,
 // q_scale [Q] f32, valid [G] bytes, part_v / part_i [Q, grid_x, list length]
-// scratch, out_v [Q, k] f32 (times the query scale), out_i [Q, k] int64.
+// or [Q, 2 grid_x, k] scratch, out_v [Q, k] f32 (times the query scale),
+// out_i [Q, k] int64.
 #include "gallery_topk.cuh"
 
 // Query rows one block handles; the wrapper sizes the launch by it.
 extern "C" int frp_gallery_topk_int8_qtile() { return frp::Int8Traits::QT; }
 
-// Longest top-k the kernel supports.
+// Longest top-k the kernel answers.
 extern "C" int frp_gallery_topk_int8_kmax() { return frp::KMAX; }
 
 // Launches on `stream`; returns 0, the cudaError_t of the launch, or

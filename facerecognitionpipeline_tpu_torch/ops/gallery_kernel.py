@@ -11,17 +11,17 @@ rows without ever storing the [Q, G] similarity matrix. The bf16 and int8
 kernels are bound by device-memory bytes (one read of the gallery; the int8
 pair halves those bytes), the float32 one by float32 operations. What the
 design does about it on an H100 (`csrc/gallery_topk.cuh` has the whole of
-it): one persistent block per SM
-keeps its queries in shared memory in the layout `wgmma` reads, one
-producer warp streams the gallery through two rings of 8 KB stages with
-TMA copies that complete on `mbarrier`s, two consumer warpgroups multiply
-with `wgmma` (query block as A, 64 gallery rows as B) and fold the
-accumulators in registers into per-query top-k lists (1 to 64 entries), and
-a second kernel merges the blocks' lists with one block per query. The
-float32-row kernel keeps the tile order, the lists, the fold and the merge,
-and multiplies with float32 FMAs on CUDA cores instead (a tensor-core
-product would round the rows). The launch arithmetic
-(grid, ring depth, shared-memory bytes, scratch shapes) is
+it, the three kinds share one body): one persistent block per SM keeps
+its queries in shared memory, one producer warp streams the gallery
+through two rings of 8 KB stages with TMA copies that complete on
+`mbarrier`s, two consumer warpgroups multiply (bf16 and int8 with `wgmma`,
+query block as A and 64 gallery rows as B; float32 rows with float32 FMAs
+on the CUDA cores, a tensor-core product would round them) and fold the
+scores in registers into per-query top-k lists, and a second kernel merges
+the lists. A list of 1 to 8 entries lives in registers, of 16 in shared
+memory, and of 17 to MAX_TOP_K in device memory, fed through a buffer of
+32 candidates per query and merged into by a whole warp at once. The launch arithmetic (grid, ring depth,
+shared-memory bytes, list placement, scratch shapes, the merge's launch) is
 `gallery_launch_geometry`, where the CPU tests reach it. The tensor map of
 the gallery is encoded in the C function at each launch, through the
 entry point of `cuTensorMapEncodeTiled` that the CUDA runtime hands out (no
@@ -73,8 +73,8 @@ LAUNCHES = cuda_build.LaunchCounter()
 LAUNCHES_INT8 = cuda_build.LaunchCounter()
 LAUNCHES_F32 = cuda_build.LaunchCounter()
 
-#: longest top-k the CUDA kernels keep (`frp::KMAX` in csrc/gallery_topk.cuh)
-MAX_TOP_K = 64
+#: longest top-k the CUDA kernels answer (`frp::KMAX` in csrc/gallery_topk.cuh)
+MAX_TOP_K = 1024
 
 _EPS = 1e-8
 _NEG = -1e9
@@ -212,31 +212,58 @@ class GalleryGeometry(NamedTuple):
     """How one streaming launch is cut (see `csrc/gallery_topk.cuh`)."""
 
     grid: tuple[int, int]  # (blocks sharing the gallery tiles, query tiles)
-    threads: int  # two consumer warpgroups (and the producer's: bf16, int8)
+    threads: int  # two consumer warpgroups and the producer's
     q_tile: int  # query rows per block
     n_tiles: int  # gallery tiles of 64 rows; block x takes x, x + grid[0], ...
     panels: int  # ring stages per tile: 128 bytes of depth each
-    stages: int  # 8 KB ring stages in all: half per consumer warpgroup (f32: 0)
+    stages: int  # 8 KB ring stages in all: half per consumer warpgroup
     smem_bytes: int  # dynamic shared memory of a block
     list_len: int  # entries per list the kernel keeps (>= top_k)
-    scratch: tuple[int, int, int]  # per-block lists [Q, grid[0], list_len]
+    lists: str  # where: "registers" (<= 8), "shared" (16), "device"
+    buffer: int  # device lists: candidates buffered per query and warpgroup
+    scratch: tuple[int, int, int]  # the lists: [Q, grid[0], list_len], or
+    # [Q, 2 grid[0], top_k] in device memory (one per block and warpgroup)
+    merge: tuple[int, int, int]  # the merge kernel: (blocks, threads, smem bytes)
 
 
-#: per kind: (query rows per block, bytes per gallery value)
-_KINDS = {"bf16": (64, 2), "int8": (128, 1), "f32": (64, 4)}
+#: per kind: (query rows per block, bytes per gallery value, bytes of one
+#: staged query panel: bf16 the hi and lo blocks, int8 two blocks of 64
+#: rows, float32 64 rows)
+_KINDS = {"bf16": (64, 2, 128 * 128), "int8": (128, 1, 128 * 128), "f32": (64, 4, 64 * 128)}
 _TILE_ROWS = 64
 _PANEL_BYTES = 128
-_QUERY_PANEL_BYTES = 128 * _PANEL_BYTES  # two blocks of 64 rows: K3 hi, lo
 _STAGE_BYTES = _TILE_ROWS * _PANEL_BYTES
 _SIDE_BYTES = _TILE_ROWS * 5  # a tile's valid bytes and scales, per stage
 _CONSUMER_WGS = 2  # consumer warpgroups: a ring and a set of lists each
 _THREADS = 384
-_F32_THREADS = 256
-_F32_ROW = 36  # floats per staged gallery row of a 32-float panel
 _MIN_STAGES, _MAX_STAGES = 4, 16
-#: list lengths the stream kernels are built for (`frp::list_length`): a
-#: call's top_k takes the shortest that holds it
-_LIST_LENS = (1, 2, 3, 4, 8, 16, 32, 64)
+#: list lengths the stream kernels keep in registers or shared memory
+#: (`frp::list_length`): a call's top_k takes the shortest that holds it;
+#: past the last (`frp::KSHARED`) the lists live in device memory, which on
+#: an H100 beat lists of 32 and 64 in shared memory at top_k 33 and 64 and
+#: lose to the list of 16 at top_k 16 (PERF.md)
+_LIST_LENS = (1, 2, 3, 4, 8, 16)
+_BUF = 32  # candidates buffered per query and warpgroup (`frp::BUF`)
+
+
+def list_placement(top_k: int) -> tuple[str, int]:
+    """Where the stream kernels keep a list for `top_k` and how many entries
+    it has: ("registers", 1..8), ("shared", 16) or ("device", top_k)."""
+    if top_k > _LIST_LENS[-1]:
+        return "device", top_k
+    n = min(n for n in _LIST_LENS if n >= top_k)
+    return ("registers" if n <= 8 else "shared"), n
+
+
+def merge_launch(q: int, grid_x: int, top_k: int, lists: str) -> tuple[int, int, int]:
+    """(blocks, threads, shared-memory bytes) of the merge kernel. Short
+    lists: one block per query, a thread per block's list. Lists in device
+    memory: one block per query, as many warps as shared memory holds (a
+    pair of lists of top_k, 16 top_k bytes, each), at most 32."""
+    if lists == "device":
+        warps = min(32, cuda_build.SMEM_LIMIT_BYTES // (16 * top_k))
+        return q, 32 * warps, warps * 16 * top_k
+    return q, 32 * -(-grid_x // 32), 0
 
 
 @functools.lru_cache(maxsize=256)
@@ -247,54 +274,39 @@ def gallery_launch_geometry(
     rows) or K4 (`"int8"`) for q queries against g rows of depth d on a card
     with `sms` multiprocessors. Raises ValueError for what the kernels do
     not take: a depth that is not a multiple of 32 or whose queries and lists
-    leave no room in a block's shared memory (bf16, int8: for a ring of
-    `_MIN_STAGES` stages), `top_k` outside 1..MAX_TOP_K, 2**31 rows or more,
-    an empty dimension."""
+    leave no room in a block's shared memory for a ring of `_MIN_STAGES`
+    stages, `top_k` outside 1..MAX_TOP_K, 2**31 rows or more, an empty
+    dimension."""
     if kind not in _KINDS:
         raise ValueError(f"kind must be one of {sorted(_KINDS)}, got {kind!r}")
     if min(q, g, d, sms) < 1:
         raise ValueError("the streaming kernel needs q, g, d and sms of at least 1")
     if not 1 <= top_k <= MAX_TOP_K:
         raise ValueError(
-            f"the CUDA streaming kernels keep at most top_k={MAX_TOP_K}, got "
+            f"the CUDA streaming kernels answer at most top_k={MAX_TOP_K}, got "
             f"{top_k}; longer lists are open in ROADMAP.md (F2)"
         )
     if d % 32:
         raise ValueError(f"the CUDA kernel needs D % 32 == 0, got D={d}")
     if g + _TILE_ROWS >= 2**31:
         raise ValueError(f"the CUDA kernel indexes rows in 32 bits, got G={g}")
-    q_tile, elem = _KINDS[kind]
-    list_len = min(n for n in _LIST_LENS if n >= top_k)
+    q_tile, elem, qpanel = _KINDS[kind]
+    lists, list_len = list_placement(top_k)
     panels = -(-d * elem // _PANEL_BYTES)
-    lists = _CONSUMER_WGS * q_tile * list_len * 8 + q_tile * 4  # and thresholds
-    if kind == "f32":
-        # the queries (rows padded by 4 floats), a panel buffer and a tile's
-        # valid bytes per warpgroup (`frp::f32_smem_bytes`)
-        fixed = (
-            q_tile * (d + 4) * 4 + _CONSUMER_WGS * _TILE_ROWS * (_F32_ROW * 4 + 1)
-            + lists
+    per_query = _BUF * 8 + 8 if lists == "device" else list_len * 8
+    # alignment slack, the queries, the warpgroups' lists (device lists:
+    # their buffers, counts and fills), the thresholds
+    fixed = 1024 + panels * qpanel + _CONSUMER_WGS * q_tile * per_query + q_tile * 4
+    per_stage = _STAGE_BYTES + _SIDE_BYTES + 16  # and two barriers
+    stages = min(_MAX_STAGES, (cuda_build.SMEM_LIMIT_BYTES - fixed) // per_stage)
+    stages -= stages % _CONSUMER_WGS
+    if stages < _MIN_STAGES:
+        raise ValueError(
+            f"the {kind} streaming kernel keeps {fixed} bytes of queries and "
+            f"lists for D={d}, top_k={top_k} in shared memory, which leaves "
+            f"fewer than {_MIN_STAGES} ring stages of the "
+            f"{cuda_build.SMEM_LIMIT_BYTES} bytes a block may use"
         )
-        if fixed > cuda_build.SMEM_LIMIT_BYTES:
-            raise ValueError(
-                f"the f32 streaming kernel keeps {fixed} bytes of queries and lists "
-                f"for D={d}, top_k={top_k} in shared memory, over the "
-                f"{cuda_build.SMEM_LIMIT_BYTES} bytes a block may use"
-            )
-        threads, stages, smem = _F32_THREADS, 0, fixed
-    else:
-        # alignment slack, the queries, the warpgroups' lists, the thresholds
-        fixed = 1024 + panels * _QUERY_PANEL_BYTES + lists
-        per_stage = _STAGE_BYTES + _SIDE_BYTES + 16  # and two barriers
-        stages = min(_MAX_STAGES, (cuda_build.SMEM_LIMIT_BYTES - fixed) // per_stage)
-        stages -= stages % _CONSUMER_WGS
-        if stages < _MIN_STAGES:
-            raise ValueError(
-                f"the {kind} streaming kernel keeps {fixed} bytes of queries and "
-                f"lists for D={d}, top_k={top_k} in shared memory, which leaves "
-                f"fewer than {_MIN_STAGES} ring stages of the "
-                f"{cuda_build.SMEM_LIMIT_BYTES} bytes a block may use"
-            )
-        threads, smem = _THREADS, fixed + stages * per_stage
     q_tiles = -(-q // q_tile)
     if q_tiles > 65535:
         raise ValueError(f"{q_tiles} query tiles exceed CUDA's grid limit")
@@ -302,9 +314,15 @@ def gallery_launch_geometry(
     # one block per SM (its shared memory fills it); the blocks of one query
     # tile share out the gallery tiles
     grid_x = max(1, min(n_tiles, sms // q_tiles))
+    if lists == "device":
+        scratch = (q, _CONSUMER_WGS * grid_x, top_k)
+    else:
+        scratch = (q, grid_x, list_len)
     return GalleryGeometry(
-        (grid_x, q_tiles), threads, q_tile, n_tiles, panels, stages, smem,
-        list_len, (q, grid_x, list_len),
+        (grid_x, q_tiles), _THREADS, q_tile, n_tiles, panels, stages,
+        fixed + stages * per_stage, list_len, lists,
+        _BUF if lists == "device" else 0, scratch,
+        merge_launch(q, grid_x, top_k, lists),
     )
 
 
@@ -333,10 +351,10 @@ _LIBRARY_KINDS = {"gallery_topk": "bf16", "gallery_topk_int8": "int8",
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {
     # queries, templates, [scales,] valid, part_v, part_i, out_v, out_i,
-    # [q_scale]; Q, G, D, k, grid_x, [stages,] smem_bytes; stream
+    # [q_scale]; Q, G, D, k, grid_x, stages, smem_bytes; stream
     "gallery_topk": [_PTR] * 7 + [_INT] * 7 + [_PTR],
     "gallery_topk_int8": [_PTR] * 9 + [_INT] * 7 + [_PTR],
-    "gallery_topk_f32": [_PTR] * 7 + [_INT] * 6 + [_PTR],
+    "gallery_topk_f32": [_PTR] * 7 + [_INT] * 7 + [_PTR],
 }
 _ENCODE_FAILED = 100000  # `frp::ENCODE_FAILED`
 
@@ -375,9 +393,9 @@ def _launch(name, counter, queries, rows, scales, valid, top_k, q_scale=None):
     ptrs += [t.data_ptr() for t in (valid, part_v, part_i, out_v, out_i)]
     if q_scale is not None:
         ptrs.append(q_scale.data_ptr())
-    ints = [q, g, d, top_k, geo.grid[0]] + ([] if kind == "f32" else [geo.stages])
     rc = fn(
-        *ptrs, *ints, geo.smem_bytes, torch.cuda.current_stream(dev).cuda_stream,
+        *ptrs, q, g, d, top_k, geo.grid[0], geo.stages, geo.smem_bytes,
+        torch.cuda.current_stream(dev).cuda_stream,
     )
     if rc >= _ENCODE_FAILED:
         raise RuntimeError(
@@ -410,10 +428,12 @@ def streaming_cosine_topk(
 
     CUDA tensors launch a kernel: bf16 templates (the copy `DeviceGallery`
     serves at streaming scale) the tensor-core one, float32 templates the
-    float32 one (`LAUNCHES_F32`); D % 32 == 0 and top_k <= MAX_TOP_K, else
-    it raises. CPU tensors take `streaming_cosine_topk_plain` (bf16 or
-    float32 rows, any top_k). Q = 0 returns empty results. `chunk` only states the padding contract
-    (G % chunk == 0); the kernel's own tile is its own."""
+    float32 one (`LAUNCHES_F32`); D % 32 == 0 and 1 <= top_k <= MAX_TOP_K
+    (1024; from top_k 17 the lists live in device memory, scratch of Q x
+    2 grid_x x top_k x 8 bytes), else it raises. CPU tensors take
+    `streaming_cosine_topk_plain` (bf16 or float32 rows, any top_k). Q = 0
+    returns empty results. `chunk` only states the padding contract (G %
+    chunk == 0); the kernel's own tile is its own."""
     _check_common(queries, templates, valid, top_k, chunk)
     if queries.device.type == "cpu":
         return streaming_cosine_topk_plain(queries, templates, valid, top_k, chunk)
@@ -449,8 +469,9 @@ def streaming_cosine_topk_int8(
     indices [Q,top_k] int64). Half the gallery bytes of K3.
 
     CUDA tensors launch the kernel (int8 codes, float32 scales, D % 32 ==
-    0, top_k <= MAX_TOP_K, else it raises); CPU tensors take
-    `streaming_cosine_topk_int8_plain`. Q = 0 returns empty results."""
+    0, 1 <= top_k <= MAX_TOP_K as for K3, else it raises); CPU tensors take
+    `streaming_cosine_topk_int8_plain` (any top_k). Q = 0 returns empty
+    results."""
     _check_common(queries, templates_q, valid, top_k, chunk)
     if templates_q.dtype != torch.int8:
         raise TypeError(f"templates_q must be int8 codes, got {templates_q.dtype}")

@@ -248,13 +248,17 @@ def _gallery(rng, g, n_invalid, d=512):
 
 def _assert_topk_agrees(kv, ki, pv, pi, tol):
     """Values within `tol`; indices equal wherever the plain version's
-    neighbouring scores are further apart than `tol`."""
+    neighbouring scores are further apart than `tol`. The plain version may
+    hold one entry more than the kernel's k, so that the last slot's
+    neighbour below is known too."""
     assert ki.dtype == torch.int64 and kv.dtype == torch.float32
-    assert float((kv - pv).abs().max()) <= tol
+    k = kv.shape[1]
     gap = (pv[:, :-1] - pv[:, 1:]).abs() > 2 * tol
     clear = torch.ones_like(pi, dtype=torch.bool)
     clear[:, :-1] &= gap
     clear[:, 1:] &= gap
+    pv, pi, clear = pv[:, :k], pi[:, :k], clear[:, :k]
+    assert float((kv - pv).abs().max()) <= tol
     assert torch.equal(ki[clear], pi[clear])
 
 
@@ -438,7 +442,8 @@ def test_gallery_kernels_refuse_what_they_do_not_take(dev, gen):
     with pytest.raises(TypeError, match="bf16 or float32"):
         gk.streaming_cosine_topk(qq, tt.half(), vv, top_k=2, chunk=64)  # float16 rows
     with pytest.raises(ValueError, match="ROADMAP.md"):
-        gk.streaming_cosine_topk(qq, tt.to(torch.bfloat16), vv, top_k=65, chunk=64)
+        gk.streaming_cosine_topk(qq, tt.to(torch.bfloat16), vv, top_k=gk.MAX_TOP_K + 1,
+                                 chunk=64)
     with pytest.raises(ValueError, match="multiple of the chunk"):
         gk.streaming_cosine_topk(qq, tt.to(torch.bfloat16), vv, top_k=2, chunk=100)
     with pytest.raises(ValueError, match="one device"):
@@ -688,6 +693,79 @@ def test_float32_rows_fewer_valid_than_k(dev, gen):
         assert ki[:, 2:].eq(0).all() and kv[:, 2:].eq(-1e9).all()
 
 
+# ------------------------------------- lists in device memory, top_k 65-1024
+
+
+def _long_list_case(gen, nq, rows, d, n_valid=None):
+    """Unit rows with a ragged last tile, a duplicated row (lower index
+    first), the last 10 rows invalid (or only `n_valid` valid rows), and
+    query 0 equal to row 3."""
+    t = gen.normal(size=(rows, d)).astype(np.float32)
+    t /= np.linalg.norm(t, axis=1, keepdims=True)
+    t[rows - 20] = t[3]
+    valid = np.ones(rows, bool)
+    valid[-10:] = False
+    if n_valid is not None:
+        valid[:] = False
+        valid[gen.choice(rows - 20, n_valid, replace=False)] = True
+        valid[[3, rows - 20]] = True
+    q = gen.normal(size=(nq, d)).astype(np.float32)
+    q[0] = 2 * t[3]
+    return t, valid, q
+
+
+def _held_to_plain(gk, kind, qq, tt, vv, top_k, chunk):
+    """One kernel call and its plain version: values within the kind's
+    tolerance (int8: equal), indices equal where the scores stand apart."""
+    counter = {"bf16": gk.LAUNCHES, "f32": gk.LAUNCHES_F32, "int8": gk.LAUNCHES_INT8}[kind]
+    n0 = counter.count
+    if kind == "int8":
+        codes, scales = gk.quantize_templates(tt)
+        kv, ki = gk.streaming_cosine_topk_int8(qq, codes, scales, vv, top_k=top_k, chunk=chunk)
+        pv, pi = gk.streaming_cosine_topk_int8_plain(qq, codes, scales, vv, top_k=top_k,
+                                                     chunk=chunk)
+        torch.cuda.synchronize()
+        assert torch.equal(kv, pv) and torch.equal(ki, pi)
+    else:
+        rows = tt.to(torch.bfloat16) if kind == "bf16" else tt
+        kv, ki = gk.streaming_cosine_topk(qq, rows, vv, top_k=top_k, chunk=chunk)
+        pv, pi = gk.streaming_cosine_topk_plain(qq, rows, vv, top_k=top_k + 1, chunk=chunk)
+        torch.cuda.synchronize()
+        _assert_topk_agrees(kv, ki, pv, pi, 2e-5 if kind == "bf16" else 1e-5)
+    assert counter.count == n0 + 1
+    return kv, ki
+
+
+@pytest.mark.parametrize("kind", ["bf16", "f32", "int8"])
+@pytest.mark.parametrize("top_k", [65, 100, 256, 1024])
+@pytest.mark.parametrize("shape", [(1, 20480 + 32, 512), (65, 8192 + 32, 96),
+                                   (129, 12288 + 32, 512)])
+def test_gallery_kernels_lists_in_device_memory(dev, gen, kind, top_k, shape):
+    """top_k 65 to 1024 (lists in device memory): one launch, the plain
+    version's answer, the duplicate row behind the lower index."""
+    from facerecognitionpipeline_tpu_torch.ops import gallery_kernel as gk
+
+    nq, rows, d = shape
+    t, valid, q = _long_list_case(gen, nq, rows, d)
+    tt, vv, qq = (torch.from_numpy(a).to(dev) for a in (t, valid, q))
+    kv, ki = _held_to_plain(gk, kind, qq, tt, vv, top_k, 32)
+    assert ki[0, :2].tolist() == [3, rows - 20]
+
+
+@pytest.mark.parametrize("kind", ["bf16", "f32", "int8"])
+@pytest.mark.parametrize("top_k", [100, 1024])
+def test_gallery_kernels_device_lists_fewer_valid_rows_than_k(dev, gen, kind, top_k):
+    """Fewer valid rows than top_k: the surplus slots hold (-1e9, 0)."""
+    from facerecognitionpipeline_tpu_torch.ops import gallery_kernel as gk
+
+    t, valid, q = _long_list_case(gen, 70, 8192, 512, n_valid=60)
+    tt, vv, qq = (torch.from_numpy(a).to(dev) for a in (t, valid, q))
+    kv, ki = _held_to_plain(gk, kind, qq, tt, vv, top_k, 64)
+    n = int(valid.sum())
+    assert kv[:, n:].eq(-1e9).all() and ki[:, n:].eq(0).all()
+    assert bool(vv[ki[:, :n]].all())
+
+
 def test_bf16_face_processor_launches_k1(dev):
     """A bf16 cascade takes the kernel crop ('auto'): K1 twice per detect."""
     import os
@@ -801,16 +879,41 @@ def test_probe_labeler_at_streaming_scale_launches_k3_once(dev, gen, tmp_path):
     assert all(r["label"] == "SURE" and len(r["top_matches"]) == 16 for r in results)
 
 
-def test_probe_labeler_cli_refuses_top_k_over_64_on_the_card(dev, gen, tmp_path):
-    """F2: the streaming kernels keep at most 64 entries; `probe_labeler
-    --top_k 65` against a card-sized gallery meets their ValueError (the JAX
-    Pallas kernel answers; ROADMAP.md F2)."""
+def test_probe_labeler_cli_answers_top_k_65_on_the_card(dev, gen, tmp_path):
+    """F2, repaired: `probe_labeler --top_k 65` against a card-sized gallery
+    answers (lists in device memory), with the plain version's top matches
+    on the same compact rows, one K3 launch per search."""
     from facerecognitionpipeline_tpu_torch.cli import probe_labeler
+    from facerecognitionpipeline_tpu_torch.ops import gallery_kernel as gk
 
     _, probe_dir, gm = _streaming_labeler(dev, gen, tmp_path)
     gm.save()
     argv = ["--probe_dir", probe_dir, "--gallery_path", gm.gallery_path, "--architecture",
             "ir_micro", "--no_copy", "--device", "cuda"]
     assert probe_labeler.main(argv + ["--top_k", "64"]) == 0
-    with pytest.raises(ValueError, match="at most top_k=64"):
-        probe_labeler.main(argv + ["--top_k", "65"])
+    n = gk.LAUNCHES.count
+    out = tmp_path / "out65"
+    assert probe_labeler.main(argv + ["--top_k", "65", "--output_dir", str(out)]) == 0
+    assert gk.LAUNCHES.count - n == 1
+    with open(out / "labeling_results.json") as f:
+        results = json.load(f)["results"]
+    assert [r["matched_student_id"] for r in results] == ["ID00011", "ID20000", "ID39999"]
+    assert all(len(r["top_matches"]) == 65 for r in results)
+    _, valid, ids = gm.device_snapshot()
+    compact = gm._device.snapshot()[3]
+    from facerecognitionpipeline_tpu_torch.pipeline.embedder import FaceEmbedder
+
+    emb = FaceEmbedder("ir_micro", device=dev, random_ok=True)
+    import cv2
+
+    crops = [cv2.cvtColor(cv2.imread(str(p)), cv2.COLOR_BGR2RGB)
+             for p in sorted((tmp_path / "probes").iterdir())]
+    q = torch.from_numpy(emb.extract_embeddings_batch(crops)).to(dev)
+    pv, pi = gk.streaming_cosine_topk_plain(q, compact, valid, top_k=65, chunk=64)
+    by_name = {r["filename"]: r for r in results}
+    for j, p in enumerate(sorted((tmp_path / "probes").iterdir())):
+        got = [m["student_id"] for m in by_name[p.name]["top_matches"]]
+        want = [ids[i] for i in pi[j].tolist()]
+        gap = (pv[j, :-1] - pv[j, 1:]).abs() > 4e-5
+        clear = [k for k in range(65) if (k == 0 or gap[k - 1]) and (k == 64 or gap[k])]
+        assert [got[k] for k in clear] == [want[k] for k in clear]

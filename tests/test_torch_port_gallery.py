@@ -114,6 +114,36 @@ def test_streaming_query_split_keeps_float32_scores():
     np.testing.assert_array_equal(pi[:, 0].numpy(), di[:, 0].numpy())
 
 
+@pytest.mark.parametrize("kind", ["bf16", "f32", "int8"])
+@pytest.mark.parametrize("k", [65, 100])
+def test_streaming_past_64_matches_jax(kind, k):
+    """top_k 65 and 100 (the card keeps such lists in device memory): the
+    plain versions equal the JAX streaming functions in interpret mode over
+    four chunks of 64 rows, under the tolerances of the shorter lists."""
+    rng, t, valid = _gallery(9, 256, n_invalid=20)
+    t[150] = t[40]  # a tie: the lower index first
+    queries = _queries(rng, t, 236, 6)
+    queries[0] = t[40]
+    tq, tv = torch.from_numpy(queries), torch.from_numpy(valid)
+    if kind == "int8":
+        jc, js = jpg.quantize_templates(t)
+        pc, ps = gk.quantize_templates(t)
+        jv, ji = jpg.streaming_cosine_topk_int8(queries, jc, js, valid, top_k=k, chunk=64,
+                                                interpret=True)
+        pv, pi = gk.streaming_cosine_topk_int8(tq, pc, ps, tv, top_k=k, chunk=64)
+        np.testing.assert_allclose(pv.numpy(), np.asarray(jv), atol=1e-6)
+        np.testing.assert_array_equal(pi.numpy(), np.asarray(ji))
+    else:
+        jt, tt = _bf16(t) if kind == "bf16" else (t, torch.from_numpy(t))
+        jv, ji = jpg.streaming_cosine_topk(queries, jt, valid, top_k=k, chunk=64,
+                                           interpret=True)
+        pv, pi = gk.streaming_cosine_topk(tq, tt, tv, top_k=k, chunk=64)
+        _assert_topk_close(pv, pi, jv, ji, TOL)
+    assert pv.shape == pi.shape == (6, k)
+    assert pi[0, :2].tolist() == [40, 150]
+    assert (np.asarray(pi) < 236).all()
+
+
 @pytest.mark.parametrize("kind", ["bf16", "int8"])
 def test_streaming_ties_go_to_the_lower_index(kind):
     _, t, valid = _gallery(4, 1024)

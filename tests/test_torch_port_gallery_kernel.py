@@ -23,12 +23,22 @@ _GS = (32, 4096 + 32, 1 << 20)
 _DS = (32, 96, 512)
 
 
+def _want_smem(geo, kind):
+    """`frp::Layout::bytes`: alignment slack, the staged queries, the ring
+    (a stage, its side bytes and two barriers each), the lists (or, in
+    device memory, their buffers of 32, counts and fills), the thresholds."""
+    qpanel = {"bf16": 128 * 128, "int8": 128 * 128, "f32": 64 * 128}[kind]
+    per_query = 32 * 8 + 8 if geo.lists == "device" else geo.list_len * 8
+    return (1024 + geo.panels * qpanel + geo.stages * (64 * 128 + 64 * 5 + 16)
+            + 2 * geo.q_tile * per_query + geo.q_tile * 4)
+
+
 @pytest.mark.parametrize("kind", ["bf16", "int8"])
 @pytest.mark.parametrize("d", _DS)
 @pytest.mark.parametrize("g", _GS)
 @pytest.mark.parametrize("q", _QS)
 def test_gallery_launch_geometry(q, g, d, kind):
-    for top_k in (1, 3, 8, 16, 33, 64):
+    for top_k in (1, 3, 8, 16, 33, 64, 65, 1024):
         geo = gallery_launch_geometry(q, g, d, kind, _SMS, top_k)
         grid_x, q_tiles = geo.grid
         assert geo.q_tile == {"bf16": 64, "int8": 128}[kind]
@@ -43,13 +53,13 @@ def test_gallery_launch_geometry(q, g, d, kind):
         elem = {"bf16": 2, "int8": 1}[kind]
         assert (geo.panels - 1) * 128 < d * elem <= geo.panels * 128
         assert top_k <= geo.list_len <= gk.MAX_TOP_K
-        want = (
-            1024 + geo.panels * 128 * 128 + geo.stages * (64 * 128 + 64 * 5 + 16)
-            + 2 * geo.q_tile * geo.list_len * 8 + geo.q_tile * 4
-        )
-        assert geo.smem_bytes == want <= cuda_build.SMEM_LIMIT_BYTES == 232_448
-        # the scratch lists cover every block of every real query
-        assert geo.scratch == (q, grid_x, geo.list_len)
+        assert geo.smem_bytes == _want_smem(geo, kind) <= cuda_build.SMEM_LIMIT_BYTES == 232_448
+        # the scratch lists cover every block (device lists: every block and
+        # warpgroup) of every real query
+        if geo.lists == "device":
+            assert geo.scratch == (q, 2 * grid_x, top_k) and geo.buffer == 32
+        else:
+            assert geo.scratch == (q, grid_x, geo.list_len) and geo.buffer == 0
         # every gallery tile is owned by exactly one block of a query tile:
         # block x takes x, x + grid_x, ...
         owners = np.zeros(min(geo.n_tiles, 4 * grid_x + 7), np.int64)
@@ -75,7 +85,7 @@ def test_gallery_serving_geometry():
 
 @pytest.mark.parametrize("args,match", [
     ((4, 4096, 48, "bf16", _SMS, 3), "D % 32"),
-    ((4, 4096, 512, "bf16", _SMS, 65), "ROADMAP.md"),
+    ((4, 4096, 512, "bf16", _SMS, 1025), "ROADMAP.md"),
     ((4, 4096, 512, "bf16", _SMS, 0), "top_k"),
     ((4, 4096, 768, "bf16", _SMS, 3), "shared memory"),  # 192 KB of queries
     ((4, 4096, 2048, "int8", _SMS, 3), "shared memory"),
@@ -93,48 +103,72 @@ def test_gallery_geometry_refuses(args, match):
 @pytest.mark.parametrize("kind", ["bf16", "int8"])
 @pytest.mark.parametrize("top_k", [9, 16, 17, 32, 33, 64])
 def test_long_lists_keep_a_ring_at_d512(kind, top_k):
-    """Lists of 16, 32 and 64 entries live in shared memory beside the
-    queries; at D = 512 the ring keeps at least _MIN_STAGES stages."""
+    """Lists of 9 to 16 entries live in shared memory beside the queries,
+    from 17 on in device memory; at D = 512 the ring keeps at least
+    _MIN_STAGES stages either way."""
     geo = gallery_launch_geometry(128, 1 << 20, 512, kind, _SMS, top_k)
-    assert geo.list_len == min(n for n in (16, 32, 64) if n >= top_k)
+    if top_k <= 16:
+        assert (geo.lists, geo.list_len) == ("shared", 16)
+        assert geo.scratch == (128, geo.grid[0], 16)
+    else:
+        assert (geo.lists, geo.list_len) == ("device", top_k)
+        assert geo.scratch == (128, 2 * geo.grid[0], top_k)
     assert gk._MIN_STAGES <= geo.stages <= gk._MAX_STAGES
     assert geo.smem_bytes <= cuda_build.SMEM_LIMIT_BYTES
-    assert geo.scratch == (128, geo.grid[0], geo.list_len)
 
 
 def test_long_list_serving_geometry():
-    """The ring depth each list length leaves at 128 x 1 048 576 x 512."""
+    """The ring depth each list length leaves at 128 x 1 048 576 x 512: lists
+    in shared memory take ring stages, lists in device memory (17 and on)
+    only their buffers of 32."""
     stages = {
         (kind, k): gallery_launch_geometry(128, 1 << 20, 512, kind, _SMS, k).stages
-        for kind in ("bf16", "int8") for k in (8, 16, 32, 64)
+        for kind in ("bf16", "int8", "f32") for k in (8, 16, 32, 64, 65, 1024)
     }
     assert stages == {
-        ("bf16", 8): 10, ("bf16", 16): 8, ("bf16", 32): 6, ("bf16", 64): 4,
-        ("int8", 8): 16, ("int8", 16): 14, ("int8", 32): 10, ("int8", 64): 4,
+        ("bf16", 8): 10, ("bf16", 16): 8, ("bf16", 32): 6, ("bf16", 64): 6,
+        ("bf16", 65): 6, ("bf16", 1024): 6,
+        ("int8", 8): 16, ("int8", 16): 14, ("int8", 32): 10, ("int8", 64): 10,
+        ("int8", 65): 10, ("int8", 1024): 10,
+        ("f32", 8): 10, ("f32", 16): 8, ("f32", 32): 6, ("f32", 64): 6,
+        ("f32", 65): 6, ("f32", 1024): 6,
     }
 
 
 @pytest.mark.parametrize("kind", ["bf16", "int8", "f32"])
 @pytest.mark.parametrize("top_k", [65, 100, 1000])
-def test_top_k_over_64_is_refused_before_a_launch(kind, top_k):
-    """A CUDA-shaped call with top_k > 64 raises from the geometry, which the
-    wrapper computes before it allocates or launches anything."""
-    with pytest.raises(ValueError, match=r"top_k=64.*ROADMAP\.md"):
-        gallery_launch_geometry(128, 1 << 20, 512, kind, _SMS, top_k)
+def test_top_k_over_64_takes_lists_in_device_memory(kind, top_k):
+    """top_k past 64 to MAX_TOP_K: one sorted list per query, block and
+    warpgroup in device memory, a buffer of 32 candidates per query in
+    shared memory, a ring of at least _MIN_STAGES; the merge kernel gets a
+    block per query and as many warps as a pair of lists each fits."""
+    geo = gallery_launch_geometry(128, 1 << 20, 512, kind, _SMS, top_k)
+    grid_x = geo.grid[0]
+    assert (geo.lists, geo.list_len, geo.buffer) == ("device", top_k, 32)
+    assert geo.scratch == (128, 2 * grid_x, top_k)
+    assert gk._MIN_STAGES <= geo.stages <= gk._MAX_STAGES
+    assert geo.smem_bytes == _want_smem(geo, kind) <= cuda_build.SMEM_LIMIT_BYTES
+    warps = min(32, cuda_build.SMEM_LIMIT_BYTES // (16 * top_k))
+    assert geo.merge == (128, 32 * warps, warps * 16 * top_k)
+    assert geo.merge[2] <= cuda_build.SMEM_LIMIT_BYTES and geo.merge[1] <= 1024
+    # the scratch at the limit: Q x 2 grid_x x k x 8 bytes
+    top = gallery_launch_geometry(128, 1 << 20, 512, kind, _SMS, gk.MAX_TOP_K)
+    assert np.prod(top.scratch) * 8 == {"bf16": 138_412_032, "f32": 138_412_032,
+                                        "int8": 276_824_064}[kind]
 
 
 @pytest.mark.parametrize("d", _DS)
 @pytest.mark.parametrize("q", _QS)
 def test_f32_launch_geometry(q, d):
-    """K3 on float32 rows: 64 queries per block staged whole (rows padded by
-    4 floats), a 64 x 36-float panel buffer and 64 valid bytes per
-    warpgroup, the lists and thresholds; 256 threads, no ring."""
-    for top_k in (1, 3, 8, 16, 33, 64):
+    """K3 on float32 rows on the shared body: 64 queries per block staged
+    whole (64 rows of 128 bytes per 32-float panel), the TMA ring of 8 KB
+    stages (64 rows x 32 floats), the lists and thresholds; 384 threads."""
+    for top_k in (1, 3, 8, 16, 33, 64, 65, 1024):
         geo = gallery_launch_geometry(q, 1 << 20, d, "f32", _SMS, top_k)
-        assert geo.q_tile == 64 and geo.threads == 256 and geo.stages == 0
+        assert geo.q_tile == 64 and geo.threads == 384
+        assert 4 <= geo.stages <= 16 and geo.stages % 2 == 0
         assert geo.panels == d // 32
-        want = 64 * (d + 4) * 4 + 2 * 64 * (36 * 4 + 1) + 2 * 64 * geo.list_len * 8 + 64 * 4
-        assert geo.smem_bytes == want <= cuda_build.SMEM_LIMIT_BYTES
+        assert geo.smem_bytes == _want_smem(geo, "f32") <= cuda_build.SMEM_LIMIT_BYTES
         q_tiles = -(-q // 64)
         assert geo.grid == (max(1, _SMS // q_tiles), q_tiles)
 
@@ -172,13 +206,15 @@ def _sorted_topk(v, i, k):
 
 
 def _decomposed_int8_topk(queries, codes, scales, valid, top_k, parts):
-    """K4's decomposition in plain PyTorch: 64-row tiles dealt to `parts`
-    blocks in turn, a top-8 list with sentinels per block (invalid rows
-    never enter), a merge of the lists, the query scale folded in last."""
+    """K4's decomposition in plain PyTorch, short lists: 64-row tiles dealt
+    to `parts` blocks in turn, a sorted list of the kernel's length with
+    sentinels per block (invalid rows never enter), a merge of the lists,
+    the query scale folded in last."""
     qq, q_scale = gk._quantize_rows(gk.normalize_queries(queries))
     qf = qq.float()
     g = codes.shape[0]
     n_tiles = -(-g // 64)
+    list_len = gk.list_placement(top_k)[1]
     lists_v, lists_i = [], []
     for x in range(parts):
         rows = [r for t in range(x, n_tiles, parts) for r in range(64 * t, min(g, 64 * t + 64))]
@@ -189,7 +225,7 @@ def _decomposed_int8_topk(queries, codes, scales, valid, top_k, parts):
         else:  # a block that owns no tile, or no valid row
             score = torch.zeros((qf.shape[0], 0))
             idx = torch.zeros((qf.shape[0], 0), dtype=torch.int64)
-        v, i = _sorted_topk(score, idx, gk.MAX_TOP_K)
+        v, i = _sorted_topk(score, idx, list_len)
         lists_v.append(v)
         lists_i.append(i)
     v, i = torch.cat(lists_v, dim=1), torch.cat(lists_i, dim=1)
@@ -202,27 +238,193 @@ def _decomposed_int8_topk(queries, codes, scales, valid, top_k, parts):
     return gk._fold_query_scale(mv, q_scale), mi
 
 
-@pytest.mark.parametrize("parts", [1, 2, 66, 132])
-@pytest.mark.parametrize("top_k", [16, 33, 64])
-def test_decomposition_with_long_lists(parts, top_k):
-    """The same decomposition for list lengths past the register lists: 65
-    tiles dealt to the blocks, 40 invalid rows, duplicate rows."""
+def _before(av, ai, bv, bi):
+    """The kernels' strict total order: value descending, index ascending."""
+    return (av > bv) | ((av == bv) & (ai < bi))
+
+
+def _flush(lv, li, fill, cv, ci, k):
+    """`frp::flush_list` step for step: the buffer sorted best first, then
+    the list (real entries below `fill`, sentinels above) rewritten from the
+    top down in chunks of 32 x 4 entries, read whole before any write; entry
+    i moves to i + c_i, candidates c_{i-1} .. c_i - 1 land at i + j; the
+    walk stops below the first entry no candidate precedes. Returns the new
+    fill."""
+    order = np.lexsort((ci, -cv))  # value descending, then index ascending
+    sv, si = cv[order], ci[order]
+    n = len(sv)
+
+    def count(v, i):  # candidates that precede (v, i), i.e. c
+        return _before(sv[:, None], si[:, None], v[None, :], i[None, :]).sum(axis=0)
+
+    hi = min(k, fill + n) - 1
+    while hi >= 0:
+        lo = max(0, hi - 128 + 1)
+        pos = np.arange(lo, hi + 1)
+        real = pos < fill
+        v = np.where(real, lv[np.minimum(pos, k - 1)], _NEG)
+        i = np.where(real, li[np.minimum(pos, k - 1)], 0)
+        c = np.where(real, count(v, i), n)
+        below = 0 if lo == 0 else (count(lv[lo - 1:lo], li[lo - 1:lo])[0] if lo - 1 < fill else n)
+        cp = np.concatenate([[below], c[:-1]])
+        new_v, new_i = lv.copy(), li.copy()
+        for p, vv, ii, cc, pp, rr in zip(pos, v, i, c, cp, real):
+            if rr and cc > 0 and p + cc < k:
+                new_v[p + cc], new_i[p + cc] = vv, ii
+            for j in range(pp, cc):
+                if p + j < k:
+                    new_v[p + j], new_i[p + j] = sv[j], si[j]
+        lv[:], li[:] = new_v, new_i
+        if below == 0:
+            break
+        hi = lo - 1
+    return min(k, fill + n)
+
+
+def _merge_pair(av, ai, bv, bi, k):
+    """`frp::merge_lists_kernel` on one pair: lane l's first output o0 = l E
+    and the binary search along the diagonal for how many of the first o0
+    outputs come from list a (a wins ties); the outputs, first k of the
+    merge."""
+    per = -(-k // 32)
+    for lane in range(32):
+        o0 = min(k, lane * per)
+        lo, hi = max(0, o0 - k), min(o0, k)
+        while lo < hi:
+            mid = (lo + hi) // 2
+            b = o0 - 1 - mid
+            if not _before(bv[b], bi[b], av[mid], ai[mid]):
+                lo = mid + 1
+            else:
+                hi = mid
+        # the split equals the sequential merge's
+        a_n = 0
+        a, b = 0, 0
+        for _ in range(o0):
+            if _before(bv[b], bi[b], av[a], ai[a]):
+                b += 1
+            else:
+                a += 1
+                a_n += 1
+        assert lo == a_n
+    out_v, out_i = np.empty(k, np.float32), np.empty(k, np.int64)
+    a = b = 0
+    for o in range(k):
+        if _before(bv[b], bi[b], av[a], ai[a]):
+            out_v[o], out_i[o] = bv[b], bi[b]
+            b += 1
+        else:
+            out_v[o], out_i[o] = av[a], ai[a]
+            a += 1
+    return out_v, out_i
+
+
+def _device_list_int8_topk(queries, codes, scales, valid, top_k, parts, buf=32):
+    """K4 with lists in device memory, in numpy: tiles dealt as the kernel
+    deals them (block x, warpgroup w: tiles x + w parts + 2 parts m), in
+    tile order, so the two warpgroups of a block share the threshold as
+    they do on the card; the threshold filter, buffers of `buf` flushed
+    when full and at the end, sentinels behind each list's fill, the merge
+    tree over the 2 parts lists, the query scale last."""
+    qq, q_scale = gk._quantize_rows(gk.normalize_queries(queries))
+    scores = ((qq.float() @ codes.float().T) * scales[None]).numpy()
+    g = codes.shape[0]
+    n_tiles = -(-g // 64)
+    k = top_k
+    out_v = np.empty((len(scores), k), np.float32)
+    out_i = np.empty((len(scores), k), np.int64)
+    for q, row in enumerate(scores):
+        lv = np.full((2 * parts, k), _NEG, np.float32)
+        li = np.zeros((2 * parts, k), np.int64)
+        fill = np.zeros(2 * parts, np.int64)
+        bufs = [([], []) for _ in range(2 * parts)]
+        thr = np.full(parts, _NEG, np.float32)
+
+        def flush(lst):
+            cv, ci = bufs[lst]
+            if cv:
+                fill[lst] = _flush(lv[lst], li[lst], fill[lst], np.array(cv, np.float32),
+                                   np.array(ci, np.int64), k)
+                bufs[lst] = ([], [])
+                if fill[lst] == k:
+                    thr[lst // 2] = max(thr[lst // 2], lv[lst, k - 1])
+
+        for t in range(n_tiles):
+            x, w = t % parts, (t // parts) % 2
+            lst = 2 * x + w
+            bar = thr[x]  # read once per tile, as the fold does
+            for r in range(64 * t, min(g, 64 * t + 64)):
+                if valid[r] and row[r] >= bar:
+                    bufs[lst][0].append(row[r])
+                    bufs[lst][1].append(r)
+                    if len(bufs[lst][0]) == buf:
+                        flush(lst)
+        for lst in range(2 * parts):
+            flush(lst)
+            lv[lst, fill[lst]:], li[lst, fill[lst]:] = _NEG, 0
+        s = 1
+        while s < 2 * parts:
+            for m in range(0, 2 * parts - s, 2 * s):
+                lv[m], li[m] = _merge_pair(lv[m], li[m], lv[m + s], li[m + s], k)
+            s *= 2
+        out_v[q], out_i[q] = lv[0], li[0]
+    mv = torch.from_numpy(out_v)
+    return gk._fold_query_scale(mv, q_scale), torch.from_numpy(out_i)
+
+
+def _long_list_case(g=4096 + 32):
     rng = np.random.default_rng(11)
-    g = 4096 + 32
     t = rng.normal(size=(g, 64)).astype(np.float32)
     t /= np.linalg.norm(t, axis=1, keepdims=True)
     for r in (70, 700, 1500, 4000):
-        t[r] = t[5]
+        if r < g:
+            t[r] = t[5]
     valid = np.ones(g, bool)
     valid[-40:] = False
     queries = rng.normal(size=(5, 64)).astype(np.float32)
     queries[0] = 3.0 * t[5]
     codes, scales = gk.quantize_templates(torch.from_numpy(t))
-    qq, vv = torch.from_numpy(queries), torch.from_numpy(valid)
+    return torch.from_numpy(queries), codes, scales, torch.from_numpy(valid)
+
+
+@pytest.mark.parametrize("parts", [1, 2, 66, 132])
+@pytest.mark.parametrize("top_k", [16, 33, 64, 65, 100, 1024])
+def test_decomposition_with_long_lists(parts, top_k):
+    """The decomposition for list lengths past the register lists: 65 tiles
+    dealt to the blocks, 40 invalid rows, duplicate rows. Up to 16 the
+    lists of shared memory; from 17 the lists in device memory (buffers,
+    flushes, threshold rises, the merge tree)."""
+    qq, codes, scales, vv = _long_list_case()
     want_v, want_i = gk.streaming_cosine_topk_int8_plain(qq, codes, scales, vv, top_k, chunk=32)
-    got_v, got_i = _decomposed_int8_topk(qq, codes, scales, vv, top_k, parts)
+    if gk.list_placement(top_k)[0] == "device":
+        got_v, got_i = _device_list_int8_topk(qq, codes, scales, vv, top_k, parts)
+    else:
+        got_v, got_i = _decomposed_int8_topk(qq, codes, scales, vv, top_k, parts)
     assert torch.equal(got_v, want_v) and torch.equal(got_i, want_i)
     assert want_i[0, :5].tolist() == [5, 70, 700, 1500, 4000]
+
+
+@pytest.mark.parametrize("parts", [1, 3, 66])
+@pytest.mark.parametrize("buf", [32, 7, 1])
+@pytest.mark.parametrize("case", ["few_valid", "ties"])
+def test_device_lists_flush_at_any_fill(parts, buf, case):
+    """Lists in device memory with buffers flushed at 32, 7 or 1 entries
+    (every fill level of the last flush), fewer valid rows than top_k, and
+    rows whose scores tie: the plain version's answer to the bit."""
+    qq, codes, scales, vv = _long_list_case(2048)
+    if case == "few_valid":
+        vv = torch.zeros_like(vv)
+        vv[torch.arange(3, 2048, 37)] = True  # 56 valid rows, top_k 100
+    else:  # many equal scores: one row repeated 150 times
+        codes = codes.clone()
+        codes[100:250] = codes[5]
+        scales = scales.clone()
+        scales[100:250] = scales[5]
+    want_v, want_i = gk.streaming_cosine_topk_int8_plain(qq, codes, scales, vv, 100, chunk=32)
+    got_v, got_i = _device_list_int8_topk(qq, codes, scales, vv, 100, parts, buf)
+    assert torch.equal(got_v, want_v) and torch.equal(got_i, want_i)
+    if case == "few_valid":
+        assert (want_i[:, 56:] == 0).all() and (want_v[:, 56:] == _NEG).all()
 
 
 @pytest.mark.parametrize("parts", [1, 2, 66, 132])
@@ -262,7 +464,7 @@ def test_cuda_wrappers_read_their_constants_once(monkeypatch):
     calls = []
     answers = {
         "frp_gallery_topk_qtile": 64, "frp_gallery_topk_int8_qtile": 128,
-        "frp_gallery_topk_kmax": 64, "frp_gallery_topk_int8_kmax": 64,
+        "frp_gallery_topk_kmax": 1024, "frp_gallery_topk_int8_kmax": 1024,
     }
 
     def fake_function(name, symbol, argtypes):

@@ -203,3 +203,26 @@ def test_device_snapshot_is_one_generation_and_compact_at_scale(tmp_path, quanti
     hit = m.search(t[65], top_k=2)  # through the streaming arm
     assert hit[0][0] == "s65" and hit[0][2] == pytest.approx(1.0, abs=1e-2)
     assert isinstance(m.get_student("s65"), StudentRecord)
+
+
+@pytest.mark.parametrize("quantize", [None, "int8"])
+def test_search_batch_past_64_on_the_streaming_arm_matches_jax(tmp_path, quantize):
+    """GalleryManager.search_batch at top_k 65 through the streaming arm (a
+    small streaming_threshold; bf16 or int8 compact rows; the JAX class runs
+    its Pallas kernel in interpret mode, the port the plain version): the
+    same ids in the same order, scores within 1e-5."""
+    rng = np.random.default_rng(8)
+    t = _norm(rng.normal(size=(80, 512)).astype(np.float32))
+    j, m = _pair(tmp_path, quantize=quantize)
+    for g in (j, m):
+        g._device.streaming_threshold = 64
+        g._device.STREAM_CHUNK = 128
+        for i in range(80):
+            g.add_student(f"s{i}", f"n{i}", t[i])
+    queries = _norm(t[[3, 41, 77]] + 0.2 * rng.normal(size=(3, 512)).astype(np.float32))
+    got, want = m.search_batch(queries, top_k=65), j.search_batch(queries, top_k=65)
+    assert m._device.snapshot()[3] is not None  # the compact copy: streaming
+    for a, b in zip(want, got):
+        assert len(b) == 65
+        _assert_same_results(a, b)
+    assert [r[0][0] for r in got] == ["s3", "s41", "s77"]
