@@ -117,9 +117,35 @@ Phases, in order; any failure exits non-zero before the final line:
      bound; run_stress_suite over 4 categories with a bf16 cascade (K1).
      `python3 chip_smoke.py --offline-only` builds the kernels and runs this
      phase alone.
-Then it prints the card's name and power limit, JSON lines of phase 8's, 9's
-and 10's numbers, a JSON line describing the kernels, and as its last line
-{"ok": true, "device": {...}}.
+  11. training on the card: cli/train_embedder at ir_101, B=128, 1024
+     synthetic classes, bf16 (30 steps with checkpoints every 10, then
+     --resume to 40 with the .npz export: finite losses, the resumed run
+     going from 30 to 40, 3 checkpoints kept) and at float32 (10 steps);
+     the step on a fixed batch at bf16, float32 and with the int8 forward
+     (p50 from CUDA events, images/s, TFLOP/s of the conv and dense work
+     from their shapes, fwd + bwd = 3 x fwd, beside the peak for each
+     configuration's types: 67 TFLOP/s float32, 989 bf16, the int8
+     forward's res convs at 1979 TOPS and the rest at bf16's; the
+     device's busy share from torch.profiler over 3 steps, peak memory);
+     the SGD update alone, fused against unfused; 10 steps on one
+     repeated batch (the loss falls); one float32 step at ir_18, B=16, on
+     the card against the CPU from the same state, batch and mask, within
+     the CPU parity tests' tolerances; the int8 forward's s32 sums at every
+     res-conv shape of the step equal to the plain version's and its codes
+     to the CPU's; the exported ir_101 weights in FaceEmbedder (bf16,
+     folded) against the trainer's float32 eval-mode forward (cosine
+     distance <= 1e-3) and in the fused serving step (K1 x3, K2 x1 per
+     step); the accuracy recipe (ir_micro trained on the card, 400 steps
+     at B=64 bf16, e2e_rank1 over 24 trials through bf16 processors, at
+     least 0.75); train_detector(100 steps, batch 256, OHEM 0.7) with each
+     net's loss falling, its weights in MTCNNDetector, and run_ood_suite
+     through a bf16 cascade (K1); the fused int8 body at ir_101 against the
+     unfused int8 embedder (cosine > 0.9999 in float32) and its embed time.
+     `python3 chip_smoke.py --train-only` builds the kernels and runs this
+     phase alone.
+Then it prints the card's name and power limit, JSON lines of phase 8's, 9's,
+10's and 11's numbers, a JSON line describing the kernels, and as its last
+line {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -3344,6 +3370,663 @@ def offline_phase(gal, report) -> None:
     report["offline"] = res
 
 
+TRAIN_ARCH = "ir_101"
+TRAIN_BATCH = 128
+TRAIN_CLASSES = 1024
+TRAIN_STEPS = 30  # CLI run, then --resume to TRAIN_RESUME_STEPS
+TRAIN_RESUME_STEPS = 40
+TRAIN_EVERY = 10  # checkpoint and log interval of the CLI runs
+TRAIN_F32_STEPS = 10
+TRAIN_TIMED = 8  # steps timed per configuration, after 2 of warm-up
+PARITY = {"architecture": "ir_18", "batch": 16, "classes": 64}
+E2E_STEPS, E2E_BATCH, E2E_FLOOR = 400, 64, 0.75
+DET_STEPS, DET_BATCH, DET_OHEM = 100, 256, 0.7
+OOD_SCENES = 3
+FUSED_FACES = 64
+
+
+def conv_dense_macs(arch: str) -> tuple[int, int]:
+    """Multiply-accumulates of one forward of `arch` at 112x112 per image,
+    over its convolutions and dense layers, counted from their shapes: (all
+    of them, the two 3x3 res convs' share, which the int8 forward takes)."""
+    import torch
+
+    from facerecognitionpipeline_tpu_torch.models.irse import build_backbone
+
+    model = build_backbone(arch).eval()
+    macs = {"all": 0, "res": 0}
+
+    def hook(name):
+        def count(m, inputs, out):
+            if isinstance(m, torch.nn.Conv2d):
+                n = out[0].numel() * m.in_channels // m.groups * m.kernel_size[0] * \
+                    m.kernel_size[1]
+            else:
+                n = m.in_features * m.out_features
+            macs["all"] += n
+            if name.endswith(("res_conv1", "res_conv2")):
+                macs["res"] += n
+        return count
+
+    hooks = [m.register_forward_hook(hook(name)) for name, m in model.named_modules()
+             if isinstance(m, (torch.nn.Conv2d, torch.nn.Linear))]
+    with torch.no_grad():
+        model(torch.zeros(1, 112, 112, 3))
+    for h in hooks:
+        h.remove()
+    return macs["all"], macs["res"]
+
+
+def train_peak_ms(macs: tuple[int, int], dtype_name: str) -> float:
+    """The least time the card's peaks allow for one step's conv and dense
+    work (fwd + bwd = 3 x fwd), each part at the peak of its own type:
+    float32 on the CUDA cores (TF32 is off), bf16 on the tensor cores, and
+    with the int8 forward the res convs' forward at the int8 peak and the
+    rest (their backward, every other layer) at bf16's."""
+    total, res = (2 * m * TRAIN_BATCH for m in macs)
+    if dtype_name == "float32":
+        return 3 * total / F32_FLOPS_PER_S * 1e3
+    if dtype_name == "bf16":
+        return 3 * total / BF16_FLOPS_PER_S * 1e3
+    if dtype_name == "int8_forward":
+        return (res / INT8_OPS_PER_S + (3 * total - res) / BF16_FLOPS_PER_S) * 1e3
+    raise ValueError(f"no peak for {dtype_name}")
+
+
+def step_times_ms(trainer, state, x, y, iters: int, warmup: int = 2, seed: int = 0):
+    """Sorted CUDA-event times of `iters` train steps on a batch already on
+    the card (after `warmup` steps), and the last loss."""
+    import torch
+
+    from facerecognitionpipeline_tpu_torch.train.trainer import dropout_generator
+
+    for i in range(warmup):
+        state, m = trainer.train_step(state, x, y, dropout_generator(seed, i, DEVICE))
+    evs = []
+    for i in range(iters):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        state, m = trainer.train_step(state, x, y, dropout_generator(seed, warmup + i, DEVICE))
+        b.record()
+        evs.append((a, b))
+    torch.cuda.synchronize()
+    return sorted(a.elapsed_time(b) for a, b in evs), state, float(m["loss"])
+
+
+def step_device_ms(trainer, state, x, y, steps: int = 3) -> float:
+    """Device time per train step summed over every CUDA kernel, from
+    torch.profiler over `steps` steps."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from facerecognitionpipeline_tpu_torch.train.trainer import dropout_generator
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for i in range(steps):
+            state, _ = trainer.train_step(state, x, y, dropout_generator(9, i, DEVICE))
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA)
+    return us / steps / 1e3
+
+
+def train_config_run(label, res, macs, dtype, int8_forward=False, fused=True) -> dict:
+    """One training configuration at ir_101, B=128, 1024 classes on a fixed
+    synthetic batch on the card: step p50, images/s, TFLOP/s (conv and
+    dense operations, fwd + bwd = 3 x fwd) and its share of the peak for
+    the configuration's types (`train_peak_ms`), the device's busy share
+    from torch.profiler, peak memory."""
+    import numpy as np
+
+    import torch
+
+    from facerecognitionpipeline_tpu_torch.train.data import synthetic_batches
+    from facerecognitionpipeline_tpu_torch.train.trainer import TrainConfig, Trainer
+
+    trainer = Trainer(TrainConfig(architecture=TRAIN_ARCH, num_classes=TRAIN_CLASSES,
+                                  dtype=dtype, int8_forward=int8_forward,
+                                  fused_optimizer=fused), device=DEVICE)
+    state = trainer.init_state(0)
+    x, y = next(synthetic_batches(TRAIN_CLASSES, TRAIN_BATCH, seed=1))
+    x, y = torch.from_numpy(x).to(DEVICE), torch.from_numpy(y).to(DEVICE)
+    torch.cuda.reset_peak_memory_stats()
+    ms, state, loss = step_times_ms(trainer, state, x, y, TRAIN_TIMED)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if not np.isfinite(loss):
+        fail(f"{label}: non-finite loss {loss}")
+    p50 = ms[len(ms) // 2]
+    dev_ms = step_device_ms(trainer, state, x, y)
+    flops = 3 * 2 * macs[0] * TRAIN_BATCH
+    peak_ms = train_peak_ms(macs, label)
+    out = {"step_p50_ms": p50, "step_ms": ms, "images_per_s": TRAIN_BATCH * 1e3 / p50,
+           "tflops": flops / p50 / 1e9, "peak_tflops": flops / peak_ms / 1e9,
+           "peak_ms": peak_ms, "peak_share": peak_ms / p50, "device_ms_per_step": dev_ms,
+           "busy_share": dev_ms / p50, "peak_gib": peak, "loss": loss}
+    print(f"[train] {label}: step p50 {p50:.2f} ms (min {ms[0]:.2f}, max {ms[-1]:.2f}, "
+          f"{TRAIN_TIMED} steps), {out['images_per_s']:.0f} images/s, "
+          f"{out['tflops']:.1f} TFLOP/s of conv+dense work ({flops / 1e12:.2f} TFLOP per "
+          f"step), {100 * out['peak_share']:.1f}% of the {out['peak_tflops']:.0f} TFLOP/s "
+          f"peak for its types (least time {peak_ms:.2f} ms), device busy "
+          f"{dev_ms:.2f} ms per step ({100 * out['busy_share']:.1f}% of the step, "
+          f"torch.profiler over 3 steps), peak memory {peak:.2f} GiB")
+    res[label] = out
+    return {"trainer": trainer, "state": state, "x": x, "y": y}
+
+
+def optimizer_alone(res, run) -> None:
+    """The update alone on ir_101's state: fused foreach chain against the
+    unfused optax-style chain, CUDA events over 20 updates each, in turns."""
+    import torch
+
+    from facerecognitionpipeline_tpu_torch.train.trainer import (
+        _leaves,
+        chain_sgd_apply,
+        fused_sgd_apply,
+    )
+
+    state = run["state"]
+    params = [p.detach() for p in _leaves(state["params"])]
+    grads = [torch.randn_like(p) * 1e-3 for p in params]
+    trace = [torch.zeros_like(p) for p in params]
+    lr = torch.tensor(1e-9, device=DEVICE)
+    fused = lambda: fused_sgd_apply(params, grads, trace, lr, 0.9, 5e-4)  # noqa: E731
+    chain = lambda: chain_sgd_apply(params, grads, trace, lr, 0.9, 5e-4)  # noqa: E731
+    times = {"fused_ms": cuda_time_ms(fused), "unfused_ms": cuda_time_ms(chain)}
+    times["fused_ms_again"] = cuda_time_ms(fused)
+    times["unfused_ms_again"] = cuda_time_ms(chain)
+    n = sum(p.numel() for p in params)
+    times["leaves"], times["parameters"] = len(params), n
+    # bound: read p, g, mu and write p, mu once, float32
+    times["bound_ms"] = 5 * 4 * n / HBM_BYTES_PER_S * 1e3
+    res["optimizer"] = times
+    print(f"[train] the SGD update alone over {len(params)} leaves ({n / 1e6:.1f} M float32 "
+          f"parameters): fused {times['fused_ms']:.3f} / {times['fused_ms_again']:.3f} ms, "
+          f"unfused {times['unfused_ms']:.3f} / {times['unfused_ms_again']:.3f} ms, bound "
+          f"by bytes {times['bound_ms']:.3f} ms")
+
+
+def grads_worst(got: dict, want: dict) -> tuple[float, float]:
+    """(whole-tree relative difference, worst per-leaf relative difference
+    over leaves above 1e-4 of the whole tree's norm), as the CPU tests
+    measure gradients."""
+    import numpy as np
+
+    keys = sorted(want)
+    w = np.concatenate([want[k].ravel() for k in keys])
+    d = np.concatenate([(got[k] - want[k]).ravel() for k in keys])
+    floor = 1e-4 * np.linalg.norm(w)
+    leaf = max(np.linalg.norm(got[k] - want[k]) / np.linalg.norm(want[k])
+               for k in keys if np.linalg.norm(want[k]) > floor)
+    return float(np.linalg.norm(d) / np.linalg.norm(w)), float(leaf)
+
+
+def to_device(tree, dev):
+    """A train state's tensors on `dev`, grad flags kept."""
+    import torch
+
+    if isinstance(tree, dict):
+        return {k: to_device(v, dev) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(to_device(v, dev) for v in tree)
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().to(dev).requires_grad_(tree.requires_grad)
+    return tree
+
+
+def card_against_cpu(res) -> None:
+    """One float32 step at ir_18, B=16, 64 classes on the card and on the
+    CPU from the same state, batch and dropout mask, held to the CPU parity
+    tests' tolerances (tests/test_torch_port_train.py)."""
+    import numpy as np
+
+    import torch
+
+    from facerecognitionpipeline_tpu_torch.train.trainer import TrainConfig, Trainer
+
+    cfg = TrainConfig(architecture=PARITY["architecture"], num_classes=PARITY["classes"],
+                      learning_rate=0.05)
+    rng = np.random.default_rng(5)
+    x = rng.uniform(-1, 1, (PARITY["batch"], 112, 112, 3)).astype(np.float32)
+    y = rng.integers(0, PARITY["classes"], PARITY["batch"]).astype(np.int32)
+    mask = torch.rand((PARITY["batch"], 512, 7, 7), generator=torch.Generator().manual_seed(5)) < 0.6
+    out = {}
+    for dev in ("cpu", DEVICE):
+        t = Trainer(cfg, device=dev)
+        state = to_device(Trainer(cfg, device="cpu").init_state(0), dev)
+        t0 = time.perf_counter()
+        loss, _, grads = t.loss_and_grads(state, x, y, dropout_mask=mask.to(dev))
+        state, _ = t.train_step(state, x, y, dropout_mask=mask.to(dev))
+        if dev != "cpu":
+            torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        flat = lambda tree: {k: v.detach().double().cpu().numpy() for k, v in tree.items()}  # noqa: E731
+        out[dev] = {"loss": float(loss),
+                    "grads": {**flat(grads["backbone"]), "classifier": grads["classifier"]
+                              .detach().double().cpu().numpy()},
+                    "params": {**flat(state["params"]["backbone"]),
+                               "classifier": state["params"]["classifier"].detach().double()
+                               .cpu().numpy()},
+                    "stats": flat(state["batch_stats"]), "seconds": secs}
+    c, g = out["cpu"], out[DEVICE]
+    loss_rel = abs(g["loss"] - c["loss"]) / abs(c["loss"])
+    whole, leaf = grads_worst(g["grads"], c["grads"])
+    param_abs = max(float(np.abs(g["params"][k] - c["params"][k]).max()) for k in c["params"])
+    stats_rel = max(float(np.linalg.norm(g["stats"][k] - c["stats"][k])
+                          / (np.linalg.norm(c["stats"][k]) + 1e-5 * np.sqrt(c["stats"][k].size)))
+                    for k in c["stats"])
+    r = {"loss_rel": loss_rel, "grad_whole_rel": whole, "grad_leaf_rel": leaf,
+         "param_abs": param_abs, "batch_stats_rel": stats_rel,
+         "cpu_s": c["seconds"], "card_s": g["seconds"]}
+    res["card_vs_cpu"] = r
+    print(f"[train] float32 step {PARITY['architecture']} B={PARITY['batch']} "
+          f"{PARITY['classes']} classes, card against CPU from one state, batch and mask: "
+          f"loss {loss_rel:.2e} relative (limit 1e-5), gradients {whole:.2e} over the tree "
+          f"(limit 1e-3) and {leaf:.2e} worst leaf (limit 1e-2), parameters {param_abs:.2e} "
+          f"absolute (limit 1e-3), batch_stats {stats_rel:.2e} (limit 1e-3)")
+    if loss_rel > 1e-5 or whole > 1e-3 or leaf > 1e-2 or param_abs > 1e-3 or stats_rel > 1e-3:
+        fail(f"the float32 step on the card differs from the CPU's: {r}")
+
+
+def int8_forward_sums(res, run) -> None:
+    """At every res-conv shape of the ir_101 B=128 step, the int8 forward's
+    codes on the card equal the CPU's (counted off-by-one flips allowed),
+    and its s32 sums equal the plain version's float64 sums exactly."""
+    import torch
+
+    from facerecognitionpipeline_tpu_torch.models import irse
+
+    trainer, state = run["trainer"], run["state"]
+    seen = {}
+
+    def grab(m, inputs):
+        key = (tuple(inputs[0].shape), m.stride)
+        if key not in seen:
+            seen[key] = (inputs[0].detach(), m.weight.detach().to(inputs[0].dtype), m.stride)
+
+    hooks = [m.register_forward_pre_hook(grab) for m in trainer.model.modules()
+             if isinstance(m, irse.Int8FwdConv)]
+    try:
+        with torch.no_grad():
+            torch.func.functional_call(trainer.model, state["params"]["backbone"], (run["x"],),
+                                       {"train": True, "dtype": torch.bfloat16,
+                                        "dropout_mask": torch.ones((TRAIN_BATCH, 512, 7, 7),
+                                                                   dtype=torch.bool,
+                                                                   device=DEVICE)})
+    finally:
+        for h in hooks:
+            h.remove()
+    rows = []
+    for (shape, stride), (x, w, _) in sorted(seen.items()):
+        xq, wq, ax, aw = irse.int8_forward_codes(x, w)
+        cq = irse.int8_forward_codes(x.cpu(), w.cpu())
+        dx, dw = (xq.cpu().int() - cq[0].int()).abs(), (wq.cpu().int() - cq[1].int()).abs()
+        flips = int(dx.gt(0).sum()) + int(dw.gt(0).sum())
+        worst = max(int(dx.max()), int(dw.max()))
+        card = irse.int8_forward_sums(xq, wq, stride, 1)
+        plain = irse.int8_forward_sums(xq, wq, stride, 1, plain=True)
+        exact = bool(torch.equal(card, plain))
+        rows.append({"x": list(shape), "w": list(w.shape), "stride": stride, "flips": flips,
+                     "max_code_diff": worst, "sums_equal": exact})
+        if not exact or worst > 1 or flips > max(2, xq.numel() // 10_000):
+            fail(f"int8 forward at {shape} stride {stride}: sums equal {exact}, "
+                 f"{flips} code flips (largest {worst})")
+        del card, plain
+    res["int8_forward_shapes"] = rows
+    print(f"[train] int8 forward: at all {len(rows)} res-conv shapes of the step the s32 "
+          f"sums equal the plain version's float64 sums, codes card vs CPU differ at "
+          f"{sum(r['flips'] for r in rows)} elements (off by one at most)")
+
+
+def export_into_serving(res, fixture, npz, ck) -> None:
+    """The exported ir_101 weights in FaceEmbedder on the card against the
+    trainer's own eval-mode forward of the state it exported (the last
+    checkpoint under `ck` in the unfolded float32 backbone, BatchNorm from
+    its running statistics), then one fused serving step at phase 3's
+    build."""
+    import numpy as np
+
+    import torch
+
+    from facerecognitionpipeline_tpu_torch.gallery.search import DeviceGallery
+    from facerecognitionpipeline_tpu_torch.models.detector import MTCNNDetector
+    from facerecognitionpipeline_tpu_torch.models.irse import build_backbone
+    from facerecognitionpipeline_tpu_torch.ops import crop_kernel, warp_kernel
+    from facerecognitionpipeline_tpu_torch.pipeline.embedder import FaceEmbedder
+    from facerecognitionpipeline_tpu_torch.ops.image import normalize_face_batch
+    from facerecognitionpipeline_tpu_torch.pipeline.engine import RecognitionEngine
+    from facerecognitionpipeline_tpu_torch.train.checkpoint import restore_checkpoint
+    from facerecognitionpipeline_tpu_torch.train.trainer import TrainConfig, Trainer
+
+    embedder = FaceEmbedder(TRAIN_ARCH, model_path=npz, dtype=torch.bfloat16, device=DEVICE)
+    trainer = Trainer(TrainConfig(architecture=TRAIN_ARCH, num_classes=TRAIN_CLASSES),
+                      device=DEVICE)
+    state = restore_checkpoint(ck, trainer.init_state(0))
+    if int(state["step"]) != TRAIN_RESUME_STEPS:
+        fail(f"the last checkpoint is at step {int(state['step'])}")
+    ref = build_backbone(TRAIN_ARCH)
+    missing, unexpected = ref.load_state_dict(
+        {**state["params"]["backbone"], **state["batch_stats"]}, strict=False)
+    if unexpected or any(not k.endswith("num_batches_tracked") for k in missing):
+        fail(f"the train state does not fill the backbone: missing {missing}, "
+             f"unexpected {unexpected}")
+    del state, trainer
+    ref = ref.to(DEVICE).eval()
+    faces = torch.from_numpy(np.random.default_rng(8).integers(
+        0, 256, (32, 112, 112, 3)).astype(np.float32)).to(DEVICE)
+    with torch.no_grad():
+        want, _ = ref(normalize_face_batch(faces, dtype=torch.float32))
+        got, _ = embedder.embed_batch_device(faces)
+    dist = float((1 - (want * got.float()).sum(1)).max())
+    res["export_cosine_distance"] = dist
+    print(f"[train] exported ir_101 .npz in FaceEmbedder (bf16, folded) against the trainer's "
+          f"float32 eval-mode forward of its step-{TRAIN_RESUME_STEPS} checkpoint: largest cosine distance {dist:.2e} over 32 faces "
+          f"(limit 1e-3)")
+    if dist > 1e-3:
+        fail(f"exported weights embed {dist} away from the trainer's forward")
+
+    detector = MTCNNDetector(det_size=DET_SIZE, det_thresh=0.5, max_faces=MAX_FACES,
+                             min_face_size=40, dtype=torch.bfloat16, device=DEVICE,
+                             weights_path=os.path.join(REPO, "pretrained", "mtcnn_dr.npz"))
+    engine = RecognitionEngine(detector, embedder, top_k=3)
+    gallery = DeviceGallery(device=DEVICE)
+    g = np.random.default_rng(0).normal(size=(GALLERY_ROWS, 512)).astype(np.float32)
+    gallery.rebuild([f"id{i}" for i in range(GALLERY_ROWS)],
+                    g / np.linalg.norm(g, axis=1, keepdims=True))
+    frames = torch.from_numpy(mosaics(fixture, BATCH)[0]).to(DEVICE)
+    t, v, _ = gallery.device_snapshot()
+    engine.process_frames(frames, t, v)
+    k1, k2 = crop_kernel.LAUNCHES.count, warp_kernel.LAUNCHES.count
+    out, ms = timed_steps(engine, frames, t, v, 4)
+    launches = {"crop_resize": crop_kernel.LAUNCHES.count - k1,
+                "warp_patches": warp_kernel.LAUNCHES.count - k2}
+    if launches != {"crop_resize": 12, "warp_patches": 4}:
+        fail(f"the serving step with the trained weights launched {launches} in 4 steps")
+    for key in ("bboxes", "embeddings", "match_scores", "embedding_norms"):
+        if not torch.isfinite(out[key]).all():
+            fail(f"the serving step with the trained weights gave non-finite {key}")
+    res["serving_launches"] = launches
+    res["serving_step_p50_ms"] = ms[len(ms) // 2]
+    print(f"[train] the fused serving step (B={BATCH}, {DET_SIZE[0]}x{DET_SIZE[1]}, "
+          f"{GALLERY_ROWS}-row gallery) with the trained weights: finite outputs, "
+          f"{int(out['face_valid'].sum())} faces, p50 {ms[len(ms) // 2]:.2f} ms, launches "
+          f"over 4 steps {launches}")
+    del engine, detector, embedder, ref
+
+
+def accuracy_recipe(res) -> None:
+    """bench.py's e2e_rank1 on the card with ir_micro weights the port
+    trains here (examples/synthetic_end_to_end.py's recipe, bf16)."""
+    import numpy as np
+
+    import torch
+
+    from facerecognitionpipeline_tpu_torch.evalharness import e2e_accuracy as E
+    from facerecognitionpipeline_tpu_torch.ops import crop_kernel
+    from facerecognitionpipeline_tpu_torch.pipeline.embedder import FaceEmbedder
+    from facerecognitionpipeline_tpu_torch.train.checkpoint import export_backbone
+
+    idents = E.identities()
+    k1 = crop_kernel.LAUNCHES.count
+    t0 = time.perf_counter()
+    pool = E.aligned_pool(idents, E.make_processor(
+        os.path.join(REPO, "pretrained", "mtcnn_synthetic.npz"), dtype=torch.bfloat16,
+        device=DEVICE))
+    pool_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _, state, losses = E.train_synthetic_embedder(idents, pool, steps=E2E_STEPS,
+                                                  batch=E2E_BATCH, dtype=torch.bfloat16,
+                                                  device=DEVICE)
+    train_s = time.perf_counter() - t0
+    if not np.isfinite(losses).all():
+        fail("the accuracy recipe's training gave a non-finite loss")
+    with tempfile.TemporaryDirectory() as td:
+        npz = os.path.join(td, "ir_micro_synthetic.npz")
+        export_backbone(state, npz)
+        embedder = FaceEmbedder("ir_micro", model_path=npz, dtype=torch.bfloat16, device=DEVICE)
+    t0 = time.perf_counter()
+    r = E.e2e_rank1(embedder, E.make_processor(os.path.join(REPO, "pretrained", "mtcnn_dr.npz"),
+                                               dtype=torch.bfloat16, device=DEVICE),
+                    idents, device=DEVICE)
+    score_s = time.perf_counter() - t0
+    res["e2e"] = {"e2e_rank1": r["e2e_rank1"], "e2e_rank1_n": r["e2e_rank1_n"],
+                  "pool_s": pool_s, "train_s": train_s, "score_s": score_s,
+                  "first_loss": losses[0], "last_loss": float(np.mean(losses[-20:])),
+                  "k1_launches": crop_kernel.LAUNCHES.count - k1,
+                  "pool_crops": sum(len(v) for v in pool.values())}
+    print(f"[train] accuracy recipe: e2e_rank1 {r['e2e_rank1']} over n={r['e2e_rank1_n']} "
+          f"trials (floor {E2E_FLOOR}), ir_micro trained on the card in {train_s:.1f} s "
+          f"({E2E_STEPS} steps at B={E2E_BATCH}, bf16; loss {losses[0]:.3f} -> "
+          f"{np.mean(losses[-20:]):.3f}), aligned pool {res['e2e']['pool_crops']} crops in "
+          f"{pool_s:.1f} s, enrol + score {score_s:.1f} s, K1 launched "
+          f"{res['e2e']['k1_launches']} times")
+    if r["e2e_rank1"] < E2E_FLOOR:
+        fail(f"e2e_rank1 {r['e2e_rank1']} < {E2E_FLOOR}")
+
+
+def detector_training(res) -> None:
+    """train_detector on the card, the weights into MTCNNDetector, and the
+    OOD suite through a bf16 cascade on the shipped synthetic weights."""
+    import numpy as np
+
+    import torch
+
+    from facerecognitionpipeline_tpu_torch.evalharness.detection_ood import (
+        OOD_CATEGORIES,
+        run_ood_suite,
+    )
+    from facerecognitionpipeline_tpu_torch.models.detector import MTCNNDetector
+    from facerecognitionpipeline_tpu_torch.ops import crop_kernel
+    from facerecognitionpipeline_tpu_torch.train.detector_train import (
+        render_scene,
+        train_detector,
+    )
+
+    import contextlib
+    import io
+
+    history: dict = {}
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        variables = train_detector(steps=DET_STEPS, batch=DET_BATCH, ohem_fraction=DET_OHEM,
+                                   device=DEVICE, history=history, log_every=DET_STEPS)
+    secs = time.perf_counter() - t0
+    rows = {}
+    for net, losses in history.items():
+        first, last = float(np.mean(losses[:20])), float(np.mean(losses[-20:]))
+        rows[net] = {"first20": first, "last20": last}
+        if not np.isfinite(losses).all() or not last < first:
+            fail(f"train_detector {net}: losses first 20 {first}, last 20 {last}")
+    det = MTCNNDetector(det_size=(160, 160), variables=variables, dtype=torch.bfloat16,
+                        device=DEVICE)
+    found = det.detect(render_scene(np.random.default_rng(3))[0])
+    res["detector_training"] = {"seconds": secs, "nets": rows, "faces_found": len(found)}
+    print(f"[train] train_detector({DET_STEPS} steps, batch {DET_BATCH}, OHEM {DET_OHEM}) on "
+          f"the card in {secs:.1f} s: " + "; ".join(
+              f"{n} loss {r['first20']:.4f} -> {r['last20']:.4f}" for n, r in rows.items())
+          + f"; loaded into MTCNNDetector, {len(found)} faces on a rendered scene")
+
+    ood_det = MTCNNDetector(weights_path=os.path.join(REPO, "pretrained", "mtcnn_synthetic.npz"),
+                            dtype=torch.bfloat16, device=DEVICE)
+    k1 = crop_kernel.LAUNCHES.count
+    t0 = time.perf_counter()
+    ood = run_ood_suite(ood_det, n_scenes=OOD_SCENES)
+    secs = time.perf_counter() - t0
+    n = crop_kernel.LAUNCHES.count - k1
+    if n != 2 * len(OOD_CATEGORIES) * OOD_SCENES:
+        fail(f"run_ood_suite launched K1 {n} times for {len(OOD_CATEGORIES) * OOD_SCENES} scenes")
+    res["ood"] = {"summary": ood["summary"], "seconds": secs, "k1_launches": n}
+    print(f"[train] run_ood_suite ({OOD_SCENES} scenes x {len(OOD_CATEGORIES)} categories, "
+          f"320 px, bf16 cascade on mtcnn_synthetic.npz) in {secs:.1f} s, K1 launched {n} "
+          f"times: " + "; ".join(
+              f"{c} AP {None if s['ap'] is None else round(s['ap'], 4)} recall "
+              f"{None if s['recall'] is None else round(s['recall'], 4)} fp/img "
+              f"{s['fp_per_image']:.3f}" for c, s in ood["summary"].items()))
+
+
+def fused_int8_body(res, npz) -> None:
+    """FaceEmbedder(quantize='int8', int8_fused=True) at ir_101 on the card
+    with the trained weights: embeddings against the unfused int8
+    embedder's within the CPU test's bound (float32), embed p50 of both
+    (bf16)."""
+    import numpy as np
+
+    import torch
+
+    from facerecognitionpipeline_tpu_torch.models.quantize import default_calibration_faces
+    from facerecognitionpipeline_tpu_torch.pipeline.embedder import FaceEmbedder
+
+    calib = default_calibration_faces()
+    faces = torch.from_numpy(np.random.default_rng(9).integers(
+        0, 256, (FUSED_FACES, 112, 112, 3)).astype(np.float32)).to(DEVICE)
+    emb = {}
+    for dt in (torch.float32, torch.bfloat16):
+        for fused in (False, True):
+            e = FaceEmbedder(TRAIN_ARCH, model_path=npz, dtype=dt, quantize="int8",
+                             int8_fused=fused, calib_faces=calib, device=DEVICE)
+            with torch.no_grad():
+                f = e.embed_batch_device(faces)[0].float()
+            ms = cuda_time_ms(lambda: e.embed_batch_device(faces), iters=10) \
+                if dt == torch.bfloat16 else None
+            emb[(dt, fused)] = (f, ms)
+            del e
+    cos32 = float((emb[(torch.float32, False)][0] * emb[(torch.float32, True)][0]).sum(1).min())
+    cos16 = float((emb[(torch.bfloat16, False)][0] * emb[(torch.bfloat16, True)][0]).sum(1).min())
+    res["fused_int8"] = {"min_cosine_f32": cos32, "min_cosine_bf16": cos16,
+                         "embed_ms_unfused": emb[(torch.bfloat16, False)][1],
+                         "embed_ms_fused": emb[(torch.bfloat16, True)][1]}
+    print(f"[train] fused int8 body at ir_101 ({FUSED_FACES} faces): cosine to the unfused "
+          f"int8 embedder >= {cos32:.6f} in float32 (CPU test bound 0.9999), >= {cos16:.5f} "
+          f"in bf16; embed {FUSED_FACES} faces bf16: fused "
+          f"{res['fused_int8']['embed_ms_fused']:.3f} ms, unfused "
+          f"{res['fused_int8']['embed_ms_unfused']:.3f} ms")
+    if cos32 <= 0.9999:
+        fail(f"fused int8 body {cos32} from the unfused one")
+
+
+def train_phase(fixture, report) -> None:
+    """Phase 11: training on the card (see the module docstring)."""
+    import numpy as np
+
+    import shutil
+
+    import torch
+
+    from facerecognitionpipeline_tpu_torch.cli import train_embedder
+    from facerecognitionpipeline_tpu_torch.ops import crop_kernel, warp_kernel
+    from facerecognitionpipeline_tpu_torch.train.checkpoint import latest_step
+    from facerecognitionpipeline_tpu_torch.train.trainer import (
+        TrainConfig,
+        Trainer,
+        dropout_generator,
+    )
+
+    t_phase = time.perf_counter()
+    res: dict = {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        # 11a: the CLI at full width, resume, export
+        ck, npz = os.path.join(tmp, "ck"), os.path.join(tmp, "ir_101.npz")
+        argv = ["--device", DEVICE, "--synthetic_classes", str(TRAIN_CLASSES),
+                "--architecture", TRAIN_ARCH, "--batch_size", str(TRAIN_BATCH), "--bf16",
+                "--checkpoint_every", str(TRAIN_EVERY), "--log_every", str(TRAIN_EVERY),
+                "--prefetch", "2",
+                "--checkpoint_dir", ck]
+        cli = {}
+        for tag, extra in (("first", ["--steps", str(TRAIN_STEPS)]),
+                           ("resume", ["--steps", str(TRAIN_RESUME_STEPS), "--resume",
+                                       "--export_path", npz])):
+            t0 = time.perf_counter()
+            rc, out = run_cli(train_embedder.main, argv + extra)
+            secs = time.perf_counter() - t0
+            logs = [ln for ln in out.splitlines() if ln.startswith("step ")]
+            losses = [float(ln.split("loss ")[1].split()[0]) for ln in logs]
+            rates = [float(ln.split("(")[1].split()[0]) for ln in logs]
+            cli[tag] = {"seconds": secs, "losses": losses, "images_per_s": rates}
+            print(f"[train] train_embedder {tag}: rc {rc} in {secs:.1f} s; " + "; ".join(logs)
+                  + "; " + out.strip().splitlines()[-1])
+            if rc != 0 or not losses or not np.isfinite(losses).all():
+                fail(f"train_embedder {tag}: rc {rc}, losses {losses}")
+        if f"Resumed from step {TRAIN_STEPS}" not in out or \
+                f"Training done at step {TRAIN_RESUME_STEPS}" not in out:
+            fail(f"the resumed run did not go from step {TRAIN_STEPS} to {TRAIN_RESUME_STEPS}")
+        kept = sorted(os.listdir(ck))
+        if latest_step(ck) != TRAIN_RESUME_STEPS or len(kept) != 3:
+            fail(f"checkpoints after resume: {kept}")
+        t0 = time.perf_counter()
+        rc, out = run_cli(train_embedder.main, [
+            a for a in argv if a != "--bf16"] + ["--steps", str(TRAIN_F32_STEPS),
+                                                 "--checkpoint_dir", os.path.join(tmp, "f32")])
+        logs = [ln for ln in out.splitlines() if ln.startswith("step ")]
+        cli["float32"] = {"seconds": time.perf_counter() - t0,
+                          "losses": [float(ln.split("loss ")[1].split()[0]) for ln in logs]}
+        print(f"[train] train_embedder float32, {TRAIN_F32_STEPS} steps: rc {rc} in "
+              f"{cli['float32']['seconds']:.1f} s; " + "; ".join(logs))
+        if rc != 0 or not np.isfinite(cli["float32"]["losses"]).all():
+            fail("train_embedder at float32 failed")
+        res["cli"] = cli
+        shutil.rmtree(os.path.join(tmp, "f32"), ignore_errors=True)
+
+        # 11b: the step's numbers, bf16, float32, int8 forward; the update alone
+        macs = conv_dense_macs(TRAIN_ARCH)
+        res["macs_per_image"], res["res_conv_macs_per_image"] = macs
+        run = train_config_run("bf16", res, macs, torch.bfloat16)
+        optimizer_alone(res, run)
+        # the JAX package's learning test (tests/test_train.py:46-69): lr 0.01
+        learner = Trainer(TrainConfig(architecture=TRAIN_ARCH, num_classes=TRAIN_CLASSES,
+                                      learning_rate=0.01, dtype=torch.bfloat16), device=DEVICE)
+        learn_state = learner.init_state(0)
+        losses = []
+        for i in range(10):
+            learn_state, m = learner.train_step(learn_state, run["x"], run["y"],
+                                                dropout_generator(0, i, DEVICE))
+            losses.append(m["loss"])
+        losses = torch.stack(losses).cpu().tolist()
+        res["learning"] = losses
+        print(f"[train] 10 steps at {TRAIN_ARCH} B={TRAIN_BATCH} bf16, lr 0.01, on one "
+              f"repeated batch: "
+              f"loss {losses[0]:.4f} -> {losses[-1]:.4f}")
+        if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
+            fail(f"the loss did not fall on a repeated batch: {losses}")
+        del run, learner, learn_state
+        torch.cuda.empty_cache()
+        train_config_run("float32", res, macs, torch.float32)
+        torch.cuda.empty_cache()
+        int8_run = train_config_run("int8_forward", res, macs, torch.bfloat16, int8_forward=True)
+        int8_forward_sums(res, int8_run)
+        del int8_run
+        torch.cuda.empty_cache()
+        card_against_cpu(res)
+
+        # 11c: export into serving, the accuracy recipe, the detector side
+        crop_kernel.LAUNCHES.reset()
+        warp_kernel.LAUNCHES.reset()
+        export_into_serving(res, fixture, npz, ck)
+        shutil.rmtree(ck, ignore_errors=True)
+        accuracy_recipe(res)
+        detector_training(res)
+        res["launches"] = {"crop_resize": crop_kernel.LAUNCHES.count,
+                           "warp_patches": warp_kernel.LAUNCHES.count}
+        fused_int8_body(res, npz)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    res["seconds"] = time.perf_counter() - t_phase
+    print(f"[train] phase 11 took {res['seconds']:.1f} s")
+    report["train"] = res
+
+
+def card_line() -> str:
+    """The card's name and power limit, as nvidia-smi prints them."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+    )
+    if smi.returncode != 0 or not smi.stdout.strip():
+        fail(f"nvidia-smi gave no card name and power limit: {smi.stderr.strip()}")
+    return smi.stdout.strip().splitlines()[0]
+
+
 def main() -> int:
     import torch
 
@@ -3391,6 +4074,13 @@ def main() -> int:
         offline_phase(make_gallery(BIG_GALLERY_ROWS), report)
         print(json.dumps({"offline": report["offline"]}))
         return 0
+    if "--train-only" in sys.argv[1:]:
+        # phase 11 alone, after the build, the same way
+        report = {}
+        train_phase(fixture, report)
+        print(card_line())
+        print(json.dumps({"train": report["train"]}))
+        return 0
 
     report = kernel_phase(fixture)
     gal = make_gallery(BIG_GALLERY_ROWS)
@@ -3402,16 +4092,10 @@ def main() -> int:
     int8_phase(ctx, gal, report)
     enrolment_phase(ctx, gal, report)
     offline_phase(gal, report)
-    del gal
+    del gal, ctx
+    train_phase(fixture, report)
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60,
-    )
-    if smi.returncode != 0 or not smi.stdout.strip():
-        fail(f"nvidia-smi gave no card name and power limit: {smi.stderr.strip()}")
-    # the card's name and power limit, as nvidia-smi prints them
-    print(smi.stdout.strip().splitlines()[0])
+    print(card_line())
 
     sources = {
         "crop_resize": ("facerecognitionpipeline_tpu_torch/csrc/crop_resize.cu",
@@ -3428,6 +4112,7 @@ def main() -> int:
     }
     enrol = report["enrol"]
     offline_launches = report["offline"]["launches"]
+    train_launches = report["train"]["launches"]
     matcher_launches = {"crop_resize": enrol["launches_k1"], "warp_patches": 0,
                         **enrol["matcher_launches"]}
     # K1's and K2's first designs (one thread per output pixel), as timed when
@@ -3472,6 +4157,10 @@ def main() -> int:
             "server_launches": None if f32 else report["server_launches"][name],
             "matcher_launches": matcher_launches[name],
             "offline_launches": offline_launches[name],
+            # phase 11 (K1 and K2 in the serving step with the trained ir_101
+            # weights; K1 in the accuracy recipe's bf16 processors and in the
+            # OOD suite's cascade), counted from 0 over 11c
+            "train_launches": train_launches.get(name, 0),
             "max_abs_err": max(r["err"] for r in all_rows),
             # ms, plain_ms, bound_ms and library_ms are sums over the call
             # shapes of one serving step (K1: R-net, O-net, align stage A)
@@ -3504,9 +4193,12 @@ def main() -> int:
         if name in ("crop_resize", "gallery_topk", "gallery_topk_int8") and \
                 offline_launches[name] < 1:
             fail(f"phase 10 never launched {name}")
+        if name in ("crop_resize", "warp_patches") and train_launches[name] < 1:
+            fail(f"phase 11 never launched {name}")
     print(json.dumps({"int8": report["int8"]}))
     print(json.dumps({"enrol": enrol}))
     print(json.dumps({"offline": report["offline"]}))
+    print(json.dumps({"train": report["train"]}))
     print(json.dumps({
         "kernels": kernels,
         **{k: v for k, v in report.items() if k.startswith("step_p50_ms")},

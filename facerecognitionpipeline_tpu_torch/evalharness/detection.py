@@ -6,8 +6,9 @@ helpers, copied so `models/quantize.py::default_calibration_frames` renders
 the same frames byte for byte; greedy IoU matching, the precision/recall
 curve with VOC-interpolated AP, and `run_stress_suite` over any detector
 with `detect(image) -> list of face dicts` (the port's `MTCNNDetector`: a
-bf16 cascade launches K1 twice per scene on the card). The training-scene
-variant `render_stress_training_scene` comes with `train/`.
+bf16 cascade launches K1 twice per scene on the card); and the training
+scene `render_stress_training_scene`, the stress axes mixed into the
+detector trainer's `scene_fn` contract.
 """
 
 from __future__ import annotations
@@ -274,6 +275,72 @@ STRESS_CATEGORIES = (
     "low_contrast", "noisy", "hard_negatives", "nonface_distractors",
     "domain_shift", "motion_blur",
 )
+
+
+def render_stress_training_scene(
+    rng: np.random.Generator, size: int = 160, pure_negative_p: float = 0.3
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+    """Training scene with the stress axes mixed in (occluders over faces,
+    face-like distractors as hard negatives, contrast/noise variation).
+    Matches the train.detector_train scene_fn contract with the optional
+    4th element: (image, boxes [N,4], landmarks [N,5,2],
+    hard_negative_boxes [M,4]) — the trainer samples negative windows from
+    the distractor boxes (detector_train.py handles 3- and 4-tuples)."""
+    import cv2
+
+    img = _background(rng, size)
+    # 30% PURE-negative scenes (distractors only): the hard_negatives eval
+    # suite has no faces at all, and a trainer that never sees that
+    # distribution leaves the cascade firing on face-like blobs in empty
+    # scenes (measured 2.8 fp/img at the operating point before this; 20%
+    # pure-negative training cut it to 1.6, 30% to 0.17 — see
+    # reports/detector_stress). NOTE: detector_stress_eval's --retrain
+    # routes only half its scenes through this renderer, so the NET
+    # pure-negative fraction of the shipped weights' training mix is ~15%.
+    n = 0 if rng.random() < pure_negative_p else int(rng.integers(1, 4))
+    contrast = float(rng.uniform(0.45, 1.0))
+    boxes, lms = _place_faces(
+        img, rng, size, n=n, smin=24, smax=72,
+        theta_max=0.45, contrast=contrast,
+    )
+    for box in boxes:
+        if rng.random() < 0.45:
+            x1, y1, x2, y2 = box
+            w, h = x2 - x1, y2 - y1
+            ox = rng.uniform(x1, x2 - 0.4 * w)
+            oy = rng.uniform(y1, y2 - 0.4 * h)
+            frac = rng.uniform(0.3, 0.5)
+            color = tuple(int(c) for c in rng.integers(0, 255, 3))
+            cv2.rectangle(img, (int(ox), int(oy)),
+                          (int(ox + frac * w), int(oy + frac * h)), color, -1)
+    neg_boxes = [
+        _draw_distractor(img, rng, size) for _ in range(int(rng.integers(2, 6)))
+    ]
+    # non-face distractors (hands, clothing, clutter) also feed hard-negative
+    # patch sampling
+    neg_boxes += [
+        _draw_nonface_distractor(img, rng, size)
+        for _ in range(int(rng.integers(1, 4)))
+    ]
+    if rng.random() < 0.3:
+        noise = rng.normal(0, rng.uniform(5, 18), img.shape)
+        img[:] = np.clip(img.astype(np.float32) + noise, 0, 255).astype(np.uint8)
+    if rng.random() < 0.25:
+        _apply_domain_shift(img, rng)
+    if rng.random() < 0.2:
+        # max_len stays BELOW the eval suite's 13: training at eval-strength
+        # blur was tried and degraded blur recall further (0.875 -> 0.75)
+        # while also costing occlusion — heavy blur windows are noise to the
+        # 12px P-net, not signal
+        _apply_motion_blur(img, rng, max_len=9)
+    return (
+        img,
+        np.asarray(boxes, np.float32).reshape(-1, 4),
+        np.asarray(lms, np.float32).reshape(-1, 5, 2),
+        np.asarray(neg_boxes, np.float32).reshape(-1, 4),
+    )
+
+# -------------------------------------------------------------- evaluation
 
 # -------------------------------------------------------------- evaluation
 

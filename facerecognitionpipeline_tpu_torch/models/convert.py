@@ -18,6 +18,10 @@ initialises itself, so `models/quantize.py` quantizes the same float32
 tree whichever way the weights came; `backbone_variables_from_state` does
 the same for an unfolded backbone with its BatchNorms, the tree
 `models/torch_export.py` writes out.
+
+`train_state_from_jax` / `train_state_to_jax` carry a whole train state
+(`train/trainer.py`) across, leaf by leaf; `fused_body_state_from_jax`
+takes the fused int8 body's variables (`quantize.fuse_quantized_params`).
 """
 
 from __future__ import annotations
@@ -43,6 +47,10 @@ def _params_to_state(params: dict, prefix: str, sd: dict) -> None:
             sd[f"{key}.kernel_q"] = torch.from_numpy(np.array(node["kernel_q"], dtype=np.int8))
             for leaf in ("scale", "bias", "act_scale"):
                 sd[f"{key}.{leaf}"] = _t(node[leaf])
+        elif "kernel1_q" in node:  # FusedQuantBody: int8 codes HWIO, float32 constants
+            for leaf, a in node.items():
+                sd[f"{key}.{leaf}"] = (torch.from_numpy(np.array(a, dtype=np.int8))
+                                       if leaf.endswith("_q") else _t(a))
         elif "kernel" in node:
             k = np.asarray(node["kernel"], np.float32)
             if k.ndim == 4:
@@ -173,3 +181,91 @@ def detector_variables_from_state(sd: dict) -> dict:
     variables {'pnet'|'rnet'|'onet': {'params': ...}}."""
     tree = params_from_state(sd)
     return {net: {"params": tree[net]} for net in ("pnet", "rnet", "onet")}
+
+
+def fused_body_state_from_jax(tree: dict) -> dict[str, torch.Tensor]:
+    """{'params': ...} of `quantize.fuse_quantized_params` -> state dict of
+    `build_backbone(arch, folded=True, quantized=True, fused_int8=True)`:
+    each unit's `body` leaves under `<unit>.body.`, the rest as
+    `backbone_state_from_jax(..., folded=True)` maps them."""
+    return backbone_state_from_jax(tree, folded=True)
+
+
+def _field(node, name: str):
+    return node[name] if isinstance(node, dict) else getattr(node, name)
+
+
+def _params_tree_to_state(params: dict) -> tuple[dict, torch.Tensor]:
+    """{'backbone': JAX params, 'classifier': [D, C]} -> ({name: tensor}, classifier)."""
+    sd: dict = {}
+    _params_to_state(params["backbone"], "", sd)
+    return sd, _t(params["classifier"])
+
+
+def train_state_from_jax(tree: dict) -> dict:
+    """A JAX package train state (`Trainer.init_state` and after; numpy or
+    device arrays) -> the port's train state on the CPU: backbone params
+    and their momentum traces in module layout, batch_stats as running
+    buffers, the classifier, the optimizer's count (fused form, or the
+    optax chain's tuple), norm_ema and step. Parameters require grad."""
+    bb, clf = _params_tree_to_state(tree["params"])
+    stats: dict = {}
+    _stats_to_state(tree["batch_stats"], "", stats)
+    stats = {k: v for k, v in stats.items() if not k.endswith("num_batches_tracked")}
+
+    def trace(t):
+        tb, tc = _params_tree_to_state(t)
+        return {"backbone": tb, "classifier": tc}
+
+    def count(c):
+        return torch.tensor(int(np.asarray(c)), dtype=torch.int32)
+
+    opt = tree["opt_state"]
+    if isinstance(opt, dict):
+        opt_state = {"trace": trace(opt["trace"]), "count": count(opt["count"])}
+    else:
+        sched = opt[1][1]
+        has_count = "count" in sched if isinstance(sched, dict) else hasattr(sched, "count")
+        opt_state = ({}, ({"trace": trace(_field(opt[1][0], "trace"))},
+                          {"count": count(_field(sched, "count"))} if has_count else {}))
+    for p in [*bb.values(), clf]:
+        p.requires_grad_(True)
+    return {
+        "params": {"backbone": bb, "classifier": clf},
+        "batch_stats": stats,
+        "opt_state": opt_state,
+        "norm_ema": {k: _t(tree["norm_ema"][k]) for k in ("mean", "std")},
+        "step": count(tree["step"]),
+    }
+
+
+def train_state_to_jax(state: dict) -> dict:
+    """The port's train state -> the JAX package's layout as numpy, every
+    leaf: {'params': {'backbone', 'classifier'}, 'batch_stats',
+    'opt_state', 'norm_ema', 'step'}. The unfused optimizer's state is the
+    tuple ({}, ({'trace': ...}, {'count': ...} or {})), which flattens to
+    the leaves of optax's chain state in their order. The inverse of
+    `train_state_from_jax`."""
+    stats = state["batch_stats"]
+
+    def params(tree):
+        return {"backbone": backbone_variables_from_state({**tree["backbone"], **stats})["params"],
+                "classifier": tree["classifier"].detach().cpu().numpy().astype(np.float32)}
+
+    def count(c):
+        return np.int32(int(c))
+
+    opt = state["opt_state"]
+    if isinstance(opt, dict):
+        opt_state = {"trace": params(opt["trace"]), "count": count(opt["count"])}
+    else:
+        sched = opt[1][1]
+        opt_state = ({}, ({"trace": params(opt[1][0]["trace"])},
+                          {"count": count(sched["count"])} if sched else {}))
+    return {
+        "params": params(state["params"]),
+        "batch_stats": backbone_variables_from_state(dict(stats))["batch_stats"],
+        "opt_state": opt_state,
+        "norm_ema": {k: np.float32(float(v)) for k, v in state["norm_ema"].items()},
+        "step": count(state["step"]),
+    }

@@ -6,6 +6,8 @@ Parameter names follow the JAX package's flax modules (`alpha`, `scale`,
 
 from __future__ import annotations
 
+import math
+
 import torch
 from torch import nn
 
@@ -47,4 +49,24 @@ def lecun_normal_(module: nn.Module, generator: torch.Generator) -> None:
                 w = torch.randn(m.weight.shape, generator=generator)
                 m.weight.copy_(w * fan_in ** -0.5)
                 if m.bias is not None:
+                    m.bias.zero_()
+
+
+def lecun_truncated_normal_(module: nn.Module, generator: torch.Generator) -> None:
+    """flax's initialisers, in distribution: every conv/linear weight from
+    a normal truncated at +-2 standard deviations, scaled to variance
+    1/fan_in (flax's lecun_normal, variance_scaling(1, 'fan_in',
+    'truncated_normal')); biases zero. Norm, PReLU and affine parameters
+    keep their constructors' values (flax's ones, zeros and 0.25). Draws
+    by the inverse CDF in float64, from `generator` (a CPU generator)."""
+    lo, hi = (1 + math.erf(-2 / math.sqrt(2))) / 2, (1 + math.erf(2 / math.sqrt(2))) / 2
+    with torch.no_grad():
+        for m in module.modules():
+            if isinstance(m, (nn.Conv2d, nn.Linear)):
+                fan_in = m.weight[0].numel()
+                u = torch.rand(m.weight.shape, generator=generator, dtype=torch.float64)
+                z = math.sqrt(2) * torch.erfinv(2 * (lo + u * (hi - lo)) - 1)
+                std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+                m.weight.copy_((z * std).to(m.weight.dtype))
+                if getattr(m, "bias", None) is not None:
                     m.bias.zero_()

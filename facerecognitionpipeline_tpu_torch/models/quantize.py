@@ -18,9 +18,10 @@ so they give the same codes and scales byte for byte;
 `calibrate_activation_amax` runs the port's folded float backbone; the
 detector's calibration is `MTCNNDetector.calibrate_amax`.
 
-The fused form (`fuse_quantized_params`, `FusedQuantBody`, the embedder's
-`int8_fused`) is queued in ROADMAP.md: it is not the default, and the
-reference measured no gain from it.
+`fuse_quantized_params` rewrites the quantized variables for the fused
+int8 body (`irse.FusedQuantBody`, the embedder's `int8_fused`): numpy
+float32 in the JAX package's order of operations, so its constants equal
+the JAX package's bit for bit.
 """
 
 from __future__ import annotations
@@ -117,6 +118,48 @@ def quantize_folded_variables(
                 blk[key] = _quantize_leaf(sub, activation_amax[name][key], headroom,
                                           axes=(0, 1, 2))
             else:
+                blk[key] = _np_tree(sub)
+        out[name] = blk
+    return {"params": out}
+
+
+def fuse_quantized_params(quantized_variables: dict) -> dict:
+    """`quantize_folded_variables` output -> the variables of the fused
+    int8 body (`build_backbone(arch, folded=True, quantized=True,
+    fused_int8=True)`). Per unit, {res_affine, res_conv1, res_prelu,
+    res_conv2} collapse into one 'body':
+
+      qscale    = affine.scale / s1          qshift   = affine.shift / s1
+      mid_scale = (s1 * w1_scale) / s2       mid_bias = b1 / s2
+      out_scale = s2 * w2_scale              out_bias = b2
+      (s_i = res_conv_i.act_scale; alpha passes through: PReLU commutes
+      with the positive 1/s2.)
+
+    Shortcut convs, SE and the layers outside the units copy through."""
+    params = quantized_variables["params"]
+    out: dict = {}
+    for name, p in params.items():
+        if not name.startswith("stage"):
+            out[name] = _np_tree(p)
+            continue
+        c1, c2 = p["res_conv1"], p["res_conv2"]
+        s1 = np.float32(c1["act_scale"])
+        s2 = np.float32(c2["act_scale"])
+        blk = {
+            "body": {
+                "qscale": np.asarray(p["res_affine"]["scale"], np.float32) / s1,
+                "qshift": np.asarray(p["res_affine"]["shift"], np.float32) / s1,
+                "kernel1_q": np.asarray(c1["kernel_q"], np.int8),
+                "mid_scale": (s1 * np.asarray(c1["scale"], np.float32)) / s2,
+                "mid_bias": np.asarray(c1["bias"], np.float32) / s2,
+                "alpha": np.asarray(p["res_prelu"]["alpha"], np.float32),
+                "kernel2_q": np.asarray(c2["kernel_q"], np.int8),
+                "out_scale": s2 * np.asarray(c2["scale"], np.float32),
+                "out_bias": np.asarray(c2["bias"], np.float32),
+            }
+        }
+        for key, sub in p.items():
+            if key not in ("res_affine", "res_conv1", "res_prelu", "res_conv2"):
                 blk[key] = _np_tree(sub)
         out[name] = blk
     return {"params": out}

@@ -12,8 +12,9 @@ converted state dict (`state_dict`), or from a seeded random init
 does not exist raises FileNotFoundError. `quantize='int8'` is the JAX
 package's post-training int8 tier: the two 3x3 res convs of every unit
 become static-scale int8 convs, calibrated on `calib_faces`
-(`models/quantize.py`). The fused int8 body (`int8_fused`) is queued in
-ROADMAP.md.
+(`models/quantize.py`); `int8_fused=True` runs each quantized unit's body as
+one fused int8 chain (`irse.FusedQuantBody`, constants from
+`quantize.fuse_quantized_params`).
 
 The host API (`extract_embedding`, `extract_embeddings_batch`,
 `compute_similarity`, `compute_similarity_batch`, `aggregate_embeddings`)
@@ -100,7 +101,9 @@ class FaceEmbedder:
         raw RGB uint8 [N, H, W, 3] crops (resized to 112 if they are not);
         default `models/quantize.default_calibration_faces()`, 64 synthetic
         renders (use real aligned faces with imported real-world weights).
-        int8_fused: the fused int8 body is not ported (NotImplementedError)."""
+        int8_fused: with quantize='int8', each unit's residual body as one
+        fused int8 chain (FusedQuantBody), the same algebra with fewer
+        elementwise passes."""
         if model_type not in ("adaface", "arcface"):
             raise ValueError(
                 f"Unknown model_type: {model_type}. Must be 'adaface' or 'arcface'"
@@ -109,11 +112,6 @@ class FaceEmbedder:
             raise ValueError(f"Unknown quantize mode: {quantize!r} (use 'int8')")
         if quantize and not fold_bn:
             raise ValueError("quantize='int8' requires fold_bn=True")
-        if int8_fused:
-            raise NotImplementedError(
-                "int8_fused: the fused int8 body (FusedQuantBody) is queued in "
-                "ROADMAP.md (int8 tier, item 16 with Int8FwdConv)"
-            )
         self.device = resolve_device(device)
         self.model_type = model_type
         self.architecture = architecture
@@ -176,14 +174,15 @@ class FaceEmbedder:
 
         self.quantized = False
         if quantize == "int8":
-            self._quantize(float_params, calib_faces)
+            self._quantize(float_params, calib_faces, int8_fused)
 
-    def _quantize(self, float_params: dict, calib_faces) -> None:
+    def _quantize(self, float_params: dict, calib_faces, fused: bool) -> None:
         """Calibrate the float backbone, quantize its float32 weights and
         swap in the int8 backbone."""
         from facerecognitionpipeline_tpu_torch.models.quantize import (
             calibrate_activation_amax,
             default_calibration_faces,
+            fuse_quantized_params,
             quantize_folded_variables,
         )
 
@@ -214,7 +213,10 @@ class FaceEmbedder:
         )
         amax = calibrate_activation_amax(self.model, faces)
         quantized = quantize_folded_variables({"params": float_params}, amax)
-        model = build_backbone(self._build_arch, folded=True, quantized=True)
+        if fused:
+            quantized = fuse_quantized_params(quantized)
+        model = build_backbone(self._build_arch, folded=True, quantized=True,
+                               fused_int8=fused)
         model.load_state_dict(backbone_state_from_jax(quantized, folded=True))
         self.model = model.to(device=self.device, dtype=self._dtype).eval()
         self.quantized = True

@@ -917,3 +917,124 @@ def test_probe_labeler_cli_answers_top_k_65_on_the_card(dev, gen, tmp_path):
         gap = (pv[j, :-1] - pv[j, 1:]).abs() > 4e-5
         clear = [k for k in range(65) if (k == 0 or gap[k - 1]) and (k == 64 or gap[k])]
         assert [got[k] for k in clear] == [want[k] for k in clear]
+
+
+# ------------------------------------------------------------- training
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(_to(v, dev) for v in tree)
+    return tree.detach().clone().to(dev).requires_grad_(tree.requires_grad)
+
+
+def test_train_step_on_the_card_matches_the_cpu(dev):
+    """One float32 step at ir_micro from the same state, batch and mask on
+    the card (TF32 off) and on the CPU, within the CPU parity tests'
+    tolerances: loss 1e-5 relative, parameters 1e-3 absolute, batch_stats
+    1e-3 relative."""
+    from facerecognitionpipeline_tpu_torch.train.trainer import TrainConfig, Trainer
+
+    cfg = TrainConfig(architecture="ir_micro", num_classes=32, learning_rate=0.05)
+    rng = np.random.default_rng(1)
+    x = rng.uniform(-1, 1, (8, 112, 112, 3)).astype(np.float32)
+    y = rng.integers(0, 32, 8).astype(np.int32)
+    mask = torch.rand((8, 512, 7, 7), generator=torch.Generator().manual_seed(1)) < 0.6
+    init = Trainer(cfg, device="cpu").init_state(0)
+    out = {}
+    for d in ("cpu", dev):
+        s, m = Trainer(cfg, device=d).train_step(_to(init, d), x, y, dropout_mask=mask.to(d))
+        out[str(d)] = (float(m["loss"]), _to(s, "cpu"))
+    (lc, sc), (lg, sg) = out["cpu"], out[str(dev)]
+    assert lg == pytest.approx(lc, rel=1e-5)
+    for k, v in sc["params"]["backbone"].items():
+        assert (sg["params"]["backbone"][k] - v).abs().max().item() <= 1e-3, k
+    for k, v in sc["batch_stats"].items():
+        d = (sg["batch_stats"][k] - v).norm().item()
+        assert d <= 1e-3 * v.norm().item() + 1e-5 * v.numel() ** 0.5, k
+    assert int(sg["step"]) == 1
+
+
+def test_bf16_train_steps_on_the_card_learn(dev):
+    """bf16 compute, float32 parameters, prefetched batches, a learning rate
+    from the schedule as a tensor on the card: the loss falls on a repeated
+    batch and every parameter stays float32 on the card."""
+    from facerecognitionpipeline_tpu_torch.train.data import prefetch_to_device, synthetic_batches
+    from facerecognitionpipeline_tpu_torch.train.trainer import (
+        TrainConfig,
+        Trainer,
+        dropout_generator,
+    )
+
+    t = Trainer(TrainConfig(architecture="ir_micro", num_classes=16, learning_rate=0.01,
+                            lr_schedule="cosine", total_steps=12, warmup_steps=2,
+                            dtype=torch.bfloat16), device=dev)
+    s = t.init_state(0)
+    x, y = next(prefetch_to_device(synthetic_batches(16, 32, seed=0), depth=2, device=dev))
+    assert x.device.type == "cuda"
+    losses = []
+    for i in range(6):
+        s, m = t.train_step(s, x, y, dropout_generator(0, i, dev))
+        losses.append(m["loss"])
+    losses = torch.stack(losses).cpu()
+    assert torch.isfinite(losses).all() and losses[-1] < losses[0]
+    assert all(p.dtype == torch.float32 and p.device.type == "cuda"
+               for p in s["params"]["backbone"].values())
+
+
+@pytest.mark.parametrize("b,h,cin,cout,stride", [
+    (32, 56, 64, 64, 1), (32, 56, 64, 128, 2), (16, 14, 256, 256, 1), (9, 15, 8, 16, 2),
+])
+def test_int8_forward_sums_on_the_card_equal_the_plain_version(dev, b, h, cin, cout, stride):
+    """The int8-forward conv's s32 sums through torch._int_mm equal the
+    float64 plain version's, its codes equal the CPU's but for counted
+    off-by-one flips, and its backward is the float conv's VJP."""
+    from facerecognitionpipeline_tpu_torch.models import irse
+
+    g = torch.Generator(device=dev).manual_seed(b + h)
+    x = torch.randn((b, cin, h, h), generator=g, device=dev, dtype=torch.bfloat16)
+    w = torch.randn((cout, cin, 3, 3), generator=g, device=dev) / (9 * cin) ** 0.5
+    xq, wq, ax, aw = irse.int8_forward_codes(x, w)
+    cq = irse.int8_forward_codes(x.cpu(), w.cpu())
+    assert (xq.cpu().int() - cq[0].int()).abs().max() <= 1
+    assert int((xq.cpu() != cq[0]).sum()) <= max(2, xq.numel() // 10_000)
+    assert torch.equal(irse.int8_forward_sums(xq, wq, stride, 1),
+                       irse.int8_forward_sums(xq, wq, stride, 1, plain=True))
+    xr = x.detach().requires_grad_()
+    wr = w.to(torch.bfloat16).detach().requires_grad_()
+    y = irse._Int8FwdConvFn.apply(xr, wr, stride, 1)
+    gy = torch.randn(y.shape, generator=g, device=dev, dtype=y.dtype)
+    y.backward(gy)
+    xf, wf = x.detach().requires_grad_(), wr.detach().clone().requires_grad_()
+    torch.nn.functional.conv2d(xf, wf, None, stride, 1).backward(gy)
+    torch.testing.assert_close(xr.grad, xf.grad)
+    torch.testing.assert_close(wr.grad, wf.grad)
+
+
+def test_fused_int8_embedder_on_the_card_matches_the_unfused_one(dev):
+    """FaceEmbedder(quantize='int8', int8_fused=True) on the card: the fused
+    body's products through torch._int_mm, embeddings within cosine 0.9999
+    of the unfused int8 embedder's (float32) and of its own plain product."""
+    from facerecognitionpipeline_tpu_torch.models.irse import FusedQuantBody
+    from facerecognitionpipeline_tpu_torch.models.quantize import default_calibration_faces
+    from facerecognitionpipeline_tpu_torch.pipeline.embedder import FaceEmbedder
+
+    calib = default_calibration_faces(16, seed=2)
+    fused = FaceEmbedder("ir_micro", random_ok=True, quantize="int8", int8_fused=True,
+                         calib_faces=calib, device=dev)
+    unfused = FaceEmbedder("ir_micro", random_ok=True, quantize="int8", calib_faces=calib,
+                           device=dev)
+    faces = torch.from_numpy(calib.astype(np.float32)).to(dev)
+    a = fused.embed_batch_device(faces)[0]
+    b = unfused.embed_batch_device(faces)[0]
+    assert (a * b).sum(1).min().item() > 0.9999
+    int8_gemm.PRODUCTS.reset()
+    fused.embed_batch_device(faces)
+    assert int8_gemm.PRODUCTS.count >= 8  # two products per unit, 4 units
+    for m in fused.model.modules():
+        if isinstance(m, FusedQuantBody):
+            m.plain = True
+    c = fused.embed_batch_device(faces)[0]
+    torch.testing.assert_close(a, c, rtol=0, atol=0)

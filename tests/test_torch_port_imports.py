@@ -14,7 +14,8 @@ import torch
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "facerecognitionpipeline_tpu_torch")
 # the JAX package, but not the port whose name starts the same way
-FORBIDDEN = re.compile(r"^(jax|jaxlib|flax|optax|facerecognitionpipeline_tpu(?!_torch))(\.|$)")
+FORBIDDEN = re.compile(
+    r"^(jax|jaxlib|flax|optax|orbax|facerecognitionpipeline_tpu(?!_torch))(\.|$)")
 
 
 def _port_sources():
@@ -49,7 +50,12 @@ def test_port_never_imports_jax_or_the_jax_package():
                    "cli/dataset_preprocessor.py", "cli/segment_dataset.py",
                    "cli/embedding_generator.py", "cli/probe_labeler.py",
                    "cli/label_rename_utility.py", "cli/lfw_impostor_helper.py",
-                   "cli/evaluate_models.py", "cli/_detector.py", "../chip_smoke.py"):
+                   "cli/evaluate_models.py", "cli/_detector.py", "train/losses.py",
+                   "train/trainer.py", "train/checkpoint.py", "train/data.py",
+                   "train/facegen.py", "train/__init__.py", "cli/train_embedder.py",
+                   "evalharness/detection_ood.py", "evalharness/e2e_accuracy.py",
+                   "models/irse.py", "models/convert.py", "models/layers.py",
+                   "pipeline/embedder.py", "../chip_smoke.py"):
         assert module in scanned, module
     for path in _port_sources():
         n += 1
@@ -225,6 +231,7 @@ def test_import_pattern_tells_the_packages_apart():
     assert FORBIDDEN.match("facerecognitionpipeline_tpu.ops.warp")
     assert FORBIDDEN.match("facerecognitionpipeline_tpu")
     assert FORBIDDEN.match("jax.numpy")
+    assert FORBIDDEN.match("orbax.checkpoint") and FORBIDDEN.match("optax")
     assert not FORBIDDEN.match("facerecognitionpipeline_tpu_torch.ops.warp")
     assert not FORBIDDEN.match("jaxtyping_like")
 
