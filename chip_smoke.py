@@ -143,9 +143,34 @@ Phases, in order; any failure exits non-zero before the final line:
      unfused int8 embedder (cosine > 0.9999 in float32) and its embed time.
      `python3 chip_smoke.py --train-only` builds the kernels and runs this
      phase alone.
+  12. the mesh on one card: `make_mesh(data=2)` over two entries of the
+     card (one process drives a list of devices; on one card the shards run
+     one after the other, so this proves the per-shard launches, the merge,
+     the class-sharded head and the bucket rules, and claims no scaling).
+     At phase 3's build: the dense step data parallel (12 steps, K1 x3 and
+     K2 x1 per shard) and an embed_budget=4 step, each held to the
+     single-device step of the same run (face_valid equal, boxes and
+     landmarks within 1 px, embedding cosine >= 0.999, top-1 equal where the
+     margin is clear) with their p50 beside it; phase 5's 1 048 576
+     identities in two row shards of 524 288, bf16 then int8: the
+     shard_gallery step launches K3 (K4) once per gallery shard, the
+     replicated gallery on the mesh once per data shard, planted rows come
+     back top-1, both held to the single-device step; DeviceGallery(mesh)
+     .search at top_k 5 equals one device's (K3/K4 once per shard); a
+     FaceRecognitionServer on the mesh engine (buckets multiples of 2)
+     answers 40 raw rgb24 requests as the direct mesh step; the trainer at
+     ir_101, B=128, 1024 classes, float32 on (2, 2) and (2, 1) meshes of
+     the card, 3 steps each on phase 11's batch: losses within 1e-4 + 5e-4
+     |loss|, parameters within 1e-3 after step 1 and 3e-3 after step 3,
+     batch_stats within 5e-3; a classifier gradient scaled by 1/2 (the
+     fault a class-sharded head can carry) must move step 1 by more than
+     the step-1 bound plus the gap measured. `python3 chip_smoke.py --mesh-only`
+     builds the kernels and runs phase 12 alone on phase 3's build;
+     `--mesh-only --cards` makes the mesh of distinct cards (two for
+     serving, four for the (2, 2) trainer).
 Then it prints the card's name and power limit, JSON lines of phase 8's, 9's,
-10's and 11's numbers, a JSON line describing the kernels, and as its last
-line {"ok": true, "device": {...}}.
+10's, 11's and 12's numbers, a JSON line describing the kernels, and as its
+last line {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -1052,7 +1077,7 @@ def breakdown(engine, frames, templates, valid, iters: int = 5,
         layers = {
             "detect (cascade, K1 x2)": lambda: engine.detector.detect_device(f32),
             "align (K1 stage A + K2)": lambda: align_faces_batch(
-                f32, det["landmarks"], engine._template, 112, 128
+                f32, det["landmarks"], engine._shards[0].template, 112, 128
             ),
             f"embed ({ARCH}, B*F faces)": lambda: engine.embedder.forward(
                 normalize_face_batch(
@@ -1113,21 +1138,16 @@ def breakdown(engine, frames, templates, valid, iters: int = 5,
     return in_step
 
 
-def serving_phases(fixture, report) -> dict:
-    """Phases 3 and 4: the fused step and the request batcher. Returns what
-    the later phases reuse (the engine's parts, the frames, the planted
-    slots)."""
-    import numpy as np
+def serving_build(fixture) -> dict:
+    """The server's build on the card: the bf16 detector with
+    pretrained/mtcnn_dr.npz, the seeded ir_101 embedder, the engine, and
+    BATCH frames composed from the fixture with their ground truth."""
     import torch
 
-    from facerecognitionpipeline_tpu_torch.gallery.search import DeviceGallery
     from facerecognitionpipeline_tpu_torch.models.detector import MTCNNDetector
-    from facerecognitionpipeline_tpu_torch.ops import crop_kernel, gallery_kernel, warp_kernel
     from facerecognitionpipeline_tpu_torch.pipeline.embedder import FaceEmbedder
     from facerecognitionpipeline_tpu_torch.pipeline.engine import RecognitionEngine
-    from facerecognitionpipeline_tpu_torch.serve.batcher import DeviceBatcher
 
-    t0 = time.perf_counter()
     detector = MTCNNDetector(
         det_size=DET_SIZE, det_thresh=0.5, max_faces=MAX_FACES, min_face_size=40,
         dtype=torch.bfloat16, device=DEVICE,
@@ -1139,13 +1159,40 @@ def serving_phases(fixture, report) -> dict:
     engine = RecognitionEngine(detector, embedder, top_k=3)
     if detector.crop_impl != "kernel" or engine.align_impl != "kernel":
         fail("the serving build did not select the kernels")
+    frames_np, gts = mosaics(fixture, BATCH)
+    return {"detector": detector, "embedder": embedder, "engine": engine,
+            "frames_np": frames_np, "frames": torch.from_numpy(frames_np).to(DEVICE),
+            "gts": gts}
+
+
+def planted_slots(out, n: int = 8):
+    """The first n valid face slots of a step's output and its embeddings
+    (numpy): what the phases plant into their galleries."""
+    valid = out["face_valid"].cpu().numpy()
+    emb = out["embeddings"].float().cpu().numpy()
+    return [(f, s) for f in range(BATCH) for s in range(MAX_FACES) if valid[f, s]][:n], emb
+
+
+def serving_phases(fixture, report) -> dict:
+    """Phases 3 and 4: the fused step and the request batcher. Returns what
+    the later phases reuse (the engine's parts, the frames, the planted
+    slots)."""
+    import numpy as np
+    import torch
+
+    from facerecognitionpipeline_tpu_torch.gallery.search import DeviceGallery
+    from facerecognitionpipeline_tpu_torch.ops import crop_kernel, gallery_kernel, warp_kernel
+    from facerecognitionpipeline_tpu_torch.serve.batcher import DeviceBatcher
+
+    t0 = time.perf_counter()
+    build = serving_build(fixture)
+    detector, embedder, engine = build["detector"], build["embedder"], build["engine"]
+    frames, frames_np, gts = build["frames"], build["frames_np"], build["gts"]
     rng = np.random.default_rng(0)
     gal = rng.normal(size=(GALLERY_ROWS, 512)).astype(np.float32)
     gal /= np.linalg.norm(gal, axis=1, keepdims=True)
     gallery = DeviceGallery(device=DEVICE)
     gallery.rebuild([f"id{i}" for i in range(GALLERY_ROWS)], gal)
-    frames_np, gts = mosaics(fixture, BATCH)
-    frames = torch.from_numpy(frames_np).to(DEVICE)
     t, v, _ = gallery.device_snapshot()
     if t.dtype != torch.float32:
         fail(f"a {GALLERY_ROWS}-row gallery must stay float32, got {t.dtype}")
@@ -1155,7 +1202,6 @@ def serving_phases(fixture, report) -> dict:
 
     # detection recall against the fixture's ground truth
     recall, hits, total = detection_recall(out, gts)
-    valid = out["face_valid"].cpu().numpy()
     print(f"[step] detection recall {recall:.3f} ({hits}/{total} faces, IoU>=0.5)")
     if recall < 0.8:
         fail(f"recall {recall} < 0.8")
@@ -1172,8 +1218,7 @@ def serving_phases(fixture, report) -> dict:
             fail(f"{key} shape {tuple(out[key].shape)} != {shape}")
 
     # planted matches: step embeddings written into known gallery rows
-    emb = out["embeddings"].float().cpu().numpy()
-    slots = [(f, s) for f in range(BATCH) for s in range(MAX_FACES) if valid[f, s]][:8]
+    slots, emb = planted_slots(out)
     planted = gal.copy()
     rows = [100 + 37 * i for i in range(len(slots))]
     for row, (f, s) in zip(rows, slots):
@@ -4016,6 +4061,388 @@ def train_phase(fixture, report) -> None:
     report["train"] = res
 
 
+MESH_DATA = 2  # data shards of the mesh, every one on the same card
+MESH_STEP_ITERS = 12
+MESH_BIG_ITERS = 4
+MESH_REQUESTS = 40
+MESH_TRAIN_STEPS = 3
+
+
+def mesh_counters():
+    from facerecognitionpipeline_tpu_torch.ops import crop_kernel, gallery_kernel, warp_kernel
+
+    return {
+        "crop_resize": crop_kernel.LAUNCHES, "warp_patches": warp_kernel.LAUNCHES,
+        "gallery_topk": gallery_kernel.LAUNCHES,
+        "gallery_topk_int8": gallery_kernel.LAUNCHES_INT8,
+        "gallery_topk_f32": gallery_kernel.LAUNCHES_F32,
+    }
+
+
+def same_step(tag, a, b) -> dict:
+    """A mesh step's outputs `a` against one device's `b` on the same frames:
+    the same detections (boxes and landmarks within 1 px), embeddings of
+    the valid embedded slots within cosine 0.999, the same top-1 where b's
+    margin is clear, the same embedded slots. Returns the largest
+    differences."""
+    import torch
+
+    valid = b["face_valid"]
+    if not torch.equal(a["face_valid"], valid) or not torch.equal(a["embedded"], b["embedded"]):
+        fail(f"{tag}: face_valid or embedded differ from the single-device step")
+    box = (a["bboxes"] - b["bboxes"])[valid].abs().max().item() if valid.any() else 0.0
+    lmk = (a["landmarks"] - b["landmarks"])[valid].abs().max().item() if valid.any() else 0.0
+    embedded = valid & b["embedded"]
+    ea, eb = a["embeddings"].float()[embedded], b["embeddings"].float()[embedded]
+    cos = torch.nn.functional.cosine_similarity(ea, eb, dim=-1).min().item() \
+        if embedded.any() else 1.0
+    sb = b["match_scores"]
+    clear = b["embedded"] & ((sb[..., 0] - sb[..., 1]) > 5e-3)
+    if box > 1.0 or lmk > 1.0 or cos < 0.999 or not torch.equal(
+            a["match_idx"][..., 0][clear], b["match_idx"][..., 0][clear]):
+        fail(f"{tag}: boxes {box}, landmarks {lmk}, embedding cosine {cos} or top-1 "
+             f"differ from the single-device step")
+    bit = all(torch.equal(a[k], b[k]) for k in a if k != "quality_metrics")
+    score = (a["match_scores"] - sb).abs().max().item()
+    print(f"[mesh] {tag}: equal to the single-device step (bit for bit: {bit}; boxes "
+          f"{box:.3g} px, landmarks {lmk:.3g} px, min embedding cosine {cos:.6f}, match "
+          f"scores {score:.3g}, top-1 of {int(clear.sum())} clear slots equal)")
+    return {"bit_equal": bit, "box_px": box, "landmark_px": lmk, "min_cosine": cos,
+            "score": score}
+
+
+def mesh_context(fixture) -> dict:
+    """What phase 12 takes from phase 3, built without phase 3's checks:
+    the server's build and the planted slots of one step."""
+    import torch
+
+    from facerecognitionpipeline_tpu_torch.gallery.search import DeviceGallery
+
+    ctx = serving_build(fixture)
+    gallery = DeviceGallery(device=DEVICE)
+    gallery.rebuild(["id0"], make_gallery(1))
+    t, v, _ = gallery.device_snapshot()
+    slots, emb = planted_slots(ctx["engine"].process_frames(ctx["frames"], t, v))
+    ctx.update({"slots": slots, "emb": torch.from_numpy(emb).to(DEVICE)})
+    return ctx
+
+
+def mesh_phase(ctx, gal, report, cards: bool = False) -> None:
+    """Phase 12: the mesh of MESH_DATA entries of the one card, or with
+    `cards` of distinct cards (see the module docstring)."""
+    import numpy as np
+    import torch
+
+    from facerecognitionpipeline_tpu_torch.gallery.manager import GalleryManager
+    from facerecognitionpipeline_tpu_torch.gallery.search import DeviceGallery
+    from facerecognitionpipeline_tpu_torch.parallel.mesh import make_mesh
+    from facerecognitionpipeline_tpu_torch.pipeline.engine import RecognitionEngine
+    from facerecognitionpipeline_tpu_torch.serve import rawproto
+    from facerecognitionpipeline_tpu_torch.serve.client import HTTPSession
+    from facerecognitionpipeline_tpu_torch.serve.server import FaceRecognitionServer, serve
+    from facerecognitionpipeline_tpu_torch.train.data import synthetic_batches
+    from facerecognitionpipeline_tpu_torch.train.trainer import TrainConfig, Trainer
+
+    t_phase = time.perf_counter()
+    dev = torch.device(DEVICE)
+
+    def entries(n):
+        """n mesh entries: the card n times, or with `cards` n cards."""
+        if not cards:
+            return [dev] * n
+        if torch.cuda.device_count() < n:
+            fail(f"--cards needs {n} cards, have {torch.cuda.device_count()}")
+        return [torch.device("cuda", i) for i in range(n)]
+
+    mesh = make_mesh(data=MESH_DATA, devices=entries(MESH_DATA))
+    where = f"{MESH_DATA} cards" if cards else "one card"
+    used = set(entries(MESH_DATA * 2))
+
+    def sync():
+        for d in used:
+            torch.cuda.synchronize(d)
+    detector, embedder, frames, slots = (ctx["detector"], ctx["embedder"], ctx["frames"],
+                                         ctx["slots"])
+    single = ctx["engine"]
+    counters = mesh_counters()
+    totals = {k: 0 for k in counters}
+    res: dict = {"mesh": str(mesh)}
+
+    def run(engine, t, v, iters, rotation=0):
+        """`iters` steps with the counts from 0: (last output, sorted ms,
+        launches). The mesh's launches also go to the phase's totals."""
+        engine.process_frames(frames, t, v, rotation=rotation)  # warm
+        for c in counters.values():
+            c.reset()
+        times, out = [], None
+        for _ in range(iters):
+            sync()
+            s0 = time.perf_counter()
+            out = engine.process_frames(frames, t, v, rotation=rotation)
+            sync()
+            times.append(1e3 * (time.perf_counter() - s0))
+        got = {k: c.count for k, c in counters.items()}
+        if engine.mesh is not None:
+            for k in totals:
+                totals[k] += got[k]
+        return out, sorted(times), got
+
+    def expect(tag, got, iters, **per_step):
+        want = {k: 0 for k in counters}
+        want.update({"crop_resize": 3 * MESH_DATA * iters, "warp_patches": MESH_DATA * iters})
+        want.update({k: n * iters for k, n in per_step.items()})
+        if got != want:
+            fail(f"{tag}: launches {got}, expected {want}")
+
+    def planted(tag, out, rows, floor):
+        idx = out["match_idx"].cpu().numpy()
+        sc = out["match_scores"].cpu().numpy()
+        for row, (f, s) in zip(rows, slots):
+            if idx[f, s, 0] != row or sc[f, s, 0] <= floor:
+                fail(f"{tag}: planted row {row} came back as {idx[f, s, 0]} ({sc[f, s, 0]})")
+
+    meshed = RecognitionEngine(detector, embedder, top_k=3, mesh=mesh)
+    for sh in meshed._shards:
+        own = sh.device == meshed.device
+        if (sh.detector is detector) != own or (sh.embedder is embedder) != own:
+            fail("a replica must be the detector and embedder themselves exactly on "
+                 "the weights' own device")
+
+    # 12a: the dense step data parallel, 1024 float32 rows with planted rows
+    emb = ctx["emb"].float()
+    small = make_gallery(GALLERY_ROWS, seed=3)
+    rows_small = [100 + 37 * i for i in range(len(slots))]
+    for row, (f, s) in zip(rows_small, slots):
+        small[row] = emb[f, s]
+    g_small = DeviceGallery(device=DEVICE)
+    g_small.rebuild([f"id{i}" for i in range(GALLERY_ROWS)], small)
+    t, v, _ = g_small.device_snapshot()
+    out_m, ms_m, got = run(meshed, t, v, MESH_STEP_ITERS)
+    expect("dense mesh step", got, MESH_STEP_ITERS)
+    out_s, ms_s, _ = run(single, t, v, MESH_STEP_ITERS)
+    res["dense"] = same_step("dense step, 1024 float32 rows", out_m, out_s)
+    planted("dense mesh step", out_m, rows_small, 0.99)
+    p50_m, p50_s = ms_m[len(ms_m) // 2], ms_s[len(ms_s) // 2]
+    res["dense"].update({"p50_ms": p50_m, "single_p50_ms": p50_s,
+                         "launches_per_step": {k: n / MESH_STEP_ITERS for k, n in got.items()}})
+    print(f"[timing] mesh step ({MESH_DATA} data shards on {where}) B={BATCH} {ARCH} bf16, "
+          f"{GALLERY_ROWS}-row float32 gallery: p50 {p50_m:.3f} ms (min {ms_m[0]:.3f}) beside "
+          f"the single-device step's {p50_s:.3f} ms (min {ms_s[0]:.3f}) in this run, "
+          f"{MESH_STEP_ITERS} steps each; launches per mesh step "
+          f"{ {k: n / MESH_STEP_ITERS for k, n in got.items() if n} }")
+
+    # 12b: embed_budget=4 data parallel
+    budget_m = RecognitionEngine(detector, embedder, top_k=3, mesh=mesh, embed_budget=4)
+    budget_s = RecognitionEngine(detector, embedder, top_k=3, embed_budget=4)
+    out_m, ms_m, got = run(budget_m, t, v, 3, rotation=1)
+    expect("budget mesh step", got, 3)
+    out_s, _, _ = run(budget_s, t, v, 3, rotation=1)
+    res["budget"] = same_step("embed_budget=4 step, rotation 1", out_m, out_s)
+    res["budget"]["p50_ms"] = ms_m[len(ms_m) // 2]
+    del g_small, t, v, small
+
+    # 12c/12d: 1 048 576 identities, bf16 (K3) and int8 (K4), rows sharded
+    big = gal.shape[0]
+    ids = [f"id{i}" for i in range(big)]
+    rows = [(4099 + 131_101 * i) % big for i in range(len(slots))]
+    for row, (f, s) in zip(rows, slots):
+        gal[row] = emb[f, s]  # as phase 5 plants them
+    sharded = RecognitionEngine(detector, embedder, top_k=3, mesh=mesh, shard_gallery=True)
+    for quantize, kernel, floor in ((None, "gallery_topk", 0.99),
+                                    ("int8", "gallery_topk_int8", 0.98)):
+        label = quantize or "bf16"
+        t0 = time.perf_counter()
+        g_one = DeviceGallery(device=DEVICE, quantize=quantize)
+        g_one.rebuild(ids, gal)
+        g_mesh = DeviceGallery(mesh=mesh, quantize=quantize)
+        g_mesh.rebuild(ids, gal)
+        t1, v1, _ = g_one.device_snapshot()
+        ts, vs, _ = g_mesh.device_snapshot()
+        blocks = (ts[0] if isinstance(ts, tuple) else ts).blocks
+        if [tuple(b.shape)[0] for b in blocks] != [big // MESH_DATA] * MESH_DATA or \
+                len({b.data_ptr() for b in blocks}) != MESH_DATA:
+            fail(f"{label}: the sharded gallery is not {MESH_DATA} tensors of its own")
+        sync()
+        print(f"[mesh] {label}: DeviceGallery of {big} identities, one device and "
+              f"{MESH_DATA} row shards of {big // MESH_DATA}, rebuilt in "
+              f"{time.perf_counter() - t0:.2f} s")
+        out_sh, ms_sh, got = run(sharded, ts, vs, MESH_BIG_ITERS)
+        expect(f"{label} shard_gallery step", got, MESH_BIG_ITERS, **{kernel: MESH_DATA})
+        planted(f"{label} shard_gallery step", out_sh, rows, floor)
+        out_rep, ms_rep, got = run(meshed, t1, v1, MESH_BIG_ITERS)
+        expect(f"{label} replicated-gallery mesh step", got, MESH_BIG_ITERS,
+               **{kernel: MESH_DATA})
+        out_s, ms_s, _ = run(single, t1, v1, MESH_BIG_ITERS)
+        cmp_sh = same_step(f"{label} shard_gallery step", out_sh, out_s)
+        cmp_rep = same_step(f"{label} replicated-gallery mesh step", out_rep, out_s)
+        p50 = {"shard_gallery": ms_sh[len(ms_sh) // 2], "replicated": ms_rep[len(ms_rep) // 2],
+               "single": ms_s[len(ms_s) // 2]}
+        print(f"[timing] {big}-row {label} gallery, B={BATCH}: p50 shard_gallery "
+              f"{p50['shard_gallery']:.3f} ms, replicated gallery on the mesh "
+              f"{p50['replicated']:.3f}, single device {p50['single']:.3f} "
+              f"({MESH_BIG_ITERS} steps each); {kernel} {MESH_DATA} launches per mesh step")
+        res[f"big_{label}"] = {"p50_ms": p50, "shard_gallery": cmp_sh, "replicated": cmp_rep}
+        # DeviceGallery.search under the mesh against one device, top_k 5
+        q = torch.cat([emb[[f for f, _ in slots], [s for _, s in slots]],
+                       make_gallery(8, seed=11)]).cpu().numpy()
+        for c in counters.values():
+            c.reset()
+        s_mesh, n_mesh = g_mesh.search(q, top_k=5)
+        sync()
+        if counters[kernel].count != MESH_DATA:
+            fail(f"{label}: the sharded search launched {kernel} {counters[kernel].count} times")
+        totals[kernel] += counters[kernel].count
+        s_one, n_one = g_one.search(q, top_k=5)
+        err = float(np.abs(s_mesh - s_one).max())
+        if n_mesh != n_one or err > 1e-6:
+            fail(f"{label}: the sharded search differs from one device's ({err})")
+        if [n[0] for n in n_mesh[:len(rows)]] != [f"id{r}" for r in rows]:
+            fail(f"{label}: the sharded search did not find the planted rows")
+        print(f"[mesh] {label}: DeviceGallery(mesh).search at top_k 5 ({len(q)} queries) "
+              f"equals one device's (ids equal, scores within {err:.3g}), {kernel} once per "
+              f"shard")
+        res[f"big_{label}"]["search_err"] = err
+        del g_one, g_mesh, t1, v1, ts, vs, out_sh, out_rep, out_s
+        torch.cuda.empty_cache()
+
+    # 12e: a server built on the mesh engine, raw rgb24 requests
+    frame = ctx["frames_np"][0]
+    with tempfile.TemporaryDirectory() as tmp:
+        manager = GalleryManager(os.path.join(tmp, "g.pkl"), verbose=False, device=DEVICE)
+        for i, (f, s) in enumerate(slots):
+            manager.add_student(f"s{i:03d}", f"Student {i}",
+                                emb[f, s].cpu().numpy()[None].repeat(2, axis=0))
+        t0 = time.perf_counter()
+        server = FaceRecognitionServer(
+            similarity_threshold=SERVER_THRESHOLD, output_dir=os.path.join(tmp, "sessions"),
+            engine=meshed, gallery=manager, det_size=DET_SIZE, batch_max=BATCH,
+            batch_buckets=(1, MESH_DATA, BATCH), device=DEVICE,
+        )
+        if server.batcher.bucket_sizes != [MESH_DATA, BATCH]:
+            fail(f"mesh server: buckets {server.batcher.bucket_sizes}, expected "
+                 f"{[MESH_DATA, BATCH]} (multiples of the data axis)")
+        httpd = serve(server, "127.0.0.1", 0)
+        thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+        thread.start()
+        url = f"http://127.0.0.1:{httpd.server_address[1]}"
+        http = HTTPSession()
+        try:
+            print(f"[mesh] server on the mesh engine built and listening in "
+                  f"{time.perf_counter() - t0:.1f} s (buckets {server.batcher.bucket_sizes})")
+            if http.post(f"{url}/init_session", json={"session_name": "mesh"},
+                         timeout=60).status_code != 200:
+                fail("mesh server: /init_session failed")
+            tv, vv, sids = manager.device_snapshot()
+            direct = meshed.process_frames(np.stack([frame] * MESH_DATA), tv, vv, gallery_k=3)
+            ok = (direct["face_valid"][0] & direct["quality_ok"][0]).cpu().numpy()
+            faces = [{"bbox": b} for b, o in zip(direct["bboxes"][0].cpu().numpy(), ok) if o]
+            for c in counters.values():
+                c.reset()
+            steps0 = server.batcher._dispatch_count
+            lat = []
+            for j in range(MESH_REQUESTS):
+                s0 = time.perf_counter()
+                r = http.post(
+                    f"{url}/process_frame_raw", data=frame.tobytes(), timeout=120,
+                    headers={rawproto.HEADER_FORMAT: "rgb24",
+                             rawproto.HEADER_WIDTH: str(DET_SIZE[1]),
+                             rawproto.HEADER_HEIGHT: str(DET_SIZE[0]),
+                             rawproto.HEADER_SCALE: "1.0"})
+                lat.append(1e3 * (time.perf_counter() - s0))
+                if r.status_code != 200:
+                    fail(f"mesh server: request {j} answered {r.status_code}")
+                check_response(f"mesh server request {j}", r.json(), faces, 1.0)
+            steps = server.batcher._dispatch_count - steps0
+            got = {k: c.count for k, c in counters.items()}
+            expect("mesh server", got, steps)
+            for k in totals:
+                totals[k] += got[k]
+            res["server"] = {"requests": MESH_REQUESTS, "steps": steps,
+                             "p50_ms": pct(lat, 50), "p95_ms": pct(lat, 95)}
+            print(f"[mesh] server on the mesh engine: {MESH_REQUESTS} raw rgb24 requests "
+                  f"answered as the direct mesh step ({len(faces)} faces, boxes within 1 px) "
+                  f"in {steps} steps, request p50 {pct(lat, 50):.3f} ms, p95 "
+                  f"{pct(lat, 95):.3f} ms; launches {got}")
+        finally:
+            http.close()
+            stop_server(server, httpd, thread)
+
+    # 12f: the trainer on (2, 2) and (2, 1) meshes of the card, float32, on
+    # phase 11's batch. A repeated batch falls to a loss of ~0.1 in 3 steps,
+    # so the loss is held within 1e-4 + 5e-4 |loss|; parameters within 1e-3
+    # after step 1 and 3e-3 after the last. The fault this comparison is
+    # for, a classifier gradient scaled by 1 / n_model (the JAX step's factor
+    # for shard_map's replicated loss), moves step 1's classifier by lr |g| /
+    # 2, g the (2, 1) trainer's first classifier gradient (its trace less the
+    # weight decay): that must clear the step-1 bound by more than the gap
+    # measured, or the check could not see the fault.
+    x, y = (torch.from_numpy(a).to(DEVICE)
+            for a in next(synthetic_batches(TRAIN_CLASSES, TRAIN_BATCH, seed=1)))
+    cfg = TrainConfig(architecture=TRAIN_ARCH, num_classes=TRAIN_CLASSES)
+    runs = {}
+    for m in (2, 1):
+        trainer = Trainer(cfg, make_mesh(data=MESH_DATA, model=m, devices=entries(MESH_DATA * m)))
+        state = trainer.init_state(0)
+        states, losses, times = [state], [], []
+        for i in range(MESH_TRAIN_STEPS):
+            sync()
+            s0 = time.perf_counter()
+            state, met = trainer.train_step(state, x, y, trainer.dropout_generators(0, i))
+            sync()
+            times.append(1e3 * (time.perf_counter() - s0))
+            losses.append(met["loss"])
+            states.append(state)
+        runs[m] = {"states": states, "loss": [float(v) for v in losses], "ms": times}
+        del trainer
+
+    def flat_params(st):
+        blocks = st["params"]["classifier"]
+        home = blocks[0].device  # blocks may lie on several cards
+        return {**st["params"]["backbone"],
+                "classifier": torch.cat([blk.to(home) for blk in blocks], 1)}
+
+    def param_gap(step):
+        pa, pb = flat_params(runs[2]["states"][step]), flat_params(runs[1]["states"][step])
+        return max((pa[k] - pb[k].to(pa[k].device)).abs().max().item() for k in pb)
+
+    param1, param = param_gap(1), param_gap(MESH_TRAIN_STEPS)
+    first, second = runs[1]["states"][0], runs[1]["states"][1]
+    g = (second["opt_state"]["trace"]["classifier"][0]
+         - cfg.weight_decay * first["params"]["classifier"][0])
+    fault = cfg.learning_rate / 2 * g.abs().max().item()
+    a, b = runs[2]["states"][-1], runs[1]["states"][-1]
+    loss_abs = [abs(p - q) for p, q in zip(runs[2]["loss"], runs[1]["loss"])]
+    loss_ok = all(d <= 1e-4 + 5e-4 * abs(q) for d, q in zip(loss_abs, runs[1]["loss"]))
+    stats = max(((a["batch_stats"][k] - v).norm() / (v.norm() + 1e-5 * v.numel() ** 0.5)).item()
+                for k, v in b["batch_stats"].items())
+    if not all(np.isfinite(runs[m]["loss"]).all() for m in runs) or not loss_ok or \
+            param1 > 1e-3 or param > 3e-3 or stats > 5e-3:
+        fail(f"train (2, 2) vs (2, 1): losses {runs[2]['loss']} vs {runs[1]['loss']}, "
+             f"params {param1} (step 1), {param}, batch_stats {stats}")
+    if fault - param1 <= 1e-3:
+        fail(f"train (2, 2) vs (2, 1): a classifier gradient scaled by 1/2 would move step 1 "
+             f"by {fault}, within the 1e-3 bound plus the gap measured ({param1})")
+    res["train"] = {"loss_abs": loss_abs, "param_abs_step1": param1, "param_abs": param,
+                    "fault_step1": fault, "batch_stats_rel": stats,
+                    "losses": runs[2]["loss"], "ms_2x2": runs[2]["ms"], "ms_2x1": runs[1]["ms"]}
+    print(f"[mesh] train {TRAIN_ARCH} B={TRAIN_BATCH} {TRAIN_CLASSES} classes float32, "
+          f"{MESH_TRAIN_STEPS} steps on phase 11's batch on (2, 2) and (2, 1) meshes "
+          f"({'4 and 2 cards' if cards else 'one card'}): losses "
+          f"{[round(v, 4) for v in runs[2]['loss']]}, (2, 2) vs (2, 1) loss "
+          f"{max(loss_abs):.3g} absolute (bound 1e-4 + 5e-4 |loss|), parameters "
+          f"{param1:.3g} after step 1 (bound 1e-3) and {param:.3g} after step "
+          f"{MESH_TRAIN_STEPS} (bound 3e-3), batch_stats {stats:.3g} relative; a classifier "
+          f"gradient scaled by 1/2 would move step 1 by {fault:.3g}; step ms (host clock, "
+          f"every card synchronized) (2, 2) {[round(v, 1) for v in runs[2]['ms']]}, (2, 1) "
+          f"{[round(v, 1) for v in runs[1]['ms']]}")
+    del runs, a, b, first, second, g
+    torch.cuda.empty_cache()
+    res["launches"] = totals
+    res["seconds"] = time.perf_counter() - t_phase
+    print(f"[mesh] phase 12 launches {totals}; took {res['seconds']:.1f} s")
+    report["mesh"] = res
+
+
 def card_line() -> str:
     """The card's name and power limit, as nvidia-smi prints them."""
     smi = subprocess.run(
@@ -4081,6 +4508,16 @@ def main() -> int:
         print(card_line())
         print(json.dumps({"train": report["train"]}))
         return 0
+    if "--mesh-only" in sys.argv[1:]:
+        # phase 12 alone on phase 3's build, the same way; with --cards its
+        # mesh entries are distinct cards (2 for serving, 4 for the (2, 2)
+        # trainer) instead of cuda:0 repeated
+        report = {}
+        mesh_phase(mesh_context(fixture), make_gallery(BIG_GALLERY_ROWS), report,
+                   cards="--cards" in sys.argv[1:])
+        print(card_line())
+        print(json.dumps({"mesh": report["mesh"]}))
+        return 0
 
     report = kernel_phase(fixture)
     gal = make_gallery(BIG_GALLERY_ROWS)
@@ -4092,8 +4529,9 @@ def main() -> int:
     int8_phase(ctx, gal, report)
     enrolment_phase(ctx, gal, report)
     offline_phase(gal, report)
-    del gal, ctx
     train_phase(fixture, report)
+    mesh_phase(ctx, gal, report)
+    del gal, ctx
 
     print(card_line())
 
@@ -4113,6 +4551,7 @@ def main() -> int:
     enrol = report["enrol"]
     offline_launches = report["offline"]["launches"]
     train_launches = report["train"]["launches"]
+    mesh_launches = report["mesh"]["launches"]
     matcher_launches = {"crop_resize": enrol["launches_k1"], "warp_patches": 0,
                         **enrol["matcher_launches"]}
     # K1's and K2's first designs (one thread per output pixel), as timed when
@@ -4161,6 +4600,10 @@ def main() -> int:
             # weights; K1 in the accuracy recipe's bf16 processors and in the
             # OOD suite's cascade), counted from 0 over 11c
             "train_launches": train_launches.get(name, 0),
+            # phase 12 (the mesh of two entries of the card): its mesh steps,
+            # the sharded searches and the server on the mesh engine, counted
+            # from 0 before each and read after
+            "mesh_launches": mesh_launches[name],
             "max_abs_err": max(r["err"] for r in all_rows),
             # ms, plain_ms, bound_ms and library_ms are sums over the call
             # shapes of one serving step (K1: R-net, O-net, align stage A)
@@ -4195,10 +4638,13 @@ def main() -> int:
             fail(f"phase 10 never launched {name}")
         if name in ("crop_resize", "warp_patches") and train_launches[name] < 1:
             fail(f"phase 11 never launched {name}")
+        if not f32 and mesh_launches[name] < 1:
+            fail(f"phase 12 never launched {name}")
     print(json.dumps({"int8": report["int8"]}))
     print(json.dumps({"enrol": enrol}))
     print(json.dumps({"offline": report["offline"]}))
     print(json.dumps({"train": report["train"]}))
+    print(json.dumps({"mesh": report["mesh"]}))
     print(json.dumps({
         "kernels": kernels,
         **{k: v for k, v in report.items() if k.startswith("step_p50_ms")},

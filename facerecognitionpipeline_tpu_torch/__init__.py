@@ -13,3 +13,18 @@ Layouts at public functions match the JAX package (NHWC frames and faces,
 [B,N,4] boxes, [B,F,5,2] landmarks). Entry points default to
 `device="cuda"` and raise without a card unless given `device="cpu"`.
 """
+
+_LAZY = {
+    "FaceEmbedder": "facerecognitionpipeline_tpu_torch.pipeline.embedder",
+    "FaceProcessor": "facerecognitionpipeline_tpu_torch.pipeline.processor",
+    "GalleryManager": "facerecognitionpipeline_tpu_torch.gallery.manager",
+    "StudentRecord": "facerecognitionpipeline_tpu_torch.gallery.manager",
+}
+
+
+def __getattr__(name):
+    if name in _LAZY:
+        import importlib
+
+        return getattr(importlib.import_module(_LAZY[name]), name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -3,14 +3,18 @@
 Counterpart of `facerecognitionpipeline_tpu/cli/train_embedder.py`, with
 its flags plus --device (default cuda; raises without a card, never falls
 back to the CPU). An identity-folder dataset (or --synthetic_classes) ->
-margin-softmax training on one card (`train/trainer.py`) -> step-numbered
-checkpoints with resume (`train/checkpoint.py`) -> a `.npz` backbone export
-that `FaceEmbedder(model_path=...)` of either package loads.
+margin-softmax training (`train/trainer.py`) -> step-numbered checkpoints
+with resume (`train/checkpoint.py`) -> a `.npz` backbone export that
+`FaceEmbedder(model_path=...)` of either package loads.
 
---data_parallel and --model_parallel above 1 raise NotImplementedError
-(ROADMAP.md item 17, queue 1, multi-GPU). --bf16 computes in bfloat16 with
-float32 parameters. Losses stay on the card and are fetched once per log
-window.
+--data_parallel and --model_parallel above 1 train over a mesh
+(`parallel.make_mesh`): the batch split over the data axis, the classifier
+over the model axis (the class count padded to a multiple of it). On the
+card the mesh takes distinct CUDA devices; with --device cpu it is
+data x model CPU entries, as the JAX package's virtual CPU devices are. A
+checkpoint written under a mesh resumes under the same mesh. --bf16
+computes in bfloat16 with float32 parameters. Losses stay on the device
+and are fetched once per log window.
 """
 
 from __future__ import annotations
@@ -50,9 +54,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--warmup_steps", type=int, default=0)
     p.add_argument("--weight_decay", type=float, default=5e-4)
     p.add_argument("--data_parallel", type=int, default=0,
-                   help="data axis: 0 or 1 (one card); more is not ported")
+                   help="data axis size (0 = every device the model axis "
+                        "leaves; 1 with --device cpu)")
     p.add_argument("--model_parallel", type=int, default=1,
-                   help="model axis (class shards): 1; more is not ported")
+                   help="model axis size: classifier shards")
     p.add_argument("--bf16", action="store_true",
                    help="bfloat16 compute (params stay f32)")
     p.add_argument("--optax_optimizer", action="store_true",
@@ -90,21 +95,21 @@ def main(argv=None) -> int:
         prefetch_to_device,
         synthetic_batches,
     )
-    from facerecognitionpipeline_tpu_torch.train.trainer import (
-        MULTI_GPU,
-        TrainConfig,
-        Trainer,
-        dropout_generator,
-    )
+    from facerecognitionpipeline_tpu_torch.parallel.mesh import make_mesh
+    from facerecognitionpipeline_tpu_torch.train.trainer import TrainConfig, Trainer
     from facerecognitionpipeline_tpu_torch.utils.device import resolve_device
 
-    if args.data_parallel > 1 or args.model_parallel > 1:
-        raise NotImplementedError(
-            f"--data_parallel {args.data_parallel} --model_parallel "
-            f"{args.model_parallel}: training runs on one card; {MULTI_GPU}"
-        )
     device = resolve_device(args.device)
     print(f"Device: {device}")
+    n_model = max(1, args.model_parallel)
+    mesh = None
+    if args.data_parallel > 1 or n_model > 1:
+        if device.type == "cpu":
+            n_data = max(1, args.data_parallel)
+            mesh = make_mesh(data=n_data, model=n_model, devices=[device] * (n_data * n_model))
+        else:
+            mesh = make_mesh(data=args.data_parallel or None, model=n_model)
+        print(f"Mesh: data={mesh.shape['data']} x model={n_model}")
 
     if args.synthetic_classes:
         num_classes = args.synthetic_classes
@@ -115,9 +120,11 @@ def main(argv=None) -> int:
         num_classes = dataset.num_classes
         print(f"Dataset: {len(dataset)} images / {num_classes} identities")
 
+    # the class-sharded head wants num_classes divisible by the model axis
+    padded_classes = -(-num_classes // n_model) * n_model
     cfg = TrainConfig(
         architecture=args.architecture,
-        num_classes=num_classes,
+        num_classes=padded_classes,
         loss=args.loss,
         margin=args.margin,
         scale=args.scale,
@@ -129,7 +136,7 @@ def main(argv=None) -> int:
         dtype=torch.bfloat16 if args.bf16 else torch.float32,
         fused_optimizer=not args.optax_optimizer,
     )
-    trainer = Trainer(cfg, device=device)
+    trainer = Trainer(cfg, mesh, device=device)
     state = trainer.init_state(args.seed)
 
     start_step = 0
@@ -146,7 +153,8 @@ def main(argv=None) -> int:
     else:
         batches = folder_batches(dataset, args.batch_size, seed=stream_seed)
     if args.prefetch > 0:
-        batches = prefetch_to_device(batches, depth=args.prefetch, device=device)
+        batches = prefetch_to_device(batches, depth=args.prefetch, device=device,
+                                     sharding=mesh)
 
     t0 = time.perf_counter()
     losses: list = []
@@ -155,7 +163,7 @@ def main(argv=None) -> int:
         if step_i >= args.steps:
             break
         state, metrics = trainer.train_step(
-            state, images, labels, dropout_generator(args.seed, step_i, device))
+            state, images, labels, trainer.dropout_generators(args.seed, step_i))
         pending.append(metrics["loss"])
         if (step_i + 1) % args.log_every == 0:
             losses.extend(torch.stack(pending).cpu().tolist())

@@ -87,8 +87,9 @@ class GalleryManager:
         quantize: Optional[str] = None,
         device="cuda",
     ):
-        """mesh: not ported (NotImplementedError naming ROADMAP.md; the
-        row-sharded gallery comes with multi-GPU serving).
+        """mesh: row-shard the device templates over the mesh's 'data'
+        axis (`DeviceGallery(mesh=...)`); `device_snapshot` then hands out
+        the per-shard form that the engine's `shard_gallery=True` consumes.
         quantize: None or 'int8' — at streaming scale the device templates
         become int8 codes + per-row scales (half the device-memory bytes of
         bf16; top-1 parity pinned in tests/test_torch_port_gallery.py).

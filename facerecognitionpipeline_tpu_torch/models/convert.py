@@ -245,12 +245,16 @@ def train_state_to_jax(state: dict) -> dict:
     'opt_state', 'norm_ema', 'step'}. The unfused optimizer's state is the
     tuple ({}, ({'trace': ...}, {'count': ...} or {})), which flattens to
     the leaves of optax's chain state in their order. The inverse of
-    `train_state_from_jax`."""
+    `train_state_from_jax`. A mesh's classifier blocks are joined along the
+    class axis."""
     stats = state["batch_stats"]
 
     def params(tree):
+        c = tree["classifier"]
+        if isinstance(c, list):  # class blocks of a mesh, in class order
+            c = torch.cat([b.detach().cpu() for b in c], dim=1)
         return {"backbone": backbone_variables_from_state({**tree["backbone"], **stats})["params"],
-                "classifier": tree["classifier"].detach().cpu().numpy().astype(np.float32)}
+                "classifier": c.detach().cpu().numpy().astype(np.float32)}
 
     def count(c):
         return np.int32(int(c))

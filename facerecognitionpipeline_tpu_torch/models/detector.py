@@ -11,7 +11,9 @@ vmaps one frame's cascade):
   NMS(min) -> max_faces.
 
 The R-net and O-net crops are kernel K1 (`ops/crop_kernel.py`) when
-`crop_impl='kernel'`. `quantize='int8'` makes R-net and O-net static-scale
+`crop_impl='kernel'`. `pack_pyramid=True` runs P-net once over every
+pyramid level shelf-packed into one canvas (`_pack_pyramid`), as the JAX
+package's option of that name does. `quantize='int8'` makes R-net and O-net static-scale
 int8 nets (`models/quantize.py`), calibrated on `calib_frames`.
 """
 
@@ -82,6 +84,50 @@ def _resize_matrix(src: int, dst: int) -> np.ndarray:
     return (w / w.sum(axis=1, keepdims=True)).astype(np.float32)
 
 
+def _pnet_out_dim(s: int) -> int:
+    """P-net output extent for an even input extent s (VALID 3x3 conv ->
+    2x2/2 pool, exact for even s -> two VALID 3x3 convs)."""
+    assert s % 2 == 0
+    return (s - 4) // 2 - 3
+
+
+def _pack_pyramid(h: int, w: int, scales: list[float], gap: int = 4):
+    """Static shelf-packing of the image pyramid into ONE canvas.
+
+    Every region gets EVEN dims at an EVEN origin, so P-net over the canvas
+    gives the per-scale P-net outputs inside each region's submap: its
+    convs are VALID (a submap cell never sees past its region) and the
+    2x2/2 pool needs no ceil padding for even extents at even origins.
+
+    Returns (canvas_h, canvas_w, regions), regions a list of (sh, sw, oy,
+    ox) in scale order."""
+
+    def even(x: float) -> int:
+        n = int(math.ceil(x))
+        return n + (n % 2)
+
+    dims = [(even(h * s), even(w * s)) for s in scales]
+    shelf_w = dims[0][1] + gap + (dims[1][1] if len(dims) > 1 else 0) + gap + (
+        dims[2][1] if len(dims) > 2 else 0
+    )
+    regions: list[tuple[int, int, int, int]] = []
+    oy = ox = shelf_h = 0
+    canvas_w = 0
+    for sh, sw in dims:
+        if ox + sw > shelf_w and ox > 0:
+            oy += shelf_h + gap
+            oy += oy % 2
+            ox = 0
+            shelf_h = 0
+        regions.append((sh, sw, oy, ox))
+        canvas_w = max(canvas_w, ox + sw)
+        ox += sw + gap
+        ox += ox % 2
+        shelf_h = max(shelf_h, sh)
+    canvas_h = oy + shelf_h
+    return canvas_h + canvas_h % 2, canvas_w + canvas_w % 2, regions
+
+
 def _square(boxes: torch.Tensor) -> torch.Tensor:
     """Expand boxes [..., 4] to squares around their centres ('rerec')."""
     x1, y1, x2, y2 = boxes.unbind(-1)
@@ -116,6 +162,7 @@ class MTCNNDetector:
         rnet_crop_downscale: int = 2,
         stage1_keep: int = P_KEEP,
         stage2_keep: int = R_KEEP,
+        pack_pyramid: bool = False,
         crop_impl: str = "auto",
         quantize: Optional[str] = None,
         calib_frames: Optional[np.ndarray] = None,
@@ -127,6 +174,12 @@ class MTCNNDetector:
         ({'pnet'|'rnet'|'onet': state dict}, loaded with weights_only=True),
         or "random" for a seeded random init (`init_seed`); neither = the
         first of DEFAULT_DETECTOR_WEIGHTS.
+
+        pack_pyramid: P-net once over the shelf-packed pyramid canvas
+        instead of once per scale. Each region's map equals that scale's
+        own, but the scaled sizes round up to even and boxes map back by
+        the true per-axis factors, so proposals can move sub-pixel against
+        the per-scale path. Off by default, as in the JAX package.
 
         crop_impl: 'kernel' (K1, the counterpart of the JAX 'pallas';
         bf16 by design), 'matmul' (plain dense resample in `dtype`) or
@@ -218,10 +271,15 @@ class MTCNNDetector:
             )
         # static resize weights of the progressive pyramid, rounded to the
         # cascade dtype once
+        self.pack_pyramid = bool(pack_pyramid)
+        if self.pack_pyramid:
+            self._canvas_hw = _pack_pyramid(h, w, self.scales)
+            dims = [(sh, sw) for sh, sw, _, _ in self._canvas_hw[2]]
+        else:
+            dims = [(int(math.ceil(h * sc)), int(math.ceil(w * sc))) for sc in self.scales]
         self._pyramid_mats = []
         ph, pw = h, w
-        for sc in self.scales:
-            sh, sw = int(math.ceil(h * sc)), int(math.ceil(w * sc))
+        for sh, sw in dims:
             wy = torch.from_numpy(_resize_matrix(ph, sh)).to(self.device)
             wx = torch.from_numpy(_resize_matrix(pw, sw)).to(self.device)
             self._pyramid_mats.append((round_to(wy, dtype), round_to(wx, dtype)))
@@ -260,18 +318,20 @@ class MTCNNDetector:
             levels.append(src)
         return levels
 
-    def _pnet_proposals(self, prob, reg, scale):
+    def _pnet_proposals(self, prob, reg, sx, sy):
         """One scale's P-net maps prob [B,fh,fw], reg [B,fh,fw,4] ->
-        P_PER_SCALE padded proposals (boxes [B,P,4], scores [B,P])."""
+        P_PER_SCALE padded proposals (boxes [B,P,4], scores [B,P]); sx, sy
+        map map cells back to the frame (the scale, or a packed region's
+        true per-axis factors)."""
         b, fh, fw = prob.shape
         k = min(P_PER_SCALE, fh * fw)
         top_p, top_i = top_k(prob.reshape(b, -1), k)
         rows = torch.div(top_i, fw, rounding_mode="floor").float()
         cols = (top_i % fw).float()
-        x1 = div(cols * 2.0, scale)
-        y1 = div(rows * 2.0, scale)
-        x2 = div(cols * 2.0 + 12.0, scale)
-        y2 = div(rows * 2.0 + 12.0, scale)
+        x1 = div(cols * 2.0, sx)
+        y1 = div(rows * 2.0, sy)
+        x2 = div(cols * 2.0 + 12.0, sx)
+        y2 = div(rows * 2.0 + 12.0, sy)
         boxes = torch.stack([x1, y1, x2, y2], dim=-1)
         r = torch.gather(reg.reshape(b, -1, 4), 1, top_i[..., None].expand(b, k, 4))
         boxes = _apply_reg(boxes, r)
@@ -282,12 +342,41 @@ class MTCNNDetector:
         return boxes, top_p
 
     def _stage1(self, img):
+        if self.pack_pyramid:
+            return self._stage1_packed(img)
         all_boxes, all_scores = [], []
         for scale, level in zip(self.scales, self._pyramid(img)):
             prob, reg = self.nets.pnet(level)
-            boxes, scores = self._pnet_proposals(prob, reg, scale)
+            boxes, scores = self._pnet_proposals(prob, reg, scale, scale)
             all_boxes.append(boxes)
             all_scores.append(scores)
+        return self._stage1_finish(all_boxes, all_scores)
+
+    def _stage1_packed(self, img):
+        """P-net ONCE over the shelf-packed pyramid canvas: each scale's
+        maps are a static slice of the canvas maps."""
+        b, h, w, _ = img.shape
+        ch, cw, regions = self._canvas_hw
+        canvas = img.new_zeros((b, ch, cw, img.shape[-1]))
+        for (sh, sw, oy, ox), level in zip(regions, self._pyramid(img)):
+            canvas[:, oy:oy + sh, ox:ox + sw] = level
+        prob, reg = self.nets.pnet(canvas)
+        all_boxes, all_scores = [], []
+        for sh, sw, oy, ox in regions:
+            fh, fw = _pnet_out_dim(sh), _pnet_out_dim(sw)
+            a, c = oy // 2, ox // 2
+            boxes, scores = self._pnet_proposals(
+                prob[:, a:a + fh, c:c + fw].contiguous(),
+                reg[:, a:a + fh, c:c + fw].contiguous(),
+                sw / float(w), sh / float(h),
+            )
+            all_boxes.append(boxes)
+            all_scores.append(scores)
+        return self._stage1_finish(all_boxes, all_scores)
+
+    def _stage1_finish(self, all_boxes, all_scores):
+        """Concatenated per-scale proposals -> cross-scale NMS -> the
+        stage-1 top-k."""
         boxes = torch.cat(all_boxes, dim=1)
         scores = torch.cat(all_scores, dim=1)
         valid = scores > self.thresholds[0]

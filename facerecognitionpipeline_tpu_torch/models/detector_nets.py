@@ -159,6 +159,19 @@ class DetectorNets(nn.Module):
         self.onet = ONet(quantized)
 
 
+def init_detector_variables(seed: int = 0) -> dict:
+    """Random-init JAX-format variables for all three nets ({'pnet' |
+    'rnet' | 'onet': {'params': ...}}; testing and benchmarking): the
+    seeded lecun-normal init `MTCNNDetector(weights_path="random",
+    init_seed=seed)` uses."""
+    from facerecognitionpipeline_tpu_torch.models.convert import detector_variables_from_state
+    from facerecognitionpipeline_tpu_torch.models.layers import lecun_normal_
+
+    nets = DetectorNets()
+    lecun_normal_(nets, torch.Generator().manual_seed(seed))
+    return detector_variables_from_state(nets.state_dict())
+
+
 def _np(v):
     if hasattr(v, "detach"):
         v = v.detach().cpu().numpy()

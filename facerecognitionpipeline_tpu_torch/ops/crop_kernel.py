@@ -172,11 +172,12 @@ def _launch(images: torch.Tensor, boxes: torch.Tensor, k: int) -> torch.Tensor:
         return out
     geo = crop_launch_geometry(b, n, h, w, c, k)
     fn = cuda_build.function("crop_resize", "frp_crop_resize", _ARGTYPES)
-    rc = fn(
-        images.data_ptr(), boxes.data_ptr(), out.data_ptr(),
-        b, h, w, c, n, k, geo.band_rows, geo.threads, geo.smem_bytes,
-        torch.cuda.current_stream(images.device).cuda_stream,
-    )
+    with torch.cuda.device(images.device):  # the launch goes to the tensors' card
+        rc = fn(
+            images.data_ptr(), boxes.data_ptr(), out.data_ptr(),
+            b, h, w, c, n, k, geo.band_rows, geo.threads, geo.smem_bytes,
+            torch.cuda.current_stream(images.device).cuda_stream,
+        )
     if rc != 0:
         raise RuntimeError(f"crop_resize kernel launch failed (cudaError {rc})")
     LAUNCHES.bump()

@@ -393,10 +393,11 @@ def _launch(name, counter, queries, rows, scales, valid, top_k, q_scale=None):
     ptrs += [t.data_ptr() for t in (valid, part_v, part_i, out_v, out_i)]
     if q_scale is not None:
         ptrs.append(q_scale.data_ptr())
-    rc = fn(
-        *ptrs, q, g, d, top_k, geo.grid[0], geo.stages, geo.smem_bytes,
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
+    with torch.cuda.device(dev):  # the launch goes to the tensors' card
+        rc = fn(
+            *ptrs, q, g, d, top_k, geo.grid[0], geo.stages, geo.smem_bytes,
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
     if rc >= _ENCODE_FAILED:
         raise RuntimeError(
             f"{name}: cuTensorMapEncodeTiled refused the gallery "

@@ -97,3 +97,12 @@ def i420_to_rgb(yuv: torch.Tensor, height: int, width: int) -> torch.Tensor:
     g = yf - 0.392 * u - 0.813 * v
     b = yf + 2.017 * u
     return torch.stack([r, g, b], dim=-1).clamp(0.0, 255.0)
+
+
+def rgb_to_i420_host(frame_rgb):
+    """Host-side RGB uint8 [H,W,3] -> I420 [H*3//2, W] uint8: the camera
+    transport's conversion, `serve/rawproto.rgb_to_i420` (one
+    implementation; the client imports that module without torch)."""
+    from facerecognitionpipeline_tpu_torch.serve.rawproto import rgb_to_i420
+
+    return rgb_to_i420(frame_rgb)

@@ -6,6 +6,10 @@ the stage-B coefficients, the plain `crop_resize` (the detector's
 half-resolution R-net source frame) and the two-kernel batch alignment
 `align_faces_batch` (K1 for stage A, K2 for stage B) of the serving step.
 
+The engine's 'matmul' alignment is `align_faces_matmul`: the same stage-A
+windows cut by the plain `crop_resize`, then stage B as a dense bilinear
+contraction (`warp_affine_single_matmul`), all plain PyTorch.
+
 The host pipeline's alignment (`FaceProcessor`, enrolment, matching) is the
 gather path: `warp_affine`, `bilinear_sample` (zero or replicate border),
 `warp_affine_single`, `crop_resize_gather` and `align_faces`. The JAX
@@ -22,9 +26,22 @@ import torch
 from facerecognitionpipeline_tpu_torch.ops.crop_kernel import (
     crop_resize_kernel,
     crop_resize_plain,
+    hat_weights,
 )
-from facerecognitionpipeline_tpu_torch.ops.numerics import rdiv
+from facerecognitionpipeline_tpu_torch.ops.numerics import rdiv, round_to
 from facerecognitionpipeline_tpu_torch.ops.warp_kernel import warp_patches_kernel
+
+# insightface/ArcFace canonical 112x112 5-point template.
+ARCFACE_TEMPLATE = np.array(
+    [
+        [38.2946, 51.6963],
+        [73.5318, 51.5014],
+        [56.0252, 71.7366],
+        [41.5493, 92.3655],
+        [70.7299, 92.2041],
+    ],
+    dtype=np.float32,
+)
 
 # The reference pipeline's fractional 5-point template (left eye, right
 # eye, nose, left mouth, right mouth), scaled by the output size.
@@ -129,6 +146,40 @@ def warp_coeffs(
         dim=1,
     )
     return boxes, coeffs
+
+
+def warp_geometry(
+    matrices: torch.Tensor, out_h: int, out_w: int, patch_size: int
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Stage-A/B geometry of the two-stage dense warp: forward maps [F,2,3]
+    -> (stage-A boxes [F,4], px [F, out_h*out_w], py [F, out_h*out_w]), the
+    patch coordinates each output pixel samples: crop_resize samples patch
+    pixel i at src = x1 + bw*(i+0.5)/k - 0.5, so i = (src + 0.5 - x1)*k/bw
+    - 0.5."""
+    f = matrices.shape[0]
+    k = patch_size
+    inv, boxes = source_windows(matrices, out_h, out_w, k)
+    x1, y1, x2, y2 = boxes.unbind(1)
+    gx, gy = _grid(out_h, out_w, matrices.device)
+    sx, sy = _source_coords(inv, gx, gy)
+    sw = rdiv(k, (x2 - x1).clamp_min(1e-6))[:, None, None]
+    sh = rdiv(k, (y2 - y1).clamp_min(1e-6))[:, None, None]
+    px = ((sx + 0.5 - x1[:, None, None]) * sw - 0.5).reshape(f, -1)
+    py = ((sy + 0.5 - y1[:, None, None]) * sh - 0.5).reshape(f, -1)
+    return boxes, px, py
+
+
+def _interp_matrix(
+    starts: torch.Tensor, sizes: torch.Tensor, out_size: int, src_dim: int
+) -> torch.Tensor:
+    """Per-box 1-D bilinear interpolation matrices: starts/sizes [N] ->
+    [N, out_size, src_dim], row o the weights max(0, 1 - |src(o) - p|) of
+    output sample o over source pixels p (zero border included)."""
+    return hat_weights(starts.float(), sizes.float(), out_size, src_dim)
+
+
+# the JAX package's private name of the stage-A windows
+_source_windows = source_windows
 
 
 def _grid(out_h: int, out_w: int, device) -> tuple[torch.Tensor, torch.Tensor]:
@@ -267,3 +318,59 @@ def align_faces_batch(
         coeffs, output_size, output_size,
     )
     return out.reshape(b, f, output_size, output_size, c)
+
+
+def warp_affine_single_matmul(
+    image: torch.Tensor,
+    matrices: torch.Tensor,
+    out_h: int,
+    out_w: int,
+    patch_size: int = 128,
+    compute_dtype: torch.dtype = torch.bfloat16,
+    face_chunk: int = 8,
+) -> torch.Tensor:
+    """F affine-warped crops of ONE image [H,W,C] with dense contractions
+    instead of gathers: FORWARD maps [F,2,3] -> [F,out_h,out_w,C] float32.
+
+    A. each face's source window into a [patch, patch] patch with
+       `crop_resize` (a lossless pixel copy when the face fits the patch);
+    B. out[o,c] = sum_v Wy[o,v] sum_u Wx[o,u] P[v,u,c] with hat weights
+       Wx, Wy rounded to `compute_dtype`, the inner sum rounded to it too
+       and the outer one float32, `face_chunk` faces at a time."""
+    c = image.shape[-1]
+    f = matrices.shape[0]
+    k = patch_size
+    boxes, px, py = warp_geometry(matrices.float(), out_h, out_w, k)
+    patches = crop_resize(image, boxes, k, compute_dtype=compute_dtype)
+    pix = torch.arange(k, dtype=torch.float32, device=image.device)
+    outs = []
+    for s in range(0, f, max(1, face_chunk)):
+        e = min(s + face_chunk, f)
+        wx = round_to((1.0 - (px[s:e, :, None] - pix).abs()).clamp_min(0.0), compute_dtype)
+        wy = round_to((1.0 - (py[s:e, :, None] - pix).abs()).clamp_min(0.0), compute_dtype)
+        rows = round_to(
+            torch.einsum("fou,fvuc->fovc", wx, round_to(patches[s:e], compute_dtype)),
+            compute_dtype,
+        )
+        outs.append(torch.einsum("fov,fovc->foc", wy, rows))
+    if not outs:
+        return torch.zeros((0, out_h, out_w, c), device=image.device)
+    return torch.cat(outs).reshape(f, out_h, out_w, c)
+
+
+def align_faces_matmul(
+    image: torch.Tensor,
+    landmarks: torch.Tensor,
+    template: torch.Tensor,
+    output_size: int = 112,
+    patch_size: int = 128,
+    compute_dtype: torch.dtype = torch.bfloat16,
+    face_chunk: int = 8,
+) -> torch.Tensor:
+    """`align_faces` through `warp_affine_single_matmul`: ONE image
+    [H,W,C], landmarks [F,5,2] -> [F,out,out,C] float32."""
+    mats = similarity_transform(landmarks, torch.as_tensor(template))
+    return warp_affine_single_matmul(
+        image, mats, output_size, output_size, patch_size=patch_size,
+        compute_dtype=compute_dtype, face_chunk=face_chunk,
+    )

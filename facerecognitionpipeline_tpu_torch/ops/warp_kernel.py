@@ -175,11 +175,12 @@ def warp_patches_kernel(
             "start on a 16-byte address (copy the view into a tensor of its own)"
         )
     fn = cuda_build.function("warp_patches", "frp_warp_patches", _ARGTYPES)
-    rc = fn(
-        patches.data_ptr(), coeffs.data_ptr(), out.data_ptr(),
-        f, k, c, out_h, out_w, geo.threads, geo.vec, geo.smem_bytes,
-        torch.cuda.current_stream(patches.device).cuda_stream,
-    )
+    with torch.cuda.device(patches.device):  # the launch goes to the tensors' card
+        rc = fn(
+            patches.data_ptr(), coeffs.data_ptr(), out.data_ptr(),
+            f, k, c, out_h, out_w, geo.threads, geo.vec, geo.smem_bytes,
+            torch.cuda.current_stream(patches.device).cuda_stream,
+        )
     if rc != 0:
         raise RuntimeError(f"warp_patches kernel launch failed (cudaError {rc})")
     LAUNCHES.bump()

@@ -9,6 +9,13 @@ step is one function (`step`) over a batch of frames on the device:
 
 and returns the same dict of [B, F, ...] tensors as the JAX step. Host code
 only uploads frames and reads small results.
+
+Under a mesh (`mesh=`, from `parallel.make_mesh`) the frames split over
+its 'data' axis: each shard runs detect, align, gate and embed on its own
+device with a replica of the weights, matching runs per shard against a
+replicated gallery or, with `shard_gallery=True`, as one
+`dp_sharded_cosine_topk` over the gallery's row shards, and the results
+are gathered onto the mesh's first device.
 """
 
 from __future__ import annotations
@@ -18,11 +25,36 @@ from typing import Optional
 import numpy as np
 import torch
 
-from facerecognitionpipeline_tpu_torch.gallery.search import _local_topk, template_rows
+from facerecognitionpipeline_tpu_torch.gallery.search import (
+    _local_topk,
+    dp_sharded_parts,
+    template_rows,
+)
 from facerecognitionpipeline_tpu_torch.ops.image import i420_to_rgb, normalize_face_batch
 from facerecognitionpipeline_tpu_torch.ops.nms import top_k
 from facerecognitionpipeline_tpu_torch.ops.quality import QualityConfig, quality_check
-from facerecognitionpipeline_tpu_torch.ops.warp import align_faces_batch, reference_template
+from facerecognitionpipeline_tpu_torch.ops.warp import (
+    align_faces,
+    align_faces_batch,
+    align_faces_matmul,
+    reference_template,
+)
+from facerecognitionpipeline_tpu_torch.parallel.mesh import (
+    Sharded,
+    canonical_device,
+    replicate,
+)
+
+
+class _Shard:
+    """What one data shard of the step runs with: the detector, the
+    embedder and the alignment template on one device."""
+
+    def __init__(self, detector, embedder, template, device):
+        self.detector = detector
+        self.embedder = embedder
+        self.template = template
+        self.device = device
 
 
 class RecognitionEngine:
@@ -38,6 +70,7 @@ class RecognitionEngine:
         mesh=None,
         align_impl: str = "auto",
         align_patch: int = 128,
+        align_chunk: int = 8,
         input_format: str = "rgb",
         embed_budget: Optional[int] = None,
         shard_gallery: bool = False,
@@ -45,12 +78,26 @@ class RecognitionEngine:
         gallery_chunk: int = 4096,
         gallery_streaming_threshold: int = 32768,
     ):
-        """Arguments as in the JAX engine, where ported:
+        """Arguments as in the JAX engine:
 
-        align_impl: 'kernel' (K1 stage A + K2 stage B; the counterpart of
-        the JAX 'pallas') or 'auto' (= 'kernel'). embed_budget: None embeds
-        every slot; K <= max_faces embeds the K best eligible slots per
-        frame, with the `rotation` window of the JAX engine.
+        mesh: a `parallel.Mesh` with a 'data' axis; the frame batch splits
+        over it (B must be a multiple of the axis), one replica of the
+        detector and embedder per shard device, results gathered onto the
+        mesh's first device.
+
+        align_impl: 'kernel' (K1 stage A + K2 stage B), 'pallas' (the JAX
+        name of the same route), 'matmul' (stage A by the plain crop, stage
+        B as a dense bilinear contraction, `ops/warp.align_faces_matmul`,
+        `align_chunk` faces at a time) or 'gather' (the exact-bilinear
+        gather path, `ops/warp.align_faces`); 'auto' = 'kernel'.
+        embed_budget: None embeds every slot; K <= max_faces embeds the K
+        best eligible slots per frame, with the `rotation` window of the
+        JAX engine.
+
+        shard_gallery: the gallery rows split over the mesh's 'data' axis
+        (needs `mesh`); matching is `dp_sharded_cosine_topk`. Pass the
+        templates already sharded (`DeviceGallery(mesh=...)` /
+        `GalleryManager(mesh=...)`) to avoid a split per dispatch.
 
         gallery_impl: 'dense' (one matmul + top-k, which stores the [Q, G]
         similarity matrix), 'streaming' (kernel K3 of ops/gallery_kernel:
@@ -59,29 +106,29 @@ class RecognitionEngine:
         bf16 templates of at least `gallery_streaming_threshold` padded rows
         that divide `gallery_chunk`, dense otherwise. An (int8 codes [G,D],
         per-row scales [G]) pair (DeviceGallery quantize='int8') overrides
-        gallery_impl: it streams through kernel K4 whenever its rows divide
-        `gallery_chunk` and takes the dense dequantising matmul otherwise.
-        `DeviceGallery.device_snapshot` serves the bf16 copy (or the pair)
-        at streaming scale. On a CPU device the streaming arms run the
-        kernels' plain versions.
-
-        Not ported yet (NotImplementedError, see ROADMAP.md): `mesh` and
-        `shard_gallery` (multi-GPU, queue 1)."""
-        if mesh is not None or shard_gallery:
-            raise NotImplementedError(
-                "mesh / shard_gallery: multi-GPU serving is queued in "
-                "ROADMAP.md (queue 1, multi-GPU)"
-            )
+        gallery_impl: it streams through kernel K4 whenever its rows (per
+        shard under `shard_gallery`) divide `gallery_chunk` and takes the
+        dense dequantising matmul otherwise. `DeviceGallery.device_snapshot`
+        serves the bf16 copy (or the pair) at streaming scale. On a CPU
+        device the streaming arms run the kernels' plain versions."""
         if gallery_impl not in ("auto", "dense", "streaming"):
             raise ValueError(f"unknown gallery_impl {gallery_impl!r}")
         if align_impl == "auto":
             align_impl = "kernel"
-        if align_impl != "kernel":
-            raise ValueError(f"unknown align_impl {align_impl!r} (use 'kernel')")
+        if align_impl == "pallas":
+            align_impl = "kernel"
+        if align_impl not in ("kernel", "matmul", "gather"):
+            raise ValueError(f"unknown align_impl {align_impl!r}")
+        if shard_gallery and (mesh is None or "data" not in mesh.shape):
+            raise ValueError(
+                "shard_gallery=True needs a mesh with a 'data' axis "
+                "(the gallery shards over the same axis the frames do)"
+            )
         self.detector = detector
         self.embedder = embedder
-        self.device = detector.device
-        if embedder.device != self.device:
+        self.mesh = mesh
+        self.shard_gallery = shard_gallery
+        if canonical_device(embedder.device) != canonical_device(detector.device):
             raise ValueError("detector and embedder must share one device")
         self.quality_config = quality_config or QualityConfig(
             min_det_score=0.5, min_face_size=40, check_blur=True, blur_threshold=50.0
@@ -90,13 +137,10 @@ class RecognitionEngine:
         self.align_size = align_size
         self.align_impl = align_impl
         self.align_patch = align_patch
+        self.align_chunk = align_chunk
         self.gallery_impl = gallery_impl
         self.gallery_chunk = gallery_chunk
         self.gallery_streaming_threshold = gallery_streaming_threshold
-        # 'auto' streams only where the kernel runs: the plain version's
-        # chunk loop (what 'streaming' means on the CPU) is slower there
-        # than the dense matmul
-        self._stream_on_auto = self.device.type == "cuda"
         max_faces = detector.max_faces
         if embed_budget is not None:
             if not 1 <= embed_budget <= max_faces:
@@ -117,7 +161,21 @@ class RecognitionEngine:
                     f"== 0, got det_size {(dh, dw)}"
                 )
         self.input_format = input_format
-        self._template = torch.from_numpy(reference_template(align_size)).to(self.device)
+        template = torch.from_numpy(reference_template(align_size))
+        if mesh is None:
+            self.device = detector.device
+            self._shards = [_Shard(detector, embedder, template.to(self.device), self.device)]
+        else:
+            self.device = mesh.first
+            self._shards = [
+                _Shard(replicate(detector, d), replicate(embedder, d), template.to(d), d)
+                for d in mesh.axis_devices("data")
+            ]
+        # 'auto' streams only where the kernel runs: the plain version's
+        # chunk loop (what 'streaming' means on the CPU) is slower there
+        # than the dense matmul
+        self._stream_on_auto = self.device.type == "cuda"
+        self._gallery_copies: tuple = (None, {})
 
     def host_frame_shape(self, h: int, w: int) -> tuple[int, ...]:
         """Per-frame host array shape the engine expects at det size (h, w)."""
@@ -125,13 +183,13 @@ class RecognitionEngine:
 
     # ------------------------------------------------------------ device step
 
-    def _match(self, feats, templates, valid, k):
-        """[B, X, D] features -> (scores [B, X, k] float32, idx [B, X, k]
-        int64), dense or through the streaming kernels (see `__init__`)."""
+    def _streams(self, templates) -> bool:
+        """Whether matching takes the streaming arm (see `__init__`)."""
         g = template_rows(templates)
         if isinstance(templates, tuple):  # (int8 codes, row scales)
-            streaming = g >= self.gallery_chunk and g % self.gallery_chunk == 0
-        elif self.gallery_impl == "streaming":
+            rows = g // len(self._shards) if self.shard_gallery else g
+            return rows >= self.gallery_chunk and rows % self.gallery_chunk == 0
+        if self.gallery_impl == "streaming":
             streaming = True
         elif self.gallery_impl == "dense":
             streaming = False
@@ -142,17 +200,36 @@ class RecognitionEngine:
                 and g >= self.gallery_streaming_threshold
                 and g % self.gallery_chunk == 0
             )
-        if streaming and g % self.gallery_chunk:
+        if streaming and not self.shard_gallery and g % self.gallery_chunk:
             raise ValueError(
                 f"gallery_impl='streaming' needs padded rows % gallery_chunk "
                 f"== 0, got {g} rows with chunk {self.gallery_chunk}"
             )
+        return streaming
+
+    def _match(self, feats, templates, valid, k):
+        """[B, X, D] features -> (scores [B, X, k] float32, idx [B, X, k]
+        int64), dense or through the streaming kernels, on one device."""
         b, x, d = feats.shape
         scores, idx = _local_topk(
             feats.reshape(b * x, d), templates, valid, k,
-            streaming=streaming, chunk=self.gallery_chunk,
+            streaming=self._streams(templates), chunk=self.gallery_chunk,
         )
         return scores.reshape(b, x, k), idx.reshape(b, x, k)
+
+    def _gallery_on(self, device, templates, valid):
+        """The gallery operands on `device`, for a data shard matching
+        against a replicated gallery: as they are when they lie there, else
+        copies kept while the same operands come back (one generation)."""
+        if _lies_on(templates, device) and _lies_on(valid, device):
+            return templates, valid
+        owner, copies = self._gallery_copies
+        if owner is None or owner[0] is not templates or owner[1] is not valid:
+            copies = {}
+            self._gallery_copies = ((templates, valid), copies)
+        if device not in copies:
+            copies[device] = (_moved(templates, device), _moved(valid, device))
+        return copies[device]
 
     def step(self, templates, templates_valid, frames, gallery_k: int, rotation: int = 0):
         """frames on the device (RGB [B,H,W,3] or I420 [B,H*3//2,W] uint8)
@@ -162,22 +239,67 @@ class RecognitionEngine:
             return self._step_impl(templates, templates_valid, frames, gallery_k, rotation)
 
     def _step_impl(self, templates, templates_valid, frames, gallery_k, rotation):
-        if self.input_format == "i420":
-            h, w = frames.shape[1] * 2 // 3, frames.shape[2]
-            frames_f32 = i420_to_rgb(frames, h, w)
+        n = len(self._shards)
+        if frames.shape[0] % n:
+            raise ValueError(
+                f"batch of {frames.shape[0]} frames is not a multiple of the "
+                f"mesh 'data' axis ({n})"
+            )
+        per = frames.shape[0] // n
+        states = []
+        for i, sh in enumerate(self._shards):
+            fr = frames[i * per:(i + 1) * per].to(sh.device)
+            if self.input_format == "i420":
+                h, w = fr.shape[1] * 2 // 3, fr.shape[2]
+                fr = i420_to_rgb(fr, h, w)
+            else:
+                fr = fr.float()
+            det = sh.detector.detect_device(fr)
+            states.append(self._embed(sh, fr, det, rotation))
+        if self.shard_gallery:
+            matches = dp_sharded_parts(
+                self.mesh, [st["q"] for st in states], templates, templates_valid,
+                gallery_k, axis="data", streaming=self._streams(templates),
+                chunk=self.gallery_chunk,
+            )
         else:
-            frames_f32 = frames.float()
-        det = self.detector.detect_device(frames_f32)
-        return self._recognize(
-            frames_f32, det, templates, templates_valid, gallery_k, rotation
-        )
+            matches = [
+                self._match(st["q"], *self._gallery_on(sh.device, templates, templates_valid),
+                            gallery_k)
+                for sh, st in zip(self._shards, states)
+            ]
+        outs = [self._finish(st, sc, ix, gallery_k) for st, (sc, ix) in zip(states, matches)]
+        if n == 1:
+            return outs[0]
+        return _gather(outs, self.device)
 
-    def _recognize(self, frames_f32, det, templates, templates_valid, gallery_k, rotation):
-        """Everything after detection: align -> gate -> embed -> match."""
-        aligned = align_faces_batch(
-            frames_f32, det["landmarks"], self._template, self.align_size,
-            patch_size=self.align_patch,
-        )
+    def _align(self, sh: _Shard, frames_f32, landmarks):
+        """[B,H,W,3] x [B,F,5,2] -> aligned [B,F,out,out,3] float32."""
+        if self.align_impl == "kernel":
+            return align_faces_batch(
+                frames_f32, landmarks, sh.template, self.align_size,
+                patch_size=self.align_patch,
+            )
+        if self.align_impl == "matmul":
+            per_frame = [
+                align_faces_matmul(
+                    img, lmk, sh.template, self.align_size,
+                    patch_size=self.align_patch, face_chunk=self.align_chunk,
+                )
+                for img, lmk in zip(frames_f32, landmarks)
+            ]
+        else:
+            per_frame = [
+                align_faces(img, lmk, sh.template, self.align_size)
+                for img, lmk in zip(frames_f32, landmarks)
+            ]
+        return torch.stack(per_frame)
+
+    def _embed(self, sh: _Shard, frames_f32, det, rotation) -> dict:
+        """Align -> gate -> embed on one shard's device. Returns the step's
+        state before matching; "q" holds the queries to match ([B, F, D],
+        or [B, kb, D] under an embed budget)."""
+        aligned = self._align(sh, frames_f32, det["landmarks"])
         aligned = aligned.round().clamp(0.0, 255.0)
         ok, metrics = quality_check(
             det["scores"], det["bboxes"], det["landmarks"], self.quality_config,
@@ -186,57 +308,64 @@ class RecognitionEngine:
         )
         b, f = aligned.shape[:2]
         s = self.align_size
-        dtype = self.embedder._dtype
-
+        dtype = sh.embedder._dtype
+        st = {"det": det, "aligned": aligned, "ok": ok, "metrics": metrics}
         if self.embed_budget is None:
             x = normalize_face_batch(aligned, dtype=dtype)
-            feats, norms = self.embedder.forward(x.reshape(b * f, s, s, 3))
-            feats = feats.reshape(b, f, -1)
-            norms = norms.reshape(b, f)
-            embedded = torch.ones((b, f), dtype=torch.bool, device=self.device)
-            scores, idx = self._match(feats, templates, templates_valid, gallery_k)
-        else:
-            # Per frame, embed the K best eligible slots (valid and
-            # quality-ok, by det score, lower index first on ties), with
-            # the window slid by `rotation` so a static scene cycles its
-            # faces through the budget; scatter results back to [B, F].
-            kb = self.embed_budget
-            elig = det["valid"] & ok
-            det_f = det["scores"].float()
-            ii = torch.arange(f, device=self.device)
-            before = (det_f[:, None, :] > det_f[:, :, None]) | (
-                (det_f[:, None, :] == det_f[:, :, None])
-                & (ii[None, None, :] < ii[None, :, None])
-            )  # [B, i, j]: eligible j precedes i
-            before &= elig[:, None, :]
-            r = before.sum(dim=2)
-            n_elig = elig.sum(dim=1, keepdim=True)
-            shift = torch.remainder(r - int(rotation) * kb, n_elig.clamp_min(1))
-            key = torch.where(
-                elig, -shift.float(), torch.full_like(det_f, -1e9)
-            )
-            top_s, sel = top_k(key, kb)  # [B, kb]
-            sel_ok = top_s > -1e8
-            xs = normalize_face_batch(
-                torch.gather(
-                    aligned, 1, sel[:, :, None, None, None].expand(b, kb, s, s, 3)
-                ),
-                dtype=dtype,
-            )
-            feats_k, norms_k = self.embedder.forward(xs.reshape(b * kb, s, s, 3))
-            d = feats_k.shape[-1]
-            feats_k = feats_k.reshape(b, kb, d) * sel_ok[:, :, None]
-            norms_k = norms_k.reshape(b, kb) * sel_ok
-            sc_k, ix_k = self._match(feats_k, templates, templates_valid, gallery_k)
-            sc_k = torch.where(sel_ok[:, :, None], sc_k, torch.full_like(sc_k, -1.0))
-            ix_k = torch.where(sel_ok[:, :, None], ix_k, torch.zeros_like(ix_k))
+            feats, norms = sh.embedder.forward(x.reshape(b * f, s, s, 3))
+            st["q"] = feats.reshape(b, f, -1)
+            st["norms"] = norms.reshape(b, f)
+            return st
+        # Per frame, embed the K best eligible slots (valid and quality-ok,
+        # by det score, lower index first on ties), with the window slid by
+        # `rotation` so a static scene cycles its faces through the budget.
+        kb = self.embed_budget
+        dev = aligned.device
+        elig = det["valid"] & ok
+        det_f = det["scores"].float()
+        ii = torch.arange(f, device=dev)
+        before = (det_f[:, None, :] > det_f[:, :, None]) | (
+            (det_f[:, None, :] == det_f[:, :, None])
+            & (ii[None, None, :] < ii[None, :, None])
+        )  # [B, i, j]: eligible j precedes i
+        before &= elig[:, None, :]
+        r = before.sum(dim=2)
+        n_elig = elig.sum(dim=1, keepdim=True)
+        shift = torch.remainder(r - int(rotation) * kb, n_elig.clamp_min(1))
+        key = torch.where(elig, -shift.float(), torch.full_like(det_f, -1e9))
+        top_s, sel = top_k(key, kb)  # [B, kb]
+        sel_ok = top_s > -1e8
+        xs = normalize_face_batch(
+            torch.gather(aligned, 1, sel[:, :, None, None, None].expand(b, kb, s, s, 3)),
+            dtype=dtype,
+        )
+        feats_k, norms_k = sh.embedder.forward(xs.reshape(b * kb, s, s, 3))
+        d = feats_k.shape[-1]
+        st["q"] = feats_k.reshape(b, kb, d) * sel_ok[:, :, None]
+        st["norms"] = norms_k.reshape(b, kb) * sel_ok
+        st["sel"], st["sel_ok"] = sel, sel_ok
+        return st
 
-            rows = torch.arange(b, device=self.device)[:, None]
-            feats = feats_k.new_zeros((b, f, d))
+    def _finish(self, st: dict, scores, idx, gallery_k) -> dict:
+        """The result dict of one shard from its state and its matches;
+        under a budget the compacted results scatter back to [B, F]."""
+        det, aligned = st["det"], st["aligned"]
+        b, f = aligned.shape[:2]
+        dev = aligned.device
+        if self.embed_budget is None:
+            feats, norms = st["q"], st["norms"]
+            embedded = torch.ones((b, f), dtype=torch.bool, device=dev)
+        else:
+            sel, sel_ok = st["sel"], st["sel_ok"]
+            feats_k, norms_k = st["q"], st["norms"]
+            sc_k = torch.where(sel_ok[:, :, None], scores, torch.full_like(scores, -1.0))
+            ix_k = torch.where(sel_ok[:, :, None], idx, torch.zeros_like(idx))
+            rows = torch.arange(b, device=dev)[:, None]
+            feats = feats_k.new_zeros((b, f, feats_k.shape[-1]))
             feats[rows, sel] = feats_k
             norms = norms_k.new_zeros((b, f))
             norms[rows, sel] = norms_k
-            embedded = torch.zeros((b, f), dtype=torch.bool, device=self.device)
+            embedded = torch.zeros((b, f), dtype=torch.bool, device=dev)
             embedded[rows, sel] = sel_ok
             scores = sc_k.new_full((b, f, gallery_k), -1.0)
             scores[rows, sel] = sc_k
@@ -247,8 +376,8 @@ class RecognitionEngine:
             "det_scores": det["scores"],
             "landmarks": det["landmarks"],
             "face_valid": det["valid"],
-            "quality_ok": ok,
-            "quality_metrics": metrics,
+            "quality_ok": st["ok"],
+            "quality_metrics": st["metrics"],
             "aligned": aligned.to(torch.uint8),
             "embedded": embedded,
             "embeddings": feats,
@@ -263,14 +392,15 @@ class RecognitionEngine:
         self,
         frames,
         gallery_templates,
-        gallery_valid: torch.Tensor,
+        gallery_valid,
         gallery_k: Optional[int] = None,
         rotation: int = 0,
     ) -> dict:
         """Frames (numpy or tensor; [B,H,W,3] uint8 for 'rgb', [B,H*3//2,W]
         for 'i420') -> the device result dict. `gallery_templates` is a
-        [G, D] tensor or an int8 (codes, scales) pair. `rotation` is the
-        embed-budget fairness counter (ignored without a budget)."""
+        [G, D] tensor or an int8 (codes, scales) pair (under a mesh also
+        `Sharded`, as `DeviceGallery(mesh=...)` hands them out). `rotation`
+        is the embed-budget fairness counter (ignored without a budget)."""
         if isinstance(frames, np.ndarray):
             frames = torch.from_numpy(frames)
         frames = frames.to(self.device, non_blocking=True)
@@ -278,3 +408,27 @@ class RecognitionEngine:
             gallery_templates, gallery_valid, frames,
             gallery_k=gallery_k or self.top_k, rotation=rotation,
         )
+
+
+def _gather(outs: list, device):
+    """Per-shard result dicts -> one dict, concatenated along the batch on
+    `device`."""
+    first = outs[0]
+    if isinstance(first, dict):
+        return {k: _gather([o[k] for o in outs], device) for k in first}
+    return torch.cat([o.to(device) for o in outs])
+
+
+def _lies_on(x, device) -> bool:
+    """Whether a gallery operand (tensor or int8 pair; a `Sharded` one never)
+    lies whole on `device`."""
+    if isinstance(x, tuple):
+        return all(_lies_on(v, device) for v in x)
+    return isinstance(x, torch.Tensor) and canonical_device(x.device) == device
+
+
+def _moved(x, device):
+    """A gallery operand whole on `device`."""
+    if isinstance(x, tuple):
+        return tuple(_moved(v, device) for v in x)
+    return x.gather(device) if isinstance(x, Sharded) else x.to(device)

@@ -14,7 +14,10 @@ device compute:
                fan futures out; bulky fields (aligned crops, embeddings)
                stay on the device behind lazy per-item views
 
-On a CPU device the same stages run without streams.
+On a CPU device the same stages run without streams. Under an engine's
+mesh, bucket sizes are multiples of its 'data' axis, groups upload to the
+mesh's first device (the engine splits them), and the completion stage
+waits on an event of every device of the mesh.
 """
 
 from __future__ import annotations
@@ -100,7 +103,21 @@ class DeviceBatcher:
         self.max_wait_s = max_wait_ms / 1000.0
         self.top_k = top_k
         self.device = engine.device
-        self.bucket_sizes = sorted({min(b, max_batch) for b in (bucket_sizes or (1, max_batch))})
+        buckets = sorted(set(bucket_sizes or (1, max_batch)))
+        mesh = getattr(engine, "mesh", None)
+        if mesh is not None and "data" in mesh.shape:
+            d = mesh.shape["data"]
+            if max_batch % d:
+                raise ValueError(
+                    f"max_batch={max_batch} must be a multiple of the mesh "
+                    f"'data' axis size ({d})"
+                )
+            buckets = [b for b in buckets if b % d == 0 and b <= max_batch]
+            self.bucket_sizes = buckets or [max_batch]
+            self._devices = mesh.distinct_devices()
+        else:
+            self.bucket_sizes = sorted({min(b, max_batch) for b in buckets})
+            self._devices = [self.device]
         if max_batch not in self.bucket_sizes:
             self.bucket_sizes.append(max_batch)
 
@@ -306,8 +323,11 @@ class DeviceBatcher:
                 )
                 ev = None
                 if self.device.type == "cuda":
-                    ev = torch.cuda.Event()
-                    ev.record(torch.cuda.current_stream(self.device))
+                    ev = []
+                    for d in self._devices:
+                        e = torch.cuda.Event()
+                        e.record(torch.cuda.current_stream(d))
+                        ev.append(e)
                 self._done.put((out, ev, items, gallery_ids))
                 if self._stop.is_set():  # put-then-recheck against stop()
                     while True:
@@ -335,7 +355,8 @@ class DeviceBatcher:
                 lazy = {k: out.pop(k) for k in _LAZY_KEYS if k in out}
                 if ev is not None:
                     with torch.cuda.stream(self._d2h_stream):
-                        self._d2h_stream.wait_event(ev)
+                        for e in ev:
+                            self._d2h_stream.wait_event(e)
                         host = _to_host(out)
                 else:
                     host = _to_host(out)

@@ -34,8 +34,10 @@ delayed ACK of the headers.
 (int8 res convs, int8 R/O-nets; `models/quantize.py`), calibrated on
 synthetic renders or on the aligned crops under `quantize_calib`.
 
-Not ported yet (NotImplementedError at construction, see ROADMAP.md):
-`mesh_data > 1` and `shard_gallery` (multi-GPU serving).
+`mesh_data=n` serves the fused step data-parallel over n devices (the
+first n CUDA devices; with device='cpu', n CPU entries), and
+`shard_gallery` row-shards the gallery over that axis
+(`pipeline/engine.py`, `parallel/mesh.py`).
 """
 
 from __future__ import annotations
@@ -146,9 +148,12 @@ class FaceRecognitionServer:
         and the batcher's streams live. 'cuda' (the default) raises without a
         card; a CPU server exists only because a caller passed 'cpu'. With a
         pre-built `engine` the engine's own device is used.
-        mesh_data, shard_gallery: multi-GPU serving — not ported
-        (NotImplementedError naming ROADMAP.md for mesh_data > 1 or
-        shard_gallery).
+        mesh_data: split the fused step data-parallel over this many
+        devices (`parallel.make_mesh(data=mesh_data)`: the first CUDA
+        devices, or mesh_data CPU entries with device='cpu'); batch_max must
+        be a multiple. A pre-built `engine` brings its own mesh.
+        shard_gallery: row-shard the gallery templates over the mesh's
+        'data' axis (needs a mesh).
         batch_buckets: batch shapes the step runs at (default (1, batch_max)
         — a lone client pays a B=1 step instead of batch_max x padded
         compute).
@@ -180,11 +185,6 @@ class FaceRecognitionServer:
         fragmentation). Session state is continuously flushed to disk and
         the respawned worker resumes it, so a recycle loses only in-flight
         tracker state (tracks re-form; attendance dedupes by student)."""
-        if (mesh_data and mesh_data > 1) or shard_gallery:
-            raise NotImplementedError(
-                "mesh_data > 1 / shard_gallery: multi-GPU serving is queued "
-                "in ROADMAP.md (queue 1, multi-GPU)"
-            )
         self.device = (
             resolve_device(device) if engine is None
             else torch.device(engine.device)
@@ -204,9 +204,34 @@ class FaceRecognitionServer:
             raise ValueError(f"unknown tracker_mode {tracker_mode!r}")
         self.tracker_mode = tracker_mode
 
+        # mesh before gallery: a shard_gallery deployment places the
+        # template shards at build time, not per dispatch
+        mesh = getattr(engine, "mesh", None)
+        if engine is None and mesh_data and mesh_data > 1:
+            from facerecognitionpipeline_tpu_torch.parallel.mesh import make_mesh
+
+            mesh = make_mesh(
+                data=mesh_data,
+                devices=[self.device] * mesh_data if self.device.type == "cpu" else None,
+            )
+            if batch_max % mesh_data:
+                raise ValueError(
+                    f"batch_max={batch_max} must be a multiple of "
+                    f"mesh_data={mesh_data}"
+                )
+            self.device = mesh.first
+        wants_shard = (
+            shard_gallery if engine is None
+            else getattr(engine, "shard_gallery", False)
+        )
+        if wants_shard and (mesh is None or "data" not in mesh.shape):
+            raise ValueError(
+                "shard_gallery requires a data-parallel mesh "
+                "(--mesh_data >= 2)"
+            )
         self.gallery = gallery or GalleryManager(
-            gallery_path=gallery_path, quantize=gallery_quantize,
-            device=self.device,
+            gallery_path=gallery_path, mesh=mesh if wants_shard else None,
+            quantize=gallery_quantize, device=self.device,
         )
         # (mtime_ns, size) of the last pickle loaded via /reload_gallery —
         # None means "never reloaded", so the first reload always loads
@@ -246,8 +271,10 @@ class FaceRecognitionServer:
                     check_blur=True, blur_threshold=50.0,
                 ),
                 top_k=3,
+                mesh=mesh,
                 input_format=transport,
                 embed_budget=embed_budget,
+                shard_gallery=shard_gallery,
             )
         self.engine = engine
         engine_format = getattr(engine, "input_format", "rgb")
@@ -1566,12 +1593,12 @@ def build_parser() -> argparse.ArgumentParser:
                         "device time several-fold")
     p.add_argument("--mesh_data", type=int, default=None,
                    help="Shard the fused step data-parallel over this many "
-                        "devices (not ported: values above 1 are refused, "
-                        "see ROADMAP.md)")
+                        "devices (batch_max must be a multiple)")
     p.add_argument("--shard_gallery", action="store_true",
                    help="Row-shard the gallery template matrix over the "
-                        "--mesh_data axis (not ported: refused, see "
-                        "ROADMAP.md)")
+                        "--mesh_data axis: gallery capacity and read "
+                        "bandwidth scale with the mesh instead of "
+                        "replicating per device")
     p.add_argument("--transport", type=str, default="rgb",
                    choices=["rgb", "i420"],
                    help="Host->device frame encoding: i420 halves upload "

@@ -191,34 +191,59 @@ def prefetch_to_device(
     batches: Iterator[Tuple[np.ndarray, ...]],
     depth: int = 2,
     device="cuda",
-) -> Iterator[Tuple[torch.Tensor, ...]]:
+    sharding=None,
+) -> Iterator[Tuple]:
     """Stage host batches (tuples of arrays) on `device`, `depth` ahead.
 
     On the card a thread pins each array, copies it on a side stream and
     records an event; the consumer's stream waits for that event before
     the batch is yielded, and the tensors are marked as used on it. On the
-    CPU the arrays become tensors on the same thread's schedule."""
-    dev = resolve_device(device)
+    CPU the arrays become tensors on the same thread's schedule.
+
+    sharding: a mesh; each array is then split over its 'data' axis and
+    staged as one pinned copy per shard on that shard's device, and is
+    yielded as the list of those shard tensors (what `Trainer.train_step`
+    under the mesh takes as it lies)."""
+    if sharding is not None:
+        devices = sharding.axis_devices("data")
+    else:
+        devices = [resolve_device(device)]
     q: "queue.Queue" = queue.Queue(maxsize=max(1, depth))
     stop = threading.Event()
     done = object()
     errors: list = []
 
+    def split(a):
+        a = np.asarray(a)
+        n = len(devices)
+        if a.shape[0] % n:
+            raise ValueError(
+                f"batch of {a.shape[0]} is not a multiple of the mesh 'data' axis ({n})"
+            )
+        per = a.shape[0] // n
+        return [np.ascontiguousarray(a[i * per:(i + 1) * per]) for i in range(n)]
+
     def producer():
         try:
-            side = torch.cuda.Stream(device=dev) if dev.type == "cuda" else None
+            sides = {d: torch.cuda.Stream(device=d) for d in devices if d.type == "cuda"}
             for batch in batches:
-                if side is None:
-                    item = (tuple(torch.as_tensor(np.asarray(a)) for a in batch), None)
-                else:
-                    with torch.cuda.stream(side):
-                        host = [torch.from_numpy(np.ascontiguousarray(a)).pin_memory()
-                                for a in batch]
-                        staged = tuple(h.to(dev, non_blocking=True) for h in host)
-                        ready = torch.cuda.Event()
-                        ready.record(side)
-                    item = (staged, ready)
-                if not _put_or_stop(q, stop, item):
+                staged, events = [], []
+                for a in batch:
+                    parts = split(a) if sharding is not None else [np.asarray(a)]
+                    out = []
+                    for part, dev in zip(parts, devices):
+                        side = sides.get(dev)
+                        if side is None:
+                            out.append(torch.as_tensor(part))
+                            continue
+                        with torch.cuda.stream(side):
+                            host = torch.from_numpy(np.ascontiguousarray(part)).pin_memory()
+                            out.append(host.to(dev, non_blocking=True))
+                            ready = torch.cuda.Event()
+                            ready.record(side)
+                        events.append((dev, ready, out[-1]))
+                    staged.append(out if sharding is not None else out[0])
+                if not _put_or_stop(q, stop, (tuple(staged), events)):
                     return
         except BaseException as e:  # raised again on the consumer's thread
             errors.append(e)
@@ -233,12 +258,11 @@ def prefetch_to_device(
                 if errors:
                     raise errors[0]
                 return
-            staged, ready = item
-            if ready is not None:
+            staged, events = item
+            for dev, ready, t in events:
                 stream = torch.cuda.current_stream(dev)
                 stream.wait_event(ready)
-                for t in staged:
-                    t.record_stream(stream)
+                t.record_stream(stream)
             yield staged
     finally:
         stop.set()

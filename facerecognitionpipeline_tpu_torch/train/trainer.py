@@ -1,7 +1,6 @@
-"""The margin-softmax train step on one card.
+"""The margin-softmax train step, on one device or over a mesh.
 
-Counterpart of `facerecognitionpipeline_tpu/train/trainer.py` with its
-model axis at 1 and its data axis at 1: a train-mode forward of the IR
+Counterpart of `facerecognitionpipeline_tpu/train/trainer.py`: a train-mode forward of the IR
 backbone (`models/irse.py`), the classifier [D, C] normalised per column,
 the margin (AdaFace, ArcFace or CosFace, `train/losses.py`) on the target
 cosine only, `scale * logits` into a max-shifted log-sum-exp cross-entropy,
@@ -28,8 +27,23 @@ the one after or restored. The dropout mask of a step comes from the `torch.Gene
 step, so a resumed run draws what an uninterrupted one would), or is handed
 in (`dropout_mask`, for parity checks).
 
-Not on one card: a mesh, a model axis above 1 and the class-sharded head
-raise NotImplementedError (ROADMAP.md item 17, queue 1, multi-GPU).
+Under a mesh (`Trainer(config, mesh)`, axes ('data', 'model'), one process
+driving every device) the batch splits over 'data' and the classifier over
+'model': `params['classifier']` (and its momentum trace) is a list of
+n_model blocks [D, C/n_model], block j on the device of model index j.
+Data shard i runs the backbone on its device (a replica of the parameters,
+BatchNorm statistics of its own batch) and the logits of block j on the
+device of mesh entry (i, j). The margin softmax is taken across the blocks:
+the target cosine from the block that holds it, the global max, the sum of
+the exponentials and the target logit summed over blocks. The loss is the
+mean of the data shards' losses, differentiated as it is by autograd
+(gradients land on each leaf's device), so no gradient factor for the model
+axis is needed; the update runs per device over that device's leaves. The
+running statistics are the mean of the shards' updates, `norm_mean` and
+`norm_std` the means of the shards' `mean` and `std + eps`, and the loss and
+accuracy the means over shards, as the JAX step's pmeans give them. Each
+data shard draws its own dropout mask (`dropout_generators`). One device
+runs the same step as one data shard and one class block.
 """
 
 from __future__ import annotations
@@ -45,15 +59,15 @@ import torch.nn.functional as F
 from facerecognitionpipeline_tpu_torch.models.irse import BN_MOMENTUM, build_backbone
 from facerecognitionpipeline_tpu_torch.models.layers import lecun_truncated_normal_
 from facerecognitionpipeline_tpu_torch.ops.numerics import div
+from facerecognitionpipeline_tpu_torch.parallel.mesh import Mesh, replicate
+from facerecognitionpipeline_tpu_torch.utils.device import resolve_device
 from facerecognitionpipeline_tpu_torch.train.losses import (
     adaface_margin_cosine,
     arcface_margin_cosine,
     cosface_margin_cosine,
 )
-from facerecognitionpipeline_tpu_torch.utils.device import resolve_device
 
 _EPS = 1e-7
-MULTI_GPU = "ROADMAP.md item 17 (queue 1, multi-GPU)"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -168,13 +182,32 @@ def make_schedule(cfg: TrainConfig):
 
 
 def _leaves(tree) -> list:
-    return [*tree["backbone"].values(), tree["classifier"]]
+    c = tree["classifier"]
+    return [*tree["backbone"].values(), *(c if isinstance(c, list) else [c])]
 
 
 def _tree(leaves: list, like: dict) -> dict:
     """`leaves` (in `_leaves` order) in the structure of `like`."""
     n = len(like["backbone"])
-    return {"backbone": dict(zip(like["backbone"], leaves[:n])), "classifier": leaves[n]}
+    c = leaves[n:] if isinstance(like["classifier"], list) else leaves[n]
+    return {"backbone": dict(zip(like["backbone"], leaves[:n])), "classifier": c}
+
+
+def _per_device(fn, params: list, grads: list, trace: list, lr, momentum: float,
+                wd: float) -> tuple[list, list]:
+    """`fn` (one of the SGD applies) on each device's leaves, the learning
+    rate moved there; leaf order kept."""
+    groups: dict = {}
+    for i, p in enumerate(params):
+        groups.setdefault(p.device, []).append(i)
+    new_p, new_t = [None] * len(params), [None] * len(params)
+    for dev, idx in groups.items():
+        r = lr.to(dev) if isinstance(lr, torch.Tensor) else lr
+        gp, gt = fn([params[i] for i in idx], [grads[i] for i in idx],
+                    [trace[i] for i in idx], r, momentum, wd)
+        for i, a, b in zip(idx, gp, gt):
+            new_p[i], new_t[i] = a, b
+    return new_p, new_t
 
 
 def fused_sgd_apply(params: list, grads: list, trace: list, lr, momentum: float,
@@ -201,29 +234,48 @@ def chain_sgd_apply(params: list, grads: list, trace: list, lr, momentum: float,
     return torch._foreach_add(params, torch._foreach_mul(new_trace, -lr)), new_trace
 
 
-def dropout_generator(seed: int, step: int, device="cpu") -> torch.Generator:
+def _promoted(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x in the type of x @ w under JAX's promotion: the float32 embeddings
+    (the backbone casts before its norm) meet float64 weights as float64."""
+    return x.to(torch.promote_types(x.dtype, w.dtype))
+
+
+def dropout_generator(seed: int, step: int, device="cpu", shard: int = 0) -> torch.Generator:
     """A generator seeded from (seed, step): the dropout masks of step
-    `step` of a run started with `seed`, whether or not it was resumed."""
-    mixed = np.random.SeedSequence([seed & 0xFFFFFFFF, step]).generate_state(1, np.uint64)[0]
+    `step` of a run started with `seed`, whether or not it was resumed.
+    `shard` > 0 seeds data shard `shard` of a mesh apart from the others
+    (shard 0 draws what one device draws)."""
+    entropy = [seed & 0xFFFFFFFF, step] + ([shard] if shard else [])
+    mixed = np.random.SeedSequence(entropy).generate_state(1, np.uint64)[0]
     return torch.Generator(device=device).manual_seed(int(mixed) >> 1)
 
 
 class Trainer:
-    """Builds the state and runs the train step on one device."""
+    """Builds the state and runs the train step on one device or a mesh."""
 
     def __init__(self, config: TrainConfig, mesh=None, device="cuda"):
-        if mesh is not None:
-            raise NotImplementedError(
-                f"Trainer(mesh=...): the data/model mesh and the class-sharded "
-                f"head are not ported; {MULTI_GPU}"
-            )
         if config.loss not in ("adaface", "arcface", "cosface"):
             raise ValueError(f"unknown loss: {config.loss}")
         self.config = config
-        self.device = resolve_device(device)
+        self.mesh = mesh
         self._schedule = make_schedule(config)
+        if mesh is None:
+            self.device = resolve_device(device)
+        else:
+            if config.num_classes % mesh.shape["model"]:
+                raise ValueError(
+                    f"num_classes={config.num_classes} must divide the mesh "
+                    f"'model' axis ({mesh.shape['model']})"
+                )
+            self.device = mesh.first
         self.model = build_backbone(config.architecture,
                                     int8_fwd_train=config.int8_forward).to(self.device)
+        # the shards the step runs: the mesh's, or one data shard and one
+        # class block on this device
+        self._grid = (mesh or Mesh([[self.device]], ("data", "model"))).devices
+        self._data_devices = list(self._grid[:, 0])
+        self._class_devices = list(self._grid[0, :])
+        self._models = [replicate(self.model, d) for d in self._data_devices]
 
     # -------------------------------------------------------------- state
 
@@ -231,20 +283,20 @@ class Trainer:
         """Parameters drawn as flax initialises them, in distribution:
         truncated lecun-normal kernels, zero biases, BatchNorm scale 1 and
         bias 0, PReLU alpha 0.25, running mean 0 and var 1; the classifier
-        N(0, 1) * 0.01."""
+        N(0, 1) * 0.01. The same numbers under a mesh, placed by
+        `place_state`."""
         cfg = self.config
         g = torch.Generator().manual_seed(seed)
         model = build_backbone(cfg.architecture)
         lecun_truncated_normal_(model, g)
         classifier = torch.randn((cfg.embedding_dim, cfg.num_classes), generator=g) * 0.01
-        dev = self.device
         params = {
-            "backbone": {k: v.detach().to(dev) for k, v in model.named_parameters()},
-            "classifier": classifier.to(dev),
+            "backbone": {k: v.detach() for k, v in model.named_parameters()},
+            "classifier": classifier,
         }
-        batch_stats = {k: v.detach().to(dev) for k, v in model.named_buffers()
+        batch_stats = {k: v.detach() for k, v in model.named_buffers()
                        if k.endswith((".running_mean", ".running_var"))}
-        zero = lambda: torch.zeros((), dtype=torch.int32, device=dev)  # noqa: E731
+        zero = lambda: torch.zeros((), dtype=torch.int32)  # noqa: E731
         trace = {"backbone": {k: torch.zeros_like(v) for k, v in params["backbone"].items()},
                  "classifier": torch.zeros_like(params["classifier"])}
         if cfg.fused_optimizer:
@@ -252,16 +304,62 @@ class Trainer:
         else:
             sched = {} if cfg.lr_schedule == "constant" else {"count": zero()}
             opt_state = ({}, ({"trace": trace}, sched))
+        return self.place_state({
+            "params": params,
+            "batch_stats": batch_stats,
+            "opt_state": opt_state,
+            "norm_ema": {"mean": torch.tensor(20.0), "std": torch.tensor(100.0)},
+            "step": zero(),
+        })
+
+    def place_state(self, state: dict) -> dict:
+        """A state in the one-device layout (e.g. from
+        `models/convert.train_state_from_jax`) on this trainer's devices:
+        everything on the first device, and under a mesh the classifier and
+        its trace split into n_model blocks, block j on model index j's
+        device. Parameters require grad."""
+        def tree(t, classifier):
+            return {"backbone": {k: v.to(self.device) for k, v in t["backbone"].items()},
+                    "classifier": classifier(t["classifier"])}
+
+        def blocks(c):
+            if self.mesh is None:
+                return c.to(self.device)
+            if isinstance(c, list):
+                return [b.to(d) for b, d in zip(c, self._class_devices)]
+            n = len(self._class_devices)
+            return [b.contiguous().to(d) for b, d in zip(c.chunk(n, dim=1), self._class_devices)]
+
+        def on_device(x):
+            if isinstance(x, dict):
+                return {k: on_device(v) for k, v in x.items()}
+            if isinstance(x, tuple):
+                return tuple(on_device(v) for v in x)
+            return x.to(self.device)
+
+        opt = state["opt_state"]
+        if isinstance(opt, dict):
+            opt_state = {"trace": tree(opt["trace"], blocks), "count": on_device(opt["count"])}
+        else:
+            opt_state = ({}, ({"trace": tree(opt[1][0]["trace"], blocks)}, on_device(opt[1][1])))
+        params = tree(state["params"], blocks)
         for p in _leaves(params):
             p.requires_grad_(True)
         return {
             "params": params,
-            "batch_stats": batch_stats,
+            "batch_stats": on_device(state["batch_stats"]),
             "opt_state": opt_state,
-            "norm_ema": {"mean": torch.tensor(20.0, device=dev),
-                         "std": torch.tensor(100.0, device=dev)},
-            "step": zero(),
+            "norm_ema": on_device(state["norm_ema"]),
+            "step": on_device(state["step"]),
         }
+
+    def dropout_generators(self, seed: int, step: int):
+        """The dropout generator(s) of step `step`: one on the trainer's
+        device, or under a mesh one per data shard on its device."""
+        if self.mesh is None:
+            return dropout_generator(seed, step, self.device)
+        return [dropout_generator(seed, step, d, shard=i)
+                for i, d in enumerate(self._data_devices)]
 
     # ---------------------------------------------------------------- step
 
@@ -273,57 +371,111 @@ class Trainer:
             return cosface_margin_cosine(cos_t, cfg.margin)
         return adaface_margin_cosine(cos_t, norms, norm_mean, norm_std, cfg.margin, cfg.h)
 
-    def _inputs(self, images, labels):
-        images = torch.as_tensor(images).to(self.device, non_blocking=True)
-        labels = torch.as_tensor(labels).to(self.device, non_blocking=True).long()
-        return images, labels
+    def _shards(self, x, name: str) -> list:
+        """A batch-major input (array, tensor, or per-shard list from
+        `prefetch_to_device(sharding=mesh)`) as one tensor per data shard
+        on its device."""
+        n = len(self._data_devices)
+        if isinstance(x, (list, tuple)) and len(x) == n and all(
+                isinstance(v, torch.Tensor) for v in x):
+            return [v.to(d, non_blocking=True) for v, d in zip(x, self._data_devices)]
+        x = torch.as_tensor(x)
+        if x.shape[0] % n:
+            raise ValueError(
+                f"{name}: batch of {x.shape[0]} is not a multiple of the mesh "
+                f"'data' axis ({n})"
+            )
+        per = x.shape[0] // n
+        return [x[i * per:(i + 1) * per].to(d, non_blocking=True)
+                for i, d in enumerate(self._data_devices)]
 
-    def loss_and_grads(self, state: dict, images, labels,
-                       generator: Optional[torch.Generator] = None,
+    def loss_and_grads(self, state: dict, images, labels, generator=None,
                        dropout_mask: Optional[torch.Tensor] = None):
         """The forward and backward of one step: (loss, aux, grads), grads
         shaped like state['params']; aux holds the accuracy, the norm
-        statistics of the batch and each BatchNorm's (mean, var)."""
+        statistics of the batch and, per data shard, each BatchNorm's
+        (mean, var). Each data shard runs the backbone on its device against
+        every class block: the margin softmax takes the target cosine from
+        the block that owns it and the max, the sum of exponentials and the
+        target logit across blocks, and is differentiated as the true
+        global loss (no `/ n_model` as under shard_map); one device is one
+        shard and one block."""
         if generator is None and dropout_mask is None:
             raise ValueError("train step: give a dropout generator or a dropout_mask")
         cfg = self.config
-        images, labels = self._inputs(images, labels)
+        home = self.device
+        n_data = len(self._data_devices)
+        images = self._shards(images, "images")
+        labels = [y.long() for y in self._shards(labels, "labels")]
+        masks = (self._shards(dropout_mask, "dropout_mask") if dropout_mask is not None
+                 else [None] * n_data)
+        gens = generator if isinstance(generator, (list, tuple)) else [generator]
+        if generator is not None and len(gens) != n_data:
+            raise ValueError(
+                f"give one dropout generator per data shard ({n_data}; "
+                f"Trainer.dropout_generators)"
+            )
+        if generator is None:
+            gens = [None] * n_data
         params = state["params"]
-        stats: dict = {}
-        feats, norms = torch.func.functional_call(
-            self.model, params["backbone"], (images,),
-            {"train": True, "dtype": cfg.dtype, "generator": generator,
-             "dropout_mask": dropout_mask, "stats": stats},
-        )
-        norms = norms[:, 0]
-        w = params["classifier"]
-        w = w / (torch.linalg.vector_norm(w, dim=0, keepdim=True) + _EPS)
-        cosine = feats @ w
-        cos_t = cosine.gather(1, labels[:, None])[:, 0]
+        classifier = params["classifier"]
+        blocks = classifier if isinstance(classifier, list) else [classifier]
+        c_local = blocks[0].shape[1]
         ema = state["norm_ema"]
-        phi = self._margin(cos_t, norms, ema["mean"], ema["std"])
-        onehot = F.one_hot(labels, cosine.shape[1]).to(cosine.dtype)
-        logits = cfg.scale * torch.where(onehot > 0, phi[:, None], cosine)
-        gmax = logits.max(dim=1).values.detach()
-        denom = torch.exp(logits - gmax[:, None]).sum(dim=1)
-        target_logit = (logits * onehot).sum(dim=1)
-        loss = (torch.log(denom) + gmax - target_logit).mean()
-        leaves = _leaves(params)
-        grads = torch.autograd.grad(loss, leaves)
-        n = len(params["backbone"])
-        with torch.no_grad():
-            aux = {
-                "norm_mean": norms.mean(),
-                "norm_std": norms.std(correction=0) + _EPS,
-                "accuracy": (cos_t >= cosine.max(dim=1).values - 1e-6).float().mean(),
-                "stats": stats,
-            }
-        grads = {"backbone": dict(zip(params["backbone"], grads[:n])), "classifier": grads[n]}
-        return loss.detach(), aux, grads
+        losses, accs, means, stds, stats = [], [], [], [], []
+        for i, dev in enumerate(self._data_devices):
+            st: dict = {}
+            bb = {k: v.to(dev) for k, v in params["backbone"].items()}
+            feats, norms = torch.func.functional_call(
+                self._models[i], bb, (images[i],),
+                {"train": True, "dtype": cfg.dtype, "generator": gens[i],
+                 "dropout_mask": masks[i], "stats": st},
+            )
+            norms = norms[:, 0]
+            y = labels[i]
+            cosines, onehots = [], []
+            cos_t = torch.zeros_like(norms)
+            for j, block in enumerate(blocks):
+                d = self._grid[i, j]
+                w = block.to(d)
+                w = w / (torch.linalg.vector_norm(w, dim=0, keepdim=True) + _EPS)
+                cosine = _promoted(feats.to(d), w) @ w
+                local = y.to(d) - j * c_local
+                in_shard = (local >= 0) & (local < c_local)
+                safe = local.clamp(0, c_local - 1)
+                t = torch.where(in_shard, cosine.gather(1, safe[:, None])[:, 0],
+                                torch.zeros((), dtype=cosine.dtype, device=d))
+                cos_t = cos_t + t.to(dev)
+                cosines.append(cosine)
+                onehots.append(F.one_hot(safe, c_local).to(cosine.dtype) * in_shard[:, None])
+            phi = self._margin(cos_t, norms, ema["mean"].to(dev), ema["std"].to(dev))
+            logits = [cfg.scale * torch.where(oh > 0, phi.to(c.device)[:, None], c)
+                      for c, oh in zip(cosines, onehots)]
+            gmax = torch.stack([lg.max(dim=1).values.detach().to(dev) for lg in logits]).amax(0)
+            denom = sum(torch.exp(lg - gmax.to(lg.device)[:, None]).sum(dim=1).to(dev)
+                        for lg in logits)
+            target = sum((lg * oh).sum(dim=1).to(dev) for lg, oh in zip(logits, onehots))
+            losses.append((torch.log(denom) + gmax - target).mean().to(home))
+            with torch.no_grad():
+                cmax = torch.stack([c.max(dim=1).values.to(dev) for c in cosines]).amax(0)
+                accs.append((cos_t >= cmax - 1e-6).float().mean().to(home))
+                means.append(norms.mean().to(home))
+                stds.append((norms.std(correction=0) + _EPS).to(home))
+            stats.append(st)
+        loss = torch.stack(losses).mean()
+        grads = torch.autograd.grad(loss, _leaves(params))
+        aux = {
+            "norm_mean": torch.stack(means).mean(),
+            "norm_std": torch.stack(stds).mean(),
+            "accuracy": torch.stack(accs).mean(),
+            "stats": stats,
+        }
+        return loss.detach(), aux, _tree(list(grads), params)
 
     def apply_update(self, state: dict, grads: dict) -> tuple[dict, Any]:
-        """The optimizer's update: (params, opt_state), new tensors; the state
-        given is left as it was."""
+        """The optimizer's update: (params, opt_state), new tensors, each
+        device's leaves updated on that device; the state given is left as
+        it was."""
         cfg = self.config
         opt = state["opt_state"]
         params = state["params"]
@@ -331,16 +483,16 @@ class Trainer:
             if cfg.fused_optimizer:
                 count = opt["count"]
                 lr = self._schedule(count) if callable(self._schedule) else self._schedule
-                new_p, new_t = fused_sgd_apply(_leaves(params), _leaves(grads),
-                                               _leaves(opt["trace"]), lr, cfg.momentum,
-                                               cfg.weight_decay)
+                new_p, new_t = _per_device(fused_sgd_apply, _leaves(params), _leaves(grads),
+                                           _leaves(opt["trace"]), lr, cfg.momentum,
+                                           cfg.weight_decay)
                 new_opt = {"trace": _tree(new_t, params), "count": count + 1}
             else:
                 sched = opt[1][1]
                 lr = self._schedule(sched["count"]) if sched else self._schedule
-                new_p, new_t = chain_sgd_apply(_leaves(params), _leaves(grads),
-                                               _leaves(opt[1][0]["trace"]), lr, cfg.momentum,
-                                               cfg.weight_decay)
+                new_p, new_t = _per_device(chain_sgd_apply, _leaves(params), _leaves(grads),
+                                           _leaves(opt[1][0]["trace"]), lr, cfg.momentum,
+                                           cfg.weight_decay)
                 new_sched = {"count": sched["count"] + 1} if sched else {}
                 new_opt = (opt[0], ({"trace": _tree(new_t, params)}, new_sched))
         for p in new_p:
@@ -348,10 +500,12 @@ class Trainer:
         return _tree(new_p, params), new_opt
 
     def train_step(self, state: dict, images, labels,
-                   generator: Optional[torch.Generator] = None,
+                   generator=None,
                    dropout_mask: Optional[torch.Tensor] = None):
         """One optimizer step. images [B,112,112,3] float32 in [-1, 1]
-        (BGR), labels [B]; tensors or arrays. Returns (new state, {'loss',
+        (BGR), labels [B]; tensors or arrays (under a mesh also per-shard
+        lists). `generator`: a torch.Generator, or under a mesh one per data
+        shard (`dropout_generators`). Returns (new state, {'loss',
         'accuracy'}) with the metrics left on the device; `state` itself is
         left as it was."""
         loss, aux, grads = self.loss_and_grads(state, images, labels, generator, dropout_mask)
@@ -359,9 +513,13 @@ class Trainer:
         m, d = BN_MOMENTUM, self.config.ema_decay
         with torch.no_grad():
             bs = dict(state["batch_stats"])
-            for name, (mean, var) in aux["stats"].items():
-                for key, v in ((f"{name}.running_mean", mean), (f"{name}.running_var", var)):
-                    bs[key] = m * bs[key] + (1 - m) * v
+            for name in aux["stats"][0]:
+                for pos, suffix in ((0, "running_mean"), (1, "running_var")):
+                    key = f"{name}.{suffix}"
+                    old = state["batch_stats"][key]
+                    new = [m * old + (1 - m) * st[name][pos].to(old.device)
+                           for st in aux["stats"]]
+                    bs[key] = torch.stack(new).mean(0)
             ema = state["norm_ema"]
             new_state = {
                 "params": params,

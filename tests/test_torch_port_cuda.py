@@ -1038,3 +1038,45 @@ def test_fused_int8_embedder_on_the_card_matches_the_unfused_one(dev):
             m.plain = True
     c = fused.embed_batch_device(faces)[0]
     torch.testing.assert_close(a, c, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("kind", ["bf16", "int8"])
+def test_sharded_searches_over_two_entries_of_the_card(dev, gen, kind):
+    """sharded_cosine_topk and dp_sharded_cosine_topk over a mesh of two
+    entries of the card, 65 536 rows: each row shard's K3 (bf16) or K4
+    (int8) runs once per search, and the merged answer equals the
+    single-device search over the whole gallery (ids equal; scores to
+    1e-6: a row's score does not depend on the shard it is read in)."""
+    from facerecognitionpipeline_tpu_torch.gallery.search import (
+        _local_topk,
+        dp_sharded_cosine_topk,
+        sharded_cosine_topk,
+    )
+    from facerecognitionpipeline_tpu_torch.ops import gallery_kernel as gk
+    from facerecognitionpipeline_tpu_torch.parallel.mesh import Mesh, make_mesh
+
+    g, k, chunk = 65536, 5, 4096
+    t = gen.normal(size=(g, 512)).astype(np.float32)
+    t /= np.linalg.norm(t, axis=1, keepdims=True)
+    t[-37:] = 0
+    valid = np.ones(g, bool)
+    valid[-37:] = False
+    queries = t[gen.integers(0, g - 37, 16)] + gen.normal(0, 0.05, (16, 512)).astype(np.float32)
+    tt = torch.from_numpy(t).to(dev)
+    rows = tt.to(torch.bfloat16) if kind == "bf16" else gk.quantize_templates(tt)
+    vv = torch.from_numpy(valid).to(dev)
+    qq = torch.from_numpy(queries).to(dev)
+    counter = gk.LAUNCHES if kind == "bf16" else gk.LAUNCHES_INT8
+    ws, wi = _local_topk(qq, rows, vv, k, streaming=True, chunk=chunk)
+    n0 = counter.count
+    s1, i1 = sharded_cosine_topk(Mesh([dev] * 2, ("gallery",)), qq, rows, vv, k,
+                                 streaming=True, chunk=chunk)
+    s2, i2 = dp_sharded_cosine_topk(make_mesh(data=2, devices=[dev] * 2),
+                                    qq.reshape(8, 2, 512), rows, vv, k,
+                                    streaming=True, chunk=chunk)
+    torch.cuda.synchronize()
+    assert counter.count - n0 == 4  # two searches, one launch per row shard
+    assert torch.equal(i1, wi) and torch.equal(i2.reshape(16, k), wi)
+    torch.testing.assert_close(s1, ws, rtol=0, atol=1e-6)
+    torch.testing.assert_close(s2.reshape(16, k), ws, rtol=0, atol=1e-6)
+    assert i1.device.type == "cuda" and int(i1.max()) < g - 37

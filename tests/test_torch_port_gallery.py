@@ -27,6 +27,7 @@ from facerecognitionpipeline_tpu.ops import pallas_gallery as jpg
 from facerecognitionpipeline_tpu.pipeline.engine import RecognitionEngine as JaxEngine
 from facerecognitionpipeline_tpu_torch.gallery import search as tsearch
 from facerecognitionpipeline_tpu_torch.ops import gallery_kernel as gk
+from facerecognitionpipeline_tpu_torch.parallel.mesh import Mesh, make_mesh
 from facerecognitionpipeline_tpu_torch.pipeline.engine import RecognitionEngine
 
 torch.set_num_threads(2)
@@ -335,8 +336,17 @@ def test_device_gallery_across_the_threshold_matches_jax(quantize):
 def test_device_gallery_options():
     with pytest.raises(ValueError, match="quantize"):
         tsearch.DeviceGallery(quantize="int4", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tsearch.DeviceGallery(mesh=object(), device="cpu")
+    # a mesh without the shard axis raises, as the JAX DeviceGallery does;
+    # with it the rows shard and the search equals the unsharded one
+    with pytest.raises(ValueError, match="'data' axis"):
+        tsearch.DeviceGallery(mesh=Mesh(["cpu"] * 2, ("gallery",)), device="cpu")
+    sharded = tsearch.DeviceGallery(mesh=make_mesh(data=2, devices=["cpu"] * 2))
+    plain = tsearch.DeviceGallery(device="cpu")
+    rows = np.eye(6, 512, dtype=np.float32)
+    for g in (sharded, plain):
+        g.rebuild([str(i) for i in range(6)], rows)
+    assert [b.shape for b in sharded.snapshot()[1].blocks] == [(128, 512)] * 2
+    assert sharded.search(rows[4], top_k=2)[1] == plain.search(rows[4], top_k=2)[1]
     dg = tsearch.DeviceGallery(device="cpu")
     s, n = dg.search(np.zeros(512, np.float32))
     assert s.shape == (1, 0) and n == [[]]

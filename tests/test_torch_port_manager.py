@@ -19,6 +19,7 @@ import torch
 
 from facerecognitionpipeline_tpu.gallery.manager import GalleryManager as JaxManager
 from facerecognitionpipeline_tpu_torch.gallery.manager import GalleryManager, StudentRecord
+from facerecognitionpipeline_tpu_torch.parallel.mesh import Sharded, make_mesh
 
 torch.set_num_threads(2)
 
@@ -113,8 +114,14 @@ def test_empty_manager(tmp_path):
     assert t.id_at(0) is None
     templates, valid, ids = t.device_snapshot()
     assert templates.shape == (128, 512) and not valid.any() and ids == []
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        GalleryManager(str(tmp_path / "m" / "g.pkl"), verbose=False, mesh=object(), device="cpu")
+    # mesh= passes through to DeviceGallery: the snapshot is the per-shard form
+    sharded = GalleryManager(str(tmp_path / "m" / "g.pkl"), verbose=False,
+                             mesh=make_mesh(data=2, devices=["cpu"] * 2))
+    sharded.add_student("S1", "One", np.eye(2, 512, dtype=np.float32))
+    templates, valid, ids = sharded.device_snapshot()
+    assert isinstance(templates, Sharded) and len(templates.blocks) == 2
+    assert templates.shape == (256, 512) and ids == ["S1"]
+    assert valid.gather("cpu").sum() == 1
 
 
 @pytest.mark.parametrize("writer", ["jax", "torch"])

@@ -624,16 +624,32 @@ def test_client_that_closes_mid_body_gets_no_500(stall_server):
 
 
 @pytest.mark.parametrize("kw,what", [
-    ({"mesh_data": 2}, "multi-GPU"),
-    ({"shard_gallery": True}, "multi-GPU"),
-])
+    ({"mesh_data": 2}, None),
+    ({"shard_gallery": True}, "shard_gallery"),
+], ids=["kw0-multi-GPU", "kw1-multi-GPU"])  # the ids of the refusals these cases were
 def test_unported_options_are_refused_at_construction(tmp_path, kw, what):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md") as e:
-        tserver.FaceRecognitionServer(
-            gallery_path=str(tmp_path / "g.pkl"), output_dir=str(tmp_path),
-            device="cpu", **kw,
-        )
-    assert what in str(e.value)
+    """As in the JAX server: mesh_data=2 builds the engine on a 'data' mesh
+    (here two CPU entries) whose batcher buckets are multiples of 2, and a
+    frame goes through the split step; shard_gallery without a mesh is a
+    ValueError."""
+    weights = os.path.join(REPO, "pretrained", "mtcnn_dr.npz")
+    build = dict(gallery_path=str(tmp_path / "g.pkl"), output_dir=str(tmp_path),
+                 architecture="ir_micro", detector_weights=weights, det_size=DET,
+                 max_faces=4, batch_max=4, warmup=False, device="cpu", **kw)
+    if what is not None:
+        with pytest.raises(ValueError, match=what):
+            tserver.FaceRecognitionServer(**build)
+        return
+    srv = tserver.FaceRecognitionServer(**build)
+    try:
+        assert srv.engine.mesh.shape == {"data": 2, "model": 1}
+        assert srv.batcher.bucket_sizes == [4]
+        out = srv.batcher.submit(np.zeros((*DET, 3), np.uint8)).result(timeout=120)
+        assert out["match_scores"].shape == (4, 3)
+    finally:
+        srv.batcher.stop()
+    with pytest.raises(ValueError, match="multiple"):
+        tserver.FaceRecognitionServer(**{**build, "batch_max": 3})
 
 
 def test_mesh_data_one_is_a_single_device_server(tmp_path):
@@ -996,6 +1012,7 @@ def test_quantize_calib_without_images_is_refused_as_in_jax(tmp_path):
             mod.FaceRecognitionServer(
                 gallery_path=str(tmp_path / which / "g.pkl"),
                 output_dir=str(tmp_path / which), architecture="ir_micro",
-                detector_weights=INT8_WEIGHTS, det_size=DET, max_faces=FACES,
+                detector_weights=os.path.join(REPO, "pretrained", "mtcnn_dr.npz"),
+                 det_size=DET, max_faces=FACES,
                 quantize="int8", quantize_calib=str(tmp_path / "missing"), warmup=False, **kw,
             )

@@ -33,6 +33,7 @@ from facerecognitionpipeline_tpu.pipeline.embedder import FaceEmbedder as JaxEmb
 from facerecognitionpipeline_tpu.pipeline.engine import RecognitionEngine as JaxEngine
 from facerecognitionpipeline_tpu_torch.gallery.search import DeviceGallery, cosine_topk
 from facerecognitionpipeline_tpu_torch.models.detector import MTCNNDetector
+from facerecognitionpipeline_tpu_torch.parallel.mesh import make_mesh
 from facerecognitionpipeline_tpu_torch.pipeline.embedder import FaceEmbedder
 from facerecognitionpipeline_tpu_torch.pipeline.engine import RecognitionEngine
 from facerecognitionpipeline_tpu_torch.serve.batcher import DeviceBatcher
@@ -142,11 +143,11 @@ def _assert_step_parity(teng, frames, a, b, tt, tv, top_k, rotation=0):
         "landmarks": a["landmarks"], "valid": a["face_valid"],
     }
     with torch.inference_mode():
-        r = _np(teng._recognize(
-            torch.from_numpy(np.asarray(frames, np.float32)),
-            {k: torch.from_numpy(np.array(v)) for k, v in det.items()},
-            tt, tv, top_k, rotation,
-        ))
+        st = teng._embed(
+            teng._shards[0], torch.from_numpy(np.asarray(frames, np.float32)),
+            {k: torch.from_numpy(np.array(v)) for k, v in det.items()}, rotation,
+        )
+        r = _np(teng._finish(st, *teng._match(st["q"], tt, tv, top_k), top_k))
     np.testing.assert_array_equal(r["quality_ok"][valid], a["quality_ok"][valid])
     np.testing.assert_array_equal(r["embedded"], a["embedded"])
     diff = np.abs(r["aligned"].astype(np.int16) - a["aligned"].astype(np.int16))
@@ -244,10 +245,17 @@ def test_step_embed_budget_with_an_int8_pair(pair, frames, gallery):
 
 
 def test_unported_options_raise(pair):
+    """mesh= builds one shard per entry of the 'data' axis (the replicas on
+    the weights' own device are the same objects); shard_gallery without a
+    mesh, a batch that does not split over the mesh and the other bad
+    options raise the JAX engine's ValueErrors."""
     _, _, tdet, temb = pair
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        RecognitionEngine(tdet, temb, mesh=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    eng = RecognitionEngine(tdet, temb, mesh=make_mesh(data=2, devices=["cpu"] * 2))
+    assert len(eng._shards) == 2 and eng._shards[1].detector is tdet
+    with pytest.raises(ValueError, match="multiple"):
+        eng.process_frames(np.zeros((3, 160, 160, 3), np.uint8), torch.zeros(128, 512),
+                           torch.zeros(128, dtype=torch.bool))
+    with pytest.raises(ValueError, match="shard_gallery"):
         RecognitionEngine(tdet, temb, shard_gallery=True)
     with pytest.raises(ValueError):
         RecognitionEngine(tdet, temb, embed_budget=5)

@@ -62,6 +62,7 @@ from facerecognitionpipeline_tpu_torch.models.convert import (
     train_state_from_jax,
     train_state_to_jax,
 )
+from facerecognitionpipeline_tpu_torch.parallel.mesh import make_mesh
 from facerecognitionpipeline_tpu_torch.train import losses as tlosses
 from facerecognitionpipeline_tpu_torch.train.trainer import (
     TrainConfig,
@@ -214,8 +215,14 @@ def test_unknown_schedule_loss_and_mesh_raise():
         make_schedule(TrainConfig(lr_schedule="nope"))
     with pytest.raises(ValueError, match="loss"):
         Trainer(TrainConfig(architecture="ir_micro", loss="softmax"), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item 17"):
-        Trainer(TrainConfig(architecture="ir_micro"), mesh=object(), device="cpu")
+    # a mesh works (tests/test_torch_port_train_mesh.py); its model axis
+    # must divide the class count
+    with pytest.raises(ValueError, match="model"):
+        Trainer(TrainConfig(architecture="ir_micro"),
+                mesh=make_mesh(data=1, model=3, devices=["cpu"] * 3))
+    tr = Trainer(TrainConfig(architecture="ir_micro", num_classes=8),
+                 mesh=make_mesh(data=2, model=2, devices=["cpu"] * 4))
+    assert [b.shape for b in tr.init_state(0)["params"]["classifier"]] == [(512, 4)] * 2
 
 
 # -------------------------------------------------------------- the step
