@@ -6,8 +6,8 @@
 Phases, in order; any failure exits non-zero before the final line:
   1. build the CUDA kernels (K1 crop_resize, K2 warp_patches, K3
      gallery_topk, K4 gallery_topk_int8, K3 on float32 rows
-     gallery_topk_f32) with nvcc, all at once, and print what the assembler
-     reports (registers, spills) for every list length;
+     gallery_topk_f32, K5 nms_fixpoint) with nvcc, all at once, and print
+     what the assembler reports (registers, spills) for every list length;
   2. hold each kernel against its plain PyTorch version on the card, at the
      shapes the serving step gives it, and time kernel, plain version and a
      PyTorch yardstick (F.grid_sample; matmul + topk with the similarity
@@ -30,14 +30,24 @@ Phases, in order; any failure exits non-zero before the final line:
      (lists in shared memory) and 33, 64, 65, 256 and 1024 (lists in
      device memory) against their plain versions, with the ring each
      placement leaves, the call's peak memory and the stream and merge
-     kernels' device time;
+     kernels' device time; K2's channel-planar output equal to its plain
+     version and to the channels-last one transposed, to the bit; K5 (NMS's
+     loop) equal to its plain version to the bit at [8, 1152], [8, 1408],
+     [8, 256] and [8, 96] on suppression chains of depth 1, 7, 8, 9 and 64,
+     one of every box (its loop ends at the it < n cap), an all-invalid
+     element and clustered proposals, timed beside its bound (the mask's
+     bytes read once);
   3. the fused serving step at the server's build: ir_101 (seeded random
      weights), bf16, det_size 640x640, 16 face slots, min face 40, top-3,
      a 1024-row float32 gallery (dense match), B=8 frames composed from the
      in-repo smoke fixture. Checks detection recall against the fixture's
      ground truth, planted gallery matches, finite outputs, and that every
-     step launched K1 three times and K2 once; times the step, and reads
-     K1's and K2's device time inside the step from torch.profiler;
+     step launched K1 three times, K2 once and K5 three times; times the
+     step, and reads K1's and K2's device time inside the step from
+     torch.profiler. From here on `process_frames` replays one CUDA graph
+     per key (pipeline/step_graph.py); each gallery's graph is captured
+     before a phase counts launches, and a replay adds what its capture
+     recorded;
   4. 16 requests from two client threads through DeviceBatcher, each held
      against the direct step on the same frame;
   5. the same step against a DeviceGallery of 1 048 576 identities, once
@@ -164,13 +174,31 @@ Phases, in order; any failure exits non-zero before the final line:
      |loss|, parameters within 1e-3 after step 1 and 3e-3 after step 3,
      batch_stats within 5e-3; a classifier gradient scaled by 1/2 (the
      fault a class-sharded head can carry) must move step 1 by more than
-     the step-1 bound plus the gap measured. `python3 chip_smoke.py --mesh-only`
+     the step-1 bound plus the gap measured. Every mesh and single-device
+     step of the phase runs through its engine's graphs (one per data
+     shard) and is held to that engine's eager step bit for bit.
+     `python3 chip_smoke.py --mesh-only`
      builds the kernels and runs phase 12 alone on phase 3's build;
      `--mesh-only --cards` makes the mesh of distinct cards (two for
      serving, four for the (2, 2) trainer).
+  13. the compiled step at phase 3's build, on six routes (the dense
+     1024-row gallery, 1 048 576 bf16 rows (K3), 1 048 576 int8 rows (K4),
+     embed_budget=4 at rotations 0, 1, 2 and 2**28 + 3, I420 input, and
+     phase 8's quantize='int8' build): an eager step under
+     torch.cuda.set_sync_debug_mode("error") raises nothing; the graphs at
+     B=1 and B=8 equal the eager step bit for bit on all 12 result fields;
+     a torch.profiler trace of one replay holds K1 x3, K2 x1, K5 x3 and K3
+     or K4 once where the gallery streams; two replays back to back leave
+     the first answer, copied on a side stream, alone; eager and graph
+     step p50 at B=1 and B=8 with device time and busy share; one client's
+     raw rgb24 request p50 over 120 requests with the server's engine on
+     its graphs and then on the eager step (bound by the script); a
+     /reload_gallery followed by one request makes one capture; every
+     capture's seconds and pool bytes. `python3 chip_smoke.py --graph-only`
+     builds the kernels and runs phase 13 alone on phase 3's build.
 Then it prints the card's name and power limit, JSON lines of phase 8's, 9's,
-10's, 11's and 12's numbers, a JSON line describing the kernels, and as its
-last line {"ok": true, "device": {...}}.
+10's, 11's, 12's and 13's numbers, a JSON line describing the kernels, and as
+its last line {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -474,9 +502,147 @@ def kernel_phase(fixture) -> dict:
         "bytes": 4 * (patches.numel() + coeffs.numel() + out.numel()),
         "flops": out.numel() * 12, "peak": F32_FLOPS_PER_S,
     })
+    # the channel-planar output [F,C,112,112] of the same warp
+    out_p = warp_patches_kernel(patches, coeffs, 112, 112, planar=True)
+    ref_p = warp_patches_plain(patches, coeffs, 112, 112, planar=True)
+    torch.cuda.synchronize()
+    if not (torch.equal(out_p, ref_p) and torch.equal(out_p, out.permute(0, 3, 1, 2))):
+        fail(f"K2 planar disagrees with its plain version "
+             f"({float((out_p - ref_p).abs().max())}) or with its channels-last output")
+    print(f"[kernels] K2 warp_patches planar=True: out {tuple(out_p.shape)} equal to its plain "
+          f"version and to the channels-last output transposed, to the bit")
     print_bounds(report, "F.grid_sample")
     odd_shape_phase()
+    report["nms_fixpoint"] = nms_kernel_phase()
     return report
+
+
+# stage 1 of the server build (9 scales x 128 proposals at 640x640, min face
+# 40) and at the default min face 20 (11 scales), stages 2 and 3
+NMS_SHAPES = ((BATCH, 1152), (BATCH, 1408), (BATCH, 256), (BATCH, 96))
+NMS_STEP_NS = (1152, 256, 96)  # the three calls of one step of the server build
+NMS_DEPTHS = (1, 7, 8, 9, 64)  # suppression chains, in sweeps to converge
+
+
+def nms_sweeps(conflict, v) -> int:
+    """Sweeps the NMS loop runs on these inputs (the slowest element's,
+    as the batched plain loop runs them)."""
+    import torch
+
+    n = v.shape[-1]
+
+    def sweep(keep):
+        return v & ~(conflict & keep[..., None, :]).any(dim=-1)
+
+    keep, prev, sweeps = sweep(v), v, 1
+    for _ in range(6):
+        keep, prev, sweeps = sweep(keep), keep, sweeps + 1
+    while sweeps < n and bool((keep != prev).any()):
+        keep, prev, sweeps = sweep(sweep(keep)), keep, sweeps + 2
+    return sweeps
+
+
+def nms_inputs(b: int, n: int, seed: int):
+    """What nms_mask hands K5 for b frames of n proposals in clusters of
+    jittered boxes, as the cascade's stages see them: (conflict [b,n,n],
+    v [b,n]) at IoU > 0.7, score-sorted."""
+    import torch
+
+    from facerecognitionpipeline_tpu_torch.ops.nms import pairwise_iou
+
+    g = torch.Generator().manual_seed(seed)
+    centres = torch.rand((b, n // 8 + 1, 2), generator=g) * 600 + 20
+    pick = torch.randint(0, centres.shape[1], (b, n), generator=g)
+    c = torch.gather(centres, 1, pick[..., None].expand(b, n, 2))
+    side = 20 + 60 * torch.rand((b, n, 1), generator=g)
+    c = c + 4 * torch.randn((b, n, 2), generator=g)
+    boxes = torch.cat([c - side / 2, c + side / 2], -1).to(DEVICE)
+    scores = torch.rand((b, n), generator=g).to(DEVICE)
+    valid = scores > 0.3
+    masked = torch.where(valid, scores, torch.full_like(scores, -1e9))
+    order = torch.sort(masked, dim=-1, descending=True, stable=True).indices
+    sb = torch.gather(boxes, -2, order[..., None].expand(b, n, 4))
+    v = torch.gather(valid, -1, order)
+    idx = torch.arange(n, device=DEVICE)
+    return (pairwise_iou(sb) > 0.7) & (idx[None, :] < idx[:, None]), v
+
+
+def nms_chains(b: int, n: int):
+    """Conflict masks built to converge at known depths: per element a
+    suppression chain of NMS_DEPTHS[e] boxes spread over the n sorted slots
+    (its other slots valid and free), then one chain of all n boxes (the
+    loop ends at its `it < n` cap), one element with no valid box, and the
+    rest clustered boxes."""
+    import torch
+
+    conflict, v = nms_inputs(b, n, seed=n)
+    conflict, v = conflict.clone(), v.clone()
+    depths = [d for d in NMS_DEPTHS if d <= n] + [n]
+    for e, d in enumerate(depths[:b - 1]):
+        pos = torch.linspace(0, n - 1, d).round().long().to(DEVICE)
+        conflict[e] = False
+        v[e] = True
+        conflict[e, pos[1:], pos[:-1]] = True
+    v[min(len(depths), b - 1)] = False
+    return conflict, v, depths[:b - 1]
+
+
+def nms_kernel_phase() -> list:
+    """K5 against its plain version (bit for bit) on chains of known depth,
+    at the `it < n` cap and on an all-invalid element, at every stage shape;
+    timed on clustered proposals beside its bound."""
+    import torch
+
+    from facerecognitionpipeline_tpu_torch.ops.nms_kernel import (
+        nms_fixpoint_kernel,
+        nms_fixpoint_plain,
+        nms_launch_geometry,
+    )
+
+    rows = []
+    for b, n in NMS_SHAPES:
+        conflict, v, depths = nms_chains(b, n)
+        got = nms_fixpoint_kernel(conflict, v)
+        want = nms_fixpoint_plain(conflict, v)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            bad = (got != want).any(dim=-1).nonzero().flatten().tolist()
+            fail(f"K5 at [{b}, {n}] disagrees with its plain version in elements {bad}")
+        for e, d in enumerate(depths):
+            if int(got[e].sum()) != (n - d) + (d + 1) // 2:
+                fail(f"K5 at [{b}, {n}]: a chain of {d} kept {int(got[e].sum())} boxes")
+        geo = nms_launch_geometry(b, n)
+        print(f"[kernels] K5 nms_fixpoint [{b}, {n}]: equal to its plain version to the bit on "
+              f"chains of depth {depths} (the last at the it < n cap), an all-invalid element "
+              f"and clustered proposals; packed rows {'in shared memory' if geo.rows_in_smem else 'in device memory'}, "
+              f"{geo.smem_bytes} bytes of shared memory")
+        conf, vv = nms_inputs(b, n, seed=7 * n)
+        if not torch.equal(nms_fixpoint_kernel(conf, vv), nms_fixpoint_plain(conf, vv)):
+            fail(f"K5 at [{b}, {n}] disagrees with its plain version on clustered proposals")
+        sweeps = nms_sweeps(conf, vv)
+        words = b * (n * n // 64 + n // 2)
+        rows.append({
+            "shape": f"[{b}, {n}]", "err": 0.0, "in_step": n in NMS_STEP_NS,
+            "ms": cuda_time_ms(lambda: nms_fixpoint_kernel(conf, vv)),
+            "plain_ms": cuda_time_ms(lambda: nms_fixpoint_plain(conf, vv), iters=5),
+            "device_ms": device_time_ms(lambda: nms_fixpoint_kernel(conf, vv), "nms_fixpoint"),
+            "library_ms": None, "sweeps": sweeps,
+            # the mask and v read once, keep written once; a sweep is an AND
+            # and an OR per packed word
+            "bytes": conf.numel() + 2 * vv.numel(), "flops": 2 * sweeps * words,
+            "peak": F32_FLOPS_PER_S,
+        })
+    for r in rows:
+        by_bytes = r["bytes"] / HBM_BYTES_PER_S
+        by_ops = r["flops"] / r["peak"]
+        r["bound_ms"] = 1e3 * max(by_bytes, by_ops)
+        r["bound_by"] = "bytes" if by_bytes >= by_ops else "operations"
+        dev_ms = "not measured" if r["device_ms"] is None else f"{r['device_ms']:.4f} ms"
+        print(f"[timing] nms_fixpoint {r['shape']} ({r['sweeps']} sweeps): kernel "
+              f"{r['ms']:.4f} ms (device time alone {dev_ms}), bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}), plain loop {r['plain_ms']:.4f} ms; no library call "
+              f"computes it")
+    return rows
 
 
 def rotation_coeffs(n: int, k: int, out: int, max_deg: float, g, shift: float = 0.0):
@@ -1181,7 +1347,12 @@ def serving_phases(fixture, report) -> dict:
     import torch
 
     from facerecognitionpipeline_tpu_torch.gallery.search import DeviceGallery
-    from facerecognitionpipeline_tpu_torch.ops import crop_kernel, gallery_kernel, warp_kernel
+    from facerecognitionpipeline_tpu_torch.ops import (
+        crop_kernel,
+        gallery_kernel,
+        nms_kernel,
+        warp_kernel,
+    )
     from facerecognitionpipeline_tpu_torch.serve.batcher import DeviceBatcher
 
     t0 = time.perf_counter()
@@ -1225,9 +1396,11 @@ def serving_phases(fixture, report) -> dict:
         planted[row] = emb[f, s]
     gallery.rebuild([f"id{i}" for i in range(GALLERY_ROWS)], planted)
     t, v, _ = gallery.device_snapshot()
+    engine.process_frames(frames, t, v)  # this gallery's graph, captured before the counts
 
     crop_kernel.LAUNCHES.reset()
     warp_kernel.LAUNCHES.reset()
+    nms_kernel.LAUNCHES.reset()
     gallery_kernel.LAUNCHES.reset()
     gallery_kernel.LAUNCHES_INT8.reset()
     out, ms = timed_steps(engine, frames, t, v, STEP_ITERS)
@@ -1236,10 +1409,13 @@ def serving_phases(fixture, report) -> dict:
     launches = {
         "crop_resize": crop_kernel.LAUNCHES.count,
         "warp_patches": warp_kernel.LAUNCHES.count,
+        "nms_fixpoint": nms_kernel.LAUNCHES.count,
     }
-    print(f"[step] launches over {STEP_ITERS} steps: {launches}")
-    if launches != {"crop_resize": 3 * STEP_ITERS, "warp_patches": STEP_ITERS}:
-        fail(f"expected K1 x3 and K2 x1 per step, got {launches}")
+    print(f"[step] launches over {STEP_ITERS} steps through the step's CUDA graph (each "
+          f"replay adds what its capture recorded): {launches}")
+    if launches != {"crop_resize": 3 * STEP_ITERS, "warp_patches": STEP_ITERS,
+                    "nms_fixpoint": 3 * STEP_ITERS}:
+        fail(f"expected K1 x3, K2 x1 and K5 x3 per step, got {launches}")
     idx = out["match_idx"].cpu().numpy()
     sc = out["match_scores"].cpu().numpy()
     for row, (f, s) in zip(rows, slots):
@@ -1396,6 +1572,7 @@ def large_gallery_phase(ctx, gal, report) -> None:
             budget = RecognitionEngine(
                 ctx["detector"], ctx["embedder"], top_k=3, embed_budget=4
             )
+            budget.process_frames(frames, t, v)  # its graph, captured before the counts
             for c in counters.values():
                 c.reset()
             bout = budget.process_frames(frames, t, v)
@@ -1630,7 +1807,13 @@ def drive_clients(tag, server, url, tmp, image_format, frame, n_clients, n_each,
     answer checked. Returns the numbers of the run."""
     import numpy as np
 
-    from facerecognitionpipeline_tpu_torch.ops import crop_kernel, gallery_kernel, warp_kernel
+    from facerecognitionpipeline_tpu_torch.ops import (
+        crop_kernel,
+        gallery_kernel,
+        int8_gemm,
+        nms_kernel,
+        warp_kernel,
+    )
     from facerecognitionpipeline_tpu_torch.serve.client import FaceRecognitionClient
 
     session = f"{tag.replace(' ', '_').replace('/', '-')}"
@@ -1647,8 +1830,12 @@ def drive_clients(tag, server, url, tmp, image_format, frame, n_clients, n_each,
     counters = {
         "crop_resize": crop_kernel.LAUNCHES, "warp_patches": warp_kernel.LAUNCHES,
         "gallery_topk": gallery_kernel.LAUNCHES,
-        "gallery_topk_int8": gallery_kernel.LAUNCHES_INT8,
+        "gallery_topk_int8": gallery_kernel.LAUNCHES_INT8, "int8_products": int8_gemm.PRODUCTS,
+        "nms_fixpoint": nms_kernel.LAUNCHES,
     }
+    # every bucket's graph of the gallery as it now is (a reload made a new
+    # generation), captured before the counts
+    server.batcher.warmup(DET_SIZE)
     for c in counters.values():
         c.reset()
     steps0 = server.batcher._dispatch_count
@@ -1695,7 +1882,7 @@ def drive_clients(tag, server, url, tmp, image_format, frame, n_clients, n_each,
         if not sure <= rec or not rec <= sure | maybe:
             fail(f"{tag} client {i}: recognized {sorted(rec)} by the third frame, "
                  f"expected {sorted(sure)} (+ maybe {sorted(maybe)})")
-    want = {"crop_resize": 3 * steps, "warp_patches": steps}
+    want = {"crop_resize": 3 * steps, "warp_patches": steps, "nms_fixpoint": 3 * steps}
     if any(got[k] != n for k, n in want.items()) or steps < 1 or steps > n_req \
             or len(step_ms) != steps:
         fail(f"{tag}: {steps} steps for {n_req} requests launched {got}")
@@ -1969,7 +2156,7 @@ def server_phase(ctx, gal, report) -> None:
                 stop_server(server, httpd, thread)
             del server
             torch.cuda.empty_cache()
-        for k in ("crop_resize", "warp_patches"):
+        for k in ("crop_resize", "warp_patches", "nms_fixpoint"):
             report["server_launches"][k] = sum(r["launches"][k] for r in runs)
         report["serve_runs"] = runs
         if any(r["launches"]["gallery_topk"] or r["launches"]["gallery_topk_int8"] for r in runs):
@@ -2077,7 +2264,8 @@ def int8_step_shapes(engine, frames, t, v) -> dict:
     hooks = [m.register_forward_pre_hook(hook)
              for m in quant_layers(engine.detector.nets, engine.embedder.model)]
     try:
-        engine.process_frames(frames, t, v)
+        # the eager step: a graph's replay calls no module, so runs no hook
+        engine.step(t, v, frames, 3)
         torch.cuda.synchronize()
     finally:
         for h in hooks:
@@ -2241,6 +2429,7 @@ def int8_phase(ctx, gal, report) -> None:
         planted[row] = emb[f, s]
     gallery.rebuild(ids, planted)
     t, v, _ = gallery.device_snapshot()
+    engine.process_frames(frames, t, v)  # this gallery's graph, captured before the counts
     counters = {
         "crop_resize": crop_kernel.LAUNCHES, "warp_patches": warp_kernel.LAUNCHES,
         "gallery_topk": gallery_kernel.LAUNCHES,
@@ -2272,11 +2461,13 @@ def int8_phase(ctx, gal, report) -> None:
     deterministic = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
     try:
-        card = engine.process_frames(frames, t, v)
+        # eager steps: a layer's `plain` switch is read when the step runs
+        # its Python, which a graph's replay does not
+        card = engine.step(t, v, frames, 3)
         for m in layers:
             m.plain = True
         int8_gemm.PRODUCTS.reset()
-        plain = engine.process_frames(frames, t, v)
+        plain = engine.step(t, v, frames, 3)
         torch.cuda.synchronize()
     finally:
         for m in layers:
@@ -2362,6 +2553,7 @@ def int8_phase(ctx, gal, report) -> None:
     print(f"[int8] all-int8 step against {big} int8 rows: {len(slots)} planted rows top-1 (min "
           f"score {min(sc[f, s, 0] for f, s in slots):.5f}, floor 0.98); launches {got}; p50 "
           f"{p50:.3f} ms, min {ms[0]:.3f}, max {ms[-1]:.3f} over {BIG_STEP_ITERS} steps")
+    ctx["int8_engine"] = engine  # phase 13's quantize='int8' route
     del big_gallery, t, v, out, engine, detector, embedder
     torch.cuda.empty_cache()
 
@@ -2378,11 +2570,10 @@ def int8_phase(ctx, gal, report) -> None:
                 "int8", server, url, frame, gallery_path, np.random.default_rng(5))
             print(f"[int8] server: {len(enrolled)} of {len(faces)} faces of its direct int8 step "
                   f"enrolled among {first['num_students']} students")
-            int8_gemm.PRODUCTS.reset()
             r = drive_clients("raw x1 int8", server, url, tmp, "raw", frame, 1,
                               INT8_SERVER_REQUESTS, faces, enrolled)
-            if int8_gemm.PRODUCTS.count != per_step * r["steps"]:
-                fail(f"int8 server: {int8_gemm.PRODUCTS.count} int8 products over "
+            if r["launches"]["int8_products"] != per_step * r["steps"]:
+                fail(f"int8 server: {r['launches']['int8_products']} int8 products over "
                      f"{r['steps']} steps, expected {per_step} per step")
             print_run(r)
         finally:
@@ -2762,6 +2953,7 @@ def enrolment_phase(ctx, gal, report) -> None:
         t = torch.from_numpy(small).to(DEVICE)
         vv = torch.ones(GALLERY_ROWS, dtype=torch.bool, device=DEVICE)
         want = dense.process_frames(ctx["frames"], t, vv)
+        eng.process_frames(ctx["frames"], t, vv)  # its graph, captured before the counts
         gallery_kernel.LAUNCHES_F32.reset()
         steps = 3
         for _ in range(steps):
@@ -4069,10 +4261,16 @@ MESH_TRAIN_STEPS = 3
 
 
 def mesh_counters():
-    from facerecognitionpipeline_tpu_torch.ops import crop_kernel, gallery_kernel, warp_kernel
+    from facerecognitionpipeline_tpu_torch.ops import (
+        crop_kernel,
+        gallery_kernel,
+        nms_kernel,
+        warp_kernel,
+    )
 
     return {
         "crop_resize": crop_kernel.LAUNCHES, "warp_patches": warp_kernel.LAUNCHES,
+        "nms_fixpoint": nms_kernel.LAUNCHES,
         "gallery_topk": gallery_kernel.LAUNCHES,
         "gallery_topk_int8": gallery_kernel.LAUNCHES_INT8,
         "gallery_topk_f32": gallery_kernel.LAUNCHES_F32,
@@ -4167,6 +4365,7 @@ def mesh_phase(ctx, gal, report, cards: bool = False) -> None:
     counters = mesh_counters()
     totals = {k: 0 for k in counters}
     res: dict = {"mesh": str(mesh)}
+    graphed = [0]  # runs held to their eager step
 
     def run(engine, t, v, iters, rotation=0):
         """`iters` steps with the counts from 0: (last output, sorted ms,
@@ -4185,11 +4384,19 @@ def mesh_phase(ctx, gal, report, cards: bool = False) -> None:
         if engine.mesh is not None:
             for k in totals:
                 totals[k] += got[k]
+        # the steps went through the engine's graphs (one per data shard):
+        # held to its eager step on the same frames, bit for bit
+        diffs = tree_diff(out, engine.step(t, v, frames, 3, rotation))
+        if diffs:
+            fail(f"{'mesh' if engine.mesh is not None else 'single-device'} step through "
+                 f"its graphs differs from its eager step in {diffs}")
+        graphed[0] += 1
         return out, sorted(times), got
 
     def expect(tag, got, iters, **per_step):
         want = {k: 0 for k in counters}
-        want.update({"crop_resize": 3 * MESH_DATA * iters, "warp_patches": MESH_DATA * iters})
+        want.update({"crop_resize": 3 * MESH_DATA * iters, "warp_patches": MESH_DATA * iters,
+                     "nms_fixpoint": 3 * MESH_DATA * iters})
         want.update({k: n * iters for k, n in per_step.items()})
         if got != want:
             fail(f"{tag}: launches {got}, expected {want}")
@@ -4438,9 +4645,378 @@ def mesh_phase(ctx, gal, report, cards: bool = False) -> None:
     del runs, a, b, first, second, g
     torch.cuda.empty_cache()
     res["launches"] = totals
+    res["graph_runs_equal_to_eager"] = graphed[0]
     res["seconds"] = time.perf_counter() - t_phase
+    print(f"[mesh] {graphed[0]} runs of mesh and single-device steps through per-shard graphs, "
+          f"each equal to its engine's eager step bit for bit")
     print(f"[mesh] phase 12 launches {totals}; took {res['seconds']:.1f} s")
     report["mesh"] = res
+
+
+# ------------------------------------------------------------ phase 13
+
+GRAPH_ITERS = 20  # timed steps per (mode, batch)
+GRAPH_REQUESTS = 120  # raw rgb24 requests per mode
+GRAPH_ROTATIONS = (0, 1, 2, (1 << 28) + 3)  # the last: rotation * 4 wraps int32
+
+
+def tree_diff(got, want, prefix="") -> list:
+    """(field, largest |difference|) of every leaf where two result trees
+    are not equal bit for bit."""
+    import torch
+
+    if isinstance(want, dict):
+        out = []
+        for k in want:
+            out += tree_diff(got[k], want[k], f"{prefix}{k}.")
+        return out
+    if got.shape == want.shape and got.dtype == want.dtype and torch.equal(got, want):
+        return []
+    gap = (got.double() - want.double()).abs().max().item() if got.shape == want.shape else None
+    return [(prefix[:-1], gap)]
+
+
+def step_stats(fn, iters: int) -> dict:
+    """p50 of `iters` synchronized calls of `fn` (host clock), then the
+    device time per call and the busy share over 3 profiled calls."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    times = []
+    for _ in range(iters):
+        torch.cuda.synchronize()
+        s0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - s0))
+    times.sort()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        s0 = time.perf_counter()
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.perf_counter() - s0)
+    dev_us = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA)
+    return {"p50_ms": times[iters // 2], "min_ms": times[0],
+            "device_ms": dev_us / 3e3 if dev_us > 0 else None,
+            "busy": dev_us / wall_us if dev_us > 0 else None}
+
+
+def pool_total_bytes(engine):
+    """Bytes of the segments of the engine's graph pools (its graphs kept:
+    those of the newest gallery), from the allocator's snapshot; None where
+    the snapshot names no pool."""
+    import torch
+
+    graphs = engine._graphs
+    if graphs is None:
+        return 0
+    ids = {tuple(p) for p in getattr(graphs._capture, "_pools", {}).values()}
+    segments = torch.cuda.memory_snapshot()
+    if not segments or "segment_pool_id" not in segments[0]:
+        return None
+    return sum(seg["total_size"] for seg in segments
+               if tuple(seg["segment_pool_id"]) in ids)
+
+
+def replay_kernels(engine, frames, t, v, rotation=0) -> dict:
+    """Kernel launches in a torch.profiler trace of one step through the
+    engine's graph (its key captured before the trace), by kernel."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    engine.process_frames(frames, t, v, rotation=rotation)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        engine.process_frames(frames, t, v, rotation=rotation)
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    counts = {name: sum(e.count for e in events if name in e.key)
+              for name in ("crop_resize", "warp_patches", "nms_fixpoint", "stream_topk_kernel")}
+    counts["all"] = sum(e.count for e in events)
+    return counts
+
+
+def eager_process_frames(engine):
+    """`engine.process_frames` through the eager step: the yardstick the
+    script binds on an engine (the package has no switch for it)."""
+    import torch
+
+    def run(frames, gallery_templates, gallery_valid, gallery_k=None, rotation=0):
+        frames = torch.as_tensor(frames).to(engine.device, non_blocking=True)
+        return engine.step(gallery_templates, gallery_valid, frames,
+                           gallery_k or engine.top_k, rotation)
+
+    return run
+
+
+def int8_build():
+    """The int8 detector and embedder of phase 8, calibrated again."""
+    import torch
+
+    from facerecognitionpipeline_tpu_torch.models.detector import MTCNNDetector
+    from facerecognitionpipeline_tpu_torch.pipeline.embedder import FaceEmbedder
+    from facerecognitionpipeline_tpu_torch.pipeline.engine import RecognitionEngine
+
+    detector = MTCNNDetector(
+        det_size=DET_SIZE, det_thresh=0.5, max_faces=MAX_FACES, min_face_size=40,
+        dtype=torch.bfloat16, device=DEVICE, quantize="int8",
+        weights_path=os.path.join(REPO, "pretrained", "mtcnn_dr.npz"),
+    )
+    embedder = FaceEmbedder(ARCH, dtype=torch.bfloat16, random_ok=True, init_seed=0,
+                            quantize="int8", device=DEVICE)
+    return RecognitionEngine(detector, embedder, top_k=3)
+
+
+def graph_phase(ctx, gal, report) -> None:
+    """Phase 13: the compiled step. Per route, an eager step under
+    torch.cuda.set_sync_debug_mode("error"), the graphs at B=1 and B=8
+    against the eager step bit for bit, and a profiler trace of one replay;
+    then eager against graph step times, raw rgb24 requests through a
+    server with the engine on its graphs and then eager, and every capture's
+    pool bytes and seconds."""
+    import numpy as np
+    import torch
+
+    from facerecognitionpipeline_tpu_torch.gallery.manager import GalleryManager
+    from facerecognitionpipeline_tpu_torch.gallery.search import DeviceGallery
+    from facerecognitionpipeline_tpu_torch.ops import (
+        crop_kernel,
+        gallery_kernel,
+        nms_kernel,
+        warp_kernel,
+    )
+    from facerecognitionpipeline_tpu_torch.ops.image import rgb_to_i420_host
+    from facerecognitionpipeline_tpu_torch.pipeline.engine import RecognitionEngine
+    from facerecognitionpipeline_tpu_torch.serve.client import (
+        FaceRecognitionClient,
+        HTTPSession,
+    )
+    from facerecognitionpipeline_tpu_torch.serve.server import FaceRecognitionServer, serve
+
+    t_phase = time.perf_counter()
+    detector, embedder, engine = ctx["detector"], ctx["embedder"], ctx["engine"]
+    frames, frames_np = ctx["frames"], ctx["frames_np"]
+    res: dict = {"routes": {}}
+    ids = [f"id{i}" for i in range(GALLERY_ROWS)]
+    dense = DeviceGallery(device=DEVICE)
+    dense.rebuild(ids, make_gallery(GALLERY_ROWS, seed=13))
+    big_ids = [f"id{i}" for i in range(gal.shape[0])]
+    big = {}
+    for quantize in (None, "int8"):
+        big[quantize] = DeviceGallery(device=DEVICE, quantize=quantize)
+        big[quantize].rebuild(big_ids, gal)
+    int8_engine = ctx.get("int8_engine") or int8_build()
+    budget = RecognitionEngine(detector, embedder, top_k=3, embed_budget=4)
+    i420 = RecognitionEngine(detector, embedder, top_k=3, input_format="i420")
+    frames_i420 = torch.from_numpy(
+        np.stack([rgb_to_i420_host(f) for f in frames_np])).to(DEVICE)
+    routes = (
+        ("dense", engine, frames, dense, 0, (0,)),
+        ("1m_bf16", engine, frames, big[None], 1, (0,)),
+        ("1m_int8", engine, frames, big["int8"], 1, (0,)),
+        ("embed_budget=4", budget, frames, dense, 0, GRAPH_ROTATIONS),
+        ("i420", i420, frames_i420, dense, 0, (0,)),
+        ("quantize=int8", int8_engine, frames, dense, 0, (0,)),
+    )
+    counters = {"crop_resize": crop_kernel.LAUNCHES, "warp_patches": warp_kernel.LAUNCHES,
+                "nms_fixpoint": nms_kernel.LAUNCHES, "gallery_topk": gallery_kernel.LAUNCHES,
+                "gallery_topk_int8": gallery_kernel.LAUNCHES_INT8}
+    launches = {k: 0 for k in counters}
+    for name, eng, fr, gallery, streamed, rotations in routes:
+        t, v, _ = gallery.device_snapshot()
+        eng.step(t, v, fr, 3, 0)  # first use of this build's shapes, eagerly
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            eng.step(t, v, fr, 3, rotations[-1])
+        except RuntimeError as e:
+            fail(f"{name}: the eager step synchronised with the host: {e}")
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        for b in (1, BATCH):
+            for rot in rotations:
+                want = eng.step(t, v, fr[:b], 3, rot)
+                got = eng.process_frames(fr[:b], t, v, rotation=rot)
+                diffs = tree_diff(got, want)
+                if diffs or len(got) != 12:
+                    fail(f"{name} B={b} rotation {rot}: the graph differs from the eager step "
+                         f"in {diffs} ({len(got)} fields)")
+        for c in counters.values():
+            c.reset()
+        seen = replay_kernels(eng, fr, t, v, rotations[-1])
+        for k, c in counters.items():
+            launches[k] += c.count
+        want = {"crop_resize": 3, "warp_patches": 1, "nms_fixpoint": 3,
+                "stream_topk_kernel": streamed}
+        if any(seen[k] != n for k, n in want.items()):
+            fail(f"{name}: a profiler trace of one replay saw {seen}, expected {want}")
+        res["routes"][name] = {"trace": seen, "rotations": list(rotations)}
+        print(f"[graph] {name}: the eager step ran under set_sync_debug_mode('error'); graphs "
+              f"at B=1 and B={BATCH} equal the eager step bit for bit on all 12 fields at "
+              f"rotation {list(rotations)}; one replay's trace: {seen['crop_resize']} K1, "
+              f"{seen['warp_patches']} K2, {seen['nms_fixpoint']} K5, "
+              f"{seen['stream_topk_kernel']} K3/K4 of {seen['all']} device events")
+    del big
+
+    # two replays back to back: the first answer, copied on a side stream,
+    # is not touched by the second replay
+    t, v, _ = dense.device_snapshot()
+    a_want = engine.step(t, v, frames, 3, 0)["embeddings"].cpu()
+    side = torch.cuda.Stream()
+    a = engine.process_frames(frames, t, v)
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        host = torch.empty(a["embeddings"].shape, dtype=a["embeddings"].dtype, pin_memory=True)
+        host.copy_(a["embeddings"], non_blocking=True)
+        a["embeddings"].record_stream(side)
+    engine.process_frames(torch.flip(frames, dims=[0]), t, v)
+    side.synchronize()
+    torch.cuda.synchronize()
+    if not torch.equal(host, a_want):
+        fail("a replay changed the answer of the one before it")
+    print("[graph] two replays back to back: the first answer, copied on a side stream, "
+          "is unchanged by the second")
+
+    # eager against graph, in turns, at B=1 and B=8 (dense gallery)
+    eager = eager_process_frames(engine)
+    timing = {}
+    for b, order in ((1, ("eager", "graph")), (BATCH, ("graph", "eager"))):
+        fb = frames[:b]
+        fns = {"eager": lambda fb=fb: eager(fb, t, v),
+               "graph": lambda fb=fb: engine.process_frames(fb, t, v)}
+        for mode in order:
+            timing[f"{mode}_b{b}"] = step_stats(fns[mode], GRAPH_ITERS)
+    for key, r in timing.items():
+        dev_ms = "not measured" if r["device_ms"] is None else f"{r['device_ms']:.3f} ms"
+        busy = "not measured" if r["busy"] is None else f"{r['busy']:.3f}"
+        print(f"[timing] step {key.replace('_b', ' B=')} ({ARCH} bf16, {GALLERY_ROWS}-row "
+              f"float32 gallery): p50 {r['p50_ms']:.3f} ms, min {r['min_ms']:.3f} over "
+              f"{GRAPH_ITERS} steps; device {dev_ms} per step, busy {busy}")
+    res["steps"] = timing
+
+    # raw rgb24 requests of one client: the server's engine on its graphs,
+    # then on the eager step
+    with tempfile.TemporaryDirectory() as tmp:
+        gallery_path = os.path.join(tmp, "gallery", "students.pkl")
+        server = FaceRecognitionServer(
+            similarity_threshold=SERVER_THRESHOLD, output_dir=os.path.join(tmp, "sessions"),
+            det_size=DET_SIZE, max_faces=MAX_FACES, batch_max=BATCH,
+            batch_buckets=(1, BATCH), engine=engine, gallery_path=gallery_path,
+            device=DEVICE,
+        )
+        httpd = serve(server, "127.0.0.1", 0)
+        thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+        thread.start()
+        url = f"http://127.0.0.1:{httpd.server_address[1]}"
+        try:
+            writer = GalleryManager(gallery_path, verbose=False, device=DEVICE)
+            rng = np.random.default_rng(13)
+            for i in range(50):
+                writer.add_student(f"s{i:02d}", f"S {i}",
+                                   rng.normal(size=(2, 512)).astype(np.float32))
+            writer.save()
+            before = len(engine._graphs.captures)
+            http = HTTPSession()
+            try:
+                reload = http.post(f"{url}/reload_gallery", json={}, timeout=60).json()
+            finally:
+                http.close()
+            requests = {}
+            for mode in ("graph", "eager"):
+                if mode == "eager":
+                    engine.process_frames = eager
+                client = FaceRecognitionClient(
+                    server_url=url, session_name=f"graph_{mode}", synthetic=True,
+                    frame_skip=1, display=False, output_dir=os.path.join(tmp, mode),
+                    image_format="raw", det_size=DET_SIZE)
+                if not client.check_server() or not client.init_session():
+                    fail("phase 13: /health or /init_session failed")
+                lat = []
+                for i in range(GRAPH_REQUESTS):
+                    s0 = time.perf_counter()
+                    body = client.process_frame(frames_np[0])
+                    lat.append(1e3 * (time.perf_counter() - s0))
+                    if body is None:
+                        fail(f"phase 13: request {i} ({mode}) was not answered")
+                    if mode == "graph" and i == 0:
+                        captured = len(engine._graphs.captures) - before
+                        if reload.get("status") != "reloaded" or captured != 1:
+                            fail(f"phase 13: /reload_gallery ({reload}) then one request "
+                                 f"made {captured} captures, expected 1")
+                client.finalize_session()
+                requests[mode] = {"p50_ms": pct(lat, 50), "p95_ms": pct(lat, 95),
+                                  "requests": len(lat)}
+        finally:
+            if "process_frames" in vars(engine):
+                del engine.process_frames
+            stop_server(server, httpd, thread)
+    for mode, r in requests.items():
+        print(f"[serve] raw rgb24 x1, {r['requests']} requests, the step {mode}: p50 "
+              f"{r['p50_ms']:.3f} ms, p95 {r['p95_ms']:.3f} ms")
+    print("[graph] /reload_gallery, then one request: one capture, printed")
+    res["requests"] = requests
+
+    captures = []
+    pools = {}
+    for label, eng in (("serving", engine), ("embed_budget=4", budget), ("i420", i420),
+                       ("quantize=int8", int8_engine)):
+        captures += eng._graphs.captures if eng._graphs is not None else []
+        pools[label] = pool_total_bytes(eng)
+    res["captures"] = {
+        "count": len(captures),
+        "pool_bytes": [c["pool_bytes"] for c in captures],
+        "seconds": [round(c["seconds"], 3) for c in captures],
+        "pool_total_bytes": pools,
+    }
+    for c in captures:
+        print(f"[graph] capture: {c['key']}: {c['seconds']:.2f} s, "
+              f"{c['pool_bytes'] / 2**20:.1f} MiB reserved for the engine's pool")
+    print(f"[graph] each engine's pool now holds (MiB): "
+          f"{ {k: None if b is None else round(b / 2**20, 1) for k, b in pools.items()} } "
+          f"(the graphs of its newest gallery)")
+    res["launches"] = launches
+    res["seconds"] = time.perf_counter() - t_phase
+    print(f"[graph] phase 13 took {res['seconds']:.1f} s")
+    report["graph"] = res
+
+
+def nms_entry(report, source) -> dict:
+    """The kernels line's entry of K5: times and bounds summed over the
+    three calls of one step (stages 1-3 of the server build), launches of
+    phases 3 (the timed steps), 7 (the served requests), 12 (the mesh) and
+    13 (one replay per route)."""
+    rows = report["nms_fixpoint"]
+    step = [r for r in rows if r["in_step"]]
+    by_bytes = sum(r["bytes"] for r in step) / HBM_BYTES_PER_S
+    by_ops = sum(r["flops"] / r["peak"] for r in step)
+    entry = {
+        "name": "nms_fixpoint", "route": "cuda", "source": source[0], "replaces": source[1],
+        "launches": report["launches"]["nms_fixpoint"],
+        "server_launches": report["server_launches"]["nms_fixpoint"],
+        "mesh_launches": report["mesh"]["launches"]["nms_fixpoint"],
+        "graph_launches": report["graph"]["launches"]["nms_fixpoint"],
+        "max_abs_err": max(r["err"] for r in rows),
+        "ms": sum(r["ms"] for r in step),
+        "plain_ms": sum(r["plain_ms"] for r in step),
+        "bound_ms": sum(r["bound_ms"] for r in step),
+        "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+        "library_ms": None,
+        "device_ms": None if any(r["device_ms"] is None for r in step)
+        else sum(r["device_ms"] for r in step),
+        "shapes": [r["shape"] for r in rows],
+        "by_shape": {r["shape"]: {k: r[k] for k in ("ms", "plain_ms", "bound_ms", "device_ms",
+                                                    "sweeps")} for r in rows},
+    }
+    for key in ("launches", "server_launches", "mesh_launches", "graph_launches"):
+        if entry[key] < 1:
+            fail(f"{key}: a main path never launched nms_fixpoint")
+    return entry
 
 
 def card_line() -> str:
@@ -4508,6 +5084,14 @@ def main() -> int:
         print(card_line())
         print(json.dumps({"train": report["train"]}))
         return 0
+    if "--graph-only" in sys.argv[1:]:
+        # phase 13 alone on phase 3's build, the same way (its int8 route
+        # calibrates its own int8 build)
+        report = {}
+        graph_phase(mesh_context(fixture), make_gallery(BIG_GALLERY_ROWS), report)
+        print(card_line())
+        print(json.dumps({"graph": report["graph"]}))
+        return 0
     if "--mesh-only" in sys.argv[1:]:
         # phase 12 alone on phase 3's build, the same way; with --cards its
         # mesh entries are distinct cards (2 for serving, 4 for the (2, 2)
@@ -4531,6 +5115,7 @@ def main() -> int:
     offline_phase(gal, report)
     train_phase(fixture, report)
     mesh_phase(ctx, gal, report)
+    graph_phase(ctx, gal, report)
     del gal, ctx
 
     print(card_line())
@@ -4547,6 +5132,9 @@ def main() -> int:
         # K3's float32-row case of the same Pallas kernel, on the shared body
         "gallery_topk_f32": ("facerecognitionpipeline_tpu_torch/csrc/gallery_topk_f32.cu",
                              "facerecognitionpipeline_tpu/ops/pallas_gallery.py:277"),
+        # no pallas_call: the device-side while_loop of nms_mask
+        "nms_fixpoint": ("facerecognitionpipeline_tpu_torch/csrc/nms_fixpoint.cu",
+                         "facerecognitionpipeline_tpu/ops/nms.py:96"),
     }
     enrol = report["enrol"]
     offline_launches = report["offline"]["launches"]
@@ -4568,6 +5156,9 @@ def main() -> int:
     print("[history] first design, ms per call: gallery_topk_f32 5.3435")
     kernels = []
     for name in sources:
+        if name == "nms_fixpoint":
+            kernels.append(nms_entry(report, sources[name]))
+            continue
         # times and bounds are of the shapes one serving step calls the
         # kernel with; the error is the largest over every shape checked
         all_rows = report[name]
@@ -4645,6 +5236,7 @@ def main() -> int:
     print(json.dumps({"offline": report["offline"]}))
     print(json.dumps({"train": report["train"]}))
     print(json.dumps({"mesh": report["mesh"]}))
+    print(json.dumps({"graph": report["graph"]}))
     print(json.dumps({
         "kernels": kernels,
         **{k: v for k, v in report.items() if k.startswith("step_p50_ms")},

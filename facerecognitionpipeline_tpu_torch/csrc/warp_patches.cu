@@ -51,7 +51,8 @@
 // A tap outside the patch carries weight 0 (its index is clamped to 0): it
 // adds +-0, as the zero entries of a dense hat matrix do.
 //
-// Layouts: patches [N,K,K,C] f32, coeffs [N,6] f32, out [N,OH,OW,C] f32.
+// Layouts: patches [N,K,K,C] f32, coeffs [N,6] f32, out [N,OH,OW,C] f32, or
+// [N,C,OH,OW] f32 channel-planar (the TPU kernel's native layout).
 #include <cstdint>
 
 #include "common.cuh"
@@ -139,9 +140,16 @@ __device__ __forceinline__ PixelTaps pixel_taps(const float* cf, int x, int y,
   return t;
 }
 
-// STAGED: a warp's pixels go out through its staging buffer as float4
-// stores; otherwise each thread stores its floats itself.
-template <bool STAGED>
+// How the faces are stored: STORE_DIRECT and STORE_STAGED write
+// [N,OH,OW,C] (each thread its own floats, or a warp's 32 pixels through
+// its staging buffer as float4 stores); STORE_PLANAR writes the
+// channel-planar [N,C,OH,OW] of warp_patches_affine(planar=True), where
+// each channel of a warp's 32 pixels is already 128 contiguous bytes.
+constexpr int STORE_DIRECT = 0;
+constexpr int STORE_STAGED = 1;
+constexpr int STORE_PLANAR = 2;
+
+template <int STORE>
 __global__ void __launch_bounds__(1024)
     warp_patches_kernel(const float* __restrict__ patches,
                         const float* __restrict__ coeffs,
@@ -208,14 +216,16 @@ __global__ void __launch_bounds__(1024)
             __fmul_rn(frp::bf16_round(patch[t.o11 + ch]), t.wu1));
         const float res =
             __fadd_rn(__fmul_rn(r0, t.wy0), __fmul_rn(r1, t.wy1));
-        if constexpr (STAGED) {
+        if constexpr (STORE == STORE_STAGED) {
           stage[lane * C + ch] = res;
+        } else if constexpr (STORE == STORE_PLANAR) {
+          dst[ch * total + p] = res;
         } else {
           dst[p * C + ch] = res;
         }
       }
     }
-    if constexpr (STAGED) {
+    if constexpr (STORE == STORE_STAGED) {
       __syncwarp();
       // the warp's pixels [base, base + 32) are 32*C contiguous floats
       const int n4 = (min(32, total - base) * C) >> 2;
@@ -238,11 +248,11 @@ __global__ void __launch_bounds__(1024)
   }
 }
 
-template <bool STAGED>
+template <int STORE>
 int launch(const float* patches, const float* coeffs, float* out, int N, int K,
            int C, int OH, int OW, int threads, int smem_bytes,
            cudaStream_t stream) {
-  auto* kernel = warp_patches_kernel<STAGED>;
+  auto* kernel = warp_patches_kernel<STORE>;
   // The serving patch is over the 48 KB a kernel gets unasked. The larger
   // limit is asked for once per device and size, not on every launch.
   constexpr int MAX_DEVICES = 64;
@@ -269,19 +279,23 @@ int launch(const float* patches, const float* coeffs, float* out, int N, int K,
 // ops/warp_kernel.py::warp_launch_geometry): one block of `threads` (a
 // multiple of 32) per face; `vec` = 4 for float4 stores through the warps'
 // staging buffers (needs OH*OW*C % 4 == 0 and a 16-byte aligned `out`), 1
-// for direct stores; `patches` 16-byte aligned with K*K*C % 4 == 0 (the
+// for direct stores; `planar` = 1 for channel-planar out [N,C,OH,OW] (direct
+// stores, `vec` ignored); `patches` 16-byte aligned with K*K*C % 4 == 0 (the
 // bulk copy's rule); `smem_bytes` = 256 barrier bytes + the patch +
 // threads*C*4 staging bytes when `vec` = 4. The wrapper refuses a patch of
 // more than 32 chunks or more shared memory than a block may use. Returns
 // the cudaError_t of the launch (0 = success).
 extern "C" int frp_warp_patches(const float* patches, const float* coeffs,
                                 float* out, int N, int K, int C, int OH,
-                                int OW, int threads, int vec,
+                                int OW, int threads, int vec, int planar,
                                 int smem_bytes, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (planar)
+    return launch<STORE_PLANAR>(patches, coeffs, out, N, K, C, OH, OW,
+                                threads, smem_bytes, s);
   if (vec == 4)
-    return launch<true>(patches, coeffs, out, N, K, C, OH, OW, threads,
-                        smem_bytes, s);
-  return launch<false>(patches, coeffs, out, N, K, C, OH, OW, threads,
-                       smem_bytes, s);
+    return launch<STORE_STAGED>(patches, coeffs, out, N, K, C, OH, OW,
+                                threads, smem_bytes, s);
+  return launch<STORE_DIRECT>(patches, coeffs, out, N, K, C, OH, OW, threads,
+                              smem_bytes, s);
 }

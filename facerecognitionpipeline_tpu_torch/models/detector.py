@@ -41,7 +41,7 @@ from facerecognitionpipeline_tpu_torch.ops.crop_kernel import (
     crop_resize_plain,
 )
 from facerecognitionpipeline_tpu_torch.ops.nms import nms_mask, top_k, topk_boxes
-from facerecognitionpipeline_tpu_torch.ops.numerics import div, round_to
+from facerecognitionpipeline_tpu_torch.ops.numerics import device_constant, div, round_to
 from facerecognitionpipeline_tpu_torch.utils.device import resolve_device
 from facerecognitionpipeline_tpu_torch.utils.io import (
     load_npz_variables,
@@ -398,10 +398,10 @@ class MTCNNDetector:
             # crops from the small frame. Boxes scale by the true per-axis
             # factors, so sample positions are those of full resolution.
             s = max(h, w) // d
-            full = img.new_tensor([0.0, 0.0, float(w), float(h)]).expand(b, 1, 4)
+            full = device_constant((0.0, 0.0, float(w), float(h)), img.device).expand(b, 1, 4)
             small = crop_resize_plain(img, full, s, self.dtype)[:, 0]
             sx, sy = s / float(w), s / float(h)
-            crops = self._crop(small, sq * img.new_tensor([sx, sy, sx, sy]), 24)
+            crops = self._crop(small, sq * device_constant((sx, sy, sx, sy), img.device), 24)
         else:
             crops = self._crop(img, sq, 24)
         n = sq.shape[1]
@@ -523,7 +523,7 @@ class MTCNNDetector:
             boxes, _, valid = self._stage2(img, boxes, valid)
             boxes, scores, landmarks, valid = self._stage3(img, boxes, valid)
             h, w = frames.shape[1:3]
-            lim = img.new_tensor([w - 1, h - 1, w - 1, h - 1])
+            lim = device_constant((w - 1, h - 1, w - 1, h - 1), img.device, img.dtype)
             boxes = torch.minimum(boxes.clamp_min(0), lim)
             return {
                 "bboxes": boxes,

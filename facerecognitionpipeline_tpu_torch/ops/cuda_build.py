@@ -24,6 +24,7 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "kernels")
 SMEM_LIMIT_BYTES = 232_448
 KERNEL_NAMES = (
     "crop_resize", "warp_patches", "gallery_topk", "gallery_topk_int8", "gallery_topk_f32",
+    "nms_fixpoint",
 )
 
 # No --use_fast_math: division stays correctly rounded. -fmad=false keeps
@@ -42,19 +43,28 @@ _libs: dict[str, ctypes.CDLL] = {}
 _fns: dict[tuple[str, str], object] = {}
 #: compiler output of the libraries this process built, by kernel name
 BUILD_LOGS: dict[str, str] = {}
+#: every LaunchCounter of the process, in the order they were made
+COUNTERS: list = []
 
 
 class LaunchCounter:
     """Plain count of kernel launches, bumped by a wrapper exactly where it
-    launches its kernel (never for the CPU plain version)."""
+    launches its kernel (never for the CPU plain version). Every counter
+    is listed in COUNTERS, so that a CUDA graph can read what its capture
+    recorded and `add` it again on every replay (`pipeline/step_graph.py`):
+    the count stays one of kernels executed."""
 
     def __init__(self) -> None:
         self._n = 0
         self._lock = threading.Lock()
+        COUNTERS.append(self)
 
     def bump(self) -> None:
+        self.add(1)
+
+    def add(self, n: int) -> None:
         with self._lock:
-            self._n += 1
+            self._n += n
 
     def reset(self) -> None:
         with self._lock:

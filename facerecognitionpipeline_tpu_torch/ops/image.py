@@ -9,7 +9,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from facerecognitionpipeline_tpu_torch.ops.numerics import div
+from facerecognitionpipeline_tpu_torch.ops.numerics import device_constant, div
 
 # ITU-R BT.601 luma weights, identical to cv2.COLOR_RGB2GRAY.
 _GRAY_WEIGHTS = (0.299, 0.587, 0.114)
@@ -19,7 +19,7 @@ MODEL_INPUT_SIZE = 112
 
 def rgb_to_gray(images: torch.Tensor) -> torch.Tensor:
     """[..., H, W, 3] RGB (any real dtype) -> [..., H, W] float32."""
-    w = torch.tensor(_GRAY_WEIGHTS, dtype=torch.float32, device=images.device)
+    w = device_constant(_GRAY_WEIGHTS, images.device)
     return torch.matmul(images.float(), w)
 
 
@@ -87,8 +87,9 @@ def i420_to_rgb(yuv: torch.Tensor, height: int, width: int) -> torch.Tensor:
     u = x[..., h:h + h // 4, :].reshape(*lead, h // 2, w // 2)
     v = x[..., h + h // 4:, :].reshape(*lead, h // 2, w // 2)
 
-    def up2(p):
-        return p.repeat_interleave(2, dim=-1).repeat_interleave(2, dim=-2)
+    def up2(p):  # nearest 2x: each sample to a 2x2 block
+        *pl, ph, pw = p.shape
+        return p[..., :, None, :, None].expand(*pl, ph, 2, pw, 2).reshape(*pl, 2 * ph, 2 * pw)
 
     yf = 1.164 * (y - 16.0)
     u = up2(u) - 128.0

@@ -9,6 +9,8 @@ from __future__ import annotations
 
 import torch
 
+from facerecognitionpipeline_tpu_torch.ops.nms_kernel import nms_fixpoint_kernel
+
 _NEG = -1e9
 
 
@@ -51,9 +53,11 @@ def nms_mask(
     Exact greedy NMS as a Jacobi fixpoint: keep(i) = valid(i) and no KEPT
     higher-ranked box conflicts with i. Seven sweeps run unconditionally
     (real scenes' suppression chains are shallow), then pairs of sweeps
-    until two consecutive sweeps agree, as in the JAX package's
-    `while_loop`. Sweeping a converged batch element leaves it unchanged,
-    so the batch iterates until its slowest element converges."""
+    while the keep mask still changes, as in the JAX package's
+    `while_loop`: kernel K5
+    (`ops/nms_kernel.py`) on a CUDA tensor, with no host read, its plain
+    version on a CPU tensor. The sort, the IoU matrix and the scatter back
+    stay torch ops."""
     n = boxes.shape[-2]
     masked = torch.where(valid, scores, torch.full_like(scores, _NEG))
     order = torch.sort(masked, dim=-1, descending=True, stable=True).indices
@@ -64,17 +68,7 @@ def nms_mask(
     idx = torch.arange(n, device=boxes.device)
     conflict = (iou > iou_threshold) & (idx[None, :] < idx[:, None])
 
-    def sweep(keep):
-        return v & ~(conflict & keep[..., None, :]).any(dim=-1)
-
-    keep = sweep(v)
-    prev = v
-    for _ in range(6):
-        keep, prev = sweep(keep), keep
-    it = 7
-    while it < n and bool((keep != prev).any()):
-        keep, prev = sweep(sweep(keep)), keep
-        it += 2
+    keep = nms_fixpoint_kernel(conflict, v)
     return torch.zeros_like(valid).scatter(-1, order, keep)
 
 

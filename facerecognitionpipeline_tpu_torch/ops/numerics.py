@@ -25,6 +25,18 @@ def rdiv(s: float, x: torch.Tensor) -> torch.Tensor:
     return torch.full((), s, dtype=x.dtype, device=x.device) / x
 
 
+def device_constant(values, device, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """A small constant vector [len(values)] made on `device` by one fill
+    per value: no copy from host memory, so on a CUDA device it neither
+    synchronises with the host nor breaks a CUDA graph capture (a captured
+    copy from pageable host memory is refused). Each value rounds to
+    `dtype` as `torch.tensor(values, dtype=dtype)` rounds it."""
+    out = torch.empty(len(values), dtype=dtype, device=device)
+    for i, v in enumerate(values):
+        out[i].fill_(v)
+    return out
+
+
 def round_to(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """float32 tensor holding `x` rounded to `dtype` (RNE)."""
     return x if dtype == torch.float32 else x.to(dtype).float()

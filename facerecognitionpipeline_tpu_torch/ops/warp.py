@@ -28,7 +28,7 @@ from facerecognitionpipeline_tpu_torch.ops.crop_kernel import (
     crop_resize_plain,
     hat_weights,
 )
-from facerecognitionpipeline_tpu_torch.ops.numerics import rdiv, round_to
+from facerecognitionpipeline_tpu_torch.ops.numerics import device_constant, rdiv, round_to
 from facerecognitionpipeline_tpu_torch.ops.warp_kernel import warp_patches_kernel
 
 # insightface/ArcFace canonical 112x112 5-point template.
@@ -104,10 +104,9 @@ def source_windows(
     lossless pixel copy."""
     k = patch_size
     inv = invert_affine(matrices)
-    corners = torch.tensor(
-        [[0, 0], [out_w - 1, 0], [0, out_h - 1], [out_w - 1, out_h - 1]],
-        dtype=torch.float32, device=matrices.device,
-    )  # (x, y)
+    corners = device_constant(
+        (0, 0, out_w - 1, 0, 0, out_h - 1, out_w - 1, out_h - 1), matrices.device
+    ).reshape(4, 2)  # (x, y)
     src_c = torch.einsum("fij,kj->fki", inv[:, :, :2], corners) + inv[:, None, :, 2]
     pad = 2.0
 

@@ -40,7 +40,7 @@ _BARRIER_BYTES = 256  # 32 mbarriers ahead of the patch
 _CHUNK_FLOATS = 4096  # floats per bulk copy (16 KB)
 _MAX_CHUNKS = 32  # one bit each in a thread's mask of arrived chunks
 _STATIC_SMEM_BYTES = 64  # the kernel's own static shared memory, rounded up
-_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
 
 
 class WarpGeometry(NamedTuple):
@@ -49,17 +49,19 @@ class WarpGeometry(NamedTuple):
     grid: int  # one block per face
     threads: int  # per block, a multiple of 32
     vec: int  # 4: float4 stores through the warps' staging buffers; 1: direct
+    # (always for the channel-planar output, whose stores are coalesced as
+    # they are)
     chunks: int  # 16 KB pieces of one patch
     smem_bytes: int  # dynamic: barriers + patch + staging
 
 
 @functools.lru_cache(maxsize=64)
 def warp_launch_geometry(
-    f: int, k: int, c: int, out_h: int, out_w: int
+    f: int, k: int, c: int, out_h: int, out_w: int, planar: bool = False
 ) -> WarpGeometry:
     """The launch geometry of K2 for f patches [k,k,c] warped to
-    [out_h,out_w,c], with float4 stores where a face's float count allows
-    them. Raises ValueError for a patch that does not fit a block's shared
+    [out_h,out_w,c] (or channel-planar [c,out_h,out_w] with `planar`), with
+    float4 stores where a face's float count allows them. Raises ValueError for a patch that does not fit a block's shared
     memory or whose byte count the bulk copy cannot take, and for what the
     kernel's 32-bit offsets do not hold."""
     if min(f, k, c, out_h, out_w) < 1:
@@ -83,7 +85,7 @@ def warp_launch_geometry(
     staging = threads * c * 4
     limit = cuda_build.SMEM_LIMIT_BYTES - _STATIC_SMEM_BYTES
     # float4 stores where they are possible and still fit
-    vec = 4 if face_floats % 4 == 0 and base + staging <= limit else 1
+    vec = 4 if not planar and face_floats % 4 == 0 and base + staging <= limit else 1
     smem = base + (staging if vec == 4 else 0)
     if smem > limit or chunks > _MAX_CHUNKS:
         raise ValueError(
@@ -118,13 +120,15 @@ def _pixel_coords(coeffs: torch.Tensor, out_h: int, out_w: int):
 
 
 def warp_patches_plain(
-    patches: torch.Tensor, coeffs: torch.Tensor, out_h: int, out_w: int
+    patches: torch.Tensor, coeffs: torch.Tensor, out_h: int, out_w: int,
+    planar: bool = False,
 ) -> torch.Tensor:
-    """patches [F,K,K,C], coeffs [F,6] -> [F,out_h,out_w,C] float32, as a
-    dense float32 matmul on bf16-rounded operands (rows, kept float32) and
-    a multiply-then-sum over v. Each rows sum has at most two non-zero
-    exact products, so it agrees with the kernel to the bit; the column sum
-    rounds each product first, as the kernel does."""
+    """patches [F,K,K,C], coeffs [F,6] -> [F,out_h,out_w,C] float32 (or
+    [F,C,out_h,out_w] with `planar`), as a dense float32 matmul on
+    bf16-rounded operands (rows, kept float32) and a multiply-then-sum over
+    v. Each rows sum has at most two non-zero exact products, so it agrees
+    with the kernel to the bit; the column sum rounds each product first,
+    as the kernel does."""
     f, k, _, c = patches.shape
     px, py = _pixel_coords(coeffs, out_h, out_w)
     p16 = patches.float().to(torch.bfloat16).float()
@@ -137,14 +141,17 @@ def warp_patches_plain(
         rows = torch.einsum("fou,fvuc->fovc", wu, p16[s:e])
         outs.append((rows * wy[..., None]).sum(dim=2))
     out = torch.cat(outs) if outs else patches.new_zeros((0, out_h * out_w, c))
-    return out.reshape(f, out_h, out_w, c)
+    out = out.reshape(f, out_h, out_w, c)
+    return out.permute(0, 3, 1, 2).contiguous() if planar else out
 
 
 def warp_patches_kernel(
-    patches: torch.Tensor, coeffs: torch.Tensor, out_h: int, out_w: int
+    patches: torch.Tensor, coeffs: torch.Tensor, out_h: int, out_w: int,
+    planar: bool = False,
 ) -> torch.Tensor:
     """K2: patches [F,K,K,C] float32, coeffs [F,6] float32 ->
-    [F,out_h,out_w,C] float32.
+    [F,out_h,out_w,C] float32, or with `planar` the channel-planar
+    [F,C,out_h,out_w] that `warp_patches_affine(planar=True)` returns.
 
     CUDA tensors launch the CUDA kernel (and count the launch); CPU tensors
     take `warp_patches_plain`. Any other device raises, and so does a patch
@@ -155,7 +162,7 @@ def warp_patches_kernel(
     if coeffs.shape != (patches.shape[0], 6):
         raise ValueError(f"expected coeffs [F,6], got {tuple(coeffs.shape)}")
     if patches.device.type == "cpu":
-        return warp_patches_plain(patches, coeffs, out_h, out_w)
+        return warp_patches_plain(patches, coeffs, out_h, out_w, planar)
     if patches.device.type != "cuda":
         raise ValueError(f"warp_patches_kernel: unsupported device {patches.device}")
     if patches.dtype != torch.float32 or coeffs.dtype != torch.float32:
@@ -165,10 +172,11 @@ def warp_patches_kernel(
     f, k, _, c = patches.shape
     patches = patches.contiguous()
     coeffs = coeffs.contiguous()
-    out = torch.empty((f, out_h, out_w, c), dtype=torch.float32, device=patches.device)
+    shape = (f, c, out_h, out_w) if planar else (f, out_h, out_w, c)
+    out = torch.empty(shape, dtype=torch.float32, device=patches.device)
     if out.numel() == 0:
         return out
-    geo = warp_launch_geometry(f, k, c, out_h, out_w)
+    geo = warp_launch_geometry(f, k, c, out_h, out_w, planar)
     if patches.data_ptr() % 16:
         raise ValueError(
             "warp_patches_kernel: the kernel's bulk copy takes patches that "
@@ -178,7 +186,7 @@ def warp_patches_kernel(
     with torch.cuda.device(patches.device):  # the launch goes to the tensors' card
         rc = fn(
             patches.data_ptr(), coeffs.data_ptr(), out.data_ptr(),
-            f, k, c, out_h, out_w, geo.threads, geo.vec, geo.smem_bytes,
+            f, k, c, out_h, out_w, geo.threads, geo.vec, int(planar), geo.smem_bytes,
             torch.cuda.current_stream(patches.device).cuda_stream,
         )
     if rc != 0:

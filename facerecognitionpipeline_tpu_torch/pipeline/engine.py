@@ -3,12 +3,15 @@
 Counterpart of `facerecognitionpipeline_tpu/pipeline/engine.py`. The whole
 step is one function (`step`) over a batch of frames on the device:
 
-    frames [B,H,W,3] u8 (or planar I420) -> cascade (K1 x2) -> alignment
-    (K1 stage A, K2 stage B) -> round/clip -> quality gate -> IR backbone
-    -> gallery cosine top-k
+    frames [B,H,W,3] u8 (or planar I420) -> cascade (K1 x2, NMS's loop
+    K5 x3) -> alignment (K1 stage A, K2 stage B) -> round/clip -> quality
+    gate -> IR backbone -> gallery cosine top-k
 
 and returns the same dict of [B, F, ...] tensors as the JAX step. Host code
-only uploads frames and reads small results.
+only uploads frames and reads small results: on a CUDA device the step
+holds no host synchronisation, and `process_frames` replays it as one CUDA
+graph per (frame shape, gallery operands, k), the counterpart of the JAX
+engine's one jitted program per shape (`pipeline/step_graph.py`).
 
 Under a mesh (`mesh=`, from `parallel.make_mesh`) the frames split over
 its 'data' axis: each shard runs detect, align, gate and embed on its own
@@ -44,6 +47,7 @@ from facerecognitionpipeline_tpu_torch.parallel.mesh import (
     canonical_device,
     replicate,
 )
+from facerecognitionpipeline_tpu_torch.pipeline.step_graph import StepGraphs, wrap_int32
 
 
 class _Shard:
@@ -176,6 +180,7 @@ class RecognitionEngine:
         # than the dense matmul
         self._stream_on_auto = self.device.type == "cuda"
         self._gallery_copies: tuple = (None, {})
+        self._graphs: Optional[StepGraphs] = None  # made at the first CUDA step
 
     def host_frame_shape(self, h: int, w: int) -> tuple[int, ...]:
         """Per-frame host array shape the engine expects at det size (h, w)."""
@@ -231,10 +236,11 @@ class RecognitionEngine:
             copies[device] = (_moved(templates, device), _moved(valid, device))
         return copies[device]
 
-    def step(self, templates, templates_valid, frames, gallery_k: int, rotation: int = 0):
+    def step(self, templates, templates_valid, frames, gallery_k: int, rotation=0):
         """frames on the device (RGB [B,H,W,3] or I420 [B,H*3//2,W] uint8)
-        -> the result dict; no host round trips except NMS convergence
-        checks."""
+        -> the result dict, eagerly (the counterpart of the JAX engine's
+        un-jitted `_step_impl`): no host round trip on a CUDA device.
+        `rotation`: an int or a 0-d int32 tensor."""
         with torch.inference_mode():
             return self._step_impl(templates, templates_valid, frames, gallery_k, rotation)
 
@@ -246,32 +252,48 @@ class RecognitionEngine:
                 f"mesh 'data' axis ({n})"
             )
         per = frames.shape[0] // n
-        states = []
-        for i, sh in enumerate(self._shards):
-            fr = frames[i * per:(i + 1) * per].to(sh.device)
-            if self.input_format == "i420":
-                h, w = fr.shape[1] * 2 // 3, fr.shape[2]
-                fr = i420_to_rgb(fr, h, w)
-            else:
-                fr = fr.float()
-            det = sh.detector.detect_device(fr)
-            states.append(self._embed(sh, fr, det, rotation))
+        parts = [
+            self._shard_part(i, frames[i * per:(i + 1) * per], rotation, templates,
+                             templates_valid, gallery_k)
+            for i in range(n)
+        ]
+        return self._combine(parts, templates, templates_valid, gallery_k)
+
+    def _shard_part(self, i, frames, rotation, templates, templates_valid, gallery_k):
+        """What data shard `i` computes on its own device from its slice of
+        the frames: the result dict against a replicated gallery, or, under
+        `shard_gallery`, the state before matching. One CUDA graph each in
+        `process_frames` (`pipeline/step_graph.py`)."""
+        sh = self._shards[i]
+        fr = frames.to(sh.device)
+        if self.input_format == "i420":
+            h, w = fr.shape[1] * 2 // 3, fr.shape[2]
+            fr = i420_to_rgb(fr, h, w)
+        else:
+            fr = fr.float()
+        det = sh.detector.detect_device(fr)
+        st = self._embed(sh, fr, det, rotation)
+        if self.shard_gallery:
+            return st
+        sc, ix = self._match(
+            st["q"], *self._gallery_on(sh.device, templates, templates_valid), gallery_k
+        )
+        return self._finish(st, sc, ix, gallery_k)
+
+    def _combine(self, parts, templates, templates_valid, gallery_k):
+        """The shards' parts -> one result dict: under `shard_gallery` the
+        match over the gallery's row shards and each shard's results first;
+        then the gather onto the mesh's first device. Eager in every route."""
         if self.shard_gallery:
             matches = dp_sharded_parts(
-                self.mesh, [st["q"] for st in states], templates, templates_valid,
+                self.mesh, [st["q"] for st in parts], templates, templates_valid,
                 gallery_k, axis="data", streaming=self._streams(templates),
                 chunk=self.gallery_chunk,
             )
-        else:
-            matches = [
-                self._match(st["q"], *self._gallery_on(sh.device, templates, templates_valid),
-                            gallery_k)
-                for sh, st in zip(self._shards, states)
-            ]
-        outs = [self._finish(st, sc, ix, gallery_k) for st, (sc, ix) in zip(states, matches)]
-        if n == 1:
-            return outs[0]
-        return _gather(outs, self.device)
+            parts = [self._finish(st, sc, ix, gallery_k) for st, (sc, ix) in zip(parts, matches)]
+        if len(parts) == 1:
+            return parts[0]
+        return _gather(parts, self.device)
 
     def _align(self, sh: _Shard, frames_f32, landmarks):
         """[B,H,W,3] x [B,F,5,2] -> aligned [B,F,out,out,3] float32."""
@@ -331,7 +353,11 @@ class RecognitionEngine:
         before &= elig[:, None, :]
         r = before.sum(dim=2)
         n_elig = elig.sum(dim=1, keepdim=True)
-        shift = torch.remainder(r - int(rotation) * kb, n_elig.clamp_min(1))
+        # r - rotation * kb in int32 with wrap-around, as the JAX engine
+        # computes it: in int64 here, wrapped to int32 explicitly
+        rot = rotation_tensor(rotation, dev).long()
+        lag = torch.remainder(r - rot * kb + 2**31, 2**32) - 2**31
+        shift = torch.remainder(lag, n_elig.clamp_min(1))
         key = torch.where(elig, -shift.float(), torch.full_like(det_f, -1e9))
         top_s, sel = top_k(key, kb)  # [B, kb]
         sel_ok = top_s > -1e8
@@ -400,14 +426,31 @@ class RecognitionEngine:
         for 'i420') -> the device result dict. `gallery_templates` is a
         [G, D] tensor or an int8 (codes, scales) pair (under a mesh also
         `Sharded`, as `DeviceGallery(mesh=...)` hands them out). `rotation`
-        is the embed-budget fairness counter (ignored without a budget)."""
+        is the embed-budget fairness counter (ignored without a budget), an
+        int that the step takes as an int32, wrapping as the JAX engine's.
+
+        On a CUDA device the step runs as one CUDA graph per key and data
+        shard (`pipeline/step_graph.py`), captured on first use of the key
+        and printed to stderr, as the JAX engine compiles one program per
+        key; on the CPU it runs eagerly (`step`)."""
         if isinstance(frames, np.ndarray):
             frames = torch.from_numpy(frames)
         frames = frames.to(self.device, non_blocking=True)
-        return self.step(
-            gallery_templates, gallery_valid, frames,
-            gallery_k=gallery_k or self.top_k, rotation=rotation,
-        )
+        k = gallery_k or self.top_k
+        if self.device.type == "cuda":
+            if self._graphs is None:
+                self._graphs = StepGraphs(self)
+            return self._graphs.run(frames, gallery_templates, gallery_valid, k, rotation)
+        return self.step(gallery_templates, gallery_valid, frames, gallery_k=k, rotation=rotation)
+
+
+def rotation_tensor(rotation, device) -> torch.Tensor:
+    """The embed-budget rotation as a 0-d int32 tensor on `device`: a
+    tensor moved there (nothing is done to one that lies there already), an
+    int wrapped to int32 and filled there (no host copy)."""
+    if isinstance(rotation, torch.Tensor):
+        return rotation.to(device=device, dtype=torch.int32)
+    return torch.full((), wrap_int32(rotation), dtype=torch.int32, device=device)
 
 
 def _gather(outs: list, device):

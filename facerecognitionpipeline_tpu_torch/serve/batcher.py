@@ -188,7 +188,9 @@ class DeviceBatcher:
 
     def warmup(self, det_size: tuple[int, int]) -> None:
         """Run every bucket size once before taking traffic (first-use
-        costs: kernel builds, cuDNN algorithm selection, allocator growth)."""
+        costs: kernel builds, cuDNN algorithm selection, allocator growth;
+        on a card, the capture of each bucket's CUDA graph for the
+        provider's current gallery, `pipeline/step_graph.py`)."""
         h, w = det_size
         snapshot = self.gallery_provider()
         self._frame_shape = tuple(self.engine.host_frame_shape(h, w))

@@ -21,7 +21,7 @@ import numpy as np
 import pytest
 import torch
 
-from facerecognitionpipeline_tpu_torch.ops import crop_kernel, int8_gemm, warp_kernel
+from facerecognitionpipeline_tpu_torch.ops import crop_kernel, int8_gemm, nms_kernel, warp_kernel
 from facerecognitionpipeline_tpu_torch.ops.crop_kernel import (
     crop_resize_kernel,
     crop_resize_plain,
@@ -500,8 +500,11 @@ def card_server(dev, tmp_path, request):
 )
 def test_server_on_the_card_recognizes_over_every_transport(card_server, image_format, request):
     """One client, three frames: the face count equals a direct step's, the
-    enrolled faces are recognized, every step launched K1 three times and K2
-    once, and the monitor reads device memory from torch.cuda."""
+    enrolled faces are recognized, every step launched K1 three times, K2
+    once and K5 three times, and the monitor reads device memory from
+    torch.cuda. The step replays a CUDA graph per bucket and gallery: the
+    reloaded gallery's graphs are captured (by the batcher's warm-up) before
+    the counts start, so that they count the three steps' kernels alone."""
     import json
     import os
 
@@ -548,8 +551,10 @@ def test_server_on_the_card_recognizes_over_every_transport(card_server, image_f
     assert client.check_server() and client.init_session()
     assert client._session.post(f"{url}/reload_gallery", json={}, timeout=60).json()[
         "status"] == "reloaded"
+    srv.batcher.warmup((160, 160))
     crop_kernel.LAUNCHES.reset()
     warp_kernel.LAUNCHES.reset()
+    nms_kernel.LAUNCHES.reset()
     int8_gemm.PRODUCTS.reset()
     steps0 = srv.batcher._dispatch_count
     body = None
@@ -560,6 +565,7 @@ def test_server_on_the_card_recognizes_over_every_transport(card_server, image_f
     steps = srv.batcher._dispatch_count - steps0
     assert steps == 3
     assert crop_kernel.LAUNCHES.count == 3 * steps and warp_kernel.LAUNCHES.count == steps
+    assert nms_kernel.LAUNCHES.count == 3 * steps
     quantized = srv.engine.embedder.quantized
     assert quantized == srv.engine.detector.quantized == (
         "int8" in request.node.callspec.params["card_server"])
@@ -1080,3 +1086,159 @@ def test_sharded_searches_over_two_entries_of_the_card(dev, gen, kind):
     torch.testing.assert_close(s1, ws, rtol=0, atol=1e-6)
     torch.testing.assert_close(s2.reshape(16, k), ws, rtol=0, atol=1e-6)
     assert i1.device.type == "cuda" and int(i1.max()) < g - 37
+
+
+# ------------------------------------- K5 and the compiled step on the card
+
+
+def _nms_chains(b, n, seed):
+    """[b, n, n] conflict masks as nms_mask builds them (true only below
+    the diagonal): suppression chains of depth 1, 7, 8, 9, 64 and n (the
+    last ends at the `it < n` cap), an all-invalid element, the rest
+    random sparse masks."""
+    rng = np.random.default_rng(seed)
+    conflict = np.tril(rng.random((b, n, n)) < 2.0 / n, -1)
+    v = rng.random((b, n)) < 0.9
+    depths = [d for d in (1, 7, 8, 9, 64) if d <= n] + [n]
+    for e, d in enumerate(depths[:b - 1]):
+        pos = np.round(np.linspace(0, n - 1, d)).astype(int)
+        conflict[e] = False
+        v[e] = True
+        conflict[e, pos[1:], pos[:-1]] = True
+    v[min(len(depths), b - 1)] = False
+    return torch.from_numpy(conflict), torch.from_numpy(v)
+
+
+@pytest.mark.parametrize("b,n", [(8, 1152), (8, 1408), (8, 256), (8, 96), (3, 33), (2, 4096)])
+def test_k5_equals_its_plain_version_to_the_bit(dev, b, n):
+    """K5 at the cascade's shapes (stage 1 at 9 and 11 scales, stages 2
+    and 3), an odd one and one whose packed rows live in device memory."""
+    from facerecognitionpipeline_tpu_torch.ops import nms_kernel
+
+    conflict, v = _nms_chains(b, n, seed=n)
+    c, vv = conflict.to(dev), v.to(dev)
+    n0 = nms_kernel.LAUNCHES.count
+    got = nms_kernel.nms_fixpoint_kernel(c, vv)
+    torch.cuda.synchronize()
+    assert nms_kernel.LAUNCHES.count == n0 + 1
+    assert torch.equal(got.cpu(), nms_kernel.nms_fixpoint_plain(conflict, v))
+    assert nms_kernel.nms_launch_geometry(b, n).rows_in_smem == (n <= 1408)
+
+
+def test_k2_planar_to_the_bit(dev, gen):
+    from facerecognitionpipeline_tpu_torch.ops.warp_kernel import (
+        warp_patches_kernel,
+        warp_patches_plain,
+    )
+
+    patches = torch.from_numpy(gen.uniform(0, 255, (20, 128, 128, 3)).astype(np.float32)).to(dev)
+    ang = gen.uniform(-0.6, 0.6, 20)
+    sc = gen.uniform(0.8, 1.2, 20) * 127 / 111
+    coeffs = torch.from_numpy(np.stack(
+        [sc * np.cos(ang), -sc * np.sin(ang), gen.uniform(-3, 3, 20),
+         sc * np.sin(ang), sc * np.cos(ang), gen.uniform(-3, 3, 20)], 1).astype(np.float32)).to(dev)
+    got = warp_patches_kernel(patches, coeffs, 112, 112, planar=True)
+    assert got.shape == (20, 3, 112, 112)
+    assert torch.equal(got, warp_patches_plain(patches, coeffs, 112, 112, planar=True))
+    assert torch.equal(got, warp_patches_kernel(patches, coeffs, 112, 112).permute(0, 3, 1, 2))
+
+
+@pytest.fixture
+def small_engine(dev):
+    """A bf16 engine on the card (det 320x320, 8 face slots, ir_micro),
+    a float32 gallery and two 2x2 mosaics of the smoke fixture's tiles."""
+    import os
+
+    from facerecognitionpipeline_tpu_torch.gallery.search import DeviceGallery
+    from facerecognitionpipeline_tpu_torch.models.detector import MTCNNDetector
+    from facerecognitionpipeline_tpu_torch.pipeline.embedder import FaceEmbedder
+    from facerecognitionpipeline_tpu_torch.pipeline.engine import RecognitionEngine
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    det = MTCNNDetector(det_size=(320, 320), max_faces=8, min_face_size=40,
+                        dtype=torch.bfloat16, device="cuda",
+                        weights_path=os.path.join(repo, "pretrained", "mtcnn_dr.npz"))
+    emb = FaceEmbedder("ir_micro", dtype=torch.bfloat16, random_ok=True, device="cuda")
+    with np.load(os.path.join(repo, "facerecognitionpipeline_tpu_torch", "testdata",
+                              "smoke_scenes.npz")) as z:
+        tiles = z["tiles"]
+    frames = np.zeros((2, 320, 320, 3), np.uint8)
+    for f in range(2):
+        for p in range(4):
+            r, c = divmod(p, 2)
+            frames[f, 160 * r:160 * (r + 1), 160 * c:160 * (c + 1)] = tiles[(4 * f + p) % 16]
+    rng = np.random.default_rng(1)
+    g = rng.normal(size=(300, 512)).astype(np.float32)
+    gallery = DeviceGallery(device="cuda")
+    gallery.rebuild([str(i) for i in range(300)], g / np.linalg.norm(g, axis=1, keepdims=True))
+    t, v, _ = gallery.device_snapshot()
+    return {"det": det, "emb": emb, "engine": RecognitionEngine(det, emb, top_k=3),
+            "frames": torch.from_numpy(frames).to(dev), "t": t, "v": v,
+            "make": lambda **kw: RecognitionEngine(det, emb, top_k=3, **kw)}
+
+
+def _tree_equal(a, b):
+    if isinstance(b, dict):
+        return set(a) == set(b) and all(_tree_equal(a[k], b[k]) for k in b)
+    return a.dtype == b.dtype and torch.equal(a, b)
+
+
+@pytest.mark.parametrize("budget", [None, 3])
+def test_graphed_step_equals_the_eager_step(small_engine, budget):
+    """process_frames on the card replays one CUDA graph per key, bit-equal
+    to the eager step at B=1 and B=2 (with a budget, at rotations whose
+    `rotation * 3` wraps int32); a replay adds the captured launch counts."""
+    from facerecognitionpipeline_tpu_torch.ops import crop_kernel, nms_kernel, warp_kernel
+
+    eng = small_engine["make"](embed_budget=budget)
+    fr, t, v = small_engine["frames"], small_engine["t"], small_engine["v"]
+    for b in (1, 2):
+        for rot in (0, 1, 2**30 - 1):
+            want = eng.step(t, v, fr[:b], 3, rot)
+            got = eng.process_frames(fr[:b], t, v, rotation=rot)
+            assert _tree_equal(got, want), (b, rot)
+    assert len(eng._graphs) == 2 and len(eng._graphs.captures) == 2
+    counts = [c.count for c in (crop_kernel.LAUNCHES, warp_kernel.LAUNCHES, nms_kernel.LAUNCHES)]
+    eng.process_frames(fr, t, v)
+    torch.cuda.synchronize()
+    after = [c.count for c in (crop_kernel.LAUNCHES, warp_kernel.LAUNCHES, nms_kernel.LAUNCHES)]
+    assert [b - a for a, b in zip(counts, after)] == [3, 1, 3]
+    assert all(c["pool_bytes"] >= 0 for c in eng._graphs.captures)
+
+
+def test_eager_step_holds_no_host_synchronisation(small_engine):
+    eng = small_engine["make"](embed_budget=3)
+    fr, t, v = small_engine["frames"], small_engine["t"], small_engine["v"]
+    eng.step(t, v, fr, 3, 5)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = eng.step(t, v, fr, 3, 5)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert out["face_valid"].any()
+
+
+def test_back_to_back_replays_leave_the_first_answer_alone(small_engine):
+    """An answer copied on a side stream (as the batcher copies them) is
+    not changed by the next replay: outputs are cloned off the graph's
+    static buffers."""
+    eng = small_engine["engine"]
+    fr, t, v = small_engine["frames"], small_engine["t"], small_engine["v"]
+    want = eng.step(t, v, fr, 3, 0)
+    eng.process_frames(fr, t, v)  # captured
+    side = torch.cuda.Stream()
+    first = eng.process_frames(fr, t, v)
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        host = {k: x.to("cpu", non_blocking=True) for k, x in first.items()
+                if isinstance(x, torch.Tensor)}
+        for x in first.values():
+            if isinstance(x, torch.Tensor):
+                x.record_stream(side)
+    second = eng.process_frames(torch.flip(fr, dims=[0]), t, v)
+    side.synchronize()
+    torch.cuda.synchronize()
+    for k, x in host.items():
+        assert torch.equal(x, want[k].cpu()), k
+    assert not torch.equal(second["bboxes"], first["bboxes"])

@@ -56,7 +56,7 @@ def test_port_never_imports_jax_or_the_jax_package():
                    "evalharness/detection_ood.py", "evalharness/e2e_accuracy.py",
                    "models/irse.py", "models/convert.py", "models/layers.py",
                    "pipeline/embedder.py", "parallel/__init__.py", "parallel/mesh.py",
-                   "../chip_smoke.py"):
+                   "pipeline/step_graph.py", "ops/nms_kernel.py", "../chip_smoke.py"):
         assert module in scanned, module
     for path in _port_sources():
         n += 1
@@ -263,7 +263,7 @@ def test_gallery_kernels_are_registered_with_their_sources():
 
     assert cuda_build.KERNEL_NAMES == (
         "crop_resize", "warp_patches", "gallery_topk", "gallery_topk_int8",
-        "gallery_topk_f32",
+        "gallery_topk_f32", "nms_fixpoint",
     )
     for name in cuda_build.KERNEL_NAMES:
         assert os.path.exists(os.path.join(cuda_build.CSRC_DIR, f"{name}.cu"))
