@@ -6,7 +6,8 @@
 Phases, in order; any failure exits non-zero before the final line:
   1. build the CUDA kernels (K1 crop_resize, K2 warp_patches, K3
      gallery_topk, K4 gallery_topk_int8, K3 on float32 rows
-     gallery_topk_f32, K5 nms_fixpoint) with nvcc, all at once, and print
+     gallery_topk_f32, K5 nms_fixpoint) with nvcc, all at once (each
+     source its own nvcc), and print
      what the assembler reports (registers, spills) for every list length;
   2. hold each kernel against its plain PyTorch version on the card, at the
      shapes the serving step gives it, and time kernel, plain version and a
@@ -27,16 +28,26 @@ Phases, in order; any failure exits non-zero before the final line:
      on float32 rows at 128 x 1 048 576 x 512 within 1e-5 of its plain
      version, timed beside its bound (operations on CUDA cores) and a stored
      float32 matmul + topk; K3 (bf16 and float32 rows) and K4 at top_k 16
-     (lists in shared memory) and 33, 64, 65, 256 and 1024 (lists in
-     device memory) against their plain versions, with the ring each
+     (lists in shared memory) and 33, 64, 65, 256, 1024, 1025, 4096 and
+     14 528 (lists in device memory) against their plain versions, with the
+     ring each
      placement leaves, the call's peak memory and the stream and merge
-     kernels' device time; K2's channel-planar output equal to its plain
-     version and to the channels-last one transposed, to the bit; K5 (NMS's
-     loop) equal to its plain version to the bit at [8, 1152], [8, 1408],
-     [8, 256] and [8, 96] on suppression chains of depth 1, 7, 8, 9 and 64,
-     one of every box (its loop ends at the it < n cap), an all-invalid
-     element and clustered proposals, timed beside its bound (the mask's
-     bytes read once);
+     kernels' device time; then top_k 1025, 4096 and MAX_TOP_K (14 528, the
+     merge's shared-memory bound), and MAX_TOP_K + 1 refused naming that
+     bound; K2's channel-planar output equal to its plain
+     version and to the channels-last one transposed, to the bit; K5 (NMS
+     from the score-sorted boxes: IoUs, conflict bits and loop on one
+     thread-block cluster per frame) equal to nms_sorted_plain to the bit
+     at [8, 1152], [8, 1408], [8, 256], [8, 96] and at B=1, in both modes,
+     on suppression chains of depth 1, 7, 8, 9 and 64 built from boxes, one
+     of every box (its loop ends at the it < n cap), an all-invalid frame
+     and clustered proposals with pairs within ulps of IoU 0.7, zero-area,
+     inverted, NaN and infinite boxes, and at [2, 6000] (packed rows in
+     device memory); timed beside its bound (the IoUs' float32 operations
+     over the valid pairs), the floor its sweeps' cluster barriers set (the
+     barrier timed alone) and the torch ops it absorbs (pairwise_iou and
+     the mask); nms_mask's three calls of a step traced with torch.profiler
+     (no IoU elementwise kernel);
   3. the fused serving step at the server's build: ir_101 (seeded random
      weights), bf16, det_size 640x640, 16 face slots, min face 40, top-3,
      a 1024-row float32 gallery (dense match), B=8 frames composed from the
@@ -232,8 +243,9 @@ BIG_STEP_ITERS = 6
 STREAM_CHUNK = 4096
 K3_TOL = 2e-5  # two-part bf16 query split, float32 sums in another order
 # top_k of phase 2's long lists: in shared memory (16), then in device
-# memory (33, 64, 65, 256, 1024)
-LONG_TOP_KS = (16, 33, 64, 65, 256, 1024)
+# memory (33, 64, 65, 256, 1024, 1025, 4096; and gallery_kernel.MAX_TOP_K,
+# the longest the merge's shared memory holds)
+LONG_TOP_KS = (16, 33, 64, 65, 256, 1024, 1025, 4096)
 
 
 def fail(msg: str) -> None:
@@ -518,18 +530,27 @@ def kernel_phase(fixture) -> dict:
 
 
 # stage 1 of the server build (9 scales x 128 proposals at 640x640, min face
-# 40) and at the default min face 20 (11 scales), stages 2 and 3
-NMS_SHAPES = ((BATCH, 1152), (BATCH, 1408), (BATCH, 256), (BATCH, 96))
-NMS_STEP_NS = (1152, 256, 96)  # the three calls of one step of the server build
+# 40) and at the default min face 20 (11 scales), stages 2 and 3 (mode min),
+# at B=8 and at the server's B=1 bucket; each also checked in the other mode
+NMS_SHAPES = ((BATCH, 1152, "union"), (BATCH, 1408, "union"), (BATCH, 256, "union"),
+              (BATCH, 96, "min"), (1, 1152, "union"), (1, 256, "union"), (1, 96, "min"))
+NMS_STEP = ((1152, "union"), (256, "union"), (96, "min"))  # the three calls of one step
 NMS_DEPTHS = (1, 7, 8, 9, 64)  # suppression chains, in sweeps to converge
+NMS_THR = 0.7
+NMS_SCRATCH_SHAPE = (2, 6000)  # packed rows past a block's shared memory: device scratch
+IOU_FLOPS = 14  # float32 operations of one IoU and its threshold (csrc/nms_fixpoint.cu)
 
 
-def nms_sweeps(conflict, v) -> int:
+def nms_sweeps(boxes, v, mode) -> int:
     """Sweeps the NMS loop runs on these inputs (the slowest element's,
     as the batched plain loop runs them)."""
     import torch
 
+    from facerecognitionpipeline_tpu_torch.ops.nms_kernel import pairwise_iou
+
     n = v.shape[-1]
+    idx = torch.arange(n, device=v.device)
+    conflict = (pairwise_iou(boxes, mode) > NMS_THR) & (idx[None, :] < idx[:, None])
 
     def sweep(keep):
         return v & ~(conflict & keep[..., None, :]).any(dim=-1)
@@ -542,13 +563,36 @@ def nms_sweeps(conflict, v) -> int:
     return sweeps
 
 
-def nms_inputs(b: int, n: int, seed: int):
-    """What nms_mask hands K5 for b frames of n proposals in clusters of
-    jittered boxes, as the cascade's stages see them: (conflict [b,n,n],
-    v [b,n]) at IoU > 0.7, score-sorted."""
-    import torch
+def nms_edge_boxes(mode: str):
+    """Boxes at the edges of the IoU's arithmetic (numpy float32 [m, 4],
+    each pair 20 px from the next): 16 pairs whose IoU lies within a few
+    ulps of 0.7 on either side (a box 10 px wide and one shifted by t, t
+    stepped by ulps around the IoU's root), a zero-area and an inverted box
+    over a third box, a NaN coordinate, and two boxes reaching infinity
+    (inf - inf: NaN inside the IoU)."""
+    import numpy as np
 
-    from facerecognitionpipeline_tpu_torch.ops.nms import pairwise_iou
+    root = np.float32(3.0 if mode == "min" else 30.0 / 17.0)  # IoU(t) = 0.7
+    out = []
+    for k in range(16):
+        t = root
+        for _ in range(abs(k - 8)):
+            t = np.nextafter(t, np.float32(np.inf if k > 8 else -np.inf))
+        y = np.float32(20 * k)
+        out += [(0, y, 10, y + 10), (t, y, t + 10, y + 10)]
+    y = 400
+    out += [(0, y, 10, y + 10), (3, y, 3, y + 10), (8, y, 2, y + 10),
+            (np.nan, y, 10, y + 10), (-np.inf, y, np.inf, y + 10),
+            (-np.inf, y + 2, np.inf, y + 8)]
+    return np.array(out, np.float32)
+
+
+def nms_sorted_inputs(b: int, n: int, seed: int, mode: str):
+    """What nms_mask hands K5 for b frames of n proposals in clusters of
+    jittered boxes, as the cascade's stages see them: score-sorted boxes
+    [b, n, 4] and v [b, n] on the card. The last frame's last slots hold
+    `nms_edge_boxes`, valid."""
+    import torch
 
     g = torch.Generator().manual_seed(seed)
     centres = torch.rand((b, n // 8 + 1, 2), generator=g) * 600 + 20
@@ -556,92 +600,254 @@ def nms_inputs(b: int, n: int, seed: int):
     c = torch.gather(centres, 1, pick[..., None].expand(b, n, 2))
     side = 20 + 60 * torch.rand((b, n, 1), generator=g)
     c = c + 4 * torch.randn((b, n, 2), generator=g)
-    boxes = torch.cat([c - side / 2, c + side / 2], -1).to(DEVICE)
-    scores = torch.rand((b, n), generator=g).to(DEVICE)
+    boxes = torch.cat([c - side / 2, c + side / 2], -1)
+    scores = torch.rand((b, n), generator=g)
     valid = scores > 0.3
     masked = torch.where(valid, scores, torch.full_like(scores, -1e9))
     order = torch.sort(masked, dim=-1, descending=True, stable=True).indices
     sb = torch.gather(boxes, -2, order[..., None].expand(b, n, 4))
     v = torch.gather(valid, -1, order)
-    idx = torch.arange(n, device=DEVICE)
-    return (pairwise_iou(sb) > 0.7) & (idx[None, :] < idx[:, None]), v
+    edge = torch.from_numpy(nms_edge_boxes(mode))[:n]
+    sb[-1, n - len(edge):] = edge + 1000.0
+    v[-1, n - len(edge):] = True
+    return sb.to(DEVICE), v.to(DEVICE)
 
 
-def nms_chains(b: int, n: int):
-    """Conflict masks built to converge at known depths: per element a
-    suppression chain of NMS_DEPTHS[e] boxes spread over the n sorted slots
-    (its other slots valid and free), then one chain of all n boxes (the
-    loop ends at its `it < n` cap), one element with no valid box, and the
-    rest clustered boxes."""
+def nms_chains(b: int, n: int, mode: str):
+    """Sorted boxes built to converge at known depths: in frame e a chain of
+    NMS_DEPTHS[e] boxes (each 10 px wide, shifted so that only neighbours
+    conflict in this mode) at slots spread over the n, the other slots
+    valid boxes apart from everything; then one chain of all n boxes (the
+    loop ends at its `it < n` cap), one frame with no valid box, and the
+    rest `nms_sorted_inputs`. Returns (boxes, v, depths)."""
+    import numpy as np
     import torch
 
-    conflict, v = nms_inputs(b, n, seed=n)
-    conflict, v = conflict.clone(), v.clone()
+    boxes, v = nms_sorted_inputs(b, n, seed=n, mode=mode)
+    boxes, v = boxes.cpu(), v.cpu()
+    step = 2.5 if mode == "min" else 1.25
+    s = np.arange(n)
+    apart = np.stack([20 * (s % 64), 100 + 20 * (s // 64), 20 * (s % 64) + 10,
+                      110 + 20 * (s // 64)], 1).astype(np.float32)
     depths = [d for d in NMS_DEPTHS if d <= n] + [n]
-    for e, d in enumerate(depths[:b - 1]):
-        pos = torch.linspace(0, n - 1, d).round().long().to(DEVICE)
-        conflict[e] = False
+    depths = depths[:b - 1]
+    for e, d in enumerate(depths):
+        frame = apart.copy()
+        pos = np.round(np.linspace(0, n - 1, d)).astype(int)
+        k = np.arange(d, dtype=np.float32)
+        frame[pos] = np.stack([step * k, 0 * k, step * k + 10, 0 * k + 10], 1)
+        boxes[e] = torch.from_numpy(frame)
         v[e] = True
-        conflict[e, pos[1:], pos[:-1]] = True
-    v[min(len(depths), b - 1)] = False
-    return conflict, v, depths[:b - 1]
+    v[len(depths)] = False
+    return boxes.to(DEVICE), v.to(DEVICE), depths
+
+
+def nms_barrier_us(cluster: int, threads: int, frames: int) -> float:
+    """Device microseconds of one cluster barrier of `frames` clusters of
+    `cluster` blocks (the probe in csrc/nms_fixpoint.cu: a kernel of 1 and
+    of 1001 barriers, timed with CUDA events; their difference / 1000)."""
+    import ctypes
+
+    import torch
+
+    from facerecognitionpipeline_tpu_torch.ops import cuda_build
+
+    fn = cuda_build.function("nms_fixpoint", "frp_nms_barrier_probe",
+                             [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def run(iters):
+        rc = fn(frames, cluster, threads, iters, stream)
+        if rc != 0:
+            fail(f"the cluster barrier probe did not launch (cudaError {rc})")
+
+    return 1e3 * (cuda_time_ms(lambda: run(1001)) - cuda_time_ms(lambda: run(1))) / 1000
+
+
+# kernels of the IoU and the conflict mask as torch runs them (pairwise_iou,
+# the threshold, the below-diagonal mask; not its arange, which torch's
+# stable sort launches too): none may run in nms_mask on the card
+NMS_ABSORBED_KERNELS = ("maximum_kernel", "minimum_kernel", "clamp_min", "div_true",
+                        "DivFunctor", "CompareFunctor", "BitwiseAndFunctor", "MulFunctor",
+                        "CUDAFunctor_add")
+
+
+def nms_layer_trace() -> dict:
+    """nms_mask's three calls of one B=8 step of the server build (stage 1
+    union, stage 2 union, stage 3 min; masked score, sort, gathers, K5,
+    scatter) on clustered proposals, under torch.profiler: the layer's device
+    ms per step, K5's share, and every kernel name, none of them one of the
+    IoU's elementwise ops (NMS_ABSORBED_KERNELS)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from facerecognitionpipeline_tpu_torch.ops.nms import nms_mask
+
+    calls = []
+    for n, mode in NMS_STEP:
+        g = torch.Generator().manual_seed(n)
+        boxes, _ = nms_sorted_inputs(BATCH, n, seed=n, mode=mode)
+        scores = torch.rand((BATCH, n), generator=g).to(DEVICE)
+        calls.append((boxes, scores, scores > 0.3, mode))
+
+    def layer():
+        return [nms_mask(bx, sc, va, NMS_THR, mode) for bx, sc, va, mode in calls]
+
+    iters = 10
+    layer()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            layer()
+        torch.cuda.synchronize()
+    kernels = {e.key: e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0}
+    absorbed = [k for k in kernels if any(a in k for a in NMS_ABSORBED_KERNELS)]
+    if absorbed:
+        fail(f"nms_mask on the card ran the IoU's elementwise kernels: {absorbed[:4]}")
+    # the names do catch those ops: the plain conflict mask runs them
+    from facerecognitionpipeline_tpu_torch.ops.nms_kernel import pairwise_iou
+
+    boxes, _, _, mode = calls[0]
+    idx = torch.arange(boxes.shape[-2], device=DEVICE)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        (pairwise_iou(boxes, mode) > NMS_THR) & (idx[None, :] < idx[:, None])
+        torch.cuda.synchronize()
+    seen = {e.key for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
+    caught = sorted({a for a in NMS_ABSORBED_KERNELS for k in seen if a in k})
+    if len(caught) < 4:
+        fail(f"the absorbed-kernel names match only {caught} of the plain mask's kernels "
+             f"{sorted(k[:60] for k in seen)}")
+    total = sum(kernels.values()) / iters / 1e3
+    k5 = sum(v for k, v in kernels.items() if "nms_fixpoint" in k) / iters / 1e3
+    print(f"[timing] nms_mask, the three calls of a B={BATCH} step: {total:.4f} ms of device "
+          f"time, K5 {k5:.4f} of it; {len(kernels)} kernel names, none of the IoU's "
+          f"elementwise ops: {sorted(k[:60] for k in kernels)}")
+    return {"device_ms": total, "k5_device_ms": k5, "kernel_names": len(kernels),
+            "names_caught_in_the_plain_mask": caught}
+
+
+def nms_clusters_fit(geo) -> int:
+    """How many clusters of K5's geometry `geo` the card holds at once
+    (cudaOccupancyMaxActiveClusters, through csrc/nms_fixpoint.cu)."""
+    import ctypes
+
+    from facerecognitionpipeline_tpu_torch.ops import cuda_build
+
+    fn = cuda_build.function("nms_fixpoint", "frp_nms_max_clusters", [ctypes.c_int] * 4)
+    n = fn(geo.cluster, geo.threads, geo.smem_bytes, int(geo.rows_in_smem))
+    if n < 0:
+        fail(f"cudaOccupancyMaxActiveClusters failed for K5's geometry {geo} (cudaError {-n})")
+    return n
 
 
 def nms_kernel_phase() -> list:
-    """K5 against its plain version (bit for bit) on chains of known depth,
-    at the `it < n` cap and on an all-invalid element, at every stage shape;
-    timed on clustered proposals beside its bound."""
+    """K5 against its plain version (bit for bit) at every stage shape and
+    in both modes: on chains of known depth, at the `it < n` cap, on an
+    all-invalid frame, on clustered proposals with boxes at the edges of the
+    IoU's arithmetic; at a shape whose rows take the device scratch. Timed
+    on clustered proposals beside its bound, the floor its sweeps' barriers
+    set, and the torch ops it absorbs (pairwise_iou and the conflict mask)."""
     import torch
 
     from facerecognitionpipeline_tpu_torch.ops.nms_kernel import (
-        nms_fixpoint_kernel,
-        nms_fixpoint_plain,
         nms_launch_geometry,
+        nms_sorted_kernel,
+        nms_sorted_plain,
+        pairwise_iou,
     )
 
-    rows = []
-    for b, n in NMS_SHAPES:
-        conflict, v, depths = nms_chains(b, n)
-        got = nms_fixpoint_kernel(conflict, v)
-        want = nms_fixpoint_plain(conflict, v)
+    def check(boxes, v, mode, what):
+        got = nms_sorted_kernel(boxes, v, NMS_THR, mode)
+        want = nms_sorted_plain(boxes, v, NMS_THR, mode)
         torch.cuda.synchronize()
         if not torch.equal(got, want):
             bad = (got != want).any(dim=-1).nonzero().flatten().tolist()
-            fail(f"K5 at [{b}, {n}] disagrees with its plain version in elements {bad}")
-        for e, d in enumerate(depths):
-            if int(got[e].sum()) != (n - d) + (d + 1) // 2:
-                fail(f"K5 at [{b}, {n}]: a chain of {d} kept {int(got[e].sum())} boxes")
+            fail(f"K5 {what} disagrees with its plain version in frames {bad}")
+        return got
+
+    rows = []
+    for b, n, step_mode in NMS_SHAPES:
+        for mode in ("union", "min"):
+            what = f"[{b}, {n}] {mode}"
+            if b > 1:
+                boxes, v, depths = nms_chains(b, n, mode)
+                got = check(boxes, v, mode, f"{what} (chains)")
+                for e, d in enumerate(depths):
+                    if int(got[e].sum()) != (n - d) + (d + 1) // 2:
+                        fail(f"K5 {what}: a chain of {d} kept {int(got[e].sum())} boxes")
+            check(*nms_sorted_inputs(b, n, seed=7 * n + b, mode=mode), mode,
+                  f"{what} (clustered, edge boxes)")
         geo = nms_launch_geometry(b, n)
-        print(f"[kernels] K5 nms_fixpoint [{b}, {n}]: equal to its plain version to the bit on "
-              f"chains of depth {depths} (the last at the it < n cap), an all-invalid element "
-              f"and clustered proposals; packed rows {'in shared memory' if geo.rows_in_smem else 'in device memory'}, "
+        print(f"[kernels] K5 nms_fixpoint [{b}, {n}]: equal to its plain version to the bit in "
+              f"both modes on {'chains of depth ' + str(depths) + ' (the last at the it < n cap), an all-invalid frame and ' if b > 1 else ''}"
+              f"clustered proposals with boxes at the IoU's edges; cluster of {geo.cluster} "
+              f"blocks x {geo.threads} threads per frame, packed rows "
+              f"{'in shared memory' if geo.rows_in_smem else 'in device memory'}, "
               f"{geo.smem_bytes} bytes of shared memory")
-        conf, vv = nms_inputs(b, n, seed=7 * n)
-        if not torch.equal(nms_fixpoint_kernel(conf, vv), nms_fixpoint_plain(conf, vv)):
-            fail(f"K5 at [{b}, {n}] disagrees with its plain version on clustered proposals")
-        sweeps = nms_sweeps(conf, vv)
-        words = b * (n * n // 64 + n // 2)
+        boxes, v = nms_sorted_inputs(b, n, seed=7 * n + b, mode=step_mode)
+        idx = torch.arange(n, device=DEVICE)
+
+        def absorbed(boxes=boxes, mode=step_mode, idx=idx):
+            return (pairwise_iou(boxes, mode) > NMS_THR) & (idx[None, :] < idx[:, None])
+
+        def kernel(boxes=boxes, v=v, mode=step_mode):
+            return nms_sorted_kernel(boxes, v, NMS_THR, mode)
+
+        sweeps = nms_sweeps(boxes, v, step_mode)
+        # clusters of this geometry the card holds at once, and of the same
+        # cluster with 1024-thread blocks (one block per SM; the threads do
+        # not enter the shared memory)
+        wide = geo._replace(threads=1024)
+        fit = [nms_clusters_fit(g) for g in (geo, wide)]
         rows.append({
-            "shape": f"[{b}, {n}]", "err": 0.0, "in_step": n in NMS_STEP_NS,
-            "ms": cuda_time_ms(lambda: nms_fixpoint_kernel(conf, vv)),
-            "plain_ms": cuda_time_ms(lambda: nms_fixpoint_plain(conf, vv), iters=5),
-            "device_ms": device_time_ms(lambda: nms_fixpoint_kernel(conf, vv), "nms_fixpoint"),
+            "shape": f"[{b}, {n}]", "mode": step_mode, "err": 0.0,
+            "in_step": b == BATCH and (n, step_mode) in NMS_STEP,
+            "cluster": geo.cluster, "threads": geo.threads,
+            "ms": cuda_time_ms(kernel),
+            "plain_ms": cuda_time_ms(lambda: nms_sorted_plain(boxes, v, NMS_THR, step_mode),
+                                     iters=5),
+            "device_ms": device_time_ms(kernel, "nms_fixpoint"),
+            "absorbed_ms": cuda_time_ms(absorbed),
+            "absorbed_device_ms": device_time_ms(absorbed, ""),
             "library_ms": None, "sweeps": sweeps,
-            # the mask and v read once, keep written once; a sweep is an AND
-            # and an OR per packed word
-            "bytes": conf.numel() + 2 * vv.numel(), "flops": 2 * sweeps * words,
+            "barrier_us": nms_barrier_us(geo.cluster, geo.threads, b),
+            "clusters_fit": fit[0], "clusters_fit_1024_threads": fit[1],
+            # boxes and v read once, keep written once: 18 bytes per box;
+            # IOU_FLOPS per pair j < i of valid boxes (what this data needs:
+            # no other pair can suppress)
+            "bytes": 18 * b * n,
+            "flops": IOU_FLOPS * sum(k * (k - 1) // 2 for k in v.sum(-1).tolist()),
             "peak": F32_FLOPS_PER_S,
         })
+    b, n = NMS_SCRATCH_SHAPE
+    for mode in ("union", "min"):
+        check(*nms_sorted_inputs(b, n, seed=n, mode=mode), mode, f"[{b}, {n}] {mode}")
+    geo = nms_launch_geometry(b, n)
+    if geo.rows_in_smem:
+        fail(f"K5 at [{b}, {n}] was meant to take the device scratch")
+    print(f"[kernels] K5 nms_fixpoint [{b}, {n}]: equal to its plain version to the bit in both "
+          f"modes with the packed rows in device memory (cluster of {geo.cluster} x "
+          f"{geo.threads})")
+    nms_layer = nms_layer_trace()
     for r in rows:
+        r["layer"] = nms_layer
         by_bytes = r["bytes"] / HBM_BYTES_PER_S
         by_ops = r["flops"] / r["peak"]
         r["bound_ms"] = 1e3 * max(by_bytes, by_ops)
         r["bound_by"] = "bytes" if by_bytes >= by_ops else "operations"
+        # the chain of sweeps: one cluster barrier each, and one before them
+        r["sweep_floor_ms"] = (r["sweeps"] + 1) * r["barrier_us"] / 1e3
         dev_ms = "not measured" if r["device_ms"] is None else f"{r['device_ms']:.4f} ms"
-        print(f"[timing] nms_fixpoint {r['shape']} ({r['sweeps']} sweeps): kernel "
-              f"{r['ms']:.4f} ms (device time alone {dev_ms}), bound {r['bound_ms']:.4f} ms "
-              f"({r['bound_by']}), plain loop {r['plain_ms']:.4f} ms; no library call "
-              f"computes it")
+        print(f"[timing] nms_fixpoint {r['shape']} {r['mode']} ({r['sweeps']} sweeps, cluster "
+              f"{r['cluster']} x {r['threads']}): kernel {r['ms']:.4f} ms (device time alone "
+              f"{dev_ms}), bound {r['bound_ms']:.4f} ms ({r['bound_by']}; the sweeps' "
+              f"barriers {r['sweep_floor_ms']:.4f} ms at {r['barrier_us']:.3f} us each), plain "
+              f"{r['plain_ms']:.4f} ms; the torch ops it absorbs (pairwise_iou + mask) "
+              f"{r['absorbed_ms']:.4f} ms (device {r['absorbed_device_ms']}); no library call "
+              f"computes it; {r['clusters_fit']} such clusters fit the card at once "
+              f"({r['clusters_fit_1024_threads']} with 1024-thread blocks)")
     return rows
 
 
@@ -812,8 +1018,11 @@ def print_build_report(name: str, log: str) -> None:
         if "Compiling entry function" in line:
             mangled = line.split("'")[1]
             entry = next((n for n in ("stream_topk_kernel", "merge_topk_kernel",
-                                      "merge_lists_kernel", "crop_resize", "warp_patches")
+                                      "merge_lists_kernel", "crop_resize", "warp_patches",
+                                      "nms_fixpoint_kernel", "barrier_probe_kernel")
                           if n in mangled), mangled)
+            if entry == "nms_fixpoint_kernel":  # its two routes
+                entry += "<rows in shared memory>" if "ILb1E" in mangled else "<rows in scratch>"
             kind = re.search(r"(Bf16|Int8|F32)Traits", mangled)
             length = re.search(r"TraitsELi(\d+)E", mangled)
             if kind:
@@ -1080,8 +1289,9 @@ def long_lists_and_float32_rows(gk, report, q, t, tb, codes, scales, valid, rows
           f" ms")
 
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    for k in LONG_TOP_KS:
+    for k in (*LONG_TOP_KS, gk.MAX_TOP_K):
         shape = f"long list Q={q.shape[0]} G={big} k={k}"
+        few = k > 1024  # lists past 1024 take seconds: fewer timed calls
         out_bytes = q.shape[0] * k * 12  # float32 scores, int64 indices
         for name, rows, plain_rows, tol, kind in (
                 ("gallery_topk", tb, tb, K3_TOL, "bf16"),
@@ -1132,7 +1342,7 @@ def long_lists_and_float32_rows(gk, report, q, t, tb, codes, scales, valid, rows
             elem = {"bf16": 2, "f32": 4, "int8": 1}[kind]
             report[name].append({
                 "shape": shape, "err": err, "in_step": False,
-                "ms": cuda_time_ms(fn, iters=5, warmup=1),
+                "ms": cuda_time_ms(fn, iters=2 if few else 5, warmup=1),
                 "plain_ms": cuda_time_ms(plain, iters=1, warmup=0),
                 "library_ms": cuda_time_ms(
                     (lambda k=k: torch.topk(torch.where(valid, torch.matmul(
@@ -1143,14 +1353,24 @@ def long_lists_and_float32_rows(gk, report, q, t, tb, codes, scales, valid, rows
                 "flops": 2 * q.shape[0] * big * 512,
                 "peak": {"bf16": BF16_FLOPS_PER_S, "f32": F32_FLOPS_PER_S,
                          "int8": INT8_OPS_PER_S}[kind],
-                "stream_device_ms": device_time_ms(fn, "stream_topk_kernel", iters=3),
-                "merge_device_ms": device_time_ms(fn, "merge_", iters=3),
+                "stream_device_ms": device_time_ms(fn, "stream_topk_kernel",
+                                                   iters=1 if few else 3),
+                "merge_device_ms": device_time_ms(fn, "merge_", iters=1 if few else 3),
                 "peak_mib": peak_mib, "lists": geo.lists, "lists_bytes": lists_bytes,
             })
             r = report[name][-1]
             print(f"[timing] {name} {shape}: device time alone: stream kernel "
                   f"{r['stream_device_ms']} ms, merge kernel {r['merge_device_ms']} ms "
                   f"(lists in {geo.lists})")
+    k = gk.MAX_TOP_K + 1
+    try:
+        gk.streaming_cosine_topk(q, tb, valid, top_k=k, chunk=STREAM_CHUNK)
+    except ValueError as e:
+        if "shared memory" not in str(e):
+            fail(f"top_k={k} raised a ValueError that does not name the shared-memory bound: {e}")
+        print(f"[kernels] top_k={k} on the card: ValueError naming its bound ({e})")
+    else:
+        fail(f"top_k={k} on the card did not raise")
 
 
 def gallery_odd_shapes(gk, tb, codes, scales) -> None:
@@ -4988,9 +5208,11 @@ def graph_phase(ctx, gal, report) -> None:
 
 def nms_entry(report, source) -> dict:
     """The kernels line's entry of K5: times and bounds summed over the
-    three calls of one step (stages 1-3 of the server build), launches of
-    phases 3 (the timed steps), 7 (the served requests), 12 (the mesh) and
-    13 (one replay per route)."""
+    three calls of one step (stages 1-3 of the server build at B=8),
+    launches of phases 3 (the timed steps), 7 (the served requests), 12 (the
+    mesh) and 13 (one replay per route); beside them the torch ops it
+    absorbs (pairwise_iou + mask), the floor of its sweeps' barriers, its
+    cluster per shape and nms_mask's device time per step."""
     rows = report["nms_fixpoint"]
     step = [r for r in rows if r["in_step"]]
     by_bytes = sum(r["bytes"] for r in step) / HBM_BYTES_PER_S
@@ -5009,9 +5231,17 @@ def nms_entry(report, source) -> dict:
         "library_ms": None,
         "device_ms": None if any(r["device_ms"] is None for r in step)
         else sum(r["device_ms"] for r in step),
-        "shapes": [r["shape"] for r in rows],
-        "by_shape": {r["shape"]: {k: r[k] for k in ("ms", "plain_ms", "bound_ms", "device_ms",
-                                                    "sweeps")} for r in rows},
+        "absorbed_ms": sum(r["absorbed_ms"] for r in step),
+        "absorbed_device_ms": None if any(r["absorbed_device_ms"] is None for r in step)
+        else sum(r["absorbed_device_ms"] for r in step),
+        "sweep_floor_ms": sum(r["sweep_floor_ms"] for r in step),
+        "nms_mask_device_ms": step[0]["layer"]["device_ms"],
+        "shapes": [f"{r['shape']} {r['mode']}" for r in rows],
+        "by_shape": {f"{r['shape']} {r['mode']}": {
+            k: r[k] for k in ("ms", "plain_ms", "bound_ms", "device_ms", "sweeps", "cluster",
+                              "threads", "absorbed_ms", "absorbed_device_ms", "barrier_us",
+                              "sweep_floor_ms", "clusters_fit", "clusters_fit_1024_threads")}
+            for r in rows},
     }
     for key in ("launches", "server_launches", "mesh_launches", "graph_launches"):
         if entry[key] < 1:

@@ -2,7 +2,7 @@
 
 The JAX package's flags plus --device (default cuda; cpu for a run without
 a card) and --model_path. --top_k goes to the gallery search: at streaming
-scale on the card the kernels take 1 to 1024 and raise a ValueError beyond.
+scale on the card the kernels take 1 to 14 528 and raise a ValueError beyond.
 """
 
 from __future__ import annotations

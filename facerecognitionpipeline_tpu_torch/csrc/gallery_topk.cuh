@@ -94,7 +94,12 @@
 
 namespace frp {
 
-constexpr int KMAX = 1024;            // longest top-k the kernels answer
+constexpr int SMEM_LIMIT = 232448;    // shared memory one block may use (H100)
+// longest top-k the kernels answer: the merge of lists in device memory
+// keeps a pair of lists of k (16 k bytes) in one warp's shared memory, so k
+// is at most SMEM_LIMIT / 16, rounded down to whole 32-entry lane chunks
+// (14 528; ops/gallery_kernel.py::MAX_TOP_K, the same rule)
+constexpr int KMAX = SMEM_LIMIT / 16 / 32 * 32;
 constexpr int KREG = 8;               // longest list offered to in registers
 constexpr int KSHARED = 16;           // longest list kept in shared memory
 constexpr int DEVICE_LISTS = 0;       // list length that means: device memory
@@ -1280,7 +1285,7 @@ __global__ void merge_lists_kernel(float* __restrict__ part_v,
 // Warps of merge_lists_kernel for lists of k: as many as shared memory holds
 // (16 k bytes each), at most 32.
 inline int merge_lists_warps(int k) {
-  const int w = 232448 / (16 * k);
+  const int w = SMEM_LIMIT / (16 * k);
   return w < 32 ? w : 32;
 }
 

@@ -73,8 +73,11 @@ LAUNCHES = cuda_build.LaunchCounter()
 LAUNCHES_INT8 = cuda_build.LaunchCounter()
 LAUNCHES_F32 = cuda_build.LaunchCounter()
 
-#: longest top-k the CUDA kernels answer (`frp::KMAX` in csrc/gallery_topk.cuh)
-MAX_TOP_K = 1024
+#: longest top-k the CUDA kernels answer (`frp::KMAX` in csrc/gallery_topk.cuh):
+#: the merge of lists in device memory holds a pair of lists of top_k
+#: (16 top_k bytes) in one warp's shared memory, rounded down to whole
+#: 32-entry lane chunks (14 528 on an H100)
+MAX_TOP_K = cuda_build.SMEM_LIMIT_BYTES // 16 // 32 * 32
 
 _EPS = 1e-8
 _NEG = -1e9
@@ -283,8 +286,9 @@ def gallery_launch_geometry(
         raise ValueError("the streaming kernel needs q, g, d and sms of at least 1")
     if not 1 <= top_k <= MAX_TOP_K:
         raise ValueError(
-            f"the CUDA streaming kernels answer at most top_k={MAX_TOP_K}, got "
-            f"{top_k}; longer lists are open in ROADMAP.md (F2)"
+            f"the CUDA streaming kernels answer top_k 1..{MAX_TOP_K}, got {top_k}: "
+            f"their merge keeps a pair of lists of top_k (16 top_k bytes) in the "
+            f"{cuda_build.SMEM_LIMIT_BYTES} bytes of shared memory a block may use"
         )
     if d % 32:
         raise ValueError(f"the CUDA kernel needs D % 32 == 0, got D={d}")
@@ -430,7 +434,7 @@ def streaming_cosine_topk(
     CUDA tensors launch a kernel: bf16 templates (the copy `DeviceGallery`
     serves at streaming scale) the tensor-core one, float32 templates the
     float32 one (`LAUNCHES_F32`); D % 32 == 0 and 1 <= top_k <= MAX_TOP_K
-    (1024; from top_k 17 the lists live in device memory, scratch of Q x
+    (14 528; from top_k 17 the lists live in device memory, scratch of Q x
     2 grid_x x top_k x 8 bytes), else it raises. CPU tensors take
     `streaming_cosine_topk_plain` (bf16 or float32 rows, any top_k). Q = 0
     returns empty results. `chunk` only states the padding contract (G %

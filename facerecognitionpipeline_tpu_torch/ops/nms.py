@@ -9,7 +9,10 @@ from __future__ import annotations
 
 import torch
 
-from facerecognitionpipeline_tpu_torch.ops.nms_kernel import nms_fixpoint_kernel
+from facerecognitionpipeline_tpu_torch.ops.nms_kernel import (  # noqa: F401 (re-exported)
+    nms_sorted_kernel,
+    pairwise_iou,
+)
 
 _NEG = -1e9
 
@@ -21,23 +24,6 @@ def top_k(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
     that order."""
     vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
     return vals[..., :k], idx[..., :k]
-
-
-def pairwise_iou(boxes: torch.Tensor, mode: str = "union") -> torch.Tensor:
-    """[..., N, 4] (x1,y1,x2,y2) -> [..., N, N] IoU. mode='min' divides by
-    the smaller area (MTCNN's final-stage convention)."""
-    x1, y1, x2, y2 = boxes.unbind(-1)
-    area = (x2 - x1).clamp_min(0) * (y2 - y1).clamp_min(0)
-    ix1 = torch.maximum(x1[..., :, None], x1[..., None, :])
-    iy1 = torch.maximum(y1[..., :, None], y1[..., None, :])
-    ix2 = torch.minimum(x2[..., :, None], x2[..., None, :])
-    iy2 = torch.minimum(y2[..., :, None], y2[..., None, :])
-    inter = (ix2 - ix1).clamp_min(0) * (iy2 - iy1).clamp_min(0)
-    if mode == "min":
-        denom = torch.minimum(area[..., :, None], area[..., None, :])
-    else:
-        denom = area[..., :, None] + area[..., None, :] - inter
-    return inter / denom.clamp_min(1e-9)
 
 
 def nms_mask(
@@ -54,21 +40,17 @@ def nms_mask(
     higher-ranked box conflicts with i. Seven sweeps run unconditionally
     (real scenes' suppression chains are shallow), then pairs of sweeps
     while the keep mask still changes, as in the JAX package's
-    `while_loop`: kernel K5
-    (`ops/nms_kernel.py`) on a CUDA tensor, with no host read, its plain
-    version on a CPU tensor. The sort, the IoU matrix and the scatter back
-    stay torch ops."""
-    n = boxes.shape[-2]
+    `while_loop`. The masked score, the stable sort, the gathers and the
+    scatter back are torch ops; the IoUs, the conflict mask and the loop
+    are kernel K5 (`ops/nms_kernel.py`) on a CUDA tensor, computed from the
+    sorted boxes with no [..., N, N] tensor and no host read, and its plain
+    version (`pairwise_iou`, the mask, the loop) on a CPU tensor."""
     masked = torch.where(valid, scores, torch.full_like(scores, _NEG))
     order = torch.sort(masked, dim=-1, descending=True, stable=True).indices
     b = torch.gather(boxes, -2, order[..., None].expand(*order.shape, 4))
     v = torch.gather(valid, -1, order)
 
-    iou = pairwise_iou(b, mode=mode)
-    idx = torch.arange(n, device=boxes.device)
-    conflict = (iou > iou_threshold) & (idx[None, :] < idx[:, None])
-
-    keep = nms_fixpoint_kernel(conflict, v)
+    keep = nms_sorted_kernel(b, v, iou_threshold, mode)
     return torch.zeros_like(valid).scatter(-1, order, keep)
 
 

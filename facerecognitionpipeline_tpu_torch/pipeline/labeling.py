@@ -7,7 +7,7 @@ prefix, `labeling_results.json` with the same summary schema. All probe
 crops embed in one batched forward and match in one
 `GalleryManager.search_batch`: at streaming scale (from 32 768 identities)
 that search is one K3 launch on the card, or one K4 launch for an int8
-gallery. On the card those kernels take top_k 1-1024 and raise a
+gallery. On the card those kernels take top_k 1-14 528 (`MAX_TOP_K`) and raise a
 ValueError beyond.
 """
 

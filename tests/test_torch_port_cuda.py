@@ -441,7 +441,7 @@ def test_gallery_kernels_refuse_what_they_do_not_take(dev, gen):
     n3, n4 = gk.LAUNCHES.count, gk.LAUNCHES_INT8.count
     with pytest.raises(TypeError, match="bf16 or float32"):
         gk.streaming_cosine_topk(qq, tt.half(), vv, top_k=2, chunk=64)  # float16 rows
-    with pytest.raises(ValueError, match="ROADMAP.md"):
+    with pytest.raises(ValueError, match="shared memory"):
         gk.streaming_cosine_topk(qq, tt.to(torch.bfloat16), vv, top_k=gk.MAX_TOP_K + 1,
                                  chunk=64)
     with pytest.raises(ValueError, match="multiple of the chunk"):
@@ -1091,38 +1091,117 @@ def test_sharded_searches_over_two_entries_of_the_card(dev, gen, kind):
 # ------------------------------------- K5 and the compiled step on the card
 
 
-def _nms_chains(b, n, seed):
-    """[b, n, n] conflict masks as nms_mask builds them (true only below
-    the diagonal): suppression chains of depth 1, 7, 8, 9, 64 and n (the
-    last ends at the `it < n` cap), an all-invalid element, the rest
-    random sparse masks."""
+def _nms_sorted_boxes(b, n, seed, mode):
+    """Score-sorted boxes [b, n, 4] float32 and v [b, n] as nms_mask hands
+    K5: frame e < 6 a suppression chain of depth 1, 7, 8, 9, 64 or n (the
+    last ends at the `it < n` cap; 10 px boxes shifted so that only
+    neighbours conflict in this mode) among isolated boxes, then a frame
+    with no valid box, then clustered proposals whose last slots hold pairs
+    within a few ulps of IoU 0.7, zero-area, inverted, NaN and infinite
+    boxes. Returns (boxes, v, depths)."""
     rng = np.random.default_rng(seed)
-    conflict = np.tril(rng.random((b, n, n)) < 2.0 / n, -1)
-    v = rng.random((b, n)) < 0.9
-    depths = [d for d in (1, 7, 8, 9, 64) if d <= n] + [n]
-    for e, d in enumerate(depths[:b - 1]):
+    centres = rng.uniform(20, 620, (b, n // 8 + 1, 2))
+    pick = rng.integers(0, centres.shape[1], (b, n))
+    c = np.take_along_axis(centres, pick[..., None].repeat(2, -1), 1) + rng.normal(0, 4, (b, n, 2))
+    side = rng.uniform(20, 80, (b, n, 1))
+    boxes = np.concatenate([c - side / 2, c + side / 2], -1).astype(np.float32)
+    v = rng.random((b, n)) < 0.7
+    v = np.sort(v, axis=1)[:, ::-1].copy()  # valid first, as the masked sort leaves them
+    root = np.float32(3.0 if mode == "min" else 30.0 / 17.0)
+    edge = []
+    for k in range(16):
+        t = root
+        for _ in range(abs(k - 8)):
+            t = np.nextafter(t, np.float32(np.inf if k > 8 else -np.inf))
+        edge += [(0, 20 * k, 10, 20 * k + 10), (t, 20 * k, t + 10, 20 * k + 10)]
+    edge += [(0, 400, 10, 410), (3, 400, 3, 410), (8, 400, 2, 410), (np.nan, 400, 10, 410),
+             (-np.inf, 400, np.inf, 410), (-np.inf, 402, np.inf, 408)]
+    edge = np.array(edge, np.float32)[:n] + np.float32(1000)
+    boxes[-1, n - len(edge):] = edge
+    v[-1, n - len(edge):] = True
+    step = 2.5 if mode == "min" else 1.25
+    s = np.arange(n)
+    apart = np.stack([20 * (s % 64), 100 + 20 * (s // 64), 20 * (s % 64) + 10,
+                      110 + 20 * (s // 64)], 1).astype(np.float32)
+    depths = ([d for d in (1, 7, 8, 9, 64) if d <= n] + [n])[:b - 1]
+    for e, d in enumerate(depths):
+        boxes[e] = apart
         pos = np.round(np.linspace(0, n - 1, d)).astype(int)
-        conflict[e] = False
+        k = np.arange(d, dtype=np.float32)
+        boxes[e, pos] = np.stack([step * k, 0 * k, step * k + 10, 0 * k + 10], 1)
         v[e] = True
-        conflict[e, pos[1:], pos[:-1]] = True
-    v[min(len(depths), b - 1)] = False
-    return torch.from_numpy(conflict), torch.from_numpy(v)
+    if b > 1:
+        v[len(depths)] = False
+    return torch.from_numpy(boxes), torch.from_numpy(v), depths
 
 
-@pytest.mark.parametrize("b,n", [(8, 1152), (8, 1408), (8, 256), (8, 96), (3, 33), (2, 4096)])
-def test_k5_equals_its_plain_version_to_the_bit(dev, b, n):
-    """K5 at the cascade's shapes (stage 1 at 9 and 11 scales, stages 2
-    and 3), an odd one and one whose packed rows live in device memory."""
+@pytest.mark.parametrize("mode", ["union", "min"])
+@pytest.mark.parametrize("b,n", [(8, 1152), (8, 1408), (8, 256), (8, 96), (1, 1152), (1, 256),
+                                 (1, 96), (3, 33), (2, 6000)])
+def test_k5_equals_its_plain_version_to_the_bit(dev, b, n, mode):
+    """K5 from sorted boxes at the cascade's shapes (stage 1 at 9 and 11
+    scales, stages 2 and 3) at B=8 and B=1, an odd one and one whose packed
+    rows live in device memory, in both modes: one launch, the plain
+    version's keep mask bit for bit, every other box of a chain kept."""
     from facerecognitionpipeline_tpu_torch.ops import nms_kernel
 
-    conflict, v = _nms_chains(b, n, seed=n)
-    c, vv = conflict.to(dev), v.to(dev)
+    boxes, v, depths = _nms_sorted_boxes(b, n, n + b, mode)
+    bb, vv = boxes.to(dev), v.to(dev)
     n0 = nms_kernel.LAUNCHES.count
-    got = nms_kernel.nms_fixpoint_kernel(c, vv)
+    got = nms_kernel.nms_sorted_kernel(bb, vv, 0.7, mode)
     torch.cuda.synchronize()
     assert nms_kernel.LAUNCHES.count == n0 + 1
-    assert torch.equal(got.cpu(), nms_kernel.nms_fixpoint_plain(conflict, v))
-    assert nms_kernel.nms_launch_geometry(b, n).rows_in_smem == (n <= 1408)
+    assert torch.equal(got, nms_kernel.nms_sorted_plain(bb, vv, 0.7, mode))
+    for e, d in enumerate(depths):
+        assert int(got[e].sum()) == (n - d) + (d + 1) // 2
+    geo = nms_kernel.nms_launch_geometry(b, n)
+    assert geo.rows_in_smem == (n <= 5000) and (geo.cluster > 1) == (n >= 256)
+
+
+def test_nms_mask_on_the_card_makes_no_n_by_n_tensor(dev):
+    """nms_mask on the card computes the conflict bits inside K5: a
+    TorchDispatchMode sees no tensor of N * N elements or more, and the
+    answer is the CPU's."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from facerecognitionpipeline_tpu_torch.ops import nms, nms_kernel
+
+    class Sizes(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.largest = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            for t in (out if isinstance(out, (tuple, list)) else (out,)):
+                if isinstance(t, torch.Tensor):
+                    self.largest = max(self.largest, t.numel())
+            return out
+
+    rng = np.random.default_rng(2)
+    for n, mode in ((1152, "union"), (256, "union"), (96, "min")):
+        boxes, _, _ = _nms_sorted_boxes(8, n, n, mode)
+        scores = torch.from_numpy(rng.random((8, n)).astype(np.float32))
+        valid = scores > 0.3
+        want = nms.nms_mask(boxes, scores, valid, 0.7, mode)
+        n0 = nms_kernel.LAUNCHES.count
+        with Sizes() as sizes:
+            got = nms.nms_mask(boxes.to(dev), scores.to(dev), valid.to(dev), 0.7, mode)
+        assert nms_kernel.LAUNCHES.count == n0 + 1
+        assert sizes.largest < n * n, (n, sizes.largest)
+        assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("kind", ["bf16", "f32", "int8"])
+def test_gallery_kernels_top_k_past_1024(dev, gen, kind):
+    """F2's residue repaired: top_k 1025 (lists in device memory past the
+    old bound) on the card equals the plain version."""
+    from facerecognitionpipeline_tpu_torch.ops import gallery_kernel as gk
+
+    t, valid, q = _long_list_case(gen, 65, 8192 + 32, 512)
+    tt, vv, qq = (torch.from_numpy(a).to(dev) for a in (t, valid, q))
+    kv, ki = _held_to_plain(gk, kind, qq, tt, vv, 1025, 32)
+    assert ki[0, :2].tolist() == [3, 8192 + 32 - 20]
 
 
 def test_k2_planar_to_the_bit(dev, gen):

@@ -85,7 +85,7 @@ def test_gallery_serving_geometry():
 
 @pytest.mark.parametrize("args,match", [
     ((4, 4096, 48, "bf16", _SMS, 3), "D % 32"),
-    ((4, 4096, 512, "bf16", _SMS, 1025), "ROADMAP.md"),
+    ((4, 4096, 512, "bf16", _SMS, gk.MAX_TOP_K + 1), "shared memory"),
     ((4, 4096, 512, "bf16", _SMS, 0), "top_k"),
     ((4, 4096, 768, "bf16", _SMS, 3), "shared memory"),  # 192 KB of queries
     ((4, 4096, 2048, "int8", _SMS, 3), "shared memory"),
@@ -153,8 +153,44 @@ def test_top_k_over_64_takes_lists_in_device_memory(kind, top_k):
     assert geo.merge[2] <= cuda_build.SMEM_LIMIT_BYTES and geo.merge[1] <= 1024
     # the scratch at the limit: Q x 2 grid_x x k x 8 bytes
     top = gallery_launch_geometry(128, 1 << 20, 512, kind, _SMS, gk.MAX_TOP_K)
-    assert np.prod(top.scratch) * 8 == {"bf16": 138_412_032, "f32": 138_412_032,
-                                        "int8": 276_824_064}[kind]
+    assert np.prod(top.scratch) * 8 == {"bf16": 1_963_720_704, "f32": 1_963_720_704,
+                                        "int8": 3_927_441_408}[kind]
+
+
+def test_max_top_k_is_the_merge_shared_memory_bound():
+    """F2's residue: the longest list the card answers is what the merge of
+    lists in device memory holds, a pair of lists of top_k (16 top_k bytes)
+    in one warp's shared memory, rounded down to whole 32-entry lane chunks:
+    14 528 on an H100, and no longer 1024."""
+    assert gk.MAX_TOP_K == cuda_build.SMEM_LIMIT_BYTES // 16 // 32 * 32 == 14_528
+    assert 16 * gk.MAX_TOP_K <= cuda_build.SMEM_LIMIT_BYTES < 16 * (gk.MAX_TOP_K + 32)
+
+
+@pytest.mark.parametrize("kind", ["bf16", "int8", "f32"])
+@pytest.mark.parametrize("top_k", [1025, 4096, gk.MAX_TOP_K])
+def test_long_lists_past_1024_launch_geometry(kind, top_k):
+    """top_k 1025 to MAX_TOP_K: device lists, the stream kernel's shared
+    memory as at any device-list top_k (it does not depend on k), the merge
+    with 1-32 warps whose pairs of lists fit shared memory; at the labeler's
+    query counts every offset of the scratch fits the kernels' 64-bit
+    indices and every gallery index their int32 ones."""
+    base = gallery_launch_geometry(128, 1 << 20, 512, kind, _SMS, 65)
+    for q in (1, 128, 4096, 100_000):
+        geo = gallery_launch_geometry(q, 1 << 20, 512, kind, _SMS, top_k)
+        assert (geo.lists, geo.list_len) == ("device", top_k)
+        if q == 128:
+            assert (geo.smem_bytes, geo.stages) == (base.smem_bytes, base.stages)
+        blocks, threads, smem = geo.merge
+        assert blocks == q and 1 <= threads // 32 <= 32 and threads % 32 == 0
+        assert smem == (threads // 32) * 16 * top_k <= cuda_build.SMEM_LIMIT_BYTES
+        assert int(np.prod(geo.scratch)) < 2**63 and (1 << 20) < 2**31 - 64
+    assert gallery_launch_geometry(4, 4096, 512, kind, _SMS, gk.MAX_TOP_K).merge[1] == 32
+
+
+def test_top_k_past_the_bound_names_it():
+    with pytest.raises(ValueError, match=r"top_k 1\.\.14528, got 14529: .*16 top_k bytes.*"
+                                         r"232448 bytes of shared memory"):
+        gallery_launch_geometry(4, 4096, 512, "bf16", _SMS, gk.MAX_TOP_K + 1)
 
 
 @pytest.mark.parametrize("d", _DS)
@@ -464,7 +500,7 @@ def test_cuda_wrappers_read_their_constants_once(monkeypatch):
     calls = []
     answers = {
         "frp_gallery_topk_qtile": 64, "frp_gallery_topk_int8_qtile": 128,
-        "frp_gallery_topk_kmax": 1024, "frp_gallery_topk_int8_kmax": 1024,
+        "frp_gallery_topk_kmax": gk.MAX_TOP_K, "frp_gallery_topk_int8_kmax": gk.MAX_TOP_K,
     }
 
     def fake_function(name, symbol, argtypes):

@@ -1,14 +1,18 @@
-"""The compiled step of the port, on the CPU: NMS's loop (K5's plain
-version and a model of its block schedule), the embed-budget rotation as a
-wrapping int32, the step's freedom from host reads, K2's planar output and
+"""The compiled step of the port, on the CPU: NMS (K5's plain version and
+models of its arithmetic and cluster schedule), the embed-budget rotation as
+a wrapping int32, the step's freedom from host reads, K2's planar output and
 the CUDA-graph bookkeeping of `pipeline/step_graph.py`.
 
 NMS is held to the JAX package's `nms_mask` (its `while_loop`) on suppression
 chains built to converge at a chosen depth, and at the `it < n` cap. K5's
-schedule (triangular bit-packed rows, one block per batch element stopping
-at its own convergence, 32-row words per warp) is modelled in numpy and
-held to the plain loop bit for bit, as `test_torch_port_gallery_kernel.py`
-holds K3/K4's decomposition. The embed-budget step is held to the JAX step
+IoU (float32 op by op, NaN-propagating max/min, the filter before the
+division) is modelled in numpy and held to torch's `pairwise_iou` and
+threshold bit for bit, at the threshold and at the edges of the arithmetic;
+its schedule (group-major packed rows of the valid boxes, a cluster of
+blocks per frame exchanging keep words every sweep, the two-slot flag, a
+frame stopping at its own convergence) is modelled in numpy and held to the
+plain version bit for bit, as `test_torch_port_gallery_kernel.py` holds
+K3/K4's decomposition. The embed-budget step is held to the JAX step
 at rotations whose `rotation * embed_budget` passes 2**31, where the JAX
 engine's int32 wraps. `StepGraphs` runs with its capture function injected
 (an eager stand-in), which checks its keys, generations, output copies and
@@ -33,11 +37,14 @@ from facerecognitionpipeline_tpu_torch.gallery.search import DeviceGallery
 from facerecognitionpipeline_tpu_torch.models.detector import MTCNNDetector
 from facerecognitionpipeline_tpu_torch.ops import cuda_build, nms as tnms
 from facerecognitionpipeline_tpu_torch.ops.nms_kernel import (
-    nms_fixpoint_kernel,
+    MAX_CLUSTER,
+    THREADS,
+    band_bounds,
+    group_offset,
     nms_fixpoint_plain,
     nms_launch_geometry,
-    row_offset,
-    row_words,
+    nms_sorted_kernel,
+    nms_sorted_plain,
 )
 from facerecognitionpipeline_tpu_torch.ops.warp_kernel import (
     warp_patches_kernel,
@@ -116,112 +123,299 @@ def test_nms_fixpoint_matches_the_jax_while_loop(n, chains):
 
 
 def test_nms_fixpoint_kernel_takes_its_plain_version_on_the_cpu():
+    """K5's wrapper on CPU tensors is `nms_sorted_plain`: today's torch ops
+    (pairwise_iou, the threshold, the below-diagonal mask, the loop)."""
     rng = np.random.default_rng(3)
-    conflict = torch.from_numpy(np.tril(rng.random((3, 50, 50)) < 0.05, -1))
+    boxes = torch.from_numpy(_cascade_boxes(rng, 3, 50))
     v = torch.from_numpy(rng.random((3, 50)) < 0.8)
-    np.testing.assert_array_equal(
-        nms_fixpoint_kernel(conflict, v).numpy(), nms_fixpoint_plain(conflict, v).numpy()
-    )
+    for mode in ("union", "min"):
+        iou = tnms.pairwise_iou(boxes, mode)
+        idx = torch.arange(50)
+        conflict = (iou > 0.7) & (idx[None, :] < idx[:, None])
+        want = nms_fixpoint_plain(conflict, v).numpy()
+        np.testing.assert_array_equal(nms_sorted_plain(boxes, v, 0.7, mode).numpy(), want)
+        np.testing.assert_array_equal(nms_sorted_kernel(boxes, v, 0.7, mode).numpy(), want)
     with pytest.raises(ValueError):
-        nms_fixpoint_kernel(conflict, v[:, :49])
+        nms_sorted_kernel(boxes, v[:, :49], 0.7)
     with pytest.raises(ValueError):
-        nms_fixpoint_kernel(conflict.to("meta"), v.to("meta"))
+        nms_sorted_kernel(boxes[..., :3], v, 0.7)
+    with pytest.raises(ValueError):
+        nms_sorted_kernel(boxes.to("meta"), v.to("meta"), 0.7)
 
 
-def _k5_model(conflict: np.ndarray, v: np.ndarray) -> np.ndarray:
-    """K5's block schedule in numpy (csrc/nms_fixpoint.cu): per batch
-    element, the rows packed below the diagonal into words at `row_offset`,
-    masks of 32-bit words, each sweep building word g from rows 32g..32g+31
-    of at most row_words(i) words, the flag compared as the kernel does,
-    and the element stopping at its own convergence or at it >= n."""
+# ------------------------------------------- K5's arithmetic, modelled in numpy
+
+
+def _cascade_boxes(rng, b, n):
+    """[b, n, 4] float32 boxes like a cascade stage's proposals: clusters of
+    jittered squares of 20-80 px over a 640 px frame."""
+    centres = rng.uniform(20, 620, (b, n // 8 + 1, 2))
+    pick = rng.integers(0, centres.shape[1], (b, n))
+    c = np.take_along_axis(centres, pick[..., None].repeat(2, -1), 1)
+    c = c + rng.normal(0, 4, (b, n, 2))
+    side = rng.uniform(20, 80, (b, n, 1))
+    return np.concatenate([c - side / 2, c + side / 2], -1).astype(np.float32)
+
+
+def _edge_boxes(mode, thr=0.7):
+    """[m, 4] float32 boxes at the edges of the IoU's arithmetic: pairs of a
+    10 px box and one shifted by t, t stepped by ulps around the IoU's root
+    (so the float32 IoU lands within a few ulps of thr, on both sides), a
+    zero-area and an inverted box over a third, a NaN coordinate, boxes
+    reaching infinity (inf - inf inside the IoU) and the NaN area they give."""
+    root = np.float32(10 * (1 - thr) if mode == "min" else 10 * (1 - thr) / (1 + thr))
+    out = []
+    for k in range(24):
+        t = root
+        for _ in range(abs(k - 12)):
+            t = np.nextafter(t, np.float32(np.inf if k > 12 else -np.inf))
+        y = np.float32(20 * k)
+        out += [(0, y, 10, y + 10), (t, y, t + 10, y + 10)]
+    y = 600
+    out += [(0, y, 10, y + 10), (3, y, 3, y + 10), (8, y, 2, y + 10),
+            (np.nan, y, 10, y + 10), (2, y, 12, np.nan), (-np.inf, y, np.inf, y + 10),
+            (-np.inf, y + 2, np.inf, y + 8), (np.inf, y, np.inf, y + 10)]
+    return np.array(out, np.float32)
+
+
+def _conflict_model(boxes, thr, mode):
+    """K5's conflict bit (csrc/nms_fixpoint.cu::conflict) in numpy float32,
+    op by op: NaN-propagating max/min (np.maximum/np.minimum, as max.NaN),
+    each product, sum and difference rounded to float32, the filter on
+    thr * d (1 +- 2^-20) and the correctly rounded division where it cannot
+    decide. boxes [n, 4] -> [n, n] bool (all i, j)."""
+    f = np.float32
+    with np.errstate(all="ignore"):
+        x1, y1, x2, y2 = (boxes[:, k] for k in range(4))
+        area = np.maximum(x2 - x1, f(0)) * np.maximum(y2 - y1, f(0))
+        ix1 = np.maximum(x1[:, None], x1[None, :])
+        iy1 = np.maximum(y1[:, None], y1[None, :])
+        ix2 = np.minimum(x2[:, None], x2[None, :])
+        iy2 = np.minimum(y2[:, None], y2[None, :])
+        inter = np.maximum(ix2 - ix1, f(0)) * np.maximum(iy2 - iy1, f(0))
+        if mode == "min":
+            denom = np.minimum(area[:, None], area[None, :])
+        else:
+            denom = (area[:, None] + area[None, :]) - inter
+        d = np.maximum(denom, f(1e-9))
+        t = f(thr)
+        maybe = (inter > 0) | ((t < 0) & (inter == 0))
+        exact = (inter / d) > t
+        if not f(1e-20) <= t <= f(1e20):
+            return maybe & exact
+        a = t * d
+        ok = d <= f(1e30)
+        sure = ok & (inter > a * f(1 + 2.0**-20))
+        near = maybe & ~sure & ~(ok & (inter < a * f(1 - 2.0**-20)))
+        assert not (maybe & sure & ~exact).any() and not (maybe & ~near & ~sure & exact).any()
+        return maybe & (sure | (near & exact))
+
+
+def _torch_conflict(boxes, thr, mode):
+    return (tnms.pairwise_iou(torch.from_numpy(boxes), mode) > thr).numpy()
+
+
+@pytest.mark.parametrize("mode", ["union", "min"])
+@pytest.mark.parametrize("thr", [0.7, 0.3, 0.5])
+def test_k5_iou_arithmetic_equals_pairwise_iou_on_cascade_boxes(mode, thr):
+    rng = np.random.default_rng(int(thr * 10))
+    boxes = _cascade_boxes(rng, 1, 300)[0]
+    np.testing.assert_array_equal(_conflict_model(boxes, thr, mode),
+                                  _torch_conflict(boxes, thr, mode))
+
+
+@pytest.mark.parametrize("mode", ["union", "min"])
+@pytest.mark.parametrize("thr", [0.7, 0.3, 0.5])
+def test_k5_iou_arithmetic_at_the_threshold_and_the_edges(mode, thr):
+    """Pairs within a few ulps of the threshold on both sides, zero-area,
+    inverted, NaN and infinite boxes: the model (filter and division) gives
+    torch's bits, and the pairs do straddle the threshold."""
+    boxes = _edge_boxes(mode, thr)
+    got = _conflict_model(boxes, thr, mode)
+    np.testing.assert_array_equal(got, _torch_conflict(boxes, thr, mode))
+    pairs = got[np.arange(1, 48, 2), np.arange(0, 48, 2)]
+    assert pairs.any() and not pairs.all()
+    iou = tnms.pairwise_iou(torch.from_numpy(boxes[:48]), mode).numpy()
+    near = iou[np.arange(1, 48, 2), np.arange(0, 48, 2)]
+    ulp = np.spacing(np.float32(thr))
+    assert (np.abs(near - np.float32(thr)) <= 8 * ulp).sum() >= 8
+
+
+def test_torch_compares_with_the_python_threshold_in_float32():
+    """What csrc/nms_fixpoint.cu's note relies on: `iou > thr` with a float32
+    tensor and a Python float compares in float32 (float32(0.3) > 0.3 is
+    false, as double it would be true), so the kernel takes thr as a float."""
+    x = torch.tensor([np.float32(0.3)])
+    assert not bool(x > 0.3) and float(np.float32(0.3)) > 0.3
+
+
+# ------------------------------------------- K5's cluster schedule, modelled
+
+
+def _sorted_case(rng, b, n, mode, thr=0.7):
+    """Score-sorted boxes [b, n, 4] and v [b, n] as nms_mask hands K5."""
+    boxes = _cascade_boxes(rng, b, n)
+    scores = rng.random((b, n)).astype(np.float32)
+    valid = scores > 0.3
+    masked = np.where(valid, scores, np.float32(-1e9))
+    order = np.argsort(-masked, axis=1, kind="stable")
+    return (np.take_along_axis(boxes, order[..., None].repeat(4, -1), 1),
+            np.take_along_axis(valid, order, 1))
+
+
+def _k5_model(boxes, v, thr, mode, rng, cluster=None):
+    """K5's cluster schedule in numpy (csrc/nms_fixpoint.cu), per frame: the
+    conflict words of the valid rows and of words holding a valid box,
+    written into the group-major packing at `group_offset` (everything else
+    left as random garbage, which the sweeps must never see); C blocks, each
+    owning the groups of its band with its own copies of the four keep
+    masks; a sweep computes each block's words from its rows and writes
+    them into every block's copy, raises every block's flag slot on a
+    change, then crosses one barrier; check c reads slot c % 2 and clears
+    the other; the frame stops at its own convergence or at it >= n."""
     b, n = v.shape
-    w = row_words(n)
+    c = cluster or nms_launch_geometry(b, n).cluster
+    w_n, bounds = -(-n // 32), band_bounds(n, c)
     out = np.zeros((b, n), bool)
-
-    def pack(bits):
-        padded = np.zeros(32 * w, bool)
-        padded[:len(bits)] = bits
-        return (padded.reshape(w, 32).astype(np.uint64) << np.arange(32, dtype=np.uint64)
-                ).sum(axis=1).astype(np.uint64)
-
     for e in range(b):
-        rows = np.zeros(row_offset(n), np.uint64)
-        for i in range(n):
-            if row_words(i):
-                rows[row_offset(i):row_offset(i) + row_words(i)] = pack(conflict[e, i, :i])[:row_words(i)]
-        vbits = pack(v[e])
+        bits = _conflict_model(boxes[e], thr, mode)
+        vpad = np.zeros(32 * w_n, bool)
+        vpad[:n] = v[e]
+        vbits = (vpad.reshape(w_n, 32).astype(np.uint64)
+                 << np.arange(32, dtype=np.uint64)).sum(1)
+        nv = int(np.flatnonzero(v[e])[-1]) + 1 if v[e].any() else 0
+        gv = -(-nv // 32)
+        rows = rng.integers(0, 2**32, group_offset(w_n), dtype=np.uint64)
+        for i in range(nv):
+            if not v[e, i]:
+                continue
+            g = i >> 5
+            for w in range(g + 1):
+                if vbits[w] == 0:
+                    continue
+                j = np.arange(32 * w, 32 * w + 32)
+                ok = (j < i) & vpad[j] & bits[i, np.minimum(j, n - 1)]
+                rows[group_offset(g) + 32 * w + (i & 31)] = (
+                    ok.astype(np.uint64) << np.arange(32, dtype=np.uint64)).sum()
+        # per block: [vbits, keep, prev, spare] copies and two flag slots
+        masks = [[vbits.copy()] + [rng.integers(0, 2**32, w_n, dtype=np.uint64)
+                                   for _ in range(3)] for _ in range(c)]
+        flags = [[0, 0] for _ in range(c)]
 
-        def sweep(src):
-            dst = np.zeros(w, np.uint64)
-            for g in range(w):
-                sup = 0
-                for r in range(32):
-                    i = 32 * g + r
-                    if i < n:
-                        off, nw = row_offset(i), row_words(i)
-                        if np.any(rows[off:off + nw] & src[:nw]):
-                            sup |= 1 << r
-                dst[g] = vbits[g] & np.uint64(~sup & 0xFFFFFFFF)
-            return dst
+        def sweep(src, dst, cmp, slot):
+            for k in range(c):
+                for g in range(bounds[k], bounds[k + 1]):
+                    sup = 0
+                    if g < gv:
+                        for r in range(32):
+                            words = rows[group_offset(g) + 32 * np.arange(g + 1) + r]
+                            if np.any(words & masks[k][src][:g + 1]):
+                                sup |= 1 << r
+                    word = masks[k][0][g] & np.uint64(~sup & 0xFFFFFFFF)
+                    for kk in range(c):
+                        masks[kk][dst][g] = word
+                    if cmp is not None and word != masks[k][cmp][g]:
+                        for kk in range(c):
+                            flags[kk][slot] = 1
+            for k in range(1, c):  # past the barrier every copy of dst is the same
+                assert (masks[k][dst] == masks[0][dst]).all()
 
-        keep = sweep(vbits)
-        prev = vbits
-        for _ in range(6):
-            keep, prev = sweep(keep), keep
-        changed = bool(np.any(keep != prev))
-        it = 7
-        while it < n and changed:
-            mid = sweep(keep)
-            new = sweep(mid)
-            changed = bool(np.any(new != keep))
-            keep, prev = new, keep
-            it += 2
-        bits = ((keep[:, None] >> np.arange(32, dtype=np.uint64)) & np.uint64(1)).astype(bool)
-        out[e] = bits.reshape(-1)[:n]
+        keep, prev, spare = 1, 2, 3
+        sweep(0, keep, None, 0)
+        for t in range(1, 7):
+            sweep(keep, spare, keep if t == 6 else None, 0)
+            prev, keep, spare = keep, spare, prev
+        check, it = 0, 7
+        while it < n:
+            assert len({f[check & 1] for f in flags}) == 1
+            if flags[0][check & 1] == 0:
+                break
+            nxt = (check + 1) & 1
+            for f in flags:
+                f[nxt] = 0
+            sweep(keep, spare, None, nxt)
+            sweep(spare, prev, keep, nxt)
+            keep, prev = prev, keep
+            check, it = check + 1, it + 2
+        kb = ((masks[0][keep][:, None] >> np.arange(32, dtype=np.uint64)) & np.uint64(1))
+        out[e] = kb.astype(bool).reshape(-1)[:n]
     return out
 
 
-@pytest.mark.parametrize("b,n,density", [(4, 96, 0.05), (3, 256, 0.01), (2, 70, 0.3),
-                                         (5, 33, 0.1), (2, 1, 0.0)])
-def test_k5_block_schedule_model_equals_the_plain_loop(b, n, density):
+def _plain(boxes, v, thr, mode):
+    return nms_sorted_plain(torch.from_numpy(boxes), torch.from_numpy(v), thr, mode).numpy()
+
+
+@pytest.mark.parametrize("b,n,mode,cluster", [
+    (4, 96, "min", None), (3, 256, "union", None), (2, 70, "union", 2), (5, 33, "min", None),
+    (2, 1, "union", None), (2, 300, "union", 4), (2, 200, "min", 8),
+])
+def test_k5_block_schedule_model_equals_the_plain_loop(b, n, mode, cluster):
+    """The cluster model on score-sorted cascade boxes (one frame all
+    invalid) equals `nms_sorted_plain` bit for bit."""
     rng = np.random.default_rng(b * 1000 + n)
-    conflict = np.tril(rng.random((b, n, n)) < density, -1)
-    v = rng.random((b, n)) < 0.9
-    v[0] = False  # an all-invalid element
-    want = nms_fixpoint_plain(torch.from_numpy(conflict), torch.from_numpy(v)).numpy()
-    np.testing.assert_array_equal(_k5_model(conflict, v), want)
+    boxes, v = _sorted_case(rng, b, n, mode)
+    v[0] = False  # an all-invalid frame
+    np.testing.assert_array_equal(_k5_model(boxes, v, 0.7, mode, rng, cluster),
+                                  _plain(boxes, v, 0.7, mode))
 
 
-def test_k5_block_schedule_model_on_chains_to_the_cap():
-    rng = np.random.default_rng(11)
-    cases = [_chain_boxes(64, c, rng) for c in ([64], [9, 8], [1], [])]
-    boxes, scores, valid = (torch.from_numpy(np.stack(x)) for x in zip(*cases))
-    masked = torch.where(valid, scores, torch.full_like(scores, -1e9))
-    order = torch.sort(masked, dim=-1, descending=True, stable=True).indices
-    bs = torch.gather(boxes, -2, order[..., None].expand(*order.shape, 4))
-    v = torch.gather(valid, -1, order)
-    iou = tnms.pairwise_iou(bs)
-    idx = torch.arange(64)
-    conflict = (iou > 0.3) & (idx[None, :] < idx[:, None])
-    want = nms_fixpoint_plain(conflict, v).numpy()
-    np.testing.assert_array_equal(_k5_model(conflict.numpy(), v.numpy()), want)
+@pytest.mark.parametrize("n", [64, 65])
+def test_k5_block_schedule_model_on_chains_to_the_cap(n):
+    """Chains of depth 1, 7, 8, 9 and 64 (with isolated boxes around), one
+    of all n boxes (the loop ends at the it < n cap, n even and odd), and an
+    all-invalid frame: the model equals the plain loop and keeps every other
+    box of a chain."""
+    rng = np.random.default_rng(11 + n)
+    chains = ([64 if n > 64 else n], [9, 8], [7], [1], [n], [])
+    cases = [_chain_boxes(n, c, rng) for c in chains]
+    boxes, scores, valid = (np.stack(x) for x in zip(*cases))
+    masked = np.where(valid, scores, np.float32(-1e9))
+    order = np.argsort(-masked, axis=1, kind="stable")
+    bs = np.take_along_axis(boxes, order[..., None].repeat(4, -1), 1)
+    v = np.take_along_axis(valid, order, 1)
+    want = _plain(bs, v, 0.3, "union")
+    for cluster in (None, 2):
+        np.testing.assert_array_equal(_k5_model(bs, v, 0.3, "union", rng, cluster), want)
+    assert [int(want[e].sum()) for e in range(len(chains))] == [
+        sum((length + 1) // 2 for length in c) for c in chains]
 
 
 def test_k5_triangular_packing_and_geometry():
+    """The group-major packing, the bands and the launch geometry: every
+    row in one band, each band within 2x of the mean's packed words, the
+    cascade's shapes in shared memory with a cluster at stage 1, a large N
+    in the device scratch, the refusals."""
     total = 0
-    for i in range(3000):
-        assert row_offset(i) == total
-        total += row_words(i)
+    for g in range(200):
+        assert group_offset(g) == total
+        total += 32 * (g + 1)
+    for n in list(range(1, 200)) + [256, 1025, 1152, 1408, 3000, 5000, 6000]:
+        geo = nms_launch_geometry(1, n)
+        bounds = geo.bands
+        assert bounds[0] == 0 and bounds[-1] == geo.words == -(-n // 32)
+        assert list(bounds) == sorted(bounds) and len(bounds) == geo.cluster + 1
+        words = [group_offset(hi) - group_offset(lo) for lo, hi in zip(bounds, bounds[1:])]
+        assert sum(words) == geo.row_words == group_offset(geo.words)
+        assert max(words) <= 2 * geo.row_words / geo.cluster, n
+        assert geo.band_words == max(words)
+        assert 1 <= geo.cluster <= MAX_CLUSTER and geo.cluster & (geo.cluster - 1) == 0
     # the cascade's shapes: stage 1 at 9 and 11 scales, stages 2 and 3
-    for n in (1152, 1408, 256, 96):
-        geo = nms_launch_geometry(16, n)
-        assert geo.rows_in_smem, n
-        assert geo.smem_bytes == 16 * row_words(n) + 4 * row_offset(n)
+    for n, c in ((1152, 16), (1408, 16), (256, 4), (96, 1)):
+        geo = nms_launch_geometry(8, n)
+        assert geo.rows_in_smem and (geo.cluster, geo.grid, geo.threads) == (c, 8 * c, THREADS)
+        assert geo.smem_bytes == (16 * n + 16 * geo.words + 4 * (-(-n // 4) * 4)
+                                  + 4 * geo.band_words)
         assert geo.smem_bytes <= cuda_build.SMEM_LIMIT_BYTES - 64
-    big = nms_launch_geometry(2, 4096)
-    assert not big.rows_in_smem and big.smem_bytes == 16 * 128
-    with pytest.raises(ValueError):
+    big = nms_launch_geometry(2, 6000)
+    assert not big.rows_in_smem and big.smem_bytes == 16 * big.words
+    assert nms_launch_geometry(2, 5000).rows_in_smem
+    with pytest.raises(ValueError, match="at least 1"):
         nms_launch_geometry(0, 5)
+    with pytest.raises(ValueError, match="indices"):
+        nms_launch_geometry(1, 2**20)
+    with pytest.raises(ValueError, match="shared memory"):
+        nms_launch_geometry(1, 2**20 - 1)
     assert "nms_fixpoint" in cuda_build.KERNEL_NAMES
 
 
@@ -438,7 +632,7 @@ def test_the_step_reads_nothing_on_the_host(pair, frames, templates, route, monk
         tt = quantize_templates(tt.float())
     eng = RecognitionEngine(tdet, temb, top_k=2, **kw)
     mode = _HostReads()
-    plain = tnms.nms_fixpoint_kernel
+    plain = tnms.nms_sorted_kernel
 
     def unwatched(*a):
         mode.paused = True
@@ -447,7 +641,7 @@ def test_the_step_reads_nothing_on_the_host(pair, frames, templates, route, monk
         finally:
             mode.paused = False
 
-    monkeypatch.setattr(tnms, "nms_fixpoint_kernel", unwatched)
+    monkeypatch.setattr(tnms, "nms_sorted_kernel", unwatched)
     rot = rotation_tensor(5, torch.device("cpu"))
     with mode:
         out = eng.step(tt, tv, fr, gallery_k=2, rotation=rot)
