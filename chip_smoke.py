@@ -28,13 +28,21 @@ Phases, in order; any failure exits non-zero before the final line:
      on float32 rows at 128 x 1 048 576 x 512 within 1e-5 of its plain
      version, timed beside its bound (operations on CUDA cores) and a stored
      float32 matmul + topk; K3 (bf16 and float32 rows) and K4 at top_k 16
-     (lists in shared memory) and 33, 64, 65, 256, 1024, 1025, 4096 and
-     14 528 (lists in device memory) against their plain versions, with the
-     ring each
-     placement leaves, the call's peak memory and the stream and merge
-     kernels' device time; then top_k 1025, 4096 and MAX_TOP_K (14 528, the
-     merge's shared-memory bound), and MAX_TOP_K + 1 refused naming that
-     bound; K2's channel-planar output equal to its plain
+     (lists in shared memory), 33 (lists in device memory) and 64, 65,
+     128, 256, 1024, 1025, 4096 and 14 528 (the pool route: a sample, a
+     per-query threshold, one gather pass, one select) against their plain
+     versions, each with its route, resolved and unresolved queries, peak
+     memory and every kernel's device time (sample, T_q's select, gather,
+     select, device lists, merge), beside the other route forced in the
+     same run (the crossover at 33-256; the device lists the pool route
+     replaces) and, on the pool route, every query sent on to its unresolved
+     route (the same answer); both routes forced at the labeler's query
+     counts (512 to 16 384 queries at top_k 64, 256 and 1024: the pool
+     route in blocks of queries, held to the device lists' answer) beside
+     the route `pool_pays` picks; a
+     gallery whose rows tie past the pool for two
+     queries (two unresolved, counted on the card); MAX_TOP_K + 1 refused
+     naming the merge's shared-memory bound; K2's channel-planar output equal to its plain
      version and to the channels-last one transposed, to the bit; K5 (NMS
      from the score-sorted boxes: IoUs, conflict bits and loop on one
      thread-block cluster per frame) equal to nms_sorted_plain to the bit
@@ -129,7 +137,8 @@ Phases, in order; any failure exits non-zero before the final line:
      generation_summary.json; K1 twice per gallery photo), probe_labeler
      against the 48 students (dense, against a float32 product), then
      ProbeLabeler (probe_labeler's class) against 1 048 576 identities, bf16
-     (K3) and int8 (K4), at top_k 5 and 65, one launch per search, labels
+     (K3) and int8 (K4), at top_k 5, 65 and 1024 (the last two on the pool
+     route, no query unresolved), one launch per search, labels
      and top matches equal to the plain version on the same compact rows; evaluate_models (its files, thresholds 0.20-0.90,
      max/mean/topk), and evaluate_model on the card against the CPU (scores
      within 1e-5; counts and rates differ only by decisions within 1e-5 of a
@@ -242,10 +251,14 @@ BIG_GALLERY_ROWS = 1 << 20
 BIG_STEP_ITERS = 6
 STREAM_CHUNK = 4096
 K3_TOL = 2e-5  # two-part bf16 query split, float32 sums in another order
-# top_k of phase 2's long lists: in shared memory (16), then in device
-# memory (33, 64, 65, 256, 1024, 1025, 4096; and gallery_kernel.MAX_TOP_K,
-# the longest the merge's shared memory holds)
-LONG_TOP_KS = (16, 33, 64, 65, 256, 1024, 1025, 4096)
+# top_k of phase 2's long lists: in shared memory (16), in device memory
+# (33), on the pool route (64 = POOL_MIN_K, 65, 128, 256, 1024, 1025, 4096;
+# and gallery_kernel.MAX_TOP_K, the longest the merge's shared memory holds)
+LONG_TOP_KS = (16, 33, 64, 65, 128, 256, 1024, 1025, 4096)
+# the labeler's query counts (ProbeLabeler sends a whole probe directory as
+# one search) and top_k at which phase 2 times both routes of the long lists
+LABELER_QS = (512, 1024, 2048, 4096, 16384)
+LABELER_TOP_KS = (64, 256, 1024)
 
 
 def fail(msg: str) -> None:
@@ -1220,7 +1233,8 @@ def gallery_kernel_phase(gal) -> dict:
                                 rows_q, agree)
     del t
     gallery_odd_shapes(gk, tb, codes, scales)
-    print_bounds(report, "matmul+topk" if int_mm is None else "matmul/_int_mm+topk")
+    print_bounds({k: v for k, v in report.items() if isinstance(v, list)},
+                 "matmul+topk" if int_mm is None else "matmul/_int_mm+topk")
     for name in ("gallery_topk", "gallery_topk_int8"):
         r = report[name][0]
 
@@ -1288,80 +1302,292 @@ def long_lists_and_float32_rows(gk, report, q, t, tb, codes, scales, valid, rows
           f"{'not measured' if r['merge_device_ms'] is None else format(r['merge_device_ms'], '.4f')}"
           f" ms")
 
+    report["long_lists"] = long_lists(gk, report, q, t, tb, codes, scales, valid, rows_q,
+                                      agree)
+
+
+def device_split_ms(fn, iters: int):
+    """Device ms per call of `fn` by kernel, from torch.profiler: the pool
+    route's sample pass, its select of T_q, the gather pass and the select
+    of the pools; the device lists' stream kernel and their merge (None
+    where the profiler saw no device time)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    parts = dict.fromkeys(("sample", "threshold", "gather", "select", "lists", "merge"), 0.0)
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        key = e.key
+        if "stream_topk_kernel" in key:  # its mode is its second template argument
+            part = "sample" if ", -1>" in key else "gather" if ", -2>" in key else "lists"
+        elif "sample_threshold_kernel" in key:
+            part = "threshold"
+        elif "select_pool_kernel" in key:
+            part = "select"
+        elif "merge_" in key:
+            part = "merge"
+        else:
+            continue
+        parts[part] += e.self_device_time_total / iters / 1e3
+    return parts if any(parts.values()) else None
+
+
+def long_lists(gk, report, q, t, tb, codes, scales, valid, rows_q, agree) -> dict:
+    """Phase 2, the long lists: K3 (bf16 and float32 rows) and K4 at every
+    top_k of LONG_TOP_KS and MAX_TOP_K at 128 x 1 048 576 x 512, each held
+    to its plain version with the route it took (device lists up to
+    POOL_MIN_K - 1, the pool route from it), its unresolved queries (none on
+    this random gallery), the call's peak memory and each kernel's device
+    time; beside it the other route forced in the same run (its answer, time
+    and peak memory: the crossover at 33-256, the device lists the pool
+    route replaces from 256), and on the pool route every query sent on to
+    the unresolved route (the same answer); then a gallery whose rows tie
+    past the pool for two queries (those two unresolved, counted on the
+    card), and MAX_TOP_K + 1 refused. Returns the launches of the pool
+    route, counted from 0 over the loop, and the crossover it measured."""
+    import torch
+
+    big = t.shape[0]
+    nq = q.shape[0]
+    qd = nq * 512
+    neg = torch.tensor(-1e9, device=DEVICE)
+    qn = q / torch.linalg.vector_norm(q, dim=1, keepdim=True)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
+    t_long = time.perf_counter()
+    kinds = (("gallery_topk", K3_TOL, "bf16"), ("gallery_topk_f32", 1e-5, "f32"),
+             ("gallery_topk_int8", 0.0, "int8"))
+
+    def search(kind, k, route=None, rows=None, qq=q, vv=valid):
+        """The public wrapper's search, or with `route` the route forced
+        through the wrappers' card half."""
+        if kind == "int8":
+            c, sc = (codes, scales) if rows is None else rows
+            if route is not None:
+                return gk._card_search(qq, c, vv, k, sc, route)
+            return gk.streaming_cosine_topk_int8(qq, c, sc, vv, top_k=k, chunk=STREAM_CHUNK)
+        r = rows if rows is not None else (tb if kind == "bf16" else t)
+        if route is not None:
+            return gk._card_search(qq, r, vv, k, route=route)
+        return gk.streaming_cosine_topk(qq, r, vv, top_k=k, chunk=STREAM_CHUNK)
+
+    def plain(kind, k, rows=None, qq=q, vv=valid):
+        if kind == "int8":
+            c, sc = (codes, scales) if rows is None else rows
+            return gk.streaming_cosine_topk_int8_plain(qq, c, sc, vv, top_k=k,
+                                                       chunk=STREAM_CHUNK)
+        return gk.streaming_cosine_topk_plain(qq, rows if rows is not None else
+                                              (tb if kind == "bf16" else t), vv, top_k=k,
+                                              chunk=STREAM_CHUNK)
+
+    def held(label, kind, kv, ki, pv, pi, tol):
+        """The call's answer against the plain version's k + 1 best."""
+        k = kv.shape[1]
+        if kind == "int8":
+            if not torch.equal(kv, pv[:, :k]) or not torch.equal(ki, pi[:, :k]):
+                fail(f"K4 {label} is not equal to its plain version to the bit")
+            return 0.0
+        return agree(f"K3 {label}", kv, ki, pv, pi, tol)
+
+    def peak_call(fn):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (torch.cuda.max_memory_allocated() - base) / 2**20
+
+    for c in gk.POOL_LAUNCHES.values():
+        c.reset()
     for k in (*LONG_TOP_KS, gk.MAX_TOP_K):
-        shape = f"long list Q={q.shape[0]} G={big} k={k}"
-        few = k > 1024  # lists past 1024 take seconds: fewer timed calls
-        out_bytes = q.shape[0] * k * 12  # float32 scores, int64 indices
-        for name, rows, plain_rows, tol, kind in (
-                ("gallery_topk", tb, tb, K3_TOL, "bf16"),
-                ("gallery_topk_f32", t, t, 1e-5, "f32"),
-                ("gallery_topk_int8", codes, codes, 0.0, "int8")):
-            if kind == "int8":
-                def fn(k=k):
-                    return gk.streaming_cosine_topk_int8(q, codes, scales, valid, top_k=k,
-                                                         chunk=STREAM_CHUNK)
-
-                def plain(k=k):
-                    return gk.streaming_cosine_topk_int8_plain(q, codes, scales, valid,
-                                                               top_k=k, chunk=STREAM_CHUNK)
-            else:
-                def fn(k=k, rows=rows):
-                    return gk.streaming_cosine_topk(q, rows, valid, top_k=k, chunk=STREAM_CHUNK)
-
-                def plain(k=k, rows=plain_rows):
-                    return gk.streaming_cosine_topk_plain(q, rows, valid, top_k=k,
-                                                          chunk=STREAM_CHUNK)
+        shape = f"long list Q={nq} G={big} k={k}"
+        few = k > 1024  # the device lists take up to half a second a call there
+        out_bytes = nq * k * 12  # float32 scores, int64 indices
+        for name, tol, kind in kinds:
+            geo = gk.gallery_launch_geometry(nq, big, 512, kind, sms, k)
+            gk.reset_unresolved()
+            (kv, ki), peak_mib = peak_call(lambda: search(kind, k))
+            unresolved = gk.unresolved_queries()
+            pv, pi = plain(kind, k + 1)  # one more: the last slot's neighbour below
             torch.cuda.synchronize()
-            base = torch.cuda.memory_allocated()
-            torch.cuda.reset_peak_memory_stats()
-            kv, ki = fn()
-            torch.cuda.synchronize()
-            peak_mib = (torch.cuda.max_memory_allocated() - base) / 2**20
-            pv, pi = plain(k + 1)  # one more: the last slot's neighbour below
-            torch.cuda.synchronize()
-            if kind == "int8":
-                pv, pi = pv[:, :k], pi[:, :k]
-                err = float((kv - pv).abs().max())
-                if err != 0.0 or not torch.equal(ki, pi):
-                    fail(f"K4 {shape} is not equal to its plain version to the bit")
-                print(f"[kernels] K4 gallery_topk_int8 {shape}: equal to its plain version")
-            else:
-                err = agree(f"K3 {name} {shape}", kv, ki, pv, pi, tol)
+            err = held(f"{name} {shape}", kind, kv, ki, pv, pi, tol)
             if ki[0, 0] != rows_q[0] or not torch.isfinite(kv).all():
                 fail(f"{name} {shape}: the planted row did not come back first")
-            geo = gk.gallery_launch_geometry(q.shape[0], big, 512, kind, sms, k)
-            # lists in device memory are written once by the stream kernel
-            # and read once by the merge: their bytes count in the bound
-            lists_bytes = 2 * 8 * int(np.prod(geo.scratch)) if geo.lists == "device" else 0
-            print(f"[kernels] {name} {shape}: lists in {geo.lists} ({geo.list_len} entries"
-                  f", scratch {tuple(geo.scratch)}), ring of {geo.stages} stages, "
-                  f"{geo.smem_bytes} bytes of shared memory; the call's peak device "
-                  f"memory above what was allocated before it {peak_mib:.1f} MiB (the "
-                  f"[Q, G] matrix would be {q.shape[0] * big * 4 / 2**20:.0f} MiB)")
+            if geo.lists == "pool" and unresolved != 0:
+                fail(f"{name} {shape}: {unresolved} queries of a random gallery were "
+                     f"unresolved on the pool route")
             elem = {"bf16": 2, "f32": 4, "int8": 1}[kind]
-            report[name].append({
-                "shape": shape, "err": err, "in_step": False,
-                "ms": cuda_time_ms(fn, iters=2 if few else 5, warmup=1),
-                "plain_ms": cuda_time_ms(plain, iters=1, warmup=0),
+            fn = (lambda kind=kind, k=k: search(kind, k))  # noqa: E731
+            r = {
+                "shape": shape, "err": err, "in_step": False, "k": k, "kind": kind,
+                "route": geo.lists, "unresolved": unresolved,
+                "resolved": nq - unresolved if geo.lists == "pool" else None,
+                "ms": cuda_time_ms(fn, iters=3, warmup=1),
+                "plain_ms": cuda_time_ms(lambda: plain(kind, k), iters=1, warmup=0),
                 "library_ms": cuda_time_ms(
                     (lambda k=k: torch.topk(torch.where(valid, torch.matmul(
                         qn.to(torch.bfloat16), tb.T).float(), neg), k)) if kind != "f32"
-                    else (lambda k=k: lib_f32(k)), iters=3, warmup=1),
+                    else (lambda k=k: torch.topk(torch.where(valid, torch.matmul(qn, t.T),
+                                                             neg), k)), iters=3, warmup=1),
+                # the function's bytes: each input read once, each output
+                # written once (the lists and pools are the design's)
                 "bytes": 4 * qd + big * (512 * elem + 1 + (4 if kind == "int8" else 0))
-                + out_bytes + lists_bytes,
-                "flops": 2 * q.shape[0] * big * 512,
+                + out_bytes,
+                "flops": 2 * nq * big * 512,
                 "peak": {"bf16": BF16_FLOPS_PER_S, "f32": F32_FLOPS_PER_S,
                          "int8": INT8_OPS_PER_S}[kind],
-                "stream_device_ms": device_time_ms(fn, "stream_topk_kernel",
-                                                   iters=1 if few else 3),
-                "merge_device_ms": device_time_ms(fn, "merge_", iters=1 if few else 3),
-                "peak_mib": peak_mib, "lists": geo.lists, "lists_bytes": lists_bytes,
-            })
-            r = report[name][-1]
-            print(f"[timing] {name} {shape}: device time alone: stream kernel "
-                  f"{r['stream_device_ms']} ms, merge kernel {r['merge_device_ms']} ms "
-                  f"(lists in {geo.lists})")
+                "split": device_split_ms(fn, 3), "peak_mib": peak_mib,
+                "stages": geo.stages, "scratch_mib": geo.scratch_bytes / 2**20,
+            }
+            if geo.lists == "pool":
+                r.update(sample_tiles=geo.sample_tiles, sample_rank=geo.sample_rank,
+                         pool_cap=geo.pool_cap)
+            if k > 16:  # the other route of the same call, forced in this run
+                other = "device" if geo.lists == "pool" else "pool"
+                ofn = (lambda kind=kind, k=k, other=other: search(kind, k, other))  # noqa: E731
+                (ov, oi), opeak = peak_call(ofn)
+                held(f"{name} {shape} ({other} route forced)", kind, ov, oi, pv, pi, tol)
+                slow = few and other == "device"
+                r.update({f"{other}_route_ms": cuda_time_ms(ofn, iters=1 if slow else 3,
+                                                            warmup=0 if slow else 1),
+                          f"{other}_route_peak_mib": opeak,
+                          f"{other}_route_split": device_split_ms(ofn, 1 if slow else 3)})
+            if geo.lists == "pool":  # every query on to the unresolved route
+                gk.reset_unresolved()
+                fv, fi = search(kind, k, "pool_unresolved")
+                torch.cuda.synchronize()
+                sent = gk.unresolved_queries()
+                if sent != nq:
+                    fail(f"{name} {shape}: the forced unresolved route counted {sent} of {nq}")
+                held(f"{name} {shape} (every query unresolved)", kind, fv, fi, pv, pi, tol)
+                r["forced_unresolved_ms"] = cuda_time_ms(
+                    lambda kind=kind, k=k: search(kind, k, "pool_unresolved"), iters=1, warmup=0)
+            report[name].append(r)
+
+            def ms(v):
+                return "not measured" if v is None else f"{v:.4f}"
+
+            split = r["split"] or {}
+            print(f"[long] {name} {shape}: route {geo.lists}"
+                  + (f" (sample {geo.sample_tiles} tiles, T_q at rank {geo.sample_rank}, "
+                     f"pool {geo.pool_cap}; resolved {r['resolved']}, unresolved {unresolved})"
+                     if geo.lists == "pool" else "")
+                  + f"; {r['ms']:.4f} ms, plain {r['plain_ms']:.4f}, matmul+topk "
+                  f"{r['library_ms']:.4f}; device ms "
+                  + ", ".join(f"{p} {ms(split.get(p))}" for p in split if split.get(p))
+                  + f"; peak {peak_mib:.1f} MiB (the [Q, G] matrix would be "
+                  f"{nq * big * 4 / 2**20:.0f} MiB)")
+            for other in ("device", "pool"):
+                if f"{other}_route_ms" in r:
+                    osplit = r[f"{other}_route_split"] or {}
+                    print(f"[long] {name} {shape}: the {other} route forced: "
+                          f"{r[f'{other}_route_ms']:.4f} ms, peak "
+                          f"{r[f'{other}_route_peak_mib']:.1f} MiB; device ms "
+                          + ", ".join(f"{p} {ms(osplit.get(p))}" for p in osplit
+                                      if osplit.get(p))
+                          + f"; {r[f'{other}_route_ms'] / r['ms']:.2f}x this call's time")
+            if "forced_unresolved_ms" in r:
+                print(f"[long] {name} {shape}: every query sent on to the unresolved "
+                      f"route: {r['forced_unresolved_ms']:.4f} ms, the same answer")
+    pool_launches = {kind: c.count for kind, c in gk.POOL_LAUNCHES.items()}
+
+    # the crossover: both routes at 33-256, timed in this run
+    crossover = {}
+    for name, _, kind in kinds:
+        sweep = {r["k"]: (r["ms"] if r["route"] == "pool" else r["pool_route_ms"],
+                          r["ms"] if r["route"] == "device" else r["device_route_ms"])
+                 for r in report[name] if r.get("k") in (33, 64, 65, 128, 256)}
+        wins = [k for k, (p, d) in sorted(sweep.items()) if p < d]
+        crossover[kind] = {"pool_ms": {k: p for k, (p, _) in sweep.items()},
+                           "device_ms": {k: d for k, (_, d) in sweep.items()},
+                           "pool_faster_from": wins[0] if wins else None}
+        print(f"[long] crossover {kind}: " + "; ".join(
+            f"k={k} pool {p:.4f} ms, device lists {d:.4f} ms" for k, (p, d) in
+            sorted(sweep.items())) + f"; POOL_MIN_K is {gk.POOL_MIN_K}")
+    for name, _, kind in kinds:
+        top = next(r for r in report[name] if r.get("k") == gk.MAX_TOP_K)
+        if not top["peak_mib"] < top["device_route_peak_mib"]:
+            fail(f"{name} at MAX_TOP_K: the pool route's peak memory {top['peak_mib']:.1f} MiB "
+                 f"is not below the device lists' {top['device_route_peak_mib']:.1f} MiB")
+
+    # the labeler's query counts: both routes forced, and the one the rule picks
+    by_q = {kind: [] for _, _, kind in kinds}
+    gen = torch.Generator(device=DEVICE).manual_seed(14)
+    for nq_l in LABELER_QS:
+        q_l = torch.randn((nq_l, 512), generator=gen, device=DEVICE)
+        for k in LABELER_TOP_KS:
+            for name, tol, kind in kinds:
+                shape = f"labeler Q={nq_l} G={big} k={k}"
+                geo = gk.gallery_launch_geometry(nq_l, big, 512, kind, sms, k, "pool")
+                gk.reset_unresolved()
+                (kv, ki), peak_mib = peak_call(lambda: search(kind, k, "pool", qq=q_l))
+                unresolved = gk.unresolved_queries()
+                (dv, di), dpeak = peak_call(lambda: search(kind, k, "device", qq=q_l))
+                torch.cuda.synchronize()
+                if not torch.isfinite(kv).all():
+                    fail(f"{name} {shape}: scores not finite")
+                err = held(f"{name} {shape} (pool route against the device lists)", kind,
+                           kv, ki, dv, di, tol)
+                del kv, ki, dv, di
+                r = {"q": nq_l, "k": k, "block": geo.block, "blocks": -(-nq_l // geo.block),
+                     "unresolved": unresolved, "err": err,
+                     "rule": gk.gallery_launch_geometry(nq_l, big, 512, kind, sms, k).lists,
+                     "pool_route_ms": cuda_time_ms(lambda: search(kind, k, "pool", qq=q_l),
+                                                   iters=2, warmup=0),
+                     "device_route_ms": cuda_time_ms(
+                         lambda: search(kind, k, "device", qq=q_l), iters=2, warmup=0),
+                     "pool_route_peak_mib": peak_mib, "device_route_peak_mib": dpeak,
+                     "scratch_mib": geo.scratch_bytes / 2**20}
+                faster = "pool" if r["pool_route_ms"] < r["device_route_ms"] else "device"
+                r["rule_took_the_faster"] = r["rule"] == faster
+                by_q[kind].append(r)
+                print(f"[long] {name} {shape}: the pool route in {r['blocks']} blocks of "
+                      f"{geo.block}, unresolved {unresolved}: {r['pool_route_ms']:.4f} ms, "
+                      f"peak {peak_mib:.1f} MiB; the device lists: "
+                      f"{r['device_route_ms']:.4f} ms, peak {dpeak:.1f} MiB "
+                      f"({r['device_route_ms'] / r['pool_route_ms']:.2f}x); the same answer; "
+                      f"the rule takes the {r['rule']} route "
+                      f"({'the faster' if r['rule_took_the_faster'] else 'NOT the faster'})")
+        del q_l
+    for _, _, kind in kinds:
+        missed = [(r["q"], r["k"]) for r in by_q[kind] if not r["rule_took_the_faster"]]
+        print(f"[long] labeler sweep {kind}: the rule took the faster route at "
+              f"{len(by_q[kind]) - len(missed)} of {len(by_q[kind])} points"
+              + (f"; not at (Q, k) {missed}" if missed else ""))
+
+    # adversarial: two queries whose best 5001 rows tie (past a pool of 4096)
+    rows_adv = 65536
+    t_adv = t[:rows_adv].clone()
+    t_adv[100:5100] = t_adv[3]
+    q_adv = q[:8].clone()
+    q_adv[:2] = 2.0 * t_adv[3]
+    v_adv = torch.ones(rows_adv, dtype=torch.bool, device=DEVICE)
+    adv = {}
+    for name, tol, kind in kinds:
+        rows = (gk.quantize_templates(t_adv) if kind == "int8"
+                else t_adv.to(torch.bfloat16) if kind == "bf16" else t_adv)
+        adv_kw = dict(rows=rows, qq=q_adv, vv=v_adv)
+        gk.reset_unresolved()
+        kv, ki = search(kind, 1024, **adv_kw)
+        torch.cuda.synchronize()
+        adv[kind] = gk.unresolved_queries()
+        pv, pi = plain(kind, 1025, **adv_kw)
+        held(f"{name} adversarial", kind, kv, ki, pv, pi, tol)
+        if adv[kind] != 2 or ki[0, :3].tolist() != [3, 100, 101]:
+            fail(f"{name}: the tied gallery sent {adv[kind]} queries on (expected 2), "
+                 f"first indices {ki[0, :3].tolist()}")
+        print(f"[long] {name} Q=8 G={rows_adv} k=1024, queries 0-1 with 5001 rows tied for "
+              f"their best: {adv[kind]} unresolved (counted on the card), 6 resolved; equal "
+              f"to the plain version")
+    del t_adv
+
     k = gk.MAX_TOP_K + 1
     try:
         gk.streaming_cosine_topk(q, tb, valid, top_k=k, chunk=STREAM_CHUNK)
@@ -1371,6 +1597,10 @@ def long_lists_and_float32_rows(gk, report, q, t, tb, codes, scales, valid, rows
         print(f"[kernels] top_k={k} on the card: ValueError naming its bound ({e})")
     else:
         fail(f"top_k={k} on the card did not raise")
+    seconds = time.perf_counter() - t_long
+    print(f"[long] the long lists took {seconds:.1f} s")
+    return {"pool_launches": pool_launches, "crossover": crossover, "adversarial": adv,
+            "by_q": by_q, "seconds": seconds}
 
 
 def gallery_odd_shapes(gk, tb, codes, scales) -> None:
@@ -3215,7 +3445,8 @@ OFFLINE_FEW_SHOT = 5
 OFFLINE_SESSIONS = 4  # probe photos per enrolled identity, one per session
 OFFLINE_ANGLES = ("center", "center", "left", "right")  # per session
 OFFLINE_TOP_K = 5
-OFFLINE_LONG_TOP_K = 65  # past 64: the lists in device memory
+OFFLINE_LONG_TOP_K = 65  # the pool route (from POOL_MIN_K, 64)
+OFFLINE_POOL_TOP_K = 1024  # a campus-scale labeling run: the pool route
 EVAL_TOL = 1e-5
 SCORER_SHAPE = (4096, 10000, 5)  # probes, identities, embeddings per identity
 STRESS_RUN = ("baseline", "crowded", "occlusion", "hard_negatives")
@@ -3490,7 +3721,8 @@ def offline_phase(gal, report) -> None:
 
     t_phase = time.perf_counter()
     res = {"launches": {"crop_resize": 0, "warp_patches": 0, "gallery_topk": 0,
-                        "gallery_topk_int8": 0, "gallery_topk_f32": 0}}
+                        "gallery_topk_int8": 0, "gallery_topk_f32": 0},
+           "pool_launches": {"bf16": 0, "int8": 0}}
     counters = {"crop_resize": crop_kernel.LAUNCHES, "warp_patches": warp_kernel.LAUNCHES,
                 "gallery_topk": gallery_kernel.LAUNCHES,
                 "gallery_topk_int8": gallery_kernel.LAUNCHES_INT8,
@@ -3696,18 +3928,27 @@ def offline_phase(gal, report) -> None:
             _, v, big_ids = big_gm.device_snapshot()
             compact = big_gm._device.snapshot()[3]
             labeler = ProbeLabeler(embedder=embedder, gallery=big_gm, architecture=ARCH)
-            for top_k in (OFFLINE_TOP_K, OFFLINE_LONG_TOP_K):
+            for top_k in (OFFLINE_TOP_K, OFFLINE_LONG_TOP_K, OFFLINE_POOL_TOP_K):
                 tag = label if top_k == OFFLINE_TOP_K else f"{label}_k{top_k}"
                 reset()
+                pool = gallery_kernel.POOL_LAUNCHES[label]
+                pool.reset()
+                gallery_kernel.reset_unresolved()
                 t0 = time.perf_counter()
                 labeler.process_probe_directory(
                     crops_dir, output_dir=os.path.join(tmp, f"labeled_{tag}"),
                     metadata_file=meta_path, copy_files=False, top_k=top_k)
                 secs = time.perf_counter() - t0
                 n = read()
+                res["pool_launches"][label] += pool.count
                 if n[kernel] != 1 or sum(n.values()) != 1:
                     fail(f"probe_labeler --top_k {top_k} against {big} ({label}): one search "
                          f"launched {n}")
+                if pool.count != int(top_k >= gallery_kernel.POOL_MIN_K):
+                    fail(f"probe_labeler --top_k {top_k} ({label}) took the pool route "
+                         f"{pool.count} times")
+                if gallery_kernel.unresolved_queries():
+                    fail(f"probe_labeler --top_k {top_k} ({label}): unresolved queries")
                 with open(os.path.join(tmp, f"labeled_{tag}", "labeling_results.json")) as f:
                     rows = json.load(f)["results"]
                 if quantize:
@@ -3739,7 +3980,8 @@ def offline_phase(gal, report) -> None:
                 res[f"labeler_ms_{tag}"] = 1e3 * secs
                 print(f"[offline] ProbeLabeler.process_probe_directory (probe_labeler's "
                       f"class) --top_k {top_k} against {big} identities ({label}): "
-                      f"{len(rows)} crops in {1e3 * secs:.1f} ms; {kernel} launched once; "
+                      f"{len(rows)} crops in {1e3 * secs:.1f} ms; {kernel} launched once"
+                      f"{' on the pool route' if pool.count else ''}; "
                       f"equal to the plain version on the same compact rows (max |score "
                       f"difference| {err:.3g}, ids equal on {int(clear.sum())}/{clear.size} "
                       f"clear slots, labels equal)")
@@ -5300,6 +5542,13 @@ def main() -> int:
     )) as z:
         fixture = {k: z[k] for k in z.files}
 
+    if "--gallery-only" in sys.argv[1:]:
+        # phase 2 alone (K3, K4, K3 on float32 rows: serving shape, odd
+        # shapes, long lists), after the build, the same way
+        report = gallery_kernel_phase(make_gallery(BIG_GALLERY_ROWS))
+        print(card_line())
+        print(json.dumps({"long_lists": report["long_lists"]}, default=str))
+        return 0
     if "--offline-only" in sys.argv[1:]:
         # phase 10 alone, after the build: for work on that phase; prints no
         # kernels line and no result line
@@ -5461,6 +5710,38 @@ def main() -> int:
             fail(f"phase 11 never launched {name}")
         if not f32 and mesh_launches[name] < 1:
             fail(f"phase 12 never launched {name}")
+    # the pool route (the long lists of K3, K4 and K3 on float32 rows from
+    # POOL_MIN_K): its times at top_k 1024 (every top_k in by_k); launches
+    # over phase 2's long lists (counted from 0 before them, read after) and
+    # phase 10's ProbeLabeler at top_k 65 and 1024
+    long = report["long_lists"]
+    for name, kind, label in (("gallery_topk", "bf16", "gallery_topk_pool"),
+                              ("gallery_topk_int8", "int8", "gallery_topk_int8_pool"),
+                              ("gallery_topk_f32", "f32", "k3_f32_pool")):
+        rows = [r for r in report[name] if r.get("route") == "pool"]
+        at = next(r for r in rows if r["k"] == 1024)
+        keys = ("ms", "plain_ms", "bound_ms", "library_ms", "device_route_ms",
+                "forced_unresolved_ms", "peak_mib", "device_route_peak_mib", "split",
+                "device_route_split", "unresolved", "sample_tiles", "sample_rank", "pool_cap")
+        kernels.append({
+            "name": label, "route": "cuda",
+            "source": "facerecognitionpipeline_tpu_torch/csrc/gallery_topk.cuh",
+            "replaces": sources[name][1],
+            "launches": long["pool_launches"][kind],
+            "offline_launches": report["offline"]["pool_launches"].get(kind),
+            "max_abs_err": max(r["err"] for r in rows),
+            "ms": at["ms"], "plain_ms": at["plain_ms"], "bound_ms": at["bound_ms"],
+            "bound_by": at["bound_by"], "library_ms": at["library_ms"],
+            "shape": at["shape"],
+            "by_k": {r["k"]: {key: r.get(key) for key in keys} for r in rows},
+            "crossover": long["crossover"][kind],
+            "by_q": long["by_q"][kind],
+            "adversarial_unresolved": long["adversarial"][kind],
+        })
+        if kernels[-1]["launches"] < 1 or (kind != "f32" and
+                                          report["offline"]["pool_launches"][kind] < 1):
+            fail(f"a main path never took the pool route of {name}")
+    print(f"[long] phase 2's long lists took {long['seconds']:.1f} s")
     print(json.dumps({"int8": report["int8"]}))
     print(json.dumps({"enrol": enrol}))
     print(json.dumps({"offline": report["offline"]}))

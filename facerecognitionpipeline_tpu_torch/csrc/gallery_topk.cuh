@@ -1,7 +1,7 @@
 // Streaming cosine top-k against a large gallery: the body shared by kernel
 // K3 on bf16 rows (gallery_topk.cu), K3 on float32 rows (gallery_topk_f32.cu)
-// and kernel K4 (int8 codes, gallery_topk_int8.cu), and the kernels that
-// merge their partial results.
+// and kernel K4 (int8 codes, gallery_topk_int8.cu), the kernels that merge
+// their partial results, and the long lists' pool route with its selects.
 //
 // What is computed: for each of Q query rows, the `k` best of G gallery rows
 // by (score descending, row index ascending), where a row's score is its dot
@@ -59,7 +59,8 @@
 //     code; 16 entries live in shared memory (a binary search for the
 //     place, a shift behind it), offered to by the four lanes of the quad in
 //     turn. Longer lists (KL == DEVICE_LISTS: any k up to KMAX) live in
-//     device memory, one sorted list of k entries per query and warpgroup,
+//     device memory (below the pool route's first k, and its unresolved
+//     queries), one sorted list of k entries per query and warpgroup,
 //     owned by the one warp that folds that query. The fold appends what
 //     passes the threshold to a buffer of BUF entries per query in shared
 //     memory; when a buffer fills, and once at the end, the owning warp
@@ -83,7 +84,51 @@
 // Every comparison uses the same strict total order (value descending, then
 // index ascending; gallery indices are unique), so the result does not
 // depend on the order blocks, warpgroups or warps ran in, and ties go to the
-// lower index. No atomics anywhere.
+// lower index.
+//
+// Long lists, from k = ops/gallery_kernel.py's POOL_MIN_K (the pool route,
+// `launch_pool_topk`; the wrapper owns its rule and passes the sample, rank,
+// pool capacity and query blocks as launch arguments). A
+// list per (query, block, warpgroup) sees 1/132 or 1/264 of the gallery and
+// filters nothing until it holds k entries, and every candidate costs O(k)
+// list moves, so the device lists lose to a stored product from k ~ 256. The
+// pool route makes the threshold per query and valid across the whole
+// gallery before the full pass, in four stages, and no step depends on k per
+// candidate:
+//   1. sample: the stream kernel (SAMPLE) scores `walk` whole tiles spread
+//      evenly over the gallery (tile lt * n_tiles / walk: galleries are
+//      stored in enrolment order, so never a prefix) and writes every score
+//      (-inf for an invalid row) to [Q, walk * TM]; `sample_threshold_kernel`
+//      takes T_q, the rank-th best of them (rank about twice the sampled rows
+//      expected above the k-th score, so about 2k rows pass), and zeroes the
+//      query's cursor. The sample is scored by the same instructions as the
+//      gather pass, so both see the same bits;
+//   2. gather: the stream kernel (GATHER) starts each query's threshold at
+//      T_q and never raises it; what passes goes through the 32-entry
+//      buffers of the device lists and, when one fills, into the query's pool
+//      [Q, cap] in device memory at places one atomicAdd on its cursor
+//      reserves. The cursor counts what lies past the capacity too; nothing
+//      is sorted or merged;
+//   3. select (`select_pool_kernel`, a block per query): with n_q pooled and
+//      k <= n_q <= cap (or n_q <= cap and T_q = -inf: the pool holds every
+//      valid row), the k best of the pool by the 64-bit key (the score's
+//      order-preserving bits, then the inverted index): a radix select for
+//      the k-th value (and, where ties straddle it, for the cut among their
+//      indices), the k chosen sorted bitonically in shared memory, written
+//      in order with `q_scale` as the merges do. The pool's order depends on
+//      which block appended first; the result does not: the atomics only
+//      reserve places, every comparison is the strict total order;
+//   4. unresolved queries (n_q < k with T_q above -inf: the sample's
+//      threshold was too high; n_q > cap: too low) take the device lists,
+//      masked per query: the select kernel leaves them a starting threshold
+//      (T_q when n_q >= k, which is then at or below the k-th score; else
+//      -1e9) and +inf to the resolved ones, a block whose query tile holds
+//      none leaves before it streams, and the merge skips resolved queries.
+//      That route runs on a quarter of the gather's blocks so its lists
+//      take a quarter of the device-list route's scratch. The decision is read on the device: no
+//      host synchronisation, so a search inside a captured CUDA graph stays
+//      capturable. Unresolved queries are added to a counter in device
+//      memory.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums; the encoder is looked up at run time
@@ -103,6 +148,12 @@ constexpr int KMAX = SMEM_LIMIT / 16 / 32 * 32;
 constexpr int KREG = 8;               // longest list offered to in registers
 constexpr int KSHARED = 16;           // longest list kept in shared memory
 constexpr int DEVICE_LISTS = 0;       // list length that means: device memory
+// the stream kernel's two modes of the pool route (in place of a length)
+constexpr int SAMPLE = -1;            // every score of the walked tiles, out
+constexpr int GATHER = -2;            // what passes T_q, into the query's pool
+constexpr int SELECT_THREADS = 1024;  // a select block
+constexpr int RADIX_BINS = 2048;      // digits of 11, 11 and 10 bits
+constexpr int SAMPLE_CANDS = 4096;    // sampled keys T_q's select sorts, at most
 constexpr int BUF = 32;               // candidates buffered per query (device lists)
 constexpr int FLUSH_U = 4;            // list entries per lane per merge chunk
 constexpr int TM = 64;                // gallery rows per tile (wgmma N)
@@ -115,6 +166,7 @@ constexpr int THREADS = 384;          // and the producer's warpgroup
 constexpr int MIN_STAGES = 4;         // in all: an even count, half per ring
 constexpr int MAX_STAGES = 16;
 constexpr float NEG = -1e9f;          // score of a masked row, and the sentinel
+constexpr float INF = __builtin_huge_valf();
 constexpr int ENCODE_FAILED = 100000; // + CUresult: the tensor map was refused
 
 __device__ __forceinline__ bool before(float av, int ai, float bv, int bi) {
@@ -433,16 +485,77 @@ __device__ __forceinline__ void flush_list(int r, const DevLists& L, float* thr,
   __syncwarp();
 }
 
-// The fold of one tile into lists in device memory (see fold_tile for the
-// thresholds and the score layout). For each query slot of the thread, the
-// four lanes of a quad append what passed to their query's buffer (a prefix
-// sum over the quad gives each its place); whatever does not fit waits while
-// the warp flushes each full buffer, and is appended after.
+// Where the pool route's gather pass appends: the pools [Q, cap] (values,
+// indices) and the per-query cursors.
+struct Pool {
+  float* v;
+  int* i;
+  int* cursor;
+  int cap;
+};
+
+// Append query row r's buffered candidates (query q of the call) to its
+// pool; the whole warp. One atomicAdd on the query's cursor reserves their
+// places; what lies past the capacity is counted by the cursor and not
+// written.
+__device__ __forceinline__ void flush_pool(int r, int q, const DevLists& L,
+                                           const Pool& P, int lane) {
+  const int n = L.count[r];
+  if (n == 0) return;
+  int at = 0;
+  if (lane == 0) at = atomicAdd(P.cursor + q, n);
+  at = __shfl_sync(0xffffffffu, at, 0) + lane;
+  if (lane < n && at < P.cap) {
+    const long long o = static_cast<long long>(q) * P.cap + at;
+    P.v[o] = L.bv[r * BUF + lane];
+    P.i[o] = L.bi[r * BUF + lane];
+  }
+  __syncwarp();
+  if (lane == 0) L.count[r] = 0;
+  __syncwarp();
+}
+
+// The sample pass's fold: every score of the thread's queries (-inf for an
+// invalid row) to their sample rows, two adjacent gallery rows per 8-byte
+// store; `out` is query row 0 of the call at the tile's first column.
 template <typename Tr>
-__device__ __forceinline__ void fold_tile_dev(
+__device__ __forceinline__ void sample_tile(
+    const typename Tr::Acc (&d)[Tr::ACCS][32], const float (&sc)[16],
+    unsigned vmask, float* out, long long stride, int q0, int Q, int qrow,
+    int cq) {
+#pragma unroll
+  for (int a = 0; a < Tr::ACCS; ++a) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int q = q0 + 64 * a + qrow + 8 * h;
+      if (q >= Q) continue;
+      float* o = out + static_cast<long long>(q) * stride + cq;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        float2 w;
+        w.x = (vmask >> (2 * j)) & 1u ? Tr::score(d[a][4 * j + 2 * h], sc[2 * j])
+                                      : -INF;
+        w.y = (vmask >> (2 * j + 1)) & 1u
+                  ? Tr::score(d[a][4 * j + 1 + 2 * h], sc[2 * j + 1])
+                  : -INF;
+        *reinterpret_cast<float2*>(o + 8 * j) = w;
+      }
+    }
+  }
+}
+
+// The fold of one tile through the candidate buffers (see fold_tile for the
+// thresholds and the score layout): device lists, or the pool route's
+// gather pass. For each query slot of the thread, the four lanes of a quad
+// append what passed to their query's buffer (a prefix sum over the quad
+// gives each its place); whatever does not fit waits while the warp hands
+// each full buffer to `flush(r)` (merged into the list, or appended to the
+// pool), and is appended after.
+template <typename Tr, typename Flush>
+__device__ __forceinline__ void fold_tile_buffered(
     const typename Tr::Acc (&d)[Tr::ACCS][32], const float (&sc)[16],
     unsigned vmask, float* thr, const DevLists& L, int qrow, int i0,
-    int lane) {
+    int lane, Flush flush) {
   constexpr int ACCS = Tr::ACCS;
   unsigned pm[2 * ACCS];
   unsigned any = 0;
@@ -500,7 +613,7 @@ __device__ __forceinline__ void fold_tile_dev(
         while (full != 0) {
           const int src = __ffs(full) - 1;
           full &= full - 1;
-          flush_list(__shfl_sync(0xffffffffu, r, src), L, thr, lane);
+          flush(__shfl_sync(0xffffffffu, r, src));
         }
       }
     }
@@ -827,7 +940,8 @@ struct F32Traits {
 // (values, then indices; kl the list length the kernel was built for) or,
 // for lists in device memory, their candidate buffers [2][QT][BUF] (values,
 // then indices), the buffers' counts [2][QT] and the lists' fills [2][QT];
-// the thresholds [QT], the barriers (full then empty, per stage).
+// the thresholds [QT], the barriers (full then empty, per stage). The pool
+// route's launches keep the device lists' layout (kl = DEVICE_LISTS).
 // ops/gallery_kernel.py::gallery_launch_geometry computes the same sum.
 template <typename Tr>
 struct Layout {
@@ -845,11 +959,24 @@ struct Layout {
   }
 };
 
+// What a launch walks and where the pool route's modes write: `thr0` [Q]
+// the queries' starting thresholds (null: -1e9; +inf: a query this launch
+// leaves alone), `sample` [Q, walk * TM] (SAMPLE), the pools (GATHER), and
+// `walk` the tiles walked: n_tiles, or the sample's, tile lt being gallery
+// tile lt * n_tiles / walk.
+struct Walk {
+  const float* thr0;
+  float* sample;
+  Pool pool;
+  long long walk;
+};
+
 // queries [Q, D] (Tr::QIn), the gallery [G, D] through `gmap` (box TM rows x
 // 128 bytes, 128-byte swizzle, zeros outside), scales [G] or null, valid [G]
 // bytes -> part_v / part_i: with lists of KL entries [Q, gridDim.x, KL], the
 // KL best per query and block; with KL == DEVICE_LISTS [Q, 2 gridDim.x, k],
-// the k best per query, block and warpgroup (the lists themselves). D % 32
+// the k best per query, block and warpgroup (the lists themselves); with
+// KL == SAMPLE or GATHER the pool route's stages 1 and 2 (`Walk`). D % 32
 // == 0; queries, scales and valid 16-byte aligned; `stages` even. KL is a
 // template parameter because the list code is unrolled: its length decides
 // what an insertion costs and where the list is kept.
@@ -860,12 +987,21 @@ __global__ void __launch_bounds__(THREADS, 1)
                        const float* __restrict__ scales,
                        const unsigned char* __restrict__ valid,
                        float* __restrict__ part_v, int* __restrict__ part_i,
-                       int Q, int G, int D, int k, int stages) {
+                       const Walk wk, int Q, int G, int D, int k, int stages) {
   using Acc = typename Tr::Acc;
   constexpr bool DEV = KL == DEVICE_LISTS;
-  constexpr int kl = DEV ? BUF : KL;  // entries per query in shared memory
+  constexpr bool BUFFERED = KL <= 0;  // device lists' layout: all but short lists
+  constexpr int kl = BUFFERED ? BUF : KL;  // entries per query in shared memory
   constexpr int QT = Tr::QT;
   constexpr int ACCS = Tr::ACCS;
+  const int q0 = blockIdx.y * QT;
+
+  // a block whose queries this launch leaves alone (the unresolved route's
+  // resolved queries) returns before it stages anything
+  if (wk.thr0 != nullptr &&
+      !__syncthreads_or(threadIdx.x < QT && q0 + threadIdx.x < Q &&
+                        wk.thr0[q0 + threadIdx.x] != INF))
+    return;
 
   extern __shared__ unsigned char smem_raw[];
   unsigned char* sm =
@@ -877,12 +1013,16 @@ __global__ void __launch_bounds__(THREADS, 1)
   unsigned char* side = ring + stages * STAGE_BYTES;
   float* lv = reinterpret_cast<float*>(side + stages * SIDE_BYTES);
   int* li = reinterpret_cast<int*>(lv + CONSUMER_WGS * QT * kl);
-  int* counts = li + CONSUMER_WGS * QT * kl;  // device lists: count, fill
-  float* thr = reinterpret_cast<float*>(counts + (DEV ? 2 * CONSUMER_WGS * QT : 0));
+  int* counts = li + CONSUMER_WGS * QT * kl;  // buffers' counts, lists' fills
+  float* thr = reinterpret_cast<float*>(counts + (BUFFERED ? 2 * CONSUMER_WGS * QT : 0));
   const uint32_t bars = smem_u32(thr + QT);  // full[stages], empty[stages]
 
-  const int q0 = blockIdx.y * QT;
   const long long n_tiles = (static_cast<long long>(G) + TM - 1) / TM;
+  // the gallery tile of walked tile lt: itself, or the sample's spread
+  const long long walk = wk.walk;
+  auto tile_of = [&](long long lt) {
+    return walk == n_tiles ? lt : lt * n_tiles / walk;
+  };
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int wg = warp / 4;
@@ -902,7 +1042,7 @@ __global__ void __launch_bounds__(THREADS, 1)
       Tr::stage_chunk(src, qs + (ch / 8) * Tr::QPANEL_BYTES, r, ch % 8);
     }
   }
-  if constexpr (DEV) {
+  if constexpr (BUFFERED) {
     for (int p = threadIdx.x; p < 2 * CONSUMER_WGS * QT; p += THREADS) counts[p] = 0;
   } else {
     for (int p = threadIdx.x; p < CONSUMER_WGS * QT * kl; p += THREADS) {
@@ -910,9 +1050,12 @@ __global__ void __launch_bounds__(THREADS, 1)
       li[p] = 0;
     }
   }
-  // a query row past Q is never offered anything
+  // a query row past Q is never offered anything; the pool route's launches
+  // start from their per-query thresholds
   if (threadIdx.x < QT)
-    thr[threadIdx.x] = (q0 + threadIdx.x < Q) ? NEG : __int_as_float(0x7f800000);
+    thr[threadIdx.x] = q0 + threadIdx.x >= Q ? INF
+                       : wk.thr0 != nullptr  ? wk.thr0[q0 + threadIdx.x]
+                                             : NEG;
   if (threadIdx.x == 0) {
     for (int s = 0; s < stages; ++s) {
       mbar_init(bars + 8 * s, 1);             // the producer
@@ -933,13 +1076,13 @@ __global__ void __launch_bounds__(THREADS, 1)
     // folding holds back only its own ring.
     auto feed = [&](const int w, long long& tile, int& p, int& s,
                     uint32_t& ph) {
-      if (tile >= n_tiles) return;
+      if (tile >= walk) return;
       const int at = w * half + s;
       const uint32_t empty = bars + 8 * (stages + at);
       if (!__any_sync(0xffffffffu, mbar_test(empty, ph ^ 1))) return;
       mbar_wait(empty, ph ^ 1);  // every lane has seen the stage free
       const uint32_t full = bars + 8 * at;
-      const int row0 = static_cast<int>(tile * TM);
+      const int row0 = static_cast<int>(tile_of(tile) * TM);
       const bool whole = row0 + TM <= G;
       unsigned char* sd = side + at * SIDE_BYTES;
       uint32_t bytes = STAGE_BYTES;
@@ -979,7 +1122,7 @@ __global__ void __launch_bounds__(THREADS, 1)
     long long t0 = blockIdx.x, t1 = t0 + gridDim.x;
     int p0 = 0, p1 = 0, s0 = 0, s1 = 0;
     uint32_t ph0 = 0, ph1 = 0;
-    while (t0 < n_tiles || t1 < n_tiles) {
+    while (t0 < walk || t1 < walk) {
       feed(0, t0, p0, s0, ph0);
       feed(1, t1, p1, s1, ph1);
     }
@@ -1009,7 +1152,7 @@ __global__ void __launch_bounds__(THREADS, 1)
     int s = 0;
     uint32_t ph = 0;
     for (long long tile = blockIdx.x + static_cast<long long>(wg) * gridDim.x;
-         tile < n_tiles; tile += 2 * gridDim.x) {
+         tile < walk; tile += 2 * gridDim.x) {
       unsigned vmask = 0;  // bit 2 j + e: gallery row 8 j + cq + e is valid
       float sc[16];        // and its scale
 #pragma unroll
@@ -1079,22 +1222,40 @@ __global__ void __launch_bounds__(THREADS, 1)
 #pragma unroll
       for (int a = 0; a < ACCS; ++a) acc_fence(d[a]);
 
-      const int i0 = static_cast<int>(tile * TM) + cq;
+      const int i0 = static_cast<int>(tile_of(tile) * TM) + cq;
       if constexpr (DEV) {
-        fold_tile_dev<Tr>(d, sc, vmask, thr, dl, qrow, i0, lane);
+        fold_tile_buffered<Tr>(d, sc, vmask, thr, dl, qrow, i0, lane,
+                               [&](int r) { flush_list(r, dl, thr, lane); });
+      } else if constexpr (KL == GATHER) {
+        fold_tile_buffered<Tr>(
+            d, sc, vmask, thr, dl, qrow, i0, lane,
+            [&](int r) { flush_pool(r, q0 + r, dl, wk.pool, lane); });
+      } else if constexpr (KL == SAMPLE) {
+        sample_tile<Tr>(d, sc, vmask, wk.sample + tile * TM, walk * TM, q0, Q,
+                        qrow, cq);
       } else {
         fold_tile<Tr, KL>(d, sc, vmask, thr, my_v, my_i, qrow, i0, lane);
       }
     }
 
-    if constexpr (DEV) {
-      // the warp's last flushes, then sentinels behind each list's entries
-      // (row r of an A block: 64 a + 16 (warp & 3) + quad + 8 h)
+    if constexpr (KL == GATHER) {
+      // the warp's last appends (row r of an A block as below)
 #pragma unroll
       for (int a = 0; a < ACCS; ++a) {
         for (int slot = 0; slot < 16; ++slot) {
           const int r = 64 * a + 16 * (warp & 3) + (slot & 7) + 8 * (slot >> 3);
-          if (q0 + r >= Q) continue;
+          if (q0 + r < Q) flush_pool(r, q0 + r, dl, wk.pool, lane);
+        }
+      }
+    } else if constexpr (DEV) {
+      // the warp's last flushes, then sentinels behind each list's entries
+      // (row r of an A block: 64 a + 16 (warp & 3) + quad + 8 h); a query
+      // this launch leaves alone keeps no list
+#pragma unroll
+      for (int a = 0; a < ACCS; ++a) {
+        for (int slot = 0; slot < 16; ++slot) {
+          const int r = 64 * a + 16 * (warp & 3) + (slot & 7) + 8 * (slot >> 3);
+          if (q0 + r >= Q || (wk.thr0 != nullptr && wk.thr0[q0 + r] == INF)) continue;
           flush_list(r, dl, thr, lane);
           float* gv = dl.lv + r * dl.stride;
           int* gi = dl.li + r * dl.stride;
@@ -1104,7 +1265,7 @@ __global__ void __launch_bounds__(THREADS, 1)
           }
         }
       }
-    } else {
+    } else if constexpr (KL > 0) {
       // the two warpgroups' lists of a query -> the block's list, in scratch
       asm volatile("bar.sync 1, 256;\n" ::: "memory");
       const int r = threadIdx.x;
@@ -1218,13 +1379,17 @@ __global__ void merge_topk_kernel(const float* __restrict__ part_v,
 // by a binary search along the merge path's diagonal, then takes its
 // outputs in order. List m keeps the ties (only sentinels tie), and
 // a + b = o < k keeps both cursors inside their lists. The last level's
-// list 0 is the answer; `q_scale` as in merge_topk_kernel.
+// list 0 is the answer; `q_scale` as in merge_topk_kernel. With `skip` [Q]
+// (the pool route's unresolved route) a query whose entry is +inf was
+// answered by the select kernel and its block leaves at once.
 __global__ void merge_lists_kernel(float* __restrict__ part_v,
                                    int* __restrict__ part_i,
                                    float* __restrict__ out_v,
                                    long long* __restrict__ out_i,
-                                   const float* __restrict__ q_scale, int P,
+                                   const float* __restrict__ q_scale,
+                                   const float* __restrict__ skip, int P,
                                    int k) {
+  if (skip != nullptr && skip[blockIdx.x] == INF) return;
   extern __shared__ float4 merge_smem[];
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int W = blockDim.x / 32;
@@ -1282,6 +1447,288 @@ __global__ void merge_lists_kernel(float* __restrict__ part_v,
   }
 }
 
+// ---- the pool route's selects ---------------------------------------------
+
+// A float's order-preserving key (-0 taken as +0, which compares equal to
+// it), and back.
+__device__ __forceinline__ uint32_t order_key(float v) {
+  const uint32_t u = __float_as_uint(v == 0.0f ? 0.0f : v);
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+__device__ __forceinline__ float key_value(uint32_t e) {
+  return __uint_as_float((e & 0x80000000u) ? (e & 0x7fffffffu) : ~e);
+}
+
+struct SelectShared {
+  int hist[RADIX_BINS];
+  uint32_t digit;
+  int above;
+  int equal;
+};
+
+// The rank-th largest (1 <= rank <= the number of eligible keys) of the
+// 32-bit keys that get(i, key) marks eligible, i < n; the whole block. Three
+// passes of 11, 11 and 10 bits, each a histogram of the eligible keys that
+// share the digits found so far (lanes with the same digit add once, by
+// __match_any_sync; the keys of a pass crowd into few bins); one warp finds
+// the digit that holds the rank. Returns the key; *above counts the
+// eligible keys larger than it, *equal those equal to it.
+template <typename Get>
+__device__ uint32_t radix_select(Get get, int n, int rank, SelectShared& sh,
+                                 int* above, int* equal) {
+  const int lane = threadIdx.x % 32;
+  uint32_t prefix = 0, mask = 0;
+  int above_all = 0;
+  for (int pass = 0; pass < 3; ++pass) {
+    const int shift = pass == 0 ? 21 : (pass == 1 ? 10 : 0);
+    const uint32_t dmask = pass == 2 ? 0x3ffu : 0x7ffu;
+    for (int b = threadIdx.x; b < RADIX_BINS; b += blockDim.x) sh.hist[b] = 0;
+    __syncthreads();
+    for (int base = threadIdx.x - lane; base < n; base += blockDim.x) {
+      const int i = base + lane;
+      uint32_t key = 0;
+      const bool ok = i < n && get(i, key) && (key & mask) == prefix;
+      const uint32_t digit = ok ? (key >> shift) & dmask : 0xffffffffu;
+      const unsigned peers = __match_any_sync(0xffffffffu, digit);
+      if (ok && lane == __ffs(peers) - 1) atomicAdd(&sh.hist[digit], __popc(peers));
+    }
+    __syncthreads();
+    if (threadIdx.x < 32) {
+      constexpr int PER = RADIX_BINS / 32;  // bins of a lane; lane 31 the top
+      int sum = 0;
+      for (int b = 0; b < PER; ++b) sum += sh.hist[lane * PER + b];
+      int incl = sum;  // keys in the bins of this lane and the lanes above
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const int o = __shfl_down_sync(0xffffffffu, incl, off);
+        if (lane + off < 32) incl += o;
+      }
+      if (incl - sum < rank && rank <= incl) {  // the rank lies in this lane's bins
+        int acc = incl - sum;
+        int b = PER - 1;
+        for (; b > 0; --b) {
+          const int c = sh.hist[lane * PER + b];
+          if (acc + c >= rank) break;
+          acc += c;
+        }
+        sh.digit = lane * PER + b;
+        sh.above = acc;
+        sh.equal = sh.hist[lane * PER + b];
+      }
+    }
+    __syncthreads();
+    prefix |= sh.digit << shift;
+    mask |= dmask << shift;
+    rank -= sh.above;
+    above_all += sh.above;
+    *equal = sh.equal;
+    __syncthreads();  // every thread has read sh before the next pass
+  }
+  *above = above_all;
+  return prefix;
+}
+
+// keys[0, n) sorted descending in shared memory, n a power of two; the
+// whole block.
+template <typename K>
+__device__ void bitonic_desc(K* keys, int n) {
+  for (int size = 2; size <= n; size <<= 1) {
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      for (int u = threadIdx.x; u < n / 2; u += blockDim.x) {
+        const int a = 2 * u - (u & (stride - 1));
+        const int b = a + stride;
+        const K x = keys[a], y = keys[b];
+        if ((x < y) == ((a & size) == 0)) {  // descending where a & size == 0
+          keys[a] = y;
+          keys[b] = x;
+        }
+      }
+      __syncthreads();
+    }
+  }
+}
+
+__device__ __forceinline__ uint32_t max_key(const float4& v) {
+  return max(max(order_key(v.x), order_key(v.y)), max(order_key(v.z), order_key(v.w)));
+}
+
+// Stage 1's select: T_q = the rank-th best of query q's sample row
+// sample[q, 0:S] (-inf where fewer than rank are valid; S a multiple of 4),
+// one block per query; the query's pool cursor is zeroed for stage 2. First
+// each thread's largest key over its 16-byte chunks t, t + T, ... (four
+// loads in flight): at least rank keys reach L, the rank-th largest of
+// those maxima (rank <= the block's T threads), and only about rank more do
+// on a random gallery, so the keys at or above L are gathered into shared
+// memory and sorted. Where more than SAMPLE_CANDS reach L (ties, a sample
+// of mostly invalid rows) the radix select over the whole row answers
+// instead.
+__global__ void __launch_bounds__(SELECT_THREADS)
+    sample_threshold_kernel(const float* __restrict__ sample, int S, int rank,
+                            float* __restrict__ thr, int* __restrict__ cursor) {
+  __shared__ SelectShared sh;
+  __shared__ uint32_t cand[SAMPLE_CANDS];
+  __shared__ int n_cand;
+  const int q = blockIdx.x;
+  const float* row = sample + static_cast<long long>(q) * S;
+  const float4* row4 = reinterpret_cast<const float4*>(row);
+  const int S4 = S / 4;
+  const int T = blockDim.x;
+  float t = -INF;
+  if (rank <= S) {
+    uint32_t best = 0;  // below every float's key
+    int c = threadIdx.x;
+    for (; c + 3 * T < S4; c += 4 * T) {
+      const float4 a = row4[c], b = row4[c + T], d = row4[c + 2 * T], e = row4[c + 3 * T];
+      best = max(best, max(max(max_key(a), max_key(b)), max(max_key(d), max_key(e))));
+    }
+    for (; c < S4; c += T) best = max(best, max_key(row4[c]));
+    cand[threadIdx.x] = best;
+    if (threadIdx.x == 0) n_cand = 0;
+    __syncthreads();
+    bitonic_desc(cand, SELECT_THREADS);
+    const uint32_t low = cand[rank - 1];
+    __syncthreads();
+    const int lane = threadIdx.x % 32;
+    for (int base = threadIdx.x - lane; base < S4; base += T) {
+      const int c4 = base + lane;
+      float4 v = make_float4(-INF, -INF, -INF, -INF);
+      if (c4 < S4) v = row4[c4];
+      const float x[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const uint32_t key = order_key(x[u]);
+        const bool ok = c4 < S4 && key >= low;
+        const unsigned m = __ballot_sync(0xffffffffu, ok);
+        if (m == 0) continue;
+        int at = 0;
+        if (lane == 0) at = atomicAdd(&n_cand, __popc(m));
+        at = __shfl_sync(0xffffffffu, at, 0) + __popc(m & ((1u << lane) - 1u));
+        if (ok && at < SAMPLE_CANDS) cand[at] = key;
+      }
+    }
+    __syncthreads();
+    const int n = n_cand;
+    if (n <= SAMPLE_CANDS) {
+      int pad = 32;
+      while (pad < n) pad <<= 1;
+      for (int j = n + threadIdx.x; j < pad; j += blockDim.x) cand[j] = 0u;
+      __syncthreads();
+      bitonic_desc(cand, pad);
+      t = key_value(cand[rank - 1]);
+    } else {
+      int above, equal;
+      t = key_value(radix_select(
+          [&](int i, uint32_t& key) {
+            key = order_key(row[i]);
+            return true;
+          },
+          S, rank, sh, &above, &equal));
+    }
+  }
+  if (threadIdx.x == 0) {
+    thr[q] = t;
+    cursor[q] = 0;
+  }
+}
+
+// Stage 3: query q's pool (n_q = cursor[q] appended, the first min(n_q, cap)
+// at pool_v / pool_i [Q, cap]) -> out_v / out_i [Q, k], one block per query.
+// The query is resolved when n_q <= cap and either n_q >= k or T_q = -inf
+// (then the pool holds every valid row, and slots past n_q get sentinels);
+// `force` sends every query to the unresolved route. An unresolved query
+// gets its starting threshold for that route in thr_unres (T_q when n_q >= k:
+// then more than k rows reach T_q, so it is at or below the k-th score;
+// else -1e9) and one count in *unresolved; a resolved one gets +inf. The k
+// best by (value descending, index ascending): the k-th value by a radix
+// select of the order-preserving keys; where its ties straddle the cut, the
+// cut among their indices by a second select of the inverted indices; the k
+// chosen gathered into shared memory as 64-bit keys (value key, inverted
+// index) and sorted bitonically over `sort_n` (a power of two >= k),
+// descending; `q_scale` as in merge_topk_kernel.
+__global__ void __launch_bounds__(SELECT_THREADS)
+    select_pool_kernel(const float* __restrict__ pool_v,
+                       const int* __restrict__ pool_i,
+                       const int* __restrict__ cursor,
+                       const float* __restrict__ thr, int cap, int k, int sort_n,
+                       const float* __restrict__ q_scale, float* __restrict__ out_v,
+                       long long* __restrict__ out_i, float* __restrict__ thr_unres,
+                       unsigned long long* __restrict__ unresolved, int force) {
+  extern __shared__ unsigned long long sel_keys[];  // [sort_n]
+  __shared__ SelectShared sh;
+  __shared__ int taken;
+  const int q = blockIdx.x;
+  const int n = cursor[q];
+  const float t = thr[q];
+  const bool complete = t == -INF;
+  if (force != 0 || n > cap || (n < k && !complete)) {
+    if (threadIdx.x == 0) {
+      thr_unres[q] = n >= k ? t : NEG;
+      atomicAdd(unresolved, 1ull);
+    }
+    return;
+  }
+  if (threadIdx.x == 0) {
+    thr_unres[q] = INF;
+    taken = 0;
+  }
+  const float* pv = pool_v + static_cast<long long>(q) * cap;
+  const int* pi = pool_i + static_cast<long long>(q) * cap;
+  uint32_t vcut = 0, icut = 0;  // chosen: key > vcut, or == vcut and ~index >= icut
+  if (n > k) {
+    int above, equal;
+    vcut = radix_select(
+        [&](int i, uint32_t& key) {
+          key = order_key(pv[i]);
+          return true;
+        },
+        n, k, sh, &above, &equal);
+    const int need = k - above;  // of the ties at the k-th value
+    if (equal > need) {
+      int a2, e2;
+      icut = radix_select(
+          [&](int i, uint32_t& key) {
+            key = ~static_cast<uint32_t>(pi[i]);
+            return order_key(pv[i]) == vcut;
+          },
+          n, need, sh, &a2, &e2);
+    }
+  }
+  __syncthreads();
+  const int lane = threadIdx.x % 32;
+  for (int base = threadIdx.x - lane; base < n; base += blockDim.x) {
+    const int i = base + lane;
+    uint32_t key = 0, inv = 0;
+    if (i < n) {
+      key = order_key(pv[i]);
+      inv = ~static_cast<uint32_t>(pi[i]);
+    }
+    const bool ok = i < n && (key > vcut || (key == vcut && inv >= icut));
+    const unsigned m = __ballot_sync(0xffffffffu, ok);
+    int at = 0;
+    if (lane == 0 && m != 0) at = atomicAdd(&taken, __popc(m));
+    at = __shfl_sync(0xffffffffu, at, 0) + __popc(m & ((1u << lane) - 1u));
+    if (ok) sel_keys[at] = (static_cast<unsigned long long>(key) << 32) | inv;
+  }
+  __syncthreads();
+  const int m = taken;  // min(n, k)
+  for (int j = m + threadIdx.x; j < sort_n; j += blockDim.x) sel_keys[j] = 0ull;
+  __syncthreads();
+  bitonic_desc(sel_keys, sort_n);
+  const float qs = q_scale != nullptr ? q_scale[q] : 1.0f;
+  for (int j = threadIdx.x; j < k; j += blockDim.x) {
+    float v = NEG;
+    long long ix = 0;
+    if (j < m) {
+      const unsigned long long key = sel_keys[j];
+      v = key_value(static_cast<uint32_t>(key >> 32));
+      ix = static_cast<long long>(~static_cast<uint32_t>(key));
+    }
+    out_v[static_cast<long long>(q) * k + j] =
+        (q_scale != nullptr && v > NEG) ? __fmul_rn(v, qs) : v;
+    out_i[static_cast<long long>(q) * k + j] = ix;
+  }
+}
+
 // Warps of merge_lists_kernel for lists of k: as many as shared memory holds
 // (16 k bytes each), at most 32.
 inline int merge_lists_warps(int k) {
@@ -1323,6 +1770,7 @@ inline int tensor_map_encoder(EncodeTiledFn* out) {
 // lists in device memory (DEVICE_LISTS). On an H100 the device lists beat
 // lists of 32 and 64 in shared memory at k = 33 and 64, and lose to the
 // list of 16 at k = 16 (PERF.md); ops/gallery_kernel.py holds the same rule.
+// The pool route (`launch_pool_topk`) keeps the device lists' layout.
 inline int list_length(int k) {
   if (k > KSHARED) return DEVICE_LISTS;
   if (k <= 4) return k;
@@ -1333,11 +1781,12 @@ inline int list_length(int k) {
 
 // The merge kernel after a stream kernel. Short lists: one block per query,
 // one thread per block list, rounded up to whole warps. Lists in device
-// memory: one block per query, merge_lists_warps(k) warps.
+// memory: one block per query, merge_lists_warps(k) warps (`skip` as in
+// merge_lists_kernel).
 inline cudaError_t launch_merge(float* part_v, int* part_i, float* out_v,
                                 long long* out_i, const float* q_scale,
-                                int grid_x, int kl, int Q, int k,
-                                cudaStream_t st) {
+                                const float* skip, int grid_x, int kl, int Q,
+                                int k, cudaStream_t st) {
   if (kl == DEVICE_LISTS) {
     const int warps = merge_lists_warps(k);
     const int smem = warps * 16 * k;
@@ -1345,7 +1794,7 @@ inline cudaError_t launch_merge(float* part_v, int* part_i, float* out_v,
         merge_lists_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
     merge_lists_kernel<<<Q, 32 * warps, smem, st>>>(part_v, part_i, out_v,
-                                                    out_i, q_scale,
+                                                    out_i, q_scale, skip,
                                                     2 * grid_x, k);
     return cudaGetLastError();
   }
@@ -1360,16 +1809,44 @@ template <typename Tr, int KL>
 cudaError_t launch_stream(const CUtensorMap& gmap,
                           const typename Tr::QIn* queries, const float* scales,
                           const unsigned char* valid, float* part_v,
-                          int* part_i, int Q, int G, int D, int k, int grid_x,
-                          int stages, int smem_bytes, cudaStream_t st) {
+                          int* part_i, const Walk& wk, int Q, int G, int D,
+                          int k, int grid_x, int stages, int smem_bytes,
+                          cudaStream_t st) {
   const cudaError_t err = cudaFuncSetAttribute(
       stream_topk_kernel<Tr, KL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem_bytes);
   if (err != cudaSuccess) return err;
   const int q_tiles = (Q + Tr::QT - 1) / Tr::QT;
   stream_topk_kernel<Tr, KL><<<dim3(grid_x, q_tiles), THREADS, smem_bytes, st>>>(
-      gmap, queries, scales, valid, part_v, part_i, Q, G, D, k, stages);
+      gmap, queries, scales, valid, part_v, part_i, wk, Q, G, D, k, stages);
   return cudaGetLastError();
+}
+
+// The checks every launch shares and the gallery's tensor map: 0, a
+// cudaError_t, or ENCODE_FAILED + the CUresult.
+template <typename Tr>
+int prepare_stream(const void* gallery, int Q, int G, int D, int k, int grid_x,
+                   int stages, int smem_bytes, int kl, CUtensorMap* gmap) {
+  if (Q <= 0 || G <= 0 || D <= 0 || D % 32 != 0 || k < 1 || k > KMAX ||
+      grid_x < 1 || stages < MIN_STAGES || stages > MAX_STAGES ||
+      stages % 2 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (static_cast<size_t>(smem_bytes) != Layout<Tr>::bytes(D, kl, stages))
+    return static_cast<int>(cudaErrorInvalidValue);
+  EncodeTiledFn encode = nullptr;
+  const int found = tensor_map_encoder(&encode);
+  if (found != 0) return found;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(D),
+                              static_cast<cuuint64_t>(G)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(D) * Tr::ELEM};
+  const cuuint32_t box[2] = {PANEL_BYTES / Tr::ELEM, TM};
+  const cuuint32_t elem_strides[2] = {1, 1};
+  const CUresult enc = encode(
+      gmap, Tr::MAP_TYPE, 2, const_cast<void*>(gallery), dims, strides, box,
+      elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  if (enc != CUDA_SUCCESS) return ENCODE_FAILED + static_cast<int>(enc);
+  return 0;
 }
 
 // Launch both kernels on `stream`. grid_x blocks share the gallery tiles of
@@ -1386,35 +1863,20 @@ int launch_stream_topk(const typename Tr::QIn* queries, const void* gallery,
                        long long* out_i, const float* q_scale, int Q, int G,
                        int D, int k, int grid_x, int stages,
                        int smem_bytes, void* stream) {
-  if (Q <= 0 || G <= 0 || D <= 0 || D % 32 != 0 || k < 1 || k > KMAX ||
-      grid_x < 1 || stages < MIN_STAGES || stages > MAX_STAGES ||
-      stages % 2 != 0)
-    return static_cast<int>(cudaErrorInvalidValue);
   const int kl = list_length(k);
-  if (static_cast<size_t>(smem_bytes) != Layout<Tr>::bytes(D, kl, stages))
-    return static_cast<int>(cudaErrorInvalidValue);
-
-  EncodeTiledFn encode = nullptr;
-  const int found = tensor_map_encoder(&encode);
-  if (found != 0) return found;
   CUtensorMap gmap;
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(D),
-                              static_cast<cuuint64_t>(G)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(D) * Tr::ELEM};
-  const cuuint32_t box[2] = {PANEL_BYTES / Tr::ELEM, TM};
-  const cuuint32_t elem_strides[2] = {1, 1};
-  const CUresult enc = encode(
-      &gmap, Tr::MAP_TYPE, 2, const_cast<void*>(gallery), dims, strides, box,
-      elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  if (enc != CUDA_SUCCESS) return ENCODE_FAILED + static_cast<int>(enc);
-
+  const int prep = prepare_stream<Tr>(gallery, Q, G, D, k, grid_x, stages,
+                                      smem_bytes, kl, &gmap);
+  if (prep != 0) return prep;
+  const Walk every{nullptr, nullptr, Pool{nullptr, nullptr, nullptr, 0},
+                   (static_cast<long long>(G) + TM - 1) / TM};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;
 #define FRP_LAUNCH(KL)                                                        \
   case KL:                                                                    \
     err = launch_stream<Tr, KL>(gmap, queries, scales, valid, part_v, part_i, \
-                                Q, G, D, k, grid_x, stages, smem_bytes, st);  \
+                                every, Q, G, D, k, grid_x, stages,            \
+                                smem_bytes, st);                              \
     break
   switch (kl) {
     FRP_LAUNCH(DEVICE_LISTS);
@@ -1427,8 +1889,86 @@ int launch_stream_topk(const typename Tr::QIn* queries, const void* gallery,
   }
 #undef FRP_LAUNCH
   if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(
-      launch_merge(part_v, part_i, out_v, out_i, q_scale, grid_x, kl, Q, k, st));
+  return static_cast<int>(launch_merge(part_v, part_i, out_v, out_i, q_scale,
+                                       nullptr, grid_x, kl, Q, k, st));
+}
+
+// Where the pool route keeps its state in device memory (the wrapper
+// allocates it, gallery_launch_geometry sizes it): the sample [Q,
+// sample_tiles * TM], T_q [Q], the unresolved route's starting thresholds
+// [Q], the cursors [Q], the pools [Q, cap] (values, indices), that route's
+// lists [Q, 2 grid_x_u, k] (values, indices), and the running count of
+// unresolved queries.
+struct PoolScratch {
+  float* sample;
+  float* thr;
+  float* thr_unres;
+  int* cursor;
+  float* pool_v;
+  int* pool_i;
+  float* part_v;
+  int* part_i;
+  unsigned long long* unresolved;
+};
+
+// The pool route (stages 1-4 above) on `stream`, six launches and no host
+// synchronisation: the sample pass on min(grid_x, sample_tiles) blocks per
+// query tile, its select (T_q at `rank`), the gather pass on grid_x blocks,
+// the select of the pools (sort over `sort_n`, a power of two >= k), the
+// device lists of the unresolved queries on grid_x_u blocks per query tile
+// and their merge. k in (KSHARED, KMAX], 1 <= sample_tiles <= the gallery's
+// tiles, 1 <= rank <= SELECT_THREADS, cap >= k; `force` sends every query to
+// the unresolved route. Returns as launch_stream_topk.
+template <typename Tr>
+int launch_pool_topk(const typename Tr::QIn* queries, const void* gallery,
+                     const float* scales, const unsigned char* valid,
+                     const PoolScratch& w, float* out_v, long long* out_i,
+                     const float* q_scale, int Q, int G, int D, int k,
+                     int grid_x, int grid_x_u, int stages, int smem_bytes,
+                     int sample_tiles, int rank, int cap, int sort_n, int force,
+                     void* stream) {
+  const long long n_tiles = (static_cast<long long>(G) + TM - 1) / TM;
+  if (k <= KSHARED || grid_x_u < 1 || sample_tiles < 1 || sample_tiles > n_tiles ||
+      rank < 1 || rank > SELECT_THREADS || cap < k || sort_n < k ||
+      sort_n > 2 * KMAX || (sort_n & (sort_n - 1)) != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap gmap;
+  const int prep = prepare_stream<Tr>(gallery, Q, G, D, k, grid_x, stages,
+                                      smem_bytes, DEVICE_LISTS, &gmap);
+  if (prep != 0) return prep;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Pool none{nullptr, nullptr, nullptr, 0};
+  // 1. the sample and T_q
+  const Walk sample{nullptr, w.sample, none, sample_tiles};
+  cudaError_t err = launch_stream<Tr, SAMPLE>(
+      gmap, queries, scales, valid, nullptr, nullptr, sample, Q, G, D, k,
+      grid_x < sample_tiles ? grid_x : sample_tiles, stages, smem_bytes, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  sample_threshold_kernel<<<Q, SELECT_THREADS, 0, st>>>(
+      w.sample, sample_tiles * TM, rank, w.thr, w.cursor);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  // 2. the gather pass
+  const Walk gather{w.thr, nullptr, Pool{w.pool_v, w.pool_i, w.cursor, cap}, n_tiles};
+  err = launch_stream<Tr, GATHER>(gmap, queries, scales, valid, nullptr, nullptr,
+                                  gather, Q, G, D, k, grid_x, stages, smem_bytes, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // 3. the select
+  const int sel_smem = sort_n * 8;
+  err = cudaFuncSetAttribute(select_pool_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, sel_smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  select_pool_kernel<<<Q, SELECT_THREADS, sel_smem, st>>>(
+      w.pool_v, w.pool_i, w.cursor, w.thr, cap, k, sort_n, q_scale, out_v, out_i,
+      w.thr_unres, w.unresolved, force);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  // 4. the unresolved queries on the device lists, and their merge
+  const Walk unresolved{w.thr_unres, nullptr, none, n_tiles};
+  err = launch_stream<Tr, DEVICE_LISTS>(gmap, queries, scales, valid, w.part_v,
+                                        w.part_i, unresolved, Q, G, D, k, grid_x_u,
+                                        stages, smem_bytes, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(launch_merge(w.part_v, w.part_i, out_v, out_i, q_scale,
+                                       w.thr_unres, grid_x_u, DEVICE_LISTS, Q, k, st));
 }
 
 }  // namespace frp

@@ -26,7 +26,8 @@
 //
 // Layouts: queries [Q, D] f32 (already unit rows), templates [G, D] f32,
 // valid [G] bytes, part_v / part_i [Q, grid_x, list length] or [Q, 2 grid_x,
-// k] scratch, out_v [Q, k] f32, out_i [Q, k] int64.
+// k] scratch (on the pool route, its state,
+// `frp::PoolScratch`), out_v [Q, k] f32, out_i [Q, k] int64.
 #include "gallery_topk.cuh"
 
 // Query rows one block handles; the wrapper sizes the launch by it.
@@ -45,4 +46,21 @@ extern "C" int frp_gallery_topk_f32(const float* queries, const void* templates,
   return frp::launch_stream_topk<frp::F32Traits>(
       queries, templates, nullptr, valid, part_v, part_i, out_v, out_i, nullptr,
       Q, G, D, k, grid_x, stages, smem_bytes, stream);
+}
+
+// The pool route (gallery_topk.cuh, `launch_pool_topk`): six launches on
+// `stream`, no host synchronisation; returns as frp_gallery_topk_f32.
+extern "C" int frp_gallery_topk_f32_pool(
+    const float* queries, const void* templates,     const unsigned char* valid, float* sample, float* thr, float* thr_unres,
+    int* cursor, float* pool_v, int* pool_i, float* part_v, int* part_i,
+    float* out_v, long long* out_i, unsigned long long* unresolved,
+    int Q, int G, int D, int k, int grid_x, int grid_x_u, int stages,
+    int smem_bytes, int sample_tiles, int rank, int cap, int sort_n, int force,
+    void* stream) {
+  const frp::PoolScratch w{sample, thr, thr_unres, cursor, pool_v, pool_i,
+                           part_v, part_i, unresolved};
+  return frp::launch_pool_topk<frp::F32Traits>(
+      queries, templates, nullptr, valid, w, out_v, out_i, nullptr, Q, G, D,
+      k, grid_x, grid_x_u, stages, smem_bytes, sample_tiles, rank, cap, sort_n,
+      force, stream);
 }

@@ -1321,3 +1321,129 @@ def test_back_to_back_replays_leave_the_first_answer_alone(small_engine):
     for k, x in host.items():
         assert torch.equal(x, want[k].cpu()), k
     assert not torch.equal(second["bboxes"], first["bboxes"])
+
+
+# ------------------------------------- the pool route, top_k from POOL_MIN_K
+
+
+def _pool_gallery(gen, rows=65536 + 32, d=512, nq=129):
+    """A ragged last tile, a duplicated row (lower index first), the last 10
+    rows invalid, query 0 equal to row 3; chunk 2049 divides the rows."""
+    return _long_list_case(gen, nq, rows, d)
+
+
+@pytest.mark.parametrize("kind", ["bf16", "f32", "int8"])
+@pytest.mark.parametrize("top_k", [256, 1024, 4096, 14528])
+@pytest.mark.parametrize("nq", [1, 65, 129])
+def test_pool_route_equals_plain(dev, gen, kind, top_k, nq):
+    """The pool route (sample, T_q, gather, select) against the plain
+    version: K4 to the bit, K3 within 2e-5 (bf16 rows) and 1e-5 (float32
+    rows) with equal indices where the scores stand apart; one launch
+    counted on the kind's counter and its pool counter; no query
+    unresolved on a random gallery."""
+    from facerecognitionpipeline_tpu_torch.ops import gallery_kernel as gk
+
+    rows = 65536 + 32
+    t, valid, q = _pool_gallery(gen, rows, 512, nq)
+    tt, vv, qq = (torch.from_numpy(a).to(dev) for a in (t, valid, q))
+    assert gk.gallery_launch_geometry(nq, rows, 512, kind, 132, top_k).lists == "pool"
+    pool = gk.POOL_LAUNCHES[kind]
+    n0 = pool.count
+    gk.reset_unresolved()
+    kv, ki = _held_to_plain(gk, kind, qq, tt, vv, top_k, 2049)
+    assert pool.count == n0 + 1 and gk.unresolved_queries() == 0
+    assert ki[0, :2].tolist() == [3, rows - 20]
+
+
+@pytest.mark.parametrize("kind", ["bf16", "f32", "int8"])
+def test_pool_route_in_query_blocks_equals_plain(dev, gen, kind):
+    """600 queries at top_k 64: the sample's scores bound a block to 256
+    queries, so the call launches the pool route three times (256, 256 and
+    88 queries, the last on its own grid) into one output; the answer is
+    the plain version's, one call counted."""
+    from facerecognitionpipeline_tpu_torch.ops import gallery_kernel as gk
+
+    rows, nq = 65536 + 32, 600
+    geo = gk.gallery_launch_geometry(nq, rows, 512, kind, 132, 64)
+    assert (geo.lists, geo.block) == ("pool", 256)
+    t, valid, q = _pool_gallery(gen, rows, 512, nq)
+    tt, vv, qq = (torch.from_numpy(a).to(dev) for a in (t, valid, q))
+    pool = gk.POOL_LAUNCHES[kind]
+    n0 = pool.count
+    gk.reset_unresolved()
+    kv, ki = _held_to_plain(gk, kind, qq, tt, vv, 64, 2049)
+    assert pool.count == n0 + 1 and gk.unresolved_queries() == 0
+    assert ki[0, :2].tolist() == [3, rows - 20]
+
+
+@pytest.mark.parametrize("kind", ["bf16", "f32", "int8"])
+def test_pool_route_is_repeatable_to_the_bit(dev, gen, kind):
+    """Two calls give the same bits: the pools fill in whatever order the
+    blocks append, and the select's total order does not see it."""
+    from facerecognitionpipeline_tpu_torch.ops import gallery_kernel as gk
+
+    t, valid, q = _pool_gallery(gen)
+    tt, vv, qq = (torch.from_numpy(a).to(dev) for a in (t, valid, q))
+    rows = tt.to(torch.bfloat16) if kind == "bf16" else tt
+    if kind == "int8":
+        codes, scales = gk.quantize_templates(tt)
+        first = gk.streaming_cosine_topk_int8(qq, codes, scales, vv, 1024, chunk=2049)
+        second = gk.streaming_cosine_topk_int8(qq, codes, scales, vv, 1024, chunk=2049)
+    else:
+        first = gk.streaming_cosine_topk(qq, rows, vv, 1024, chunk=2049)
+        second = gk.streaming_cosine_topk(qq, rows, vv, 1024, chunk=2049)
+    assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
+
+
+@pytest.mark.parametrize("kind", ["bf16", "f32", "int8"])
+def test_pool_route_sends_adversarial_queries_on(dev, gen, kind):
+    """Queries 0 and 1 see 1402 rows tie for their best score (past a pool
+    of 4 x 256): they go on to the device lists, counted on the card, and
+    the answer is the plain version's (the ties by index);
+    the forced route "pool_unresolved" sends every query on and answers the
+    same."""
+    from facerecognitionpipeline_tpu_torch.ops import gallery_kernel as gk
+
+    t, valid, q = _pool_gallery(gen, nq=5)
+    t[100:1500] = t[3]
+    q[1] = q[0]
+    tt, vv, qq = (torch.from_numpy(a).to(dev) for a in (t, valid, q))
+    for route, sent in ((None, 2), ("pool_unresolved", 5)):
+        gk.reset_unresolved()
+        if kind == "int8":
+            codes, scales = gk.quantize_templates(tt)
+            kv, ki = gk._card_search(qq, codes, vv, 256, scales, route)
+            pv, pi = gk.streaming_cosine_topk_int8_plain(qq, codes, scales, vv, 256, chunk=2049)
+            torch.cuda.synchronize()
+            assert torch.equal(kv, pv) and torch.equal(ki, pi)
+        else:
+            rows = tt.to(torch.bfloat16) if kind == "bf16" else tt
+            kv, ki = gk._card_search(qq, rows, vv, 256, route=route)
+            pv, pi = gk.streaming_cosine_topk_plain(qq, rows, vv, 257, chunk=2049)
+            torch.cuda.synchronize()
+            _assert_topk_agrees(kv, ki, pv, pi, 2e-5 if kind == "bf16" else 1e-5)
+        assert gk.unresolved_queries() == sent
+        assert ki[0].tolist() == ki[1].tolist() == [3] + list(range(100, 355))
+
+
+def test_pool_route_in_a_cuda_graph_equals_the_eager_call(dev, gen):
+    """A search past the crossover captured in a CUDA graph: the route is
+    decided on the card (no host read), so the capture holds; a replay
+    equals the eager call."""
+    from facerecognitionpipeline_tpu_torch.ops import gallery_kernel as gk
+
+    t, valid, q = _pool_gallery(gen)
+    tt, vv, qq = (torch.from_numpy(a).to(dev) for a in (t, valid, q))
+    rows = tt.to(torch.bfloat16)
+    want = gk.streaming_cosine_topk(qq, rows, vv, 1024, chunk=2049)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        gk.streaming_cosine_topk(qq, rows, vv, 1024, chunk=2049)  # warm-up off the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = gk.streaming_cosine_topk(qq, rows, vv, 1024, chunk=2049)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])

@@ -29,6 +29,13 @@ from facerecognitionpipeline_tpu_torch.gallery import search as tsearch
 from facerecognitionpipeline_tpu_torch.ops import gallery_kernel as gk
 from facerecognitionpipeline_tpu_torch.parallel.mesh import Mesh, make_mesh
 from facerecognitionpipeline_tpu_torch.pipeline.engine import RecognitionEngine
+from test_torch_port_gallery_kernel import (
+    POOL_CASES,
+    POOL_UNRESOLVED_CASES,
+    _pool_route_model,
+    pool_case,
+    pool_scores,
+)
 
 torch.set_num_threads(2)
 
@@ -143,6 +150,41 @@ def test_streaming_past_64_matches_jax(kind, k):
     assert pv.shape == pi.shape == (6, k)
     assert pi[0, :2].tolist() == [40, 150]
     assert (np.asarray(pi) < 236).all()
+
+
+@pytest.mark.parametrize("kind", ["bf16", "f32", "int8"])
+@pytest.mark.parametrize("case", POOL_CASES)
+def test_pool_route_model_matches_jax(kind, case):
+    """The pool route's four stages (the numpy model of
+    test_torch_port_gallery_kernel.py, the crossover forced down to top_k
+    20 on 1024 rows: 4 sampled tiles, T_q the 10th best of them, pools of
+    80) against the JAX streaming function in interpret mode, with the
+    tolerances above; the adversarial cases send query 0 through the
+    unresolved route."""
+    queries, t, valid = pool_case(case, g=1024, nq=4)
+    k = 20
+    geo = gk.gallery_launch_geometry(4, 1024, t.shape[1], kind, 132, k, "pool")
+    assert (geo.sample_tiles, geo.sample_rank, geo.pool_cap) == (4, 10, 80)
+    scores, q_scale = pool_scores(kind, queries, t)
+    got_v, got_i, unresolved = _pool_route_model(scores, valid, geo, np.random.default_rng(4))
+    assert (0 in unresolved) == (case in POOL_UNRESOLVED_CASES)
+    if kind == "int8":
+        jc, js = jpg.quantize_templates(t)
+        jv, ji = jpg.streaming_cosine_topk_int8(queries, jc, js, valid, top_k=k, chunk=256,
+                                                interpret=True)
+        got_v = gk._fold_query_scale(torch.from_numpy(got_v), q_scale).numpy()
+        np.testing.assert_allclose(got_v, np.asarray(jv), atol=1e-6)
+        np.testing.assert_array_equal(got_i, np.asarray(ji))
+    else:
+        jt = _bf16(t)[0] if kind == "bf16" else t
+        jv, ji = jpg.streaming_cosine_topk(queries, jt, valid, top_k=k, chunk=256,
+                                           interpret=True)
+        np.testing.assert_allclose(got_v, np.asarray(jv), atol=TOL)
+        gap = np.abs(np.diff(np.asarray(jv), axis=1)) > 2 * TOL
+        clear = np.ones(got_i.shape, bool)
+        clear[:, :-1] &= gap
+        clear[:, 1:] &= gap
+        np.testing.assert_array_equal(got_i[clear], np.asarray(ji)[clear])
 
 
 @pytest.mark.parametrize("kind", ["bf16", "int8"])
