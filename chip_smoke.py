@@ -216,8 +216,30 @@ Phases, in order; any failure exits non-zero before the final line:
      /reload_gallery followed by one request makes one capture; every
      capture's seconds and pool bytes. `python3 chip_smoke.py --graph-only`
      builds the kernels and runs phase 13 alone on phase 3's build.
+  14. the open-set protocol at a small scale (`train/open_set.py`,
+     `evalharness/open_set.py`): train_open_set at ir_18, 40 identities x 16
+     crops, 200 steps at B=128 bf16 (finite losses, the loss at step 200
+     below that at step 10) and the held-out probe once on its final state;
+     run_open_set on those weights, the full 200 + 60 held-out identities
+     under clean and noise, fp32 and int8 (the report's keys are the JAX
+     report's, reports/openset_ir_50/report.json, every value finite); the
+     weights in FaceEmbedder (bf16, folded) and in the fused serving step at
+     phase 3's build through its graphs (K1 x3, K2 x1, K5 x3 per step), and
+     e2e_rank1 over 24 trials with them beside phase 11's ir_micro figure; no
+     accuracy floor at this size; seconds per stage.
+     `python3 chip_smoke.py --openset-only [ir_50 | ir_18]` builds the
+     kernels and runs the recorded recipe at full scale instead (ir_50: 360
+     identities x 72 crops, 4500 steps at B=256, lr 0.1, 300 warm-up steps,
+     seed 0; ir_18: 6000 steps; about half an hour on one H100): the
+     weights to pretrained/<arch>_synthetic_torch.npz (+ .meta.json), the
+     protocol under all six conditions and both tiers into
+     reports/openset_torch_<arch>/report.json, each number beside the JAX
+     report's (tests/test_torch_port_open_set.py holds the committed report
+     to the floors of tests/test_open_set_trained.py), then the trained
+     weights served as above; any other name after the flag is refused
+     before the build.
 Then it prints the card's name and power limit, JSON lines of phase 8's, 9's,
-10's, 11's, 12's and 13's numbers, a JSON line describing the kernels, and as
+10's, 11's, 12's, 13's and 14's numbers, a JSON line describing the kernels, and as
 its last line {"ok": true, "device": {...}}.
 """
 
@@ -5448,6 +5470,223 @@ def graph_phase(ctx, gal, report) -> None:
     report["graph"] = res
 
 
+OPENSET_ARCH = "ir_18"  # phase 14: the open-set path at a small scale
+OPENSET_IDS, OPENSET_PER_ID = 40, 16
+OPENSET_STEPS, OPENSET_BATCH, OPENSET_WARMUP = 200, 128, 15
+OPENSET_CONDITIONS = ("clean", "noise")
+OPENSET_SERVE_STEPS = 4
+# the recorded recipes (pretrained/ir_{50,18}_synthetic.meta.json), run by
+# --openset-only at full scale
+OPENSET_RECIPES = {
+    "ir_50": dict(n_ids=360, per_id=72, steps=4500, batch=256, lr=0.1, warmup=300, seed=0),
+    "ir_18": dict(n_ids=360, per_id=72, steps=6000, batch=256, lr=0.1, warmup=300, seed=0),
+}
+JAX_OPENSET_REPORT = os.path.join(REPO, "reports", "openset_ir_50", "report.json")
+
+
+def openset_counters():
+    from facerecognitionpipeline_tpu_torch.ops import crop_kernel, nms_kernel, warp_kernel
+
+    return {"crop_resize": crop_kernel.LAUNCHES, "warp_patches": warp_kernel.LAUNCHES,
+            "nms_fixpoint": nms_kernel.LAUNCHES}
+
+
+def check_openset_report(rep: dict, conditions) -> None:
+    """The report's keys are the JAX report's for the conditions run, and
+    every number in it is finite."""
+    import numpy as np
+
+    with open(JAX_OPENSET_REPORT) as f:
+        want = json.load(f)
+    if list(rep) != list(want) or rep["protocol"] != want["protocol"]:
+        fail(f"open-set report keys {list(rep)} / protocol {rep['protocol']} are not the "
+             f"JAX report's")
+    if list(rep["int8_drift_cosine"]) != list(want["int8_drift_cosine"]):
+        fail(f"int8_drift_cosine keys {list(rep['int8_drift_cosine'])}")
+    values = list(rep["int8_drift_cosine"].values())
+    for tier in ("fp32", "int8"):
+        if list(rep[tier]) != list(conditions):
+            fail(f"open-set report {tier}: conditions {list(rep[tier])}")
+        for cond in conditions:
+            if list(rep[tier][cond]) != list(want[tier][cond]):
+                fail(f"open-set report {tier} {cond}: keys {list(rep[tier][cond])}")
+            values += list(rep[tier][cond].values())
+    if not np.isfinite(values).all():
+        fail("the open-set report holds a non-finite number")
+
+
+def openset_serving(res, fixture, npz: str, arch: str) -> None:
+    """The trained weights in FaceEmbedder (bf16, folded) and in the fused
+    serving step at phase 3's build through its CUDA graphs (K1 x3, K2 x1,
+    K5 x3 per step), then e2e_rank1 over 24 trials with them."""
+    import numpy as np
+
+    import torch
+
+    from facerecognitionpipeline_tpu_torch.evalharness import e2e_accuracy as E
+    from facerecognitionpipeline_tpu_torch.gallery.search import DeviceGallery
+    from facerecognitionpipeline_tpu_torch.models.detector import MTCNNDetector
+    from facerecognitionpipeline_tpu_torch.pipeline.embedder import FaceEmbedder
+    from facerecognitionpipeline_tpu_torch.pipeline.engine import RecognitionEngine
+
+    embedder = FaceEmbedder(arch, model_path=npz, dtype=torch.bfloat16, device=DEVICE)
+    if not embedder.folded:
+        fail("the trained weights did not load folded")
+    detector = MTCNNDetector(det_size=DET_SIZE, det_thresh=0.5, max_faces=MAX_FACES,
+                             min_face_size=40, dtype=torch.bfloat16, device=DEVICE,
+                             weights_path=os.path.join(REPO, "pretrained", "mtcnn_dr.npz"))
+    engine = RecognitionEngine(detector, embedder, top_k=3)
+    gallery = DeviceGallery(device=DEVICE)
+    g = np.random.default_rng(0).normal(size=(GALLERY_ROWS, 512)).astype(np.float32)
+    gallery.rebuild([f"id{i}" for i in range(GALLERY_ROWS)],
+                    g / np.linalg.norm(g, axis=1, keepdims=True))
+    frames = torch.from_numpy(mosaics(fixture, BATCH)[0]).to(DEVICE)
+    t, v, _ = gallery.device_snapshot()
+    engine.process_frames(frames, t, v)  # captures this key's graph
+    counters = openset_counters()
+    before = {k: c.count for k, c in counters.items()}
+    out, ms = timed_steps(engine, frames, t, v, OPENSET_SERVE_STEPS)
+    per_step = {k: (c.count - before[k]) / OPENSET_SERVE_STEPS for k, c in counters.items()}
+    if per_step != {"crop_resize": 3, "warp_patches": 1, "nms_fixpoint": 3}:
+        fail(f"the serving step with the trained {arch} launched {per_step} per step")
+    for key in ("bboxes", "embeddings", "match_scores", "embedding_norms"):
+        if not torch.isfinite(out[key]).all():
+            fail(f"the serving step with the trained {arch} gave non-finite {key}")
+    del engine, detector
+    t0 = time.perf_counter()
+    e2e = E.e2e_rank1(embedder, E.make_processor(
+        os.path.join(REPO, "pretrained", "mtcnn_dr.npz"), dtype=torch.bfloat16, device=DEVICE),
+        E.identities(), device=DEVICE)
+    res["serving"] = {"launches_per_step": per_step, "step_p50_ms": ms[len(ms) // 2],
+                      "faces": int(out["face_valid"].sum()), "e2e_rank1": e2e["e2e_rank1"],
+                      "e2e_rank1_n": e2e["e2e_rank1_n"],
+                      "e2e_seconds": time.perf_counter() - t0}
+    print(f"[openset] the trained {arch} served (FaceEmbedder bf16 folded, B={BATCH}, "
+          f"{DET_SIZE[0]}x{DET_SIZE[1]}, {GALLERY_ROWS}-row gallery, graph replays): "
+          f"{res['serving']['faces']} faces, finite outputs, p50 {ms[len(ms) // 2]:.2f} ms, "
+          f"launches per step {per_step}; e2e_rank1 {e2e['e2e_rank1']} over "
+          f"n={e2e['e2e_rank1_n']} trials (no floor)")
+
+
+def openset_train(res, arch: str, npz: str, **recipe) -> None:
+    """train_open_set on the card: finite losses, falling; the held-out
+    probe once on the final state."""
+    import numpy as np
+
+    import torch
+
+    from facerecognitionpipeline_tpu_torch.train import open_set as T
+
+    t0 = time.perf_counter()
+    trainer, state, meta, losses = T.train_open_set(arch, out=npz, device=DEVICE, **recipe)
+    train_s = time.perf_counter() - t0
+    if not np.isfinite(losses).all() or len(losses) != recipe["steps"]:
+        fail(f"train_open_set gave {len(losses)} losses, finite: {np.isfinite(losses).all()}")
+    if not losses[-1] < losses[9]:
+        fail(f"train_open_set: loss at step {len(losses)} {losses[-1]} not below step 10's "
+             f"{losses[9]}")
+    t0 = time.perf_counter()
+    images, labels = T.holdout_probe_sets()
+    sep = T.holdout_separation(T.embed_for_probe(trainer, state, images), labels)
+    probe_s = time.perf_counter() - t0
+    if not np.isfinite(list(sep.values())).all():
+        fail(f"held-out probe: {sep}")
+    res["train"] = {"seconds": train_s, "train_seconds": meta["train_seconds"],
+                    "s_per_step": meta["train_seconds"] / recipe["steps"],
+                    "loss_step10": losses[9], "loss_last": losses[-1],
+                    "history": meta["holdout_probe_history"], "final_probe": sep,
+                    "probe_seconds": probe_s}
+    print(f"[openset] train_open_set {arch}, {recipe['n_ids']} ids x {recipe['per_id']} crops, "
+          f"{recipe['steps']} steps at B={recipe['batch']} bf16 in {train_s:.1f} s "
+          f"({meta['train_seconds']:.1f} s from the first step, "
+          f"{1e3 * res['train']['s_per_step']:.1f} ms per step): loss step 10 "
+          f"{losses[9]:.4f} -> step {recipe['steps']} {losses[-1]:.4f}; held-out probe on "
+          f"the final state: genuine {sep['genuine_mean']:.3f} impostor "
+          f"{sep['impostor_mean']:.3f} EER {sep['eer']:.4f} ({probe_s:.1f} s)")
+    del trainer, state
+    torch.cuda.empty_cache()
+
+
+def openset_phase(fixture, report) -> None:
+    """Phase 14 (see the module docstring): the open-set path at a small
+    scale."""
+    import shutil
+
+    from facerecognitionpipeline_tpu_torch.evalharness import open_set as O
+
+    t_phase = time.perf_counter()
+    res: dict = {}
+    counters = openset_counters()
+    for c in counters.values():
+        c.reset()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_openset_")
+    try:
+        npz = os.path.join(tmp, f"{OPENSET_ARCH}_synthetic_torch.npz")
+        openset_train(res, OPENSET_ARCH, npz, n_ids=OPENSET_IDS, per_id=OPENSET_PER_ID,
+                      steps=OPENSET_STEPS, batch=OPENSET_BATCH, lr=0.1, warmup=OPENSET_WARMUP,
+                      seed=0)
+        t0 = time.perf_counter()
+        rep = O.run_open_set(OPENSET_ARCH, npz, OPENSET_CONDITIONS, False, device=DEVICE)
+        res["protocol_seconds"] = time.perf_counter() - t0
+        check_openset_report(rep, OPENSET_CONDITIONS)
+        res["report"] = {t: rep[t] for t in ("fp32", "int8", "int8_drift_cosine")}
+        print(f"[openset] run_open_set ({O.N_GALLERY} + {O.N_UNKNOWN} identities, "
+              f"{', '.join(OPENSET_CONDITIONS)}, fp32 and int8) in "
+              f"{res['protocol_seconds']:.1f} s: keys are the JAX report's, every value "
+              f"finite; " + "; ".join(
+                  f"{t} {c} rank1 {rep[t][c]['rank1']} EER {rep[t][c]['eer']}"
+                  for t in ("fp32", "int8") for c in OPENSET_CONDITIONS)
+              + f"; drift cosine {rep['int8_drift_cosine']}")
+        t0 = time.perf_counter()
+        openset_serving(res, fixture, npz, OPENSET_ARCH)
+        res["serving_seconds"] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    res["e2e_rank1_ir_micro"] = report.get("train", {}).get("e2e", {}).get("e2e_rank1")
+    res["launches"] = {k: c.count for k, c in counters.items()}
+    res["seconds"] = time.perf_counter() - t_phase
+    print(f"[openset] e2e_rank1 with the {OPENSET_ARCH} trained here "
+          f"{res['serving']['e2e_rank1']} beside phase 11's ir_micro "
+          f"{res['e2e_rank1_ir_micro']}; stages: train {res['train']['seconds']:.1f} s, "
+          f"protocol {res['protocol_seconds']:.1f} s, serving {res['serving_seconds']:.1f} s; "
+          f"phase 14 took {res['seconds']:.1f} s; launches {res['launches']}")
+    report["openset"] = res
+
+
+def openset_full(fixture, arch: str) -> dict:
+    """--openset-only: the recorded recipe of `arch` on the card, the whole
+    protocol (six conditions, fp32 and int8) into
+    reports/openset_torch_<arch>/report.json, its numbers beside the JAX
+    report's (tests/test_torch_port_open_set.py gates the report with the
+    floors), then the trained weights served."""
+    from facerecognitionpipeline_tpu_torch.evalharness import open_set as O
+
+    res: dict = {}
+    npz = os.path.join(REPO, "pretrained", f"{arch}_synthetic_torch.npz")
+    openset_train(res, arch, npz, **OPENSET_RECIPES[arch])
+    t0 = time.perf_counter()
+    rep = O.run_open_set(arch, os.path.relpath(npz), O.CONDITIONS, False, device=DEVICE)
+    res["protocol_seconds"] = time.perf_counter() - t0
+    check_openset_report(rep, O.CONDITIONS)
+    out = O.write_report(rep, os.path.join(REPO, "reports", f"openset_torch_{arch}"))
+    path = os.path.join(REPO, "reports", f"openset_{arch}", "report.json")
+    with open(path) as f:
+        jax_rep = json.load(f)
+    print(f"[openset] {arch}: the port on this card beside the JAX package's report "
+          f"({os.path.relpath(path, REPO)}, taken on a TPU): port / JAX")
+    for tier in ("fp32", "int8"):
+        for cond in O.CONDITIONS:
+            p, j = rep[tier][cond], jax_rep[tier][cond]
+            print(f"[openset] {tier} {cond:9s} " + "  ".join(
+                f"{k} {p[k]} / {j[k]}" for k in ("rank1", "rank5", "eer", "tar_at_far_0.01",
+                                                   "dir_at_far_0.01", "dprime", "roc_auc")))
+    print(f"[openset] int8 drift cosine {rep['int8_drift_cosine']} / "
+          f"{jax_rep['int8_drift_cosine']}")
+    openset_serving(res, fixture, npz, arch)
+    res["report"] = os.path.relpath(out, REPO)
+    return res
+
+
 def nms_entry(report, source) -> dict:
     """The kernels line's entry of K5: times and bounds summed over the
     three calls of one step (stages 1-3 of the server build at B=8),
@@ -5485,7 +5724,9 @@ def nms_entry(report, source) -> dict:
                               "sweep_floor_ms", "clusters_fit", "clusters_fit_1024_threads")}
             for r in rows},
     }
-    for key in ("launches", "server_launches", "mesh_launches", "graph_launches"):
+    entry["openset_launches"] = report["openset"]["launches"]["nms_fixpoint"]
+    for key in ("launches", "server_launches", "mesh_launches", "graph_launches",
+                "openset_launches"):
         if entry[key] < 1:
             fail(f"{key}: a main path never launched nms_fixpoint")
     return entry
@@ -5503,6 +5744,7 @@ def card_line() -> str:
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -5516,6 +5758,15 @@ def main() -> int:
     from facerecognitionpipeline_tpu_torch.utils.device import resolve_device
 
     resolve_device("cuda")  # pins the TF32 settings
+    if "--openset-only" in sys.argv[1:]:
+        # the architecture after the flag names a recorded recipe (ir_50 when
+        # nothing follows); anything else is refused before the build
+        args = sys.argv[sys.argv.index("--openset-only") + 1:]
+        openset_arch = args[0] if args else "ir_50"
+        if openset_arch not in OPENSET_RECIPES:
+            print(f"chip_smoke: --openset-only takes one of {sorted(OPENSET_RECIPES)}, "
+                  f"not {openset_arch!r}", file=sys.stderr)
+            return 2
     print(f"[env] python {sys.version.split()[0]} torch {torch.__version__} "
           f"cuda {torch.version.cuda}")
     import importlib
@@ -5571,6 +5822,13 @@ def main() -> int:
         print(card_line())
         print(json.dumps({"graph": report["graph"]}))
         return 0
+    if "--openset-only" in sys.argv[1:]:
+        # the recorded open-set recipe at full scale (ir_50, or the
+        # architecture named after the flag), after the build
+        res = openset_full(fixture, openset_arch)
+        print(card_line())
+        print(json.dumps({"openset": res}))
+        return 0
     if "--mesh-only" in sys.argv[1:]:
         # phase 12 alone on phase 3's build, the same way; with --cards its
         # mesh entries are distinct cards (2 for serving, 4 for the (2, 2)
@@ -5596,6 +5854,8 @@ def main() -> int:
     mesh_phase(ctx, gal, report)
     graph_phase(ctx, gal, report)
     del gal, ctx
+    openset_phase(fixture, report)
+    print(f"[timing] phases 1-14 took {time.perf_counter() - t_start:.1f} s")
 
     print(card_line())
 
@@ -5619,6 +5879,7 @@ def main() -> int:
     offline_launches = report["offline"]["launches"]
     train_launches = report["train"]["launches"]
     mesh_launches = report["mesh"]["launches"]
+    openset_launches = report["openset"]["launches"]
     matcher_launches = {"crop_resize": enrol["launches_k1"], "warp_patches": 0,
                         **enrol["matcher_launches"]}
     # K1's and K2's first designs (one thread per output pixel), as timed when
@@ -5674,6 +5935,9 @@ def main() -> int:
             # the sharded searches and the server on the mesh engine, counted
             # from 0 before each and read after
             "mesh_launches": mesh_launches[name],
+            # phase 14 (K1 and K2 in the serving steps with the ir_18 trained
+            # there, K1 in its e2e_rank1 processors), counted from 0 over it
+            "openset_launches": openset_launches.get(name, 0),
             "max_abs_err": max(r["err"] for r in all_rows),
             # ms, plain_ms, bound_ms and library_ms are sums over the call
             # shapes of one serving step (K1: R-net, O-net, align stage A)
@@ -5710,6 +5974,8 @@ def main() -> int:
             fail(f"phase 11 never launched {name}")
         if not f32 and mesh_launches[name] < 1:
             fail(f"phase 12 never launched {name}")
+        if name in ("crop_resize", "warp_patches") and openset_launches[name] < 1:
+            fail(f"phase 14 never launched {name}")
     # the pool route (the long lists of K3, K4 and K3 on float32 rows from
     # POOL_MIN_K): its times at top_k 1024 (every top_k in by_k); launches
     # over phase 2's long lists (counted from 0 before them, read after) and
@@ -5748,6 +6014,7 @@ def main() -> int:
     print(json.dumps({"train": report["train"]}))
     print(json.dumps({"mesh": report["mesh"]}))
     print(json.dumps({"graph": report["graph"]}))
+    print(json.dumps({"openset": report["openset"]}))
     print(json.dumps({
         "kernels": kernels,
         **{k: v for k, v in report.items() if k.startswith("step_p50_ms")},

@@ -24,6 +24,8 @@ def _port_sources():
             if f.endswith(".py"):
                 yield os.path.join(root, f)
     yield os.path.join(REPO, "chip_smoke.py")
+    for script in ("torch_train_open_set.py", "torch_open_set_eval.py"):
+        yield os.path.join(REPO, "examples", script)
 
 
 def test_port_never_imports_jax_or_the_jax_package():
@@ -56,7 +58,10 @@ def test_port_never_imports_jax_or_the_jax_package():
                    "evalharness/detection_ood.py", "evalharness/e2e_accuracy.py",
                    "models/irse.py", "models/convert.py", "models/layers.py",
                    "pipeline/embedder.py", "parallel/__init__.py", "parallel/mesh.py",
-                   "pipeline/step_graph.py", "ops/nms_kernel.py", "../chip_smoke.py"):
+                   "pipeline/step_graph.py", "ops/nms_kernel.py", "../chip_smoke.py",
+                   "evalharness/open_set.py", "train/open_set.py",
+                   "../examples/torch_train_open_set.py",
+                   "../examples/torch_open_set_eval.py"):
         assert module in scanned, module
     for path in _port_sources():
         n += 1
