@@ -238,9 +238,35 @@ Phases, in order; any failure exits non-zero before the final line:
      to the floors of tests/test_open_set_trained.py), then the trained
      weights served as above; any other name after the flag is refused
      before the build.
+  15. the detector's training protocol at a small scale
+     (`train/detector_recipes.py`, `evalharness/detector_reports.py`):
+     train_recipe of the stress and the domain-randomized recipes for 50
+     steps a net, each net in its own process (losses finite and falling;
+     seconds per net and os.cpu_count()); the trained tree assigned to a
+     detector built on mtcnn_synthetic.npz (MTCNNDetector.variables)
+     detects as one built with variables=; the base rows of both reports
+     (the stress suite on mtcnn_synthetic.npz, the OOD suite on
+     mtcnn_stress.npz; 12 scenes a category, float32, K5 x3 per detect),
+     each number beside the committed JAX report's and within one face
+     (in AP and recall 1 / the category's faces, at least 0.03; 0.25 false
+     positives a scene); the trained
+     tree assigned to the detector of an engine at phase 3's build whose
+     graph was captured on mtcnn_dr.npz: the same graph replays (K1 x3, K2
+     x1, K5 x3 per step) equal to the eager step.
+     `python3 chip_smoke.py --detector-only [stress | ood | all]` builds the
+     kernels and runs the recorded recipes at full scale instead (stress:
+     1500 steps a net, batch 256, OHEM 0.7; DR: 2500 steps, class balance
+     0.24/0.23), writing reports/detector_{stress,ood}_torch/report.json
+     and pretrained/mtcnn_{stress,dr}_torch.npz (+ .meta.json), every row
+     beside the JAX report's (tests/test_torch_port_detector_reports.py
+     gates them with the floors); then the stress suite through a bf16
+     cascade (K1 x2 per detect) of the last weights trained beside their
+     float32 row, and those weights served as above beside the shipped
+     mtcnn_dr.npz's recall (at least 0.8); any other name after the flag is
+     refused before the build.
 Then it prints the card's name and power limit, JSON lines of phase 8's, 9's,
-10's, 11's, 12's, 13's and 14's numbers, a JSON line describing the kernels, and as
-its last line {"ok": true, "device": {...}}.
+10's, 11's, 12's, 13's, 14's and 15's numbers, a JSON line describing the
+kernels, and as its last line {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -5687,11 +5713,335 @@ def openset_full(fixture, arch: str) -> dict:
     return res
 
 
+DETECTOR_STEPS = 50  # phase 15: each recipe's three nets, 50 steps each
+DETECTOR_SCENES = 12  # scenes per category of the base rows (the reports' 12)
+DETECTOR_SERVE_STEPS = 4
+DETECTOR_ONLY = ("stress", "ood", "all")  # what --detector-only takes
+# a base row's largest distance to the JAX report's: 0.03 in AP and recall,
+# 3 false positives in 12 scenes
+DETECTOR_TOL = {"ap": 0.03, "recall": 0.03, "fp_per_image": 0.25}
+# The base categories where the JAX report, taken on a TPU, is farther than
+# DETECTOR_TOL from the JAX package's float32 cascade on the CPU (its
+# matmul precision): there the port is held to the CPU's row, which
+# tests/test_torch_port_detector_reports.py recomputes with the JAX package.
+JAX_CPU_BASE = {
+    ("ood", "facegen+jpeg"): {"ap": 0.15942028985507245, "recall": 0.17391304347826086,
+                              "fp_per_image": 0.25},
+}
+JAX_DETECTOR_REPORTS = {
+    "stress": os.path.join(REPO, "reports", "detector_stress", "report.json"),
+    "ood": os.path.join(REPO, "reports", "detector_ood", "report.json"),
+}
+
+
+def detector_recipe(res, recipe) -> dict:
+    """train_recipe on the card, its three nets in three processes: each
+    net's losses finite and falling (the mean of the last 10 below the first
+    10's at 50 steps, of 20 in a full recipe). Returns the variables."""
+    import numpy as np
+
+    from facerecognitionpipeline_tpu_torch.train.detector_recipes import train_recipe
+
+    history: dict = {}
+    seconds: dict = {}
+    t0 = time.perf_counter()
+    variables = train_recipe(recipe, device=DEVICE, log_every=recipe.steps,
+                             history=history, seconds=seconds)
+    total = time.perf_counter() - t0
+    rows = {}
+    for net, losses in history.items():
+        n = min(20, len(losses) // 5)
+        first, last = float(np.mean(losses[:n])), float(np.mean(losses[-n:]))
+        rows[net] = {"first": first, "last": last, "seconds": seconds[net]}
+        if len(losses) != recipe.steps or not np.isfinite(losses).all() or not last < first:
+            fail(f"train_recipe {recipe.name} {net}: {len(losses)} losses, first {n} {first}, "
+                 f"last {n} {last}")
+    res[f"train_{recipe.name}"] = {"steps": recipe.steps, "seconds": total, "nets": rows}
+    print(f"[detector] train_recipe({recipe.name}, {recipe.steps} steps a net, batch "
+          f"{recipe.batch}, OHEM {recipe.ohem_fraction}, class balance "
+          f"{recipe.class_balance}) in 3 processes, os.cpu_count() {os.cpu_count()}: "
+          f"{total:.1f} s; " + "; ".join(
+              f"{net} {r['seconds']:.1f} s, loss {r['first']:.4f} -> {r['last']:.4f}"
+              for net, r in rows.items()))
+    return variables
+
+
+def same_faces(a, b) -> bool:
+    """Two detect() lists with equal boxes and scores, face for face."""
+    return len(a) == len(b) and all(
+        (x["bbox"] == y["bbox"]).all() and x["det_score"] == y["det_score"]
+        for x, y in zip(a, b))
+
+
+def detector_setter(res, variables) -> None:
+    """The repaired setter on the card: a detector built on
+    mtcnn_synthetic.npz, then given `variables` by assignment, detects as
+    one built with `variables=`."""
+    import numpy as np
+
+    from facerecognitionpipeline_tpu_torch.evalharness.detection import render_stress_scene
+    from facerecognitionpipeline_tpu_torch.evalharness.detector_reports import make_detector
+
+    rng = np.random.default_rng(0)
+    scenes = [render_stress_scene(rng, "baseline", size=320)[0] for _ in range(3)]
+    det = make_detector(os.path.join(REPO, "pretrained", "mtcnn_synthetic.npz"), device=DEVICE)
+    before = [det.detect(s) for s in scenes]
+    det.variables = variables
+    after = [det.detect(s) for s in scenes]
+    want = [make_detector(variables=variables, device=DEVICE).detect(s) for s in scenes]
+    if not all(same_faces(a, w) for a, w in zip(after, want)):
+        fail("a detector given the trained variables by assignment detects otherwise than one "
+             "built with variables=")
+    changed = sum(not same_faces(b, a) for b, a in zip(before, after))
+    res["setter"] = {"scenes": len(scenes), "changed_by_assignment": changed}
+    print(f"[detector] MTCNNDetector.variables = the trained tree on the card: detections "
+          f"equal to variables= on {len(scenes)} scenes, {changed} of them changed by the "
+          f"assignment")
+
+
+def detector_rows(tag, got: dict, want: dict, report: str = "") -> dict:
+    """Print each category of a report row's summary beside the JAX
+    report's row (`want`: the row); given `report` (stress or ood), fail
+    where a category is farther than DETECTOR_TOL from it, or from JAX on
+    the CPU where JAX_CPU_BASE holds the category. Returns the largest
+    distances from the JAX report."""
+    worst = {k: 0.0 for k in DETECTOR_TOL}
+    for cat, w in want["summary"].items():
+        g = got[cat]
+        ref = JAX_CPU_BASE.get((report, cat), w)
+        for key, tol in DETECTOR_TOL.items():
+            if (g[key] is None) != (w[key] is None):
+                fail(f"{tag} {cat}: {key} {g[key]} against the JAX report's {w[key]}")
+            if w[key] is not None:
+                worst[key] = max(worst[key], abs(g[key] - w[key]))
+                if report and abs(g[key] - ref[key]) > tol + 1e-9:
+                    fail(f"{tag} {cat}: {key} {g[key]} against "
+                         f"{'the JAX report' if ref is w else 'JAX on the CPU'}'s "
+                         f"{ref[key]}, more than {tol} apart")
+        print(f"[detector] {tag} {cat:20s} " + "  ".join(
+            f"{k} {g[k] if g[k] is None else round(g[k], 4)} / "
+            f"{w[k] if w[k] is None else round(w[k], 4)}"
+            for k in ("ap", "recall", "precision", "fp_per_image"))
+            + ("" if ref is w else "  (held to JAX on the CPU: " + ", ".join(
+                f"{k} {round(v, 4)}" for k, v in ref.items()) + ")"))
+    return worst
+
+
+def counted_suite(tag, run, n_detects: int, k1_per_detect: int = 0) -> tuple:
+    """run() -> (its result, seconds), holding K5's launches to 3 per
+    detect and K1's to k1_per_detect (counted from 0 around it)."""
+    from facerecognitionpipeline_tpu_torch.ops import crop_kernel, nms_kernel
+
+    k1, k5 = crop_kernel.LAUNCHES.count, nms_kernel.LAUNCHES.count
+    t0 = time.perf_counter()
+    out = run()
+    secs = time.perf_counter() - t0
+    k1, k5 = crop_kernel.LAUNCHES.count - k1, nms_kernel.LAUNCHES.count - k5
+    if k5 != 3 * n_detects or k1 != k1_per_detect * n_detects:
+        fail(f"{tag}: K5 launched {k5} and K1 {k1} times for {n_detects} detects")
+    return out, secs
+
+
+def detector_base_rows(res, n_scenes: int) -> None:
+    """The base rows of both reports on the card (float32 cascades of the
+    JAX reports' base weights), beside the JAX reports' rows."""
+    from facerecognitionpipeline_tpu_torch.evalharness.detection import (
+        STRESS_CATEGORIES,
+        run_stress_suite,
+    )
+    from facerecognitionpipeline_tpu_torch.evalharness.detection_ood import (
+        OOD_CATEGORIES,
+        run_ood_suite,
+    )
+    from facerecognitionpipeline_tpu_torch.evalharness.detector_reports import make_detector
+
+    for name, suite, cats in (("stress", run_stress_suite, STRESS_CATEGORIES),
+                              ("ood", run_ood_suite, OOD_CATEGORIES)):
+        with open(JAX_DETECTOR_REPORTS[name]) as f:
+            want = json.load(f)["base"]
+        det = make_detector(os.path.join(REPO, want["weights"]), device=DEVICE)
+        rep, secs = counted_suite(f"{name} base", lambda: suite(det, n_scenes=n_scenes, seed=0),
+                                  n_scenes * len(cats))
+        worst = detector_rows(f"{name} base ({want['weights']}, {n_scenes} scenes)",
+                              rep["summary"], want, report=name if n_scenes == 12 else "")
+        res[f"{name}_base"] = {"seconds": secs, "worst": worst, "summary": rep["summary"]}
+        print(f"[detector] {name} base row on the card in {secs:.1f} s "
+              f"({n_scenes * len(cats)} detects, K5 x3 each); farthest from the JAX report: "
+              f"{worst}")
+
+
+def detector_serving(res, fixture, variables, label: str, floor) -> None:
+    """The cascade `variables` at phase 3's build through its CUDA graphs:
+    an engine on the shipped mtcnn_dr.npz captures its graph; then the
+    detector is given `variables` by assignment and the same graph replays
+    (no new capture) with K1 x3, K2 x1 and K5 x3 per step, equal to the
+    eager step of the engine bit for bit; recall on the smoke fixture
+    beside the shipped cascade's, at least `floor` where one is given."""
+    import numpy as np
+    import torch
+
+    from facerecognitionpipeline_tpu_torch.gallery.search import DeviceGallery
+    from facerecognitionpipeline_tpu_torch.models.detector import MTCNNDetector
+    from facerecognitionpipeline_tpu_torch.pipeline.embedder import FaceEmbedder
+    from facerecognitionpipeline_tpu_torch.pipeline.engine import RecognitionEngine
+
+    detector = MTCNNDetector(det_size=DET_SIZE, det_thresh=0.5, max_faces=MAX_FACES,
+                             min_face_size=40, dtype=torch.bfloat16, device=DEVICE,
+                             weights_path=os.path.join(REPO, "pretrained", "mtcnn_dr.npz"))
+    embedder = FaceEmbedder(ARCH, dtype=torch.bfloat16, random_ok=True, init_seed=0,
+                            device=DEVICE)
+    engine = RecognitionEngine(detector, embedder, top_k=3)
+    gallery = DeviceGallery(device=DEVICE)
+    g = np.random.default_rng(0).normal(size=(GALLERY_ROWS, 512)).astype(np.float32)
+    gallery.rebuild([f"id{i}" for i in range(GALLERY_ROWS)],
+                    g / np.linalg.norm(g, axis=1, keepdims=True))
+    frames_np, gts = mosaics(fixture, BATCH)
+    frames = torch.from_numpy(frames_np).to(DEVICE)
+    t, v, _ = gallery.device_snapshot()
+    shipped = engine.process_frames(frames, t, v)  # captures this key's graph
+    shipped_recall = detection_recall(shipped, gts)[0]
+    captures = len(engine._graphs.captures)
+    detector.variables = variables
+    counters = openset_counters()
+    before = {k: c.count for k, c in counters.items()}
+    out, ms = timed_steps(engine, frames, t, v, DETECTOR_SERVE_STEPS)
+    per_step = {k: (c.count - before[k]) / DETECTOR_SERVE_STEPS for k, c in counters.items()}
+    if per_step != {"crop_resize": 3, "warp_patches": 1, "nms_fixpoint": 3}:
+        fail(f"the serving step with {label} launched {per_step} per step")
+    if len(engine._graphs.captures) != captures:
+        fail(f"assigning {label} to the detector made the engine capture a new graph")
+    diff = tree_diff(out, engine.step(t, v, frames, engine.top_k))
+    if diff:
+        fail(f"the replayed graph with {label} assigned differs from the eager step: {diff}")
+    if not tree_diff(out, shipped):
+        fail(f"the replayed graph with {label} assigned still computes the shipped cascade")
+    recall, hits, faces = detection_recall(out, gts)
+    if floor is not None and recall < floor:
+        fail(f"{label} served: recall {recall} below {floor}")
+    res["serving"] = {"launches_per_step": per_step, "step_p50_ms": ms[len(ms) // 2],
+                      "recall": recall, "shipped_recall": shipped_recall}
+    print(f"[detector] {label} served at phase 3's build (B={BATCH}, {DET_SIZE[0]}x"
+          f"{DET_SIZE[1]}, bf16) by assignment into a captured engine: the same graph "
+          f"replayed, equal to the eager step, launches per step {per_step}, p50 "
+          f"{ms[len(ms) // 2]:.2f} ms; recall {recall:.4f} ({hits}/{faces}) beside the "
+          f"shipped mtcnn_dr.npz's {shipped_recall:.4f} in this run"
+          + ("" if floor is None else f" (floor {floor})"))
+    del engine, detector, embedder
+    torch.cuda.empty_cache()
+
+
+def detector_phase(fixture, report) -> None:
+    """Phase 15 (see the module docstring): the detector's training
+    protocol at a small scale. The two recipes train at once (six worker
+    processes)."""
+    import dataclasses
+    from concurrent.futures import ThreadPoolExecutor
+
+    from facerecognitionpipeline_tpu_torch.train.detector_recipes import (
+        DR_RECIPE,
+        STRESS_RECIPE,
+    )
+
+    t_phase = time.perf_counter()
+    res: dict = {}
+    counters = openset_counters()
+    for c in counters.values():
+        c.reset()
+    with ThreadPoolExecutor(2) as pool:
+        runs = [pool.submit(detector_recipe, res, dataclasses.replace(r, steps=DETECTOR_STEPS))
+                for r in (STRESS_RECIPE, DR_RECIPE)]
+        variables = [run.result() for run in runs][1]
+    res["train_seconds"] = time.perf_counter() - t_phase
+    detector_setter(res, variables)
+    detector_base_rows(res, DETECTOR_SCENES)
+    detector_serving(res, fixture, variables, f"the {DETECTOR_STEPS}-step DR cascade", None)
+    res["launches"] = {k: c.count for k, c in counters.items()}
+    res["seconds"] = time.perf_counter() - t_phase
+    print(f"[detector] phase 15 took {res['seconds']:.1f} s; launches {res['launches']}")
+    report["detector"] = res
+
+
+def detector_full(fixture, which: str) -> dict:
+    """--detector-only: the recorded recipes on the card through
+    train_recipe, the reports into reports/detector_{stress,ood}_torch/ and
+    the weights into pretrained/mtcnn_{stress,dr}_torch.npz (+ .meta.json),
+    every row beside the JAX report's (tests/test_torch_port_detector_
+    reports.py gates the reports with the floors); the stress suite through
+    a bf16 cascade (K1 twice per detect) of the last weights trained, and
+    those weights served."""
+    import torch
+
+    from facerecognitionpipeline_tpu_torch.evalharness import detector_reports as D
+    from facerecognitionpipeline_tpu_torch.evalharness.detection import (
+        STRESS_CATEGORIES,
+        run_stress_suite,
+    )
+    from facerecognitionpipeline_tpu_torch.evalharness.detection_ood import OOD_CATEGORIES
+    from facerecognitionpipeline_tpu_torch.utils.io import load_npz_variables
+
+    t_start = time.perf_counter()
+    res: dict = {}
+    counters = openset_counters()
+    for c in counters.values():
+        c.reset()
+    n_stress, n_ood = 12 * len(STRESS_CATEGORIES), 12 * len(OOD_CATEGORIES)
+    runs = []
+    if which in ("stress", "all"):
+        runs.append(("stress", D.STRESS_REPORT_DIR, D.STRESS_WEIGHTS, "stress_retrained",
+                     lambda: D.run_stress_report(
+                         os.path.join(REPO, "pretrained", "mtcnn_synthetic.npz"), True,
+                         device=DEVICE), 2 * n_stress))
+    if which in ("ood", "all"):
+        # the JAX report's base row is of mtcnn_stress.npz (discover_default_
+        # weights() now finds mtcnn_dr.npz first)
+        runs.append(("ood", D.OOD_REPORT_DIR, D.DR_WEIGHTS, "dr_retrained_stress",
+                     lambda: D.run_ood_report(
+                         os.path.join(REPO, "pretrained", "mtcnn_stress.npz"), True,
+                         device=DEVICE), 2 * n_ood + n_stress))
+    for name, out_dir, weights, stress_row, run, n_detects in runs:
+        rep, secs = counted_suite(f"the {name} report", run, n_detects)
+        path = D.write_report(rep, out_dir)
+        with open(weights.replace(".npz", ".meta.json")) as f:
+            meta = json.load(f)
+        with open(JAX_DETECTOR_REPORTS[name]) as f:
+            want = json.load(f)
+        print(f"[detector] {name}: {os.path.relpath(path, REPO)} in {secs:.1f} s "
+              f"(training {meta['train_seconds']:.1f} s: " + ", ".join(
+                  f"{k} {s:.1f} s" for k, s in meta["seconds_per_net"].items())
+              + f"; os.cpu_count() {meta['cpu_count']}); port on this card / JAX report "
+              f"({os.path.relpath(JAX_DETECTOR_REPORTS[name], REPO)}, taken on a TPU)")
+        for row in rep:
+            detector_rows(f"{name} {row}", rep[row]["summary"], want[row],
+                          report=name if row == "base" else "")
+        res[name] = {"report": os.path.relpath(path, REPO), "seconds": secs,
+                     "train_seconds": meta["train_seconds"],
+                     "seconds_per_net": meta["seconds_per_net"],
+                     "summary": {row: rep[row]["summary"] for row in rep}}
+        last = (weights, rep[stress_row])
+    weights, f32_row = last
+    label = os.path.relpath(weights, REPO)
+    det = D.make_detector(weights, device=DEVICE, dtype=torch.bfloat16, crop_impl="kernel")
+    rep, secs = counted_suite(f"the bf16 stress suite on {label}",
+                              lambda: run_stress_suite(det, n_scenes=12, seed=0), n_stress,
+                              k1_per_detect=2)
+    print(f"[detector] the stress suite through a bf16 cascade (K1) on {label} in "
+          f"{secs:.1f} s, K1 x2 and K5 x3 per detect: bf16 / float32")
+    res["bf16_stress"] = {"weights": label, "seconds": secs,
+                          "worst": detector_rows("bf16", rep["summary"], f32_row),
+                          "summary": rep["summary"]}
+    detector_serving(res, fixture, load_npz_variables(weights), label, 0.8)
+    res["launches"] = {k: c.count for k, c in counters.items()}
+    res["seconds"] = time.perf_counter() - t_start
+    print(f"[detector] --detector-only {which} took {res['seconds']:.1f} s after the build; "
+          f"launches {res['launches']}")
+    return res
+
+
 def nms_entry(report, source) -> dict:
     """The kernels line's entry of K5: times and bounds summed over the
     three calls of one step (stages 1-3 of the server build at B=8),
     launches of phases 3 (the timed steps), 7 (the served requests), 12 (the
-    mesh) and 13 (one replay per route); beside them the torch ops it
+    mesh), 13 (one replay per route), 14 and 15; beside them the torch ops it
     absorbs (pairwise_iou + mask), the floor of its sweeps' barriers, its
     cluster per shape and nms_mask's device time per step."""
     rows = report["nms_fixpoint"]
@@ -5725,8 +6075,9 @@ def nms_entry(report, source) -> dict:
             for r in rows},
     }
     entry["openset_launches"] = report["openset"]["launches"]["nms_fixpoint"]
+    entry["detector_launches"] = report["detector"]["launches"]["nms_fixpoint"]
     for key in ("launches", "server_launches", "mesh_launches", "graph_launches",
-                "openset_launches"):
+                "openset_launches", "detector_launches"):
         if entry[key] < 1:
             fail(f"{key}: a main path never launched nms_fixpoint")
     return entry
@@ -5766,6 +6117,15 @@ def main() -> int:
         if openset_arch not in OPENSET_RECIPES:
             print(f"chip_smoke: --openset-only takes one of {sorted(OPENSET_RECIPES)}, "
                   f"not {openset_arch!r}", file=sys.stderr)
+            return 2
+    if "--detector-only" in sys.argv[1:]:
+        # stress, ood or all (all when nothing follows); anything else is
+        # refused before the build
+        args = sys.argv[sys.argv.index("--detector-only") + 1:]
+        detector_only = args[0] if args else "all"
+        if detector_only not in DETECTOR_ONLY:
+            print(f"chip_smoke: --detector-only takes one of {list(DETECTOR_ONLY)}, "
+                  f"not {detector_only!r}", file=sys.stderr)
             return 2
     print(f"[env] python {sys.version.split()[0]} torch {torch.__version__} "
           f"cuda {torch.version.cuda}")
@@ -5829,6 +6189,12 @@ def main() -> int:
         print(card_line())
         print(json.dumps({"openset": res}))
         return 0
+    if "--detector-only" in sys.argv[1:]:
+        # the recorded detector recipes at full scale, after the build
+        res = detector_full(fixture, detector_only)
+        print(card_line())
+        print(json.dumps({"detector": res}))
+        return 0
     if "--mesh-only" in sys.argv[1:]:
         # phase 12 alone on phase 3's build, the same way; with --cards its
         # mesh entries are distinct cards (2 for serving, 4 for the (2, 2)
@@ -5855,7 +6221,8 @@ def main() -> int:
     graph_phase(ctx, gal, report)
     del gal, ctx
     openset_phase(fixture, report)
-    print(f"[timing] phases 1-14 took {time.perf_counter() - t_start:.1f} s")
+    detector_phase(fixture, report)
+    print(f"[timing] phases 1-15 took {time.perf_counter() - t_start:.1f} s")
 
     print(card_line())
 
@@ -5880,6 +6247,7 @@ def main() -> int:
     train_launches = report["train"]["launches"]
     mesh_launches = report["mesh"]["launches"]
     openset_launches = report["openset"]["launches"]
+    detector_launches = report["detector"]["launches"]
     matcher_launches = {"crop_resize": enrol["launches_k1"], "warp_patches": 0,
                         **enrol["matcher_launches"]}
     # K1's and K2's first designs (one thread per output pixel), as timed when
@@ -5938,6 +6306,9 @@ def main() -> int:
             # phase 14 (K1 and K2 in the serving steps with the ir_18 trained
             # there, K1 in its e2e_rank1 processors), counted from 0 over it
             "openset_launches": openset_launches.get(name, 0),
+            # phase 15 (K1 and K2 in the serving steps of the cascade trained
+            # there, assigned into a captured engine), counted from 0 over it
+            "detector_launches": detector_launches.get(name, 0),
             "max_abs_err": max(r["err"] for r in all_rows),
             # ms, plain_ms, bound_ms and library_ms are sums over the call
             # shapes of one serving step (K1: R-net, O-net, align stage A)
@@ -5976,6 +6347,8 @@ def main() -> int:
             fail(f"phase 12 never launched {name}")
         if name in ("crop_resize", "warp_patches") and openset_launches[name] < 1:
             fail(f"phase 14 never launched {name}")
+        if name in ("crop_resize", "warp_patches") and detector_launches[name] < 1:
+            fail(f"phase 15 never launched {name}")
     # the pool route (the long lists of K3, K4 and K3 on float32 rows from
     # POOL_MIN_K): its times at top_k 1024 (every top_k in by_k); launches
     # over phase 2's long lists (counted from 0 before them, read after) and
@@ -6015,6 +6388,7 @@ def main() -> int:
     print(json.dumps({"mesh": report["mesh"]}))
     print(json.dumps({"graph": report["graph"]}))
     print(json.dumps({"openset": report["openset"]}))
+    print(json.dumps({"detector": report["detector"]}))
     print(json.dumps({
         "kernels": kernels,
         **{k: v for k, v in report.items() if k.startswith("step_p50_ms")},

@@ -250,11 +250,12 @@ class MTCNNDetector:
             self.pretrained = False
         # the JAX-format variables of the nets, float32 (the module is cast
         # to the cascade dtype below); quantize and save_npz read these
-        self.variables = (
+        self._variables = (
             variables if variables is not None
             else detector_variables_from_state(nets.state_dict())
         )
         self.nets = nets.to(device=self.device, dtype=dtype).eval()
+        self.quantized = loaded_int8
 
         h, w = self.det_size
         m = 12.0 / min_face_size
@@ -285,22 +286,45 @@ class MTCNNDetector:
             self._pyramid_mats.append((round_to(wy, dtype), round_to(wx, dtype)))
             ph, pw = sh, sw
 
-        self.quantized = False
-        if quantize == "int8":
-            if not loaded_int8:
-                from facerecognitionpipeline_tpu_torch.models.quantize import (
-                    default_calibration_frames,
-                    quantize_detector_variables,
-                )
+        if quantize == "int8" and not loaded_int8:
+            from facerecognitionpipeline_tpu_torch.models.quantize import (
+                default_calibration_frames,
+                quantize_detector_variables,
+            )
 
-                if calib_frames is None:
-                    calib_frames = default_calibration_frames(det_size=self.det_size)
-                amax = self.calibrate_amax(calib_frames)
-                self.variables = quantize_detector_variables(self.variables, amax)
-                qnets = DetectorNets(quantized=True)
-                qnets.load_state_dict(detector_state_from_jax(self.variables))
-                self.nets = qnets.to(device=self.device, dtype=dtype).eval()
+            if calib_frames is None:
+                calib_frames = default_calibration_frames(det_size=self.det_size)
+            amax = self.calibrate_amax(calib_frames)
+            self._variables = quantize_detector_variables(self._variables, amax)
+            qnets = DetectorNets(quantized=True)
+            qnets.load_state_dict(detector_state_from_jax(self._variables))
+            self.nets = qnets.to(device=self.device, dtype=dtype).eval()
             self.quantized = True
+
+    @property
+    def variables(self) -> dict:
+        """The JAX-format variables the nets hold (float32, or int8 with
+        their scales when quantized); `save_npz` writes them."""
+        return self._variables
+
+    @variables.setter
+    def variables(self, variables: dict) -> None:
+        """Load a new JAX-format tree into the nets, as assigning
+        `variables` in the JAX package changes what its detect computes.
+        The tensors are copied into the nets' own (`load_state_dict`), so a
+        CUDA graph captured over the cascade replays with the new weights.
+        A float detector takes float trees and an int8 one int8 trees: the
+        JAX package's nets cannot apply the other kind either."""
+        if self._variables_quantized(variables) != self.quantized:
+            kinds = ("float", "int8-quantized")
+            raise ValueError(
+                f"this detector's R/O-nets are {kinds[self.quantized]} and the "
+                f"variables are {kinds[not self.quantized]}; construct "
+                f"MTCNNDetector(variables=..., quantize="
+                f"{'None' if self.quantized else repr('int8')}) for them"
+            )
+        self.nets.load_state_dict(detector_state_from_jax(variables))
+        self._variables = variables
 
     # ------------------------------------------------------------- cascade
 

@@ -93,6 +93,17 @@ class _KeepFloat32(nn.Module):
             self._buffers[name] = t.to(self._buffers[self._ANCHOR].device)
         return self
 
+    def _put(self, name: str, value: torch.Tensor) -> None:
+        """Set a derived buffer. One of the same shape, dtype and device is
+        written in place, so a CUDA graph captured over the module reads
+        the values derived from a later `load_state_dict`."""
+        old = self._buffers[name]
+        if (old.shape == value.shape and old.dtype == value.dtype
+                and old.device == value.device):
+            old.copy_(value)
+        else:
+            self._buffers[name] = value
+
 
 class _QuantLayer(_KeepFloat32):
     """Buffers of a static-scale int8 layer, named as the JAX package's
@@ -126,9 +137,9 @@ class _QuantLayer(_KeepFloat32):
     def _derive(self) -> None:
         with torch.no_grad():
             k = self.kernel_q
-            self.gemm_w = pack_weight(k.reshape(-1, k.shape[-1]))
-            self.inv_act_scale = rdiv(1.0, self.act_scale.float())
-            self.out_scale = self.act_scale.float() * self.scale.float()
+            self._put("gemm_w", pack_weight(k.reshape(-1, k.shape[-1])))
+            self._put("inv_act_scale", rdiv(1.0, self.act_scale.float()))
+            self._put("out_scale", self.act_scale.float() * self.scale.float())
 
     def _load_from_state_dict(self, *args, **kwargs):
         super()._load_from_state_dict(*args, **kwargs)
@@ -275,8 +286,8 @@ class FusedQuantBody(_KeepFloat32):
 
     def _derive(self) -> None:
         with torch.no_grad():
-            self.gemm_w1 = pack_weight(self.kernel1_q.reshape(-1, self.depth))
-            self.gemm_w2 = pack_weight(self.kernel2_q.reshape(-1, self.depth))
+            self._put("gemm_w1", pack_weight(self.kernel1_q.reshape(-1, self.depth)))
+            self._put("gemm_w2", pack_weight(self.kernel2_q.reshape(-1, self.depth)))
 
     def _load_from_state_dict(self, *args, **kwargs):
         super()._load_from_state_dict(*args, **kwargs)

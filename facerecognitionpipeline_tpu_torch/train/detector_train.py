@@ -441,6 +441,13 @@ def train_net(
     return {"params": params_from_state(net.state_dict())}
 
 
+# the cascade's nets as train_detector trains them: (name, class, patch
+# size, with landmarks, seed offset)
+CASCADE_NETS = (("pnet", PNet, 12, False, 0),
+                ("rnet", RNet, 24, False, 1),
+                ("onet", ONet, 48, True, 2))
+
+
 def train_detector(
     steps: int = 400,
     batch: int = 256,
@@ -455,12 +462,10 @@ def train_detector(
     """Train the full cascade; returns MTCNNDetector-compatible variables.
     `history`, if given, maps 'pnet'/'rnet'/'onet' to each net's losses."""
     out = {}
-    for name, net, size, lmk, offset in (("pnet", PNet(), 12, False, 0),
-                                          ("rnet", RNet(), 24, False, 1),
-                                          ("onet", ONet(), 48, True, 2)):
+    for name, net, size, lmk, offset in CASCADE_NETS:
         print(f"Training {name[0].upper()}-Net...")
         log = None if history is None else history.setdefault(name, [])
-        out[name] = train_net(net, size, steps, batch, seed=seed + offset,
+        out[name] = train_net(net(), size, steps, batch, seed=seed + offset,
                               with_landmarks=lmk, scene_fn=scene_fn, log_every=log_every,
                               ohem_fraction=ohem_fraction, class_balance=class_balance,
                               device=device, history=log)

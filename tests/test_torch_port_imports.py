@@ -24,7 +24,8 @@ def _port_sources():
             if f.endswith(".py"):
                 yield os.path.join(root, f)
     yield os.path.join(REPO, "chip_smoke.py")
-    for script in ("torch_train_open_set.py", "torch_open_set_eval.py"):
+    for script in ("torch_train_open_set.py", "torch_open_set_eval.py",
+                   "torch_detector_stress_eval.py", "torch_detector_ood_eval.py"):
         yield os.path.join(REPO, "examples", script)
 
 
@@ -61,7 +62,10 @@ def test_port_never_imports_jax_or_the_jax_package():
                    "pipeline/step_graph.py", "ops/nms_kernel.py", "../chip_smoke.py",
                    "evalharness/open_set.py", "train/open_set.py",
                    "../examples/torch_train_open_set.py",
-                   "../examples/torch_open_set_eval.py"):
+                   "../examples/torch_open_set_eval.py", "train/detector_recipes.py",
+                   "evalharness/detector_reports.py",
+                   "../examples/torch_detector_stress_eval.py",
+                   "../examples/torch_detector_ood_eval.py"):
         assert module in scanned, module
     for path in _port_sources():
         n += 1
