@@ -89,7 +89,8 @@ Phases, in order; any failure exits non-zero before the final line:
      counts against the steps dispatched (K1 x3, K2 x1 per step; fewer steps
      than requests under four clients), /stats against torch.cuda, bad
      requests against their 400s on a kept-alive connection. Then one server
-     per compact gallery of 1 048 576 identities, each loading one
+     per compact gallery of 262 144 of phase 5's identities and the rows it
+     planted, each loading one
      GalleryManager file through its constructor's gallery_path (bf16: K3
      once per step; gallery_quantize='int8': K4 once per step), 120 requests
      from one client and 60 each from four. Prints request latency
@@ -167,7 +168,7 @@ Phases, in order; any failure exits non-zero before the final line:
      distance <= 1e-3) and in the fused serving step (K1 x3, K2 x1 per
      step); the accuracy recipe (ir_micro trained on the card, 400 steps
      at B=64 bf16, e2e_rank1 over 24 trials through bf16 processors, at
-     least 0.75); train_detector(100 steps, batch 256, OHEM 0.7) with each
+     least 0.75); train_detector(50 steps, batch 256, OHEM 0.7) with each
      net's loss falling, its weights in MTCNNDetector, and run_ood_suite
      through a bf16 cascade (K1); the fused int8 body at ir_101 against the
      unfused int8 embedder (cosine > 0.9999 in float32) and its embed time.
@@ -264,9 +265,42 @@ Phases, in order; any failure exits non-zero before the final line:
      float32 row, and those weights served as above beside the shipped
      mtcnn_dr.npz's recall (at least 0.8); any other name after the flag is
      refused before the build.
+  16. the server as it is deployed (`serve/soak.py`): phase 3's server build
+     as CLI flags (ir_101 seeded, bf16, 640x640, 16 face slots, batch_max 8,
+     --transport i420, mtcnn_dr.npz), the fixture's faces enrolled among
+     seeded ids to 65 536 rows with --gallery_quantize int8; the same build
+     made in this process from the same flags, whose direct steps launch K1
+     x3, K2 x1, K4 x1 and K5 x3 each (counted) and are the reference for
+     the answers; then
+     `python -m facerecognitionpipeline_tpu_torch.cli.face_recognition_server`
+     under its --max_requests supervisor as a process of its own, 60 raw
+     I420 requests of one fixture mosaic from one client process (spawned,
+     no torch) at --max_requests 24: three worker generations with their
+     own pids, every answer equal to the direct step (faces, boxes within 1
+     px, the enrolled students and no others), attendance.json after
+     /finalize, session.json's summed faces equal to the answers', the
+     worker's RSS (/proc) and /stats device memory every 4 answers, each
+     sample on a fresh connection so that no idle client holds a drain
+     (each later generation's first RSS within 10% of the first's, growth per
+     request below half the payload), start seconds, downtime and drain per
+     recycle, the supervisor gone after SIGTERM with no worker left, the
+     card's memory.used back within 1%, the supervisor holding no device
+     file or memory. Each worker prints its own kernel launches since it
+     was ready and the steps it dispatched on its way out (after its drain,
+     or at SIGTERM); every worker's launches must be the direct step's per
+     step times its steps, and the steps summed over the generations the
+     requests answered: these sums are phase 16's launches.
+     `python3 chip_smoke.py --soak-only [example | deployment | all]` builds
+     the kernels and runs instead `examples/recycle_soak.py`'s run (ir_18,
+     300 base64 PNG noise frames, --max_requests 120) and/or the
+     deployment soak at full size (2 client processes, 1200 requests,
+     --max_requests 400, the workers' launches held as in phase 16 but
+     for the steps, which two clients share: at most one a request),
+     writing reports/serving_recycle_soak_torch.json; any other name
+     after the flag is refused before the build.
 Then it prints the card's name and power limit, JSON lines of phase 8's, 9's,
-10's, 11's, 12's, 13's, 14's and 15's numbers, a JSON line describing the
-kernels, and as its last line {"ok": true, "device": {...}}.
+10's, 11's, 12's, 13's, 14's, 15's and 16's numbers, a JSON line describing
+the kernels, and as its last line {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -2162,9 +2196,13 @@ def manager_phase(ctx) -> None:
 
 SERVER_THRESHOLD = 0.9
 # requests of one timed run: (clients, requests each). A p95 is read from at
-# least 200 requests at the enrolled gallery and 120 at 1 048 576 identities.
+# least 200 requests at the enrolled gallery and 120 at the large one.
 SERVER_RUNS = ((1, 200), (4, 100))
 BIG_SERVER_RUNS = ((1, 120), (4, 60))
+# the servers' large gallery file: the first 262 144 of phase 5's identities
+# and its planted rows (a quarter of 1 048 576: writing and loading the
+# file is most of phase 7, and the run has a time limit)
+BIG_SERVER_ROWS = 1 << 18
 
 
 def pct(values, q):
@@ -2660,28 +2698,31 @@ def server_phase(ctx, gal, report) -> None:
         if any(r["launches"]["gallery_topk"] or r["launches"]["gallery_topk_int8"] for r in runs):
             fail("a gallery of a few hundred students must take the dense match")
 
-        # the compact galleries of 1 048 576 identities behind the server. The
-        # records are made in bulk as views of the matrix (what add_student
-        # stores for one unit-norm sample) and saved to the manager's pickle
-        # once; each server then loads that file through its own constructor
+        # the compact galleries behind the server: BIG_SERVER_ROWS of phase
+        # 5's identities and the rows it planted. The records are made in
+        # bulk as views of the matrix (what add_student stores for one
+        # unit-norm sample) and saved to the manager's pickle once; each
+        # server then loads that file through its own constructor
         # (gallery_path, gallery_quantize) and makes the device copy itself.
         gal = gal.cpu().numpy()
-        big = gal.shape[0]
+        # phase 5 planted the direct step's embeddings of these faces
+        planted = [4099 + 131_101 * i for i in range(len(ctx["slots"]))
+                   if ctx["slots"][i][0] == 0]
+        planted_rows = {f"id{i}" for i in planted}
+        keep = list(range(BIG_SERVER_ROWS)) + [i for i in planted if i >= BIG_SERVER_ROWS]
+        big = len(keep)
         now = "2026-01-01T00:00:00"
         big_path = os.path.join(tmp, "big", "students.pkl")
         t0 = time.perf_counter()
         writer = GalleryManager(big_path, verbose=False, device=DEVICE)
         writer.students = {
             f"id{i}": StudentRecord(f"id{i}", f"Identity {i}", gal[i:i + 1], gal[i], 1, now, now)
-            for i in range(big)
+            for i in keep
         }
         writer.save()
         del writer
         print(f"[server big] GalleryManager file of {big} identities written in "
               f"{time.perf_counter() - t0:.1f} s ({os.path.getsize(big_path) / 2**30:.2f} GiB)")
-        # phase 5 planted the direct step's embeddings of these faces
-        planted_rows = {f"id{4099 + 131_101 * i}" for i in range(len(ctx["slots"]))
-                        if ctx["slots"][i][0] == 0}
         for quantize, kernel in ((None, "gallery_topk"), ("int8", "gallery_topk_int8")):
             label = quantize or "bf16"
             server, httpd, thread, url = start_server(
@@ -4127,7 +4168,8 @@ TRAIN_F32_STEPS = 10
 TRAIN_TIMED = 8  # steps timed per configuration, after 2 of warm-up
 PARITY = {"architecture": "ir_18", "batch": 16, "classes": 64}
 E2E_STEPS, E2E_BATCH, E2E_FLOOR = 400, 64, 0.75
-DET_STEPS, DET_BATCH, DET_OHEM = 100, 256, 0.7
+# 50 steps: phase 15 trains the recipes' nets as well (the run's time limit)
+DET_STEPS, DET_BATCH, DET_OHEM = 50, 256, 0.7
 OOD_SCENES = 3
 FUSED_FACES = 64
 
@@ -6037,11 +6079,260 @@ def detector_full(fixture, which: str) -> dict:
     return res
 
 
+# ------------------------------------------------------------ phase 16
+
+SOAK_ONLY = ("example", "deployment", "all")  # what --soak-only takes
+SOAK_GALLERY_ROWS = 1 << 16  # int8 rows (compact from 32 768): K4 once per step
+# phase 16 (the default run) and --soak-only deployment: clients, frames in
+# all, --max_requests, RSS sampled every so many answers
+SOAK_PHASE = {"clients": 1, "frames": 60, "max_requests": 24, "sample_every": 4}
+SOAK_DEPLOYMENT = {"clients": 2, "frames": 1200, "max_requests": 400, "sample_every": 10}
+SOAK_DIRECT_STEPS = 3
+SOAK_REPORT = os.path.join(REPO, "reports", "serving_recycle_soak_torch.json")
+
+
+def soak_argv(gallery_path: str) -> list:
+    """Phase 3's server build as CLI flags (bf16, 640x640 and buckets
+    (1, batch_max) are the CLI's defaults; ir_101 seeded by init_seed 0),
+    I420 transport and the gallery stored int8."""
+    return ["--gallery_path", gallery_path, "--architecture", ARCH,
+            "--max_faces", str(MAX_FACES), "--batch_max", str(BATCH), "--transport", "i420",
+            "--gallery_quantize", "int8", "--threshold", str(SERVER_THRESHOLD),
+            "--detector_weights", os.path.join(REPO, "pretrained", "mtcnn_dr.npz")]
+
+
+def print_soak(tag: str, rep: dict) -> None:
+    """One line per worker process, then the process and card figures.
+    Growth per request is the least over a generation's intervals between
+    samples (`soak.check_soak`)."""
+    half_kib = rep["payload_bytes"] / 2 / 1024
+    gens = {g["pid"]: g for g in rep["generations"]}
+
+    def sec(x):
+        return "n/a" if x is None else f"{x:.2f} s"
+
+    for i, w in enumerate(rep["workers"], 1):
+        g = gens.get(w["pid"])
+        line = (f"[soak {tag}] worker {i} (pid {w['pid']}): started {sec(w['seen_s'])} after "
+                f"the supervisor, first answer {sec(w['start_s'])} after its start, "
+                f"{w['requests']} requests, p50 "
+                + ("n/a" if w["request_p50_ms"] is None else f"{w['request_p50_ms']:.2f} ms")
+                + f"; downtime before it {sec(w['downtime_s'])}, its drain "
+                f"{sec(w['drain_s'])}, gone {sec(w['gone_s'])} after the supervisor's start; "
+                f"its own launches {w['launches']} in {w['steps']} steps")
+        if g is not None:
+            growth = g.get("growth_per_request_mb")
+            line += (f"; RSS {g['rss_first_mb']} -> {g['rss_last_mb']} MB over "
+                     f"{g['n_samples']} samples ("
+                     + ("not measured" if growth is None else f"{growth * 1024:.1f} KiB a request")
+                     + f", bound {half_kib:.1f}); /stats device {g['gpu_vram_first_mb']} -> "
+                     f"{g['gpu_vram_last_mb']} MB")
+        print(line)
+    from facerecognitionpipeline_tpu_torch.serve import soak
+
+    workers = rep["workers"]
+    probes = [w["probe"] for w in workers if w["probe"]]
+    print(f"[soak {tag}] samples (answers, pid, RSS MB, /stats device MB): "
+          f"{[(x['frame'], x['pid'], x['rss_mb'], x['gpu_vram_mb']) for x in rep['samples']]}")
+    print(f"[soak {tag}] {rep['answered']} answers from {rep['clients']} client process(es) "
+          f"(torch imported there: {rep['clients_imported_torch']}), --max_requests "
+          f"{rep['max_requests']}, {len(workers)} workers, payload {rep['payload_bytes']} B; "
+          f"session.json frames {rep['statistics']['total_frames_processed']}, faces "
+          f"{rep['statistics']['total_faces_detected']} (answers' {rep['faces_answered']}); "
+          f"supervisor returned {rep['supervisor_rc']} after SIGTERM, no worker left")
+    if "card" not in rep:
+        return
+    print(f"[soak {tag}] card memory.used {rep['card_used_mb_before']} MiB before the "
+          f"supervisor, {rep['card_used_mb_after']} after it exited ("
+          f"{rep['card_release_s']:.2f} s after SIGTERM); at each generation's first sample "
+          f"{[p['card_used_mb'] for p in probes]}; the supervisor's device files "
+          f"{[p['supervisor_device_files'] for p in probes]}; nvidia-smi compute apps "
+          f"{[p['compute_apps'] for p in probes]} ("
+          + ("worker pids visible" if soak.pids_visible(rep) else
+             "the container hides pids: no listed pid is a worker's")
+          + f"); {rep['card']}")
+
+
+def soak_deployment(fixture, clients: int, frames: int, max_requests: int,
+                    sample_every: int) -> dict:
+    """The deployment soak (see the module docstring): the build in this
+    process from the same flags, the fixture's students enrolled among
+    seeded ids to SOAK_GALLERY_ROWS int8 rows, the direct step's launches
+    counted, then the supervised CLI; every answer held to the direct step,
+    every worker's launches to the direct step's per step. Returns the
+    soak's report with "direct_launches", "worker_launches" (summed over
+    the workers), "worker_steps", "enrolled" and "failures" (the bounds of
+    soak.check_soak it missed, judged by the caller after it has written
+    the report)."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from facerecognitionpipeline_tpu_torch.gallery.manager import GalleryManager, StudentRecord
+    from facerecognitionpipeline_tpu_torch.serve import rawproto, soak
+    from facerecognitionpipeline_tpu_torch.serve import server as tserver
+
+    tmp = tempfile.mkdtemp(prefix="soak_deployment_")
+    gallery_path = os.path.join(tmp, "students.pkl")
+    argv = soak_argv(gallery_path)
+    t0 = time.perf_counter()
+    server = tserver.build_server(tserver.build_parser().parse_args(argv + ["--device", DEVICE]))
+    build_s = time.perf_counter() - t0
+    canvas = rawproto.rgb_to_i420(mosaics(fixture, 1)[0][0])  # 640x640 letterboxes to itself
+    strong = [f for f in direct_faces(server, canvas) if f["det"] > 0.7]
+    if len(strong) < 8:
+        fail(f"soak: only {len(strong)} faces of the direct step pass the gate")
+    rng = np.random.default_rng(16)
+    others = rng.normal(size=(SOAK_GALLERY_ROWS - len(strong[::2]), 512)).astype(np.float32)
+    others /= np.linalg.norm(others, axis=1, keepdims=True)
+    now = "2026-01-01T00:00:00"
+    writer = GalleryManager(gallery_path, verbose=False, device="cpu")
+    writer.students = {
+        f"id{i}": StudentRecord(f"id{i}", f"Identity {i}", others[i:i + 1], others[i], 1, now, now)
+        for i in range(len(others))
+    }
+    enrolled = set()
+    for j, f in enumerate(strong[::2]):
+        writer.add_student(f"face{j:02d}", f"Face {j}", np.repeat(f["emb"][None], 2, axis=0))
+        enrolled.add(f"face{j:02d}")
+    writer.save()
+    del writer, others
+    reloaded = server.reload_gallery()
+    t, _, ids = server.gallery.device_snapshot()
+    if reloaded.get("status") != "reloaded" or len(ids) != SOAK_GALLERY_ROWS or \
+            not (isinstance(t, tuple) and t[0].dtype == torch.int8):
+        fail(f"soak: the reloaded gallery is not {SOAK_GALLERY_ROWS} int8 rows ({reloaded})")
+    del t, ids
+    server.batcher.warmup(DET_SIZE)  # this gallery's graphs, captured before the counts
+    at = tserver.launch_counts()
+    for _ in range(SOAK_DIRECT_STEPS):
+        faces = direct_faces(server, canvas)
+    launches = {k: c - at[k] for k, c in tserver.launch_counts().items()}
+    n = SOAK_DIRECT_STEPS
+    want = {"crop_resize": 3 * n, "warp_patches": n, "gallery_topk": 0,
+            "gallery_topk_int8": n, "gallery_topk_f32": 0, "nms_fixpoint": 3 * n}
+    if launches != want:
+        fail(f"soak: {n} direct steps launched {launches}, want {want}")
+    own = {f["top1"] for f in faces if f["score"] > 0.98}
+    sure, maybe = expected_students(faces)
+    if not enrolled <= own or not enrolled <= sure | maybe:
+        fail(f"soak: enrolled {sorted(enrolled)}, own top-1 {sorted(own & enrolled)}, "
+             f"expected from the direct step {sorted(sure)} (+ maybe {sorted(maybe)})")
+    print(f"[soak deployment] the build in this process from the CLI's flags in "
+          f"{build_s:.1f} s; {len(enrolled)} fixture faces enrolled among "
+          f"{SOAK_GALLERY_ROWS} int8 rows; {n} direct steps launched {launches} (K1 x3, K2 "
+          f"x1, K4 x1, K5 x3 a step)")
+    server.shutdown()
+    del server
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    request = {"path": "/process_frame_raw", "data": canvas.tobytes(), "headers": {
+        "Content-Type": "application/octet-stream", rawproto.HEADER_FORMAT: "i420",
+        rawproto.HEADER_WIDTH: str(DET_SIZE[1]), rawproto.HEADER_HEIGHT: str(DET_SIZE[0]),
+        rawproto.HEADER_SCALE: "1.0"}}
+    try:
+        rep = soak.run_recycle_soak(argv, request, frames, max_requests, clients=clients,
+                                    sample_every=sample_every, device=DEVICE,
+                                    workdir=os.path.join(tmp, "soak"))
+    except soak.SoakError as e:
+        fail(f"soak deployment: {e}")
+    rep["failures"] = soak.check_soak(rep)
+    rep["direct_launches"] = launches
+    rep["enrolled"] = sorted(enrolled)
+    print_soak("deployment", rep)
+    # each worker's own launches (its line in the supervisor's log): the
+    # direct step's per step times the steps it dispatched
+    serving = [w for w in rep["workers"] if w["requests"]]
+    for w in serving:
+        if w["steps"] is None:
+            fail(f"soak: worker {w['pid']} printed no launch line")
+        want = {k: v // n * w["steps"] for k, v in launches.items()}
+        if w["launches"] != want:
+            fail(f"soak: worker {w['pid']} launched {w['launches']} in {w['steps']} steps, "
+                 f"want {want}")
+    rep["worker_steps"] = sum(w["steps"] for w in serving)
+    rep["worker_launches"] = {k: sum(w["launches"][k] for w in serving) for k in launches}
+    if rep["worker_steps"] > rep["answered"] or \
+            (clients == 1 and rep["worker_steps"] != rep["answered"]):
+        fail(f"soak: the workers dispatched {rep['worker_steps']} steps for "
+             f"{rep['answered']} requests from {clients} client(s)")
+    for c, rows in enumerate(rep["answers"]):
+        for j, (_, _, text) in enumerate(rows):
+            body = json.loads(text)
+            check_response(f"soak client {c} answer {j}", body, faces, 1.0)
+            rec = {r["student_id"] for r in body["recognized_tracks"].values()}
+            if not rec <= sure | maybe:
+                fail(f"soak client {c} answer {j}: recognized {sorted(rec - sure - maybe)}, "
+                     f"not expected from the direct step")
+    listed = set(rep["attendance"])
+    if not sure <= listed <= sure | maybe:
+        fail(f"soak: attendance.json lists {sorted(listed)}, expected {sorted(sure)} "
+             f"(+ maybe {sorted(maybe)})")
+    if rep["clients_imported_torch"]:
+        fail("soak: a client process imported torch")
+    print(f"[soak deployment] all {rep['answered']} answers equal the direct step (faces, "
+          f"boxes within 1 px, students); attendance.json after /finalize lists "
+          f"{sorted(listed)} (enrolled {sorted(enrolled)}); the workers' own launches "
+          f"{[(w['pid'], w['steps'], w['launches']) for w in serving]}, summed "
+          f"{rep['worker_launches']} in {rep['worker_steps']} steps (the direct step's per "
+          f"step in each)")
+    return rep
+
+
+def soak_phase(fixture, report) -> None:
+    """Phase 16 (see the module docstring): the deployment soak cut to one
+    client, 60 requests and --max_requests 24 (three generations)."""
+    t_phase = time.perf_counter()
+    rep = soak_deployment(fixture, **SOAK_PHASE)
+    if rep["failures"]:
+        fail("phase 16: " + "; ".join(rep["failures"]))
+    res = {k: rep.get(k) for k in ("direct_launches", "worker_steps", "generations",
+                                   "answered", "card_used_mb_before", "card_used_mb_after",
+                                   "supervisor_rc")}
+    res["launches"] = rep["worker_launches"]
+    res["seconds"] = time.perf_counter() - t_phase
+    print(f"[soak] phase 16 took {res['seconds']:.1f} s; the workers' launches "
+          f"{res['launches']} in {res['worker_steps']} steps")
+    report["soak"] = res
+
+
+def soak_full(fixture, which: str) -> dict:
+    """--soak-only: the example's run (examples/recycle_soak.py's defaults)
+    and/or the deployment run at full size, each written into SOAK_REPORT
+    before its bounds are judged."""
+    from facerecognitionpipeline_tpu_torch.serve import soak
+
+    out = {}
+    if which in ("example", "all"):
+        t0 = time.perf_counter()
+        try:
+            rep = soak.example_soak(device=DEVICE)
+        except soak.SoakError as e:
+            fail(f"soak example: {e}")
+        rep["failures"] = soak.check_soak(rep)
+        soak.write_report(SOAK_REPORT, example=rep)
+        print_soak("example", rep)
+        out["example_seconds"] = time.perf_counter() - t0
+        if rep["failures"]:
+            fail("soak example: " + "; ".join(rep["failures"]))
+    if which in ("deployment", "all"):
+        t0 = time.perf_counter()
+        rep = soak_deployment(fixture, **SOAK_DEPLOYMENT)
+        soak.write_report(SOAK_REPORT, deployment=rep)
+        out["deployment_seconds"] = time.perf_counter() - t0
+        if rep["failures"]:
+            fail("soak deployment: " + "; ".join(rep["failures"]))
+    print(f"[soak] --soak-only {which}: {out}; report {os.path.relpath(SOAK_REPORT, REPO)}")
+    return out
+
+
 def nms_entry(report, source) -> dict:
     """The kernels line's entry of K5: times and bounds summed over the
     three calls of one step (stages 1-3 of the server build at B=8),
     launches of phases 3 (the timed steps), 7 (the served requests), 12 (the
-    mesh), 13 (one replay per route), 14 and 15; beside them the torch ops it
+    mesh), 13 (one replay per route), 14, 15 and 16; beside them the torch ops it
     absorbs (pairwise_iou + mask), the floor of its sweeps' barriers, its
     cluster per shape and nms_mask's device time per step."""
     rows = report["nms_fixpoint"]
@@ -6076,8 +6367,9 @@ def nms_entry(report, source) -> dict:
     }
     entry["openset_launches"] = report["openset"]["launches"]["nms_fixpoint"]
     entry["detector_launches"] = report["detector"]["launches"]["nms_fixpoint"]
+    entry["soak_launches"] = report["soak"]["launches"]["nms_fixpoint"]
     for key in ("launches", "server_launches", "mesh_launches", "graph_launches",
-                "openset_launches", "detector_launches"):
+                "openset_launches", "detector_launches", "soak_launches"):
         if entry[key] < 1:
             fail(f"{key}: a main path never launched nms_fixpoint")
     return entry
@@ -6126,6 +6418,15 @@ def main() -> int:
         if detector_only not in DETECTOR_ONLY:
             print(f"chip_smoke: --detector-only takes one of {list(DETECTOR_ONLY)}, "
                   f"not {detector_only!r}", file=sys.stderr)
+            return 2
+    if "--soak-only" in sys.argv[1:]:
+        # example, deployment or all (all when nothing follows); anything
+        # else is refused before the build
+        args = sys.argv[sys.argv.index("--soak-only") + 1:]
+        soak_only = args[0] if args else "all"
+        if soak_only not in SOAK_ONLY:
+            print(f"chip_smoke: --soak-only takes one of {list(SOAK_ONLY)}, "
+                  f"not {soak_only!r}", file=sys.stderr)
             return 2
     print(f"[env] python {sys.version.split()[0]} torch {torch.__version__} "
           f"cuda {torch.version.cuda}")
@@ -6195,6 +6496,13 @@ def main() -> int:
         print(card_line())
         print(json.dumps({"detector": res}))
         return 0
+    if "--soak-only" in sys.argv[1:]:
+        # the recycle soak at full size, after the build: every worker
+        # loads the libraries this process built
+        res = soak_full(fixture, soak_only)
+        print(card_line())
+        print(json.dumps({"soak": res}))
+        return 0
     if "--mesh-only" in sys.argv[1:]:
         # phase 12 alone on phase 3's build, the same way; with --cards its
         # mesh entries are distinct cards (2 for serving, 4 for the (2, 2)
@@ -6222,7 +6530,8 @@ def main() -> int:
     del gal, ctx
     openset_phase(fixture, report)
     detector_phase(fixture, report)
-    print(f"[timing] phases 1-15 took {time.perf_counter() - t_start:.1f} s")
+    soak_phase(fixture, report)
+    print(f"[timing] phases 1-16 took {time.perf_counter() - t_start:.1f} s")
 
     print(card_line())
 
@@ -6248,6 +6557,7 @@ def main() -> int:
     mesh_launches = report["mesh"]["launches"]
     openset_launches = report["openset"]["launches"]
     detector_launches = report["detector"]["launches"]
+    soak_launches = report["soak"]["launches"]
     matcher_launches = {"crop_resize": enrol["launches_k1"], "warp_patches": 0,
                         **enrol["matcher_launches"]}
     # K1's and K2's first designs (one thread per output pixel), as timed when
@@ -6309,6 +6619,10 @@ def main() -> int:
             # phase 15 (K1 and K2 in the serving steps of the cascade trained
             # there, assigned into a captured engine), counted from 0 over it
             "detector_launches": detector_launches.get(name, 0),
+            # phase 16 (the served steps of the CLI's worker processes against
+            # 65 536 int8 rows, each worker's own counts since it was ready,
+            # summed over the generations)
+            "soak_launches": soak_launches[name],
             "max_abs_err": max(r["err"] for r in all_rows),
             # ms, plain_ms, bound_ms and library_ms are sums over the call
             # shapes of one serving step (K1: R-net, O-net, align stage A)
@@ -6349,6 +6663,9 @@ def main() -> int:
             fail(f"phase 14 never launched {name}")
         if name in ("crop_resize", "warp_patches") and detector_launches[name] < 1:
             fail(f"phase 15 never launched {name}")
+        if name in ("crop_resize", "warp_patches", "gallery_topk_int8") and \
+                soak_launches[name] < 1:
+            fail(f"phase 16 never launched {name}")
     # the pool route (the long lists of K3, K4 and K3 on float32 rows from
     # POOL_MIN_K): its times at top_k 1024 (every top_k in by_k); launches
     # over phase 2's long lists (counted from 0 before them, read after) and
@@ -6389,6 +6706,7 @@ def main() -> int:
     print(json.dumps({"graph": report["graph"]}))
     print(json.dumps({"openset": report["openset"]}))
     print(json.dumps({"detector": report["detector"]}))
+    print(json.dumps({"soak": report["soak"]}))
     print(json.dumps({
         "kernels": kernels,
         **{k: v for k, v in report.items() if k.startswith("step_p50_ms")},

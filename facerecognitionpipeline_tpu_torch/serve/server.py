@@ -48,6 +48,7 @@ import math
 import json
 import os
 import re
+import signal
 import sys
 import threading
 import traceback
@@ -60,6 +61,12 @@ import torch
 
 from facerecognitionpipeline_tpu_torch.gallery.manager import GalleryManager
 from facerecognitionpipeline_tpu_torch.models.irse import BACKBONE_CONFIGS
+from facerecognitionpipeline_tpu_torch.ops import (
+    crop_kernel,
+    gallery_kernel,
+    nms_kernel,
+    warp_kernel,
+)
 from facerecognitionpipeline_tpu_torch.ops.quality import QualityConfig
 from facerecognitionpipeline_tpu_torch.serve import rawproto
 from facerecognitionpipeline_tpu_torch.serve.batcher import DeviceBatcher
@@ -77,6 +84,23 @@ from facerecognitionpipeline_tpu_torch.utils.io import (
 
 
 _SAFE_COMPONENT = re.compile(r"[A-Za-z0-9][A-Za-z0-9_.\-]*")
+
+# the line a CLI process prints on its way out: the kernels it launched
+# since its server was ready (`FaceRecognitionServer.launch_report`)
+LAUNCH_LINE = "[kernels] "
+
+
+def launch_counts() -> Dict[str, int]:
+    """The launch counters of the port's kernels (`ops/*_kernel.py`), by
+    kernel."""
+    return {
+        "crop_resize": crop_kernel.LAUNCHES.count,
+        "warp_patches": warp_kernel.LAUNCHES.count,
+        "gallery_topk": gallery_kernel.LAUNCHES.count,
+        "gallery_topk_int8": gallery_kernel.LAUNCHES_INT8.count,
+        "gallery_topk_f32": gallery_kernel.LAUNCHES_F32.count,
+        "nms_fixpoint": nms_kernel.LAUNCHES.count,
+    }
 
 
 def _safe_path_component(value, what: str) -> str:
@@ -301,6 +325,7 @@ class FaceRecognitionServer:
             )
             self.batcher.warmup(det_size)
             print("Engine ready.", file=sys.stderr)
+        self._ready_launches = launch_counts()
 
         # session state
         self.session_name: Optional[str] = None
@@ -1206,6 +1231,37 @@ class FaceRecognitionServer:
             ):
                 return
             self._recycle_requested = True
+        self._persist_recycle_state()
+        print(
+            f"[recycle] served {self._requests_served} requests "
+            f">= max_requests={self.max_requests}; draining for respawn",
+            file=sys.stderr,
+        )
+        if self._httpd is not None:
+            # shutdown() blocks until the accept loop exits; run it off
+            # this handler thread so the final response flushes first
+            threading.Thread(target=self._httpd.shutdown, daemon=True).start()
+
+    def _flush_session_stats(self, session_dir: str, stats: Dict) -> None:
+        """Update session.json's statistics block in place (status and the
+        rest of the document untouched). session_dir and stats are CAPTURED
+        by the caller under self._lock (a concurrent session swap must not
+        route one session's counters into another's file); reads+writes
+        under _io_lock to serialize with attendance writers."""
+        path = os.path.join(session_dir, "session.json")
+        with self._io_lock:
+            try:
+                with open(path) as f:
+                    data = json.load(f)
+            except (OSError, ValueError):
+                return
+            data.setdefault("statistics", {}).update(stats)
+            with open(path, "w") as f:
+                json.dump(data, f, indent=2)
+
+    def _persist_recycle_state(self) -> None:
+        """Write the supervisor's handoff state (the active session's name)
+        and flush the session counters into session.json."""
         # ONE locked read of (name, dir, counters): a concurrent
         # /init_session swap mid-recycle must not pair one session's name
         # with another's directory or counters (same captured-session
@@ -1237,35 +1293,27 @@ class FaceRecognitionServer:
                 self._flush_session_stats(session_dir, stats)
         except OSError as e:  # pragma: no cover - disk full etc.
             print(f"[recycle] could not persist state: {e}", file=sys.stderr)
-        print(
-            f"[recycle] served {self._requests_served} requests "
-            f">= max_requests={self.max_requests}; draining for respawn",
-            file=sys.stderr,
-        )
-        if self._httpd is not None:
-            # shutdown() blocks until the accept loop exits; run it off
-            # this handler thread so the final response flushes first
-            threading.Thread(target=self._httpd.shutdown, daemon=True).start()
 
-    def _flush_session_stats(self, session_dir: str, stats: Dict) -> None:
-        """Update session.json's statistics block in place (status and the
-        rest of the document untouched). session_dir and stats are CAPTURED
-        by the caller under self._lock (a concurrent session swap must not
-        route one session's counters into another's file); reads+writes
-        under _io_lock to serialize with attendance writers."""
-        path = os.path.join(session_dir, "session.json")
-        with self._io_lock:
-            try:
-                with open(path) as f:
-                    data = json.load(f)
-            except (OSError, ValueError):
-                return
-            data.setdefault("statistics", {}).update(stats)
-            with open(path, "w") as f:
-                json.dump(data, f, indent=2)
+    def launch_report(self) -> Dict:
+        """This process's kernel launches since the server was ready (the
+        warm-up's captures excluded) beside the steps the batcher dispatched
+        since then."""
+        now = launch_counts()
+        return {
+            "pid": os.getpid(),
+            "steps": self.batcher._dispatch_count,
+            "launches": {k: n - self._ready_launches[k] for k, n in now.items()},
+        }
 
     def shutdown(self) -> None:
         self.batcher.stop()
+        if self._recycle_requested:
+            # Requests already accepted when the limit was reached are still
+            # answered during the drain, after note_request_served's flush:
+            # flush again once they are all done (main() calls this after server_close
+            # has joined the handler threads), or the respawned worker
+            # resumes without them.
+            self._persist_recycle_state()
 
 
 # ------------------------------------------------------------------- HTTP
@@ -1657,7 +1705,6 @@ def _supervise(argv, args) -> int:
     SIGTERM/SIGINT forward to the live worker: without this, killing the
     supervisor orphans the worker (observed: a terminated soak left its
     worker serving — and holding device memory — indefinitely)."""
-    import signal
     import subprocess
 
     base = [
@@ -1718,22 +1765,14 @@ def _supervise(argv, args) -> int:
         signal.signal(signal.SIGINT, prev_int)
 
 
-def main(argv=None) -> int:
-    args = build_parser().parse_args(argv)
-    if args.use_cpu and args.use_gpu:
-        raise SystemExit("--use_cpu and --use_gpu exclude each other")
-    if args.max_requests is not None and args.max_requests < 1:
-        raise SystemExit("--max_requests must be >= 1")
-    if args.max_requests and not args._worker:
-        return _supervise(
-            list(argv) if argv is not None else sys.argv[1:], args
-        )
-    server = FaceRecognitionServer(
+def build_server(args) -> FaceRecognitionServer:
+    """The server a worker of the CLI builds from its parsed arguments."""
+    return FaceRecognitionServer(
         gallery_path=args.gallery_path,
         similarity_threshold=args.threshold,
         output_dir=args.output_dir,
         # A recycled worker must NOT re-init --session_name before the
-        # resume below: constructor-time _create_session runs a fresh
+        # resume in main(): constructor-time _create_session runs a fresh
         # _init_session_files, which would wipe the very attendance/stats
         # the resume is about to read (the --session_name + --max_requests
         # combination; pinned by tests/test_server_recycle.py).
@@ -1758,6 +1797,30 @@ def main(argv=None) -> int:
         gallery_quantize=args.gallery_quantize,
         device="cpu" if args.use_cpu else args.device,
     )
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    if args.use_cpu and args.use_gpu:
+        raise SystemExit("--use_cpu and --use_gpu exclude each other")
+    if args.max_requests is not None and args.max_requests < 1:
+        raise SystemExit("--max_requests must be >= 1")
+    if args.max_requests and not args._worker:
+        return _supervise(
+            list(argv) if argv is not None else sys.argv[1:], args
+        )
+    server = build_server(args)
+
+    def report_launches() -> None:
+        os.write(2, (LAUNCH_LINE + json.dumps(server.launch_report()) + "\n").encode())
+
+    def on_sigterm(signum, frame):  # pragma: no cover - signal timing
+        # report, then die of SIGTERM as before (the supervisor's exit code)
+        report_launches()
+        signal.signal(signal.SIGTERM, signal.SIG_DFL)
+        os.kill(os.getpid(), signal.SIGTERM)
+
+    signal.signal(signal.SIGTERM, on_sigterm)
     if args._resume_session:
         # recycled worker: re-open the session the previous worker was
         # serving (attendance/session state comes from disk)
@@ -1770,6 +1833,7 @@ def main(argv=None) -> int:
     finally:
         httpd.server_close()
         server.shutdown()
+        report_launches()
     return RECYCLE_EXIT_CODE if server._recycle_requested else 0
 
 

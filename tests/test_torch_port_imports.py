@@ -25,7 +25,8 @@ def _port_sources():
                 yield os.path.join(root, f)
     yield os.path.join(REPO, "chip_smoke.py")
     for script in ("torch_train_open_set.py", "torch_open_set_eval.py",
-                   "torch_detector_stress_eval.py", "torch_detector_ood_eval.py"):
+                   "torch_detector_stress_eval.py", "torch_detector_ood_eval.py",
+                   "torch_recycle_soak.py"):
         yield os.path.join(REPO, "examples", script)
 
 
@@ -65,7 +66,8 @@ def test_port_never_imports_jax_or_the_jax_package():
                    "../examples/torch_open_set_eval.py", "train/detector_recipes.py",
                    "evalharness/detector_reports.py",
                    "../examples/torch_detector_stress_eval.py",
-                   "../examples/torch_detector_ood_eval.py"):
+                   "../examples/torch_detector_ood_eval.py", "serve/soak.py",
+                   "../examples/torch_recycle_soak.py"):
         assert module in scanned, module
     for path in _port_sources():
         n += 1
@@ -90,6 +92,7 @@ def test_port_never_imports_jax_or_the_jax_package():
     ("serve.client", ("cv2", "requests", "jax", "flax", "torch")),
     ("telemetry", ("cv2", "requests", "jax", "flax", "torch")),
     ("cli.face_recognition_server", ("cv2", "requests", "jax", "flax")),
+    ("serve.soak", ("cv2", "requests", "jax", "flax", "torch")),
 ])
 def test_importing_the_serving_modules_pulls_in_no_optional_library(module, absent):
     """cv2, PIL and psutil are looked up at the call that needs them; requests
@@ -180,8 +183,9 @@ def test_offline_clis_default_to_cuda_and_raise_without_it(monkeypatch, tmp_path
         module.main([a.replace("{tmp}", str(tmp_path)) for a in argv])
 
 
-@pytest.mark.parametrize("entry", ["server", "live", "monitor"])
+@pytest.mark.parametrize("entry", ["server", "live", "monitor", "soak", "soak_example"])
 def test_serving_entry_points_default_to_cuda(monkeypatch, tmp_path, entry):
+    from facerecognitionpipeline_tpu_torch.serve import soak
     from facerecognitionpipeline_tpu_torch.serve.live import LiveFaceRecognition
     from facerecognitionpipeline_tpu_torch.serve.server import FaceRecognitionServer
     from facerecognitionpipeline_tpu_torch.telemetry import PerformanceMonitorServer
@@ -193,6 +197,10 @@ def test_serving_entry_points_default_to_cuda(monkeypatch, tmp_path, entry):
         "live": lambda: LiveFaceRecognition(
             gallery_path=str(tmp_path / "g.pkl"), output_dir=str(tmp_path)),
         "monitor": lambda: PerformanceMonitorServer("M", "s", str(tmp_path)),
+        "soak": lambda: soak.run_recycle_soak(
+            [], {"path": "/process_frame", "json": {"frame": ""}}, 2, 1,
+            workdir=str(tmp_path)),
+        "soak_example": lambda: soak.example_soak(2, 1, workdir=str(tmp_path)),
     }[entry]
     with pytest.raises(RuntimeError, match="device='cpu'"):
         make()
