@@ -298,9 +298,38 @@ Phases, in order; any failure exits non-zero before the final line:
      for the steps, which two clients share: at most one a request),
      writing reports/serving_recycle_soak_torch.json; any other name
      after the flag is refused before the build.
+  17. the repo's remaining protocols cut to size
+     (`evalharness/synthetic_demo.py`, `evalharness/quantize_transfer.py`,
+     `train/profile.py`): on phase 11's ir_micro (kept in the run's work
+     directory, build/chip_smoke/), the demo's enrolment (4 detector-aligned
+     crops a identity through the float32 cascade on mtcnn_synthetic.npz),
+     its 20 scenes in fp32 and with the int8 embedder calibrated on the
+     enrolment crops (rank-1 at least 0.6 in both) and the drift over 32
+     probes; the calibration-transfer sweep over 96 probes (brightness,
+     contrast, noise; tests/test_quantize_transfer.py's bounds: contrast 0.7
+     mean cosine >= 0.995 and min >= 0.97, clean mean >= 0.995, int8 rank-1
+     within 0.1 of fp32 on every row), each row beside the TPU report's;
+     the train step's marginal attribution at ir_18, B=128, 3 samples a
+     variant (full, no_opt, fwd_train, fwd_infer, dummy_head, the conv
+     stack; every key of the JAX report; the recomposed loss within
+     LOSS_CHECK_TOL of the trainer's); the int8-forward probe at ir_18 with
+     50 steps to converge (losses finite and falling). K5 three times a
+     detect of the float32 cascade and no other kernel in the whole phase.
+     `python3 chip_smoke.py --protocols-only [demo | transfer | train_profile
+     | all]` builds the kernels and runs instead the JAX scripts' sizes,
+     writing the committed reports: the demo with a 400-step ir_micro of its
+     own into reports/synthetic_e2e_torch/ (the weights to
+     pretrained/ir_micro_synthetic_torch.npz), the sweep on them into
+     reports/quantize_transfer_torch/, train_profile at ir_101 / B=128 and
+     the int8 probes (ir_18 200 steps, ir_101 100) into
+     reports/train_profile_torch/; any other name after the flag is
+     refused before the build.
+`python3 chip_smoke.py --full-sizes` runs the default phases with phase 7's
+servers on a gallery file of 1 048 576 ids and phase 11's train_detector at
+100 steps, the sizes the default run's 1200 s limit cut.
 Then it prints the card's name and power limit, JSON lines of phase 8's, 9's,
-10's, 11's, 12's, 13's, 14's, 15's and 16's numbers, a JSON line describing
-the kernels, and as its last line {"ok": true, "device": {...}}.
+10's, 11's, 12's, 13's, 14's, 15's, 16's and 17's numbers, a JSON line
+describing the kernels, and as its last line {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -315,6 +344,8 @@ import threading
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
+# what one run keeps between its phases (git-ignored, inside the checkout)
+WORK = os.path.join(REPO, "build", "chip_smoke")
 
 # H100 SXM peaks (NVIDIA data sheet), used for the kernels' bounds.
 HBM_BYTES_PER_S = 3.35e12
@@ -4570,10 +4601,11 @@ def accuracy_recipe(res) -> None:
     train_s = time.perf_counter() - t0
     if not np.isfinite(losses).all():
         fail("the accuracy recipe's training gave a non-finite loss")
-    with tempfile.TemporaryDirectory() as td:
-        npz = os.path.join(td, "ir_micro_synthetic.npz")
-        export_backbone(state, npz)
-        embedder = FaceEmbedder("ir_micro", model_path=npz, dtype=torch.bfloat16, device=DEVICE)
+    # kept in the run's work directory: phase 17 enrols and sweeps with it
+    os.makedirs(WORK, exist_ok=True)
+    npz = os.path.join(WORK, "ir_micro_synthetic.npz")
+    export_backbone(state, npz)
+    embedder = FaceEmbedder("ir_micro", model_path=npz, dtype=torch.bfloat16, device=DEVICE)
     t0 = time.perf_counter()
     r = E.e2e_rank1(embedder, E.make_processor(os.path.join(REPO, "pretrained", "mtcnn_dr.npz"),
                                                dtype=torch.bfloat16, device=DEVICE),
@@ -4583,7 +4615,7 @@ def accuracy_recipe(res) -> None:
                   "pool_s": pool_s, "train_s": train_s, "score_s": score_s,
                   "first_loss": losses[0], "last_loss": float(np.mean(losses[-20:])),
                   "k1_launches": crop_kernel.LAUNCHES.count - k1,
-                  "pool_crops": sum(len(v) for v in pool.values())}
+                  "pool_crops": sum(len(v) for v in pool.values()), "weights": npz}
     print(f"[train] accuracy recipe: e2e_rank1 {r['e2e_rank1']} over n={r['e2e_rank1_n']} "
           f"trials (floor {E2E_FLOOR}), ir_micro trained on the card in {train_s:.1f} s "
           f"({E2E_STEPS} steps at B={E2E_BATCH}, bf16; loss {losses[0]:.3f} -> "
@@ -6328,11 +6360,240 @@ def soak_full(fixture, which: str) -> dict:
     return out
 
 
+# ------------------------------------------------------------ phase 17
+
+PROTOCOLS_ONLY = ("demo", "transfer", "train_profile", "all")  # what --protocols-only takes
+# phase 17's cuts: the profile at ir_18 with 3 samples a variant, the int8
+# probe at ir_18 converging 50 steps; --protocols-only runs the scripts' sizes
+PROFILE_PHASE = {"batch": 128, "arch": "ir_18", "samples": 3}
+PROBE_PHASE = {"arch": "ir_18", "converge_steps": 50}
+PROFILE_FULL = {"batch": 128, "arch": "ir_101"}
+PROBES_FULL = (("int8_probe.json", {"arch": "ir_18", "converge_steps": 200}),
+               ("int8_probe_ir101.json", {"arch": "ir_101", "converge_steps": 100}))
+# the recomposed loss against the trainer's, relative: bit for bit (bf16
+# backbone, float32 head; measured equal at ir_101 and ir_18 on an H100)
+LOSS_CHECK_TOL = 0.0
+TRAIN_PROFILE_DIR = os.path.join(REPO, "reports", "train_profile_torch")
+JAX_PROFILE_REPORT = os.path.join(REPO, "reports", "train_profile", "ir_101_b128.json")
+JAX_TRANSFER_REPORT = os.path.join(REPO, "reports", "quantize_transfer", "report.json")
+# the TPU report's figures (reports/synthetic_e2e/report.txt), accuracy only
+JAX_DEMO = {"rank1_fp32": "20/20", "rank1_int8": "20/20", "drift_min": 0.99844,
+            "drift_mean": 0.99952}
+# --full-sizes: what phase 7 and phase 11 ran before the run's time limit
+# cut them (a 1 048 576-id gallery file, train_detector at 100 steps)
+FULL_SIZES = {"server_rows": 1 << 20, "det_steps": 100}
+
+
+def protocol_counters():
+    from facerecognitionpipeline_tpu_torch.ops import (
+        crop_kernel,
+        gallery_kernel,
+        nms_kernel,
+        warp_kernel,
+    )
+
+    return {"crop_resize": crop_kernel.LAUNCHES, "warp_patches": warp_kernel.LAUNCHES,
+            "gallery_topk": gallery_kernel.LAUNCHES,
+            "gallery_topk_int8": gallery_kernel.LAUNCHES_INT8,
+            "gallery_topk_f32": gallery_kernel.LAUNCHES_F32,
+            "nms_fixpoint": nms_kernel.LAUNCHES}
+
+
+def check_demo(tag: str, rep: dict, launches: dict) -> None:
+    """The demo held to the example's exit condition (rank-1 >= 0.6, fp32
+    and int8), finite drift, and its kernels: the float32 cascade launches
+    K5 three times a detect and nothing else (its crops are matmuls, the
+    processor aligns by a gather, 16 identities match densely)."""
+    import numpy as np
+
+    from facerecognitionpipeline_tpu_torch.evalharness import synthetic_demo as D
+
+    fp32, int8 = rep["rank1_fp32"], rep["rank1_int8"]
+    drift = rep["int8_drift_cosine"]
+    print(f"[protocols] {tag}: rank-1 fp32 {fp32['correct']}/{fp32['total']}, int8 "
+          f"{int8['correct']}/{int8['total']}; int8 drift cosine min {drift['min']} mean "
+          f"{drift['mean']} over {len(drift['values'])} probes (TPU report: "
+          f"{JAX_DEMO['rank1_fp32']}, {JAX_DEMO['rank1_int8']}, {JAX_DEMO['drift_min']} / "
+          f"{JAX_DEMO['drift_mean']}); {rep['detects']} detects, launches {launches}; "
+          f"{rep['seconds']:.1f} s")
+    for name, r in (("fp32", fp32), ("int8", int8)):
+        if r["total"] < 1 or r["correct"] / r["total"] < D.FLOOR:
+            fail(f"{tag}: rank-1 {name} {r['correct']}/{r['total']} below {D.FLOOR}")
+    if not np.isfinite(drift["values"]).all():
+        fail(f"{tag}: non-finite drift cosines")
+    want = {k: 0 for k in launches}
+    want["nms_fixpoint"] = 3 * rep["detects"]
+    if launches != want or rep["detects"] < 1:
+        fail(f"{tag}: {rep['detects']} detects of the float32 cascade launched {launches}, "
+             f"not {want}")
+
+
+def check_transfer(tag: str, summary: dict) -> None:
+    """The sweep held to tests/test_quantize_transfer.py's bounds, each row
+    printed beside the TPU report's."""
+    from facerecognitionpipeline_tpu_torch.evalharness import quantize_transfer as QT
+
+    with open(JAX_TRANSFER_REPORT) as f:
+        jax_rows = {(r["shift"], r["level"]): r for r in json.load(f)["rows"]}
+    for r in summary["rows"]:
+        j = jax_rows.get((r["shift"], r["level"]), {})
+        print(f"[protocols] {tag} {r['shift']:10s} {r['level']:6g}: " + "  ".join(
+            f"{k} {r[k]} / {j.get(k)}" for k in ("cosine_synthcal_mean", "cosine_synthcal_min",
+                                                  "cosine_oracle_mean", "transfer_gap",
+                                                  "rank1_fp32", "rank1_int8"))
+              + " (port / TPU)")
+    failures = QT.check_bounds(summary)
+    if failures:
+        fail(f"{tag}: " + "; ".join(failures))
+
+
+def check_profile(tag: str, rep: dict) -> None:
+    """Every key of the JAX report, finite times, the margins the
+    differences of the p50s, and the recomposed loss the trainer's."""
+    import numpy as np
+
+    with open(JAX_PROFILE_REPORT) as f:
+        jax_rep = json.load(f)
+    missing = [k for k in jax_rep if k not in rep] + \
+        [k for k in jax_rep["p50_ms"] if k not in rep["p50_ms"]] + \
+        [k for k in jax_rep["p50_ms"]["conv_microbench"]
+         if k not in rep["p50_ms"]["conv_microbench"]] + \
+        [k for k in jax_rep["margins_ms"] if k not in rep["margins_ms"]]
+    p50 = rep["p50_ms"]
+    times = [v for v in p50.values() if not isinstance(v, dict)] + \
+        list(p50["conv_microbench"].values())
+    check = rep["loss_check"]
+    bound = LOSS_CHECK_TOL * max(1.0, abs(check["trainer"]))
+    print(f"[protocols] {tag} ({rep['arch']}, B={rep['batch']}, {rep['dtype']}, "
+          f"{rep['samples']} x {rep['chain']} chained calls): p50 ms {p50}; margins ms "
+          f"{rep['margins_ms']}; recomposed loss {check['recomposed']!r} against the "
+          f"trainer's {check['trainer']!r} (|diff| {check['abs_diff']:.3g}, bound "
+          f"{bound:.3g})")
+    if missing:
+        fail(f"{tag}: keys of the JAX report missing: {missing}")
+    if not np.isfinite(times).all() or min(times) <= 0:
+        fail(f"{tag}: times {p50}")
+    if not np.isfinite([check["trainer"], check["recomposed"]]).all() or \
+            check["abs_diff"] > bound:
+        fail(f"{tag}: the recomposed loss {check['recomposed']} is not the trainer's "
+             f"{check['trainer']} (bound {bound})")
+
+
+def check_probe(tag: str, rep: dict) -> None:
+    import numpy as np
+
+    print(f"[protocols] {tag} ({rep['arch']}, B={rep['batch']}, {rep['converge_steps']} "
+          f"steps): " + "; ".join(
+              f"{n} p50 {rep[n]['p50_step_ms']} ms, {rep[n]['imgs_per_sec']} images/s, loss "
+              f"every 25 {rep[n]['loss_every_25']}" for n in ("bf16", "int8_fwd"))
+          + f"; speedup of the int8 forward {rep['speedup_int8_fwd']}")
+    for n in ("bf16", "int8_fwd"):
+        losses = rep[n]["loss_every_25"]
+        if len(losses) < 2 or not np.isfinite(losses).all() or not losses[-1] < losses[0]:
+            fail(f"{tag} {n}: losses every 25 steps {losses} are not finite and falling")
+
+
+def write_json(path: str, obj: dict) -> None:
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "w") as f:
+        json.dump(obj, f, indent=2)
+
+
+def protocols_phase(report) -> None:
+    """Phase 17 (see the module docstring): the three protocols cut to
+    size, on phase 11's ir_micro."""
+    from facerecognitionpipeline_tpu_torch.evalharness import quantize_transfer as QT
+    from facerecognitionpipeline_tpu_torch.evalharness import synthetic_demo as D
+    from facerecognitionpipeline_tpu_torch.train import profile as P
+
+    t_phase = time.perf_counter()
+    res: dict = {"cuts": [
+        "the demo and the sweep on phase 11's ir_micro (its aligned pool from a bf16 "
+        "processor, the demo's from a float32 one), not a 400-step ir_micro of their own",
+        f"train_profile at {PROFILE_PHASE['arch']}, B={PROFILE_PHASE['batch']}, "
+        f"{PROFILE_PHASE['samples']} samples a variant (ir_101, 6)",
+        f"the int8 probe at {PROBE_PHASE['arch']}, {PROBE_PHASE['converge_steps']} steps "
+        f"to converge (200)"]}
+    npz = report["train"]["e2e"]["weights"]
+    counters = protocol_counters()
+    for c in counters.values():
+        c.reset()
+    rep = D.run_demo(device=DEVICE, weights=npz, out_dir=os.path.join(WORK, "synthetic_e2e"))
+    launches = {k: c.count for k, c in counters.items()}
+    check_demo("phase 17 demo", rep, launches)
+    res["demo"] = {k: rep[k] for k in ("rank1_fp32", "rank1_int8", "int8_drift_cosine",
+                                       "detects", "seconds")}
+    t0 = time.perf_counter()
+    summary = QT.run_transfer("ir_micro", npz, device=DEVICE,
+                              out_dir=os.path.join(WORK, "quantize_transfer"))
+    res["transfer"] = {**summary, "seconds": time.perf_counter() - t0}
+    check_transfer("phase 17 sweep", summary)
+    t0 = time.perf_counter()
+    prof = P.train_profile(device=DEVICE, **PROFILE_PHASE)
+    res["train_profile"] = {**prof, "seconds": time.perf_counter() - t0}
+    check_profile("phase 17 train_profile", prof)
+    t0 = time.perf_counter()
+    probe = P.int8_probe(device=DEVICE, **PROBE_PHASE)
+    res["int8_probe"] = {**probe, "seconds": time.perf_counter() - t0}
+    check_probe("phase 17 int8 probe", probe)
+    res["launches"] = {k: c.count for k, c in counters.items()}
+    if res["launches"] != launches:
+        fail(f"phase 17: the sweep or the train probes launched kernels: "
+             f"{res['launches']} after the demo's {launches}")
+    res["seconds"] = time.perf_counter() - t_phase
+    print(f"[protocols] phase 17 took {res['seconds']:.1f} s (demo {rep['seconds']:.1f}, "
+          f"sweep {res['transfer']['seconds']:.1f}, profile "
+          f"{res['train_profile']['seconds']:.1f}, probe {res['int8_probe']['seconds']:.1f}); "
+          f"launches {res['launches']}; cuts: " + "; ".join(res["cuts"]))
+    report["protocols"] = res
+
+
+def protocols_full(which: str) -> dict:
+    """--protocols-only: the JAX scripts' sizes, writing the committed
+    reports: the demo with a 400-step ir_micro of its own (exported to
+    pretrained/ir_micro_synthetic_torch.npz), the sweep on those weights,
+    train_profile at ir_101 / B=128 and both int8 probes."""
+    from facerecognitionpipeline_tpu_torch.evalharness import quantize_transfer as QT
+    from facerecognitionpipeline_tpu_torch.evalharness import synthetic_demo as D
+    from facerecognitionpipeline_tpu_torch.train import profile as P
+
+    out: dict = {}
+    counters = protocol_counters()
+    if which in ("demo", "all"):
+        for c in counters.values():
+            c.reset()
+        rep = D.run_demo(device=DEVICE, retrain=True)
+        launches = {k: c.count for k, c in counters.items()}
+        check_demo("demo", rep, launches)
+        out["demo"] = {k: rep[k] for k in ("rank1_fp32", "rank1_int8", "int8_drift_cosine",
+                                           "detects", "seconds", "train_seconds")}
+        out["demo_launches"] = launches
+    if which in ("transfer", "all"):
+        t0 = time.perf_counter()
+        summary = QT.run_transfer("ir_micro", D.EMBEDDER_WEIGHTS, device=DEVICE)
+        check_transfer("sweep", summary)
+        out["transfer_seconds"] = time.perf_counter() - t0
+    if which in ("train_profile", "all"):
+        t0 = time.perf_counter()
+        prof = P.train_profile(device=DEVICE, **PROFILE_FULL)
+        write_json(os.path.join(TRAIN_PROFILE_DIR, "ir_101_b128.json"), prof)
+        check_profile("train_profile", prof)
+        out["profile_seconds"] = time.perf_counter() - t0
+        for name, kw in PROBES_FULL:
+            t0 = time.perf_counter()
+            probe = P.int8_probe(device=DEVICE, **kw)
+            write_json(os.path.join(TRAIN_PROFILE_DIR, name), probe)
+            check_probe(name, probe)
+            out[f"{name}_seconds"] = time.perf_counter() - t0
+    print(f"[protocols] --protocols-only {which}: {out}")
+    return out
+
+
 def nms_entry(report, source) -> dict:
     """The kernels line's entry of K5: times and bounds summed over the
     three calls of one step (stages 1-3 of the server build at B=8),
     launches of phases 3 (the timed steps), 7 (the served requests), 12 (the
-    mesh), 13 (one replay per route), 14, 15 and 16; beside them the torch ops it
+    mesh), 13 (one replay per route), 14, 15, 16 and 17; beside them the torch ops it
     absorbs (pairwise_iou + mask), the floor of its sweeps' barriers, its
     cluster per shape and nms_mask's device time per step."""
     rows = report["nms_fixpoint"]
@@ -6368,8 +6629,10 @@ def nms_entry(report, source) -> dict:
     entry["openset_launches"] = report["openset"]["launches"]["nms_fixpoint"]
     entry["detector_launches"] = report["detector"]["launches"]["nms_fixpoint"]
     entry["soak_launches"] = report["soak"]["launches"]["nms_fixpoint"]
+    entry["protocol_launches"] = report["protocols"]["launches"]["nms_fixpoint"]
     for key in ("launches", "server_launches", "mesh_launches", "graph_launches",
-                "openset_launches", "detector_launches", "soak_launches"):
+                "openset_launches", "detector_launches", "soak_launches",
+                "protocol_launches"):
         if entry[key] < 1:
             fail(f"{key}: a main path never launched nms_fixpoint")
     return entry
@@ -6428,6 +6691,22 @@ def main() -> int:
             print(f"chip_smoke: --soak-only takes one of {list(SOAK_ONLY)}, "
                   f"not {soak_only!r}", file=sys.stderr)
             return 2
+    if "--protocols-only" in sys.argv[1:]:
+        # demo, transfer, train_profile or all (all when nothing follows);
+        # anything else is refused before the build
+        args = sys.argv[sys.argv.index("--protocols-only") + 1:]
+        protocols_only = args[0] if args else "all"
+        if protocols_only not in PROTOCOLS_ONLY:
+            print(f"chip_smoke: --protocols-only takes one of {list(PROTOCOLS_ONLY)}, "
+                  f"not {protocols_only!r}", file=sys.stderr)
+            return 2
+    if "--full-sizes" in sys.argv[1:]:
+        # phase 7's servers on 1 048 576 ids, phase 11's train_detector at
+        # 100 steps: the default run without the cuts its time limit made
+        global BIG_SERVER_ROWS, DET_STEPS
+        BIG_SERVER_ROWS, DET_STEPS = FULL_SIZES["server_rows"], FULL_SIZES["det_steps"]
+        print(f"[env] --full-sizes: phase 7's gallery file {BIG_SERVER_ROWS} ids, phase 11's "
+              f"train_detector {DET_STEPS} steps")
     print(f"[env] python {sys.version.split()[0]} torch {torch.__version__} "
           f"cuda {torch.version.cuda}")
     import importlib
@@ -6503,6 +6782,13 @@ def main() -> int:
         print(card_line())
         print(json.dumps({"soak": res}))
         return 0
+    if "--protocols-only" in sys.argv[1:]:
+        # the demo, the sweep and the training attribution at the JAX
+        # scripts' sizes, after the build, writing the committed reports
+        res = protocols_full(protocols_only)
+        print(card_line())
+        print(json.dumps({"protocols": res}))
+        return 0
     if "--mesh-only" in sys.argv[1:]:
         # phase 12 alone on phase 3's build, the same way; with --cards its
         # mesh entries are distinct cards (2 for serving, 4 for the (2, 2)
@@ -6531,7 +6817,8 @@ def main() -> int:
     openset_phase(fixture, report)
     detector_phase(fixture, report)
     soak_phase(fixture, report)
-    print(f"[timing] phases 1-16 took {time.perf_counter() - t_start:.1f} s")
+    protocols_phase(report)
+    print(f"[timing] phases 1-17 took {time.perf_counter() - t_start:.1f} s")
 
     print(card_line())
 
@@ -6558,6 +6845,7 @@ def main() -> int:
     openset_launches = report["openset"]["launches"]
     detector_launches = report["detector"]["launches"]
     soak_launches = report["soak"]["launches"]
+    protocol_launches = report["protocols"]["launches"]
     matcher_launches = {"crop_resize": enrol["launches_k1"], "warp_patches": 0,
                         **enrol["matcher_launches"]}
     # K1's and K2's first designs (one thread per output pixel), as timed when
@@ -6623,6 +6911,9 @@ def main() -> int:
             # 65 536 int8 rows, each worker's own counts since it was ready,
             # summed over the generations)
             "soak_launches": soak_launches[name],
+            # phase 17 (the demo's float32 cascade, the sweep, the train
+            # probes), counted from 0 over it: K5 alone
+            "protocol_launches": protocol_launches[name],
             "max_abs_err": max(r["err"] for r in all_rows),
             # ms, plain_ms, bound_ms and library_ms are sums over the call
             # shapes of one serving step (K1: R-net, O-net, align stage A)
@@ -6707,6 +6998,7 @@ def main() -> int:
     print(json.dumps({"openset": report["openset"]}))
     print(json.dumps({"detector": report["detector"]}))
     print(json.dumps({"soak": report["soak"]}))
+    print(json.dumps({"protocols": report["protocols"]}))
     print(json.dumps({
         "kernels": kernels,
         **{k: v for k, v in report.items() if k.startswith("step_p50_ms")},

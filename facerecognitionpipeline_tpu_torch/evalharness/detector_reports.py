@@ -19,7 +19,6 @@ from __future__ import annotations
 
 import json
 import os
-import subprocess
 import sys
 import time
 from typing import Optional, Tuple
@@ -38,6 +37,7 @@ from facerecognitionpipeline_tpu_torch.train.detector_recipes import (
     stress_recipe,
     train_recipe,
 )
+from facerecognitionpipeline_tpu_torch.utils.device import card_line
 
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 STRESS_BASE_WEIGHTS = os.path.join(REPO, "pretrained", "mtcnn_synthetic.npz")
@@ -58,19 +58,6 @@ def make_detector(weights_path: Optional[str] = None, device="cuda",
 
 def _rel(path: str) -> str:
     return os.path.relpath(path, REPO)
-
-
-def card_line() -> Optional[str]:
-    """`nvidia-smi --query-gpu=name,power.limit`'s first line, or None
-    where nvidia-smi does not answer."""
-    try:
-        smi = subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-            capture_output=True, text=True, timeout=60)
-    except (OSError, subprocess.TimeoutExpired):
-        return None
-    lines = smi.stdout.strip().splitlines()
-    return lines[0] if smi.returncode == 0 and lines else None
 
 
 def retrain_detector(recipe: Recipe, base_weights: str, out: str,
@@ -94,7 +81,7 @@ def retrain_detector(recipe: Recipe, base_weights: str, out: str,
                    "scene_fn": getattr(recipe.scene_fn, "func", recipe.scene_fn).__name__,
                    "scene_kwargs": getattr(recipe.scene_fn, "keywords", {})},
         "device": str(det.device),
-        "card": card_line() if det.device.type == "cuda" else None,
+        "card": card_line(det.device),
         "cpu_count": os.cpu_count(),
         "train_seconds": total,
         "seconds_per_net": seconds,

@@ -2,6 +2,9 @@
 
 from __future__ import annotations
 
+import subprocess
+from typing import Optional
+
 import torch
 
 
@@ -26,3 +29,19 @@ def resolve_device(device) -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def card_line(device="cuda") -> Optional[str]:
+    """The card's name and power limit, `nvidia-smi --query-gpu=name,
+    power.limit`'s first line; None for a CPU device or where nvidia-smi
+    does not answer."""
+    if torch.device(device).type != "cuda":
+        return None
+    try:
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=60)
+    except (OSError, subprocess.TimeoutExpired):
+        return None
+    lines = smi.stdout.strip().splitlines()
+    return lines[0] if smi.returncode == 0 and lines else None

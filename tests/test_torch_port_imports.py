@@ -26,7 +26,9 @@ def _port_sources():
     yield os.path.join(REPO, "chip_smoke.py")
     for script in ("torch_train_open_set.py", "torch_open_set_eval.py",
                    "torch_detector_stress_eval.py", "torch_detector_ood_eval.py",
-                   "torch_recycle_soak.py"):
+                   "torch_recycle_soak.py", "torch_synthetic_end_to_end.py",
+                   "torch_quantize_calib_transfer.py", "torch_train_profile.py",
+                   "torch_train_int8_probe.py"):
         yield os.path.join(REPO, "examples", script)
 
 
@@ -67,7 +69,12 @@ def test_port_never_imports_jax_or_the_jax_package():
                    "evalharness/detector_reports.py",
                    "../examples/torch_detector_stress_eval.py",
                    "../examples/torch_detector_ood_eval.py", "serve/soak.py",
-                   "../examples/torch_recycle_soak.py"):
+                   "../examples/torch_recycle_soak.py", "evalharness/synthetic_demo.py",
+                   "evalharness/quantize_transfer.py", "train/profile.py",
+                   "../examples/torch_synthetic_end_to_end.py",
+                   "../examples/torch_quantize_calib_transfer.py",
+                   "../examples/torch_train_profile.py",
+                   "../examples/torch_train_int8_probe.py"):
         assert module in scanned, module
     for path in _port_sources():
         n += 1
@@ -243,6 +250,36 @@ def test_new_clis_default_to_cuda_and_raise_without_it(monkeypatch, tmp_path, cl
     main = importlib.import_module(f"facerecognitionpipeline_tpu_torch.cli.{cli}").main
     with pytest.raises(RuntimeError, match="device='cpu'"):
         main([a.replace("{tmp}", str(tmp_path)) for a in argv])
+
+
+@pytest.mark.parametrize("entry", ["demo", "transfer", "profile", "probe"])
+def test_protocol_entry_points_default_to_cuda_and_raise_without_it(monkeypatch, tmp_path,
+                                                                    entry):
+    from facerecognitionpipeline_tpu_torch.evalharness import quantize_transfer, synthetic_demo
+    from facerecognitionpipeline_tpu_torch.train import profile
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    call = {
+        "demo": lambda: synthetic_demo.run_demo(out_dir=str(tmp_path / "out")),
+        "transfer": lambda: quantize_transfer.run_transfer(weights=str(tmp_path / "w.npz")),
+        "profile": lambda: profile.train_profile(batch=2, arch="ir_micro"),
+        "probe": lambda: profile.int8_probe("ir_micro", 2, 8, 2),
+    }[entry]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        call()
+    assert not os.listdir(tmp_path)
+
+
+@pytest.mark.parametrize("script", ["torch_synthetic_end_to_end", "torch_quantize_calib_transfer",
+                                    "torch_train_profile", "torch_train_int8_probe"])
+def test_protocol_scripts_default_to_cuda(script):
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        f"_script_{script}", os.path.join(REPO, "examples", f"{script}.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    assert module.build_parser().get_default("device") == "cuda"
 
 
 def test_import_pattern_tells_the_packages_apart():
