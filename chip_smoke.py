@@ -324,11 +324,44 @@ Phases, in order; any failure exits non-zero before the final line:
      the int8 probes (ir_18 200 steps, ir_101 100) into
      reports/train_profile_torch/; any other name after the flag is
      refused before the build.
+  18. the serving measurements (`serve/bench.py`,
+     `pipeline/budget_profile.py`), cut to size: the JAX bench's server
+     (ir_101 seeded, bf16, 640 px, 16 face slots, batch_max 8, 23 students
+     of seeded embeddings, the shipped detector) over --transport i420,
+     driven by 1 and then 4 client processes (spawned, no torch) posting the
+     bench's four seeded 720p frames and a fixture mosaic as raw I420, 8 s
+     a row: requests/s, latency p50/p95, the server's own request count
+     (equal to the clients'), steps, frames a step, each dispatched step's
+     CUDA-event time and the share of the window the steps fill, the CPU
+     seconds of the clients and of this process, the cores it may use;
+     every step launched K1 x3, K2 x1, K5 x3 and nothing else (the direct
+     step's count); each client's first answer to each payload equal to a
+     direct step on the same canvas (faces, boxes within 1 px; the
+     mosaic's at least 8 faces, from shared B=8 steps at 4 clients), and the
+     mosaic posted alone too; the host ceiling (`ZeroCostEngine` on the
+     card) at 4 clients for 4 s, launching nothing; the budget sweep at B=8,
+     32 slots, dense and budget 8, 2 samples: embeds a step B x (budget or
+     32), the budget's p50 at or below the dense step's.
+     `python3 chip_smoke.py --serving-only [bench | curve | ceiling | budget
+     | all]` builds the kernels and runs instead the JAX scripts' sizes: the
+     bench at png, jpeg and raw over rgb and jpeg over i420, from 1, 4, 8
+     and 12 clients, and raw-i420 over i420 with --quantize int8
+     --embed_budget 8 from 4 and 12 (int8 products a step held to the
+     build's quantized layers), 20 s a row after a 5 s settle; the curve:
+     the raw-i420 server over i420 and the stub on the card, both
+     listening, driven in turn from 1, 4, 8, 12, 16 and 24 clients for 12 s
+     a row, three rounds (a 5 s settle before a count's first real row),
+     with the median, least and most requests/s of each count and the count
+     where the real curve stops climbing (its first within 0.9 of its top);
+     the ceiling at 1, 4, 8 and 12 clients for 12 s with the stub on the
+     CPU; the budget sweep at dense, 16, 8 and 4 with 4 samples; the rows to
+     reports/serving_bench_torch/{bench,curve,ceiling,budget}.jsonl; any
+     other name after the flag is refused before the build.
 `python3 chip_smoke.py --full-sizes` runs the default phases with phase 7's
 servers on a gallery file of 1 048 576 ids and phase 11's train_detector at
 100 steps, the sizes the default run's 1200 s limit cut.
 Then it prints the card's name and power limit, JSON lines of phase 8's, 9's,
-10's, 11's, 12's, 13's, 14's, 15's, 16's and 17's numbers, a JSON line
+10's, 11's, 12's, 13's, 14's, 15's, 16's, 17's and 18's numbers, a JSON line
 describing the kernels, and as its last line {"ok": true, "device": {...}}.
 """
 
@@ -2279,43 +2312,6 @@ def stop_server(server, httpd, thread) -> None:
         fail("a server thread did not stop")
 
 
-class StepTimer:
-    """Times every step the server's batcher dispatches while it is open: a
-    pair of CUDA events around `engine.process_frames`, read after the run,
-    so the dispatch thread is not made to wait. The time between the events
-    is the step as the device saw it, its waits for the host included."""
-
-    def __init__(self, server):
-        self.engine = server.engine
-        self.events = []
-
-    def __enter__(self):
-        import torch
-
-        inner = self.engine.process_frames
-
-        def timed(*args, **kwargs):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            out = inner(*args, **kwargs)
-            end.record()
-            self.events.append((start, end))
-            return out
-
-        self.engine.process_frames = timed
-        return self
-
-    def __exit__(self, *exc):
-        del self.engine.process_frames  # the instance attribute; the method stays
-
-    def ms(self):
-        import torch
-
-        torch.cuda.synchronize()
-        return [s.elapsed_time(e) for s, e in self.events]
-
-
 def direct_faces(server, canvas):
     """One direct step of the server's engine on one prepared canvas, against
     the snapshot the batcher would dispatch with: per quality-passing face
@@ -2381,6 +2377,7 @@ def drive_clients(tag, server, url, tmp, image_format, frame, n_clients, n_each,
         nms_kernel,
         warp_kernel,
     )
+    from facerecognitionpipeline_tpu_torch.serve.bench import StepEvents
     from facerecognitionpipeline_tpu_torch.serve.client import FaceRecognitionClient
 
     session = f"{tag.replace(' ', '_').replace('/', '-')}"
@@ -2423,7 +2420,7 @@ def drive_clients(tag, server, url, tmp, image_format, frame, n_clients, n_each,
             errors.append(f"client {i}: {type(e).__name__}: {e}")
 
     threads = [threading.Thread(target=run, args=(i,)) for i in range(n_clients)]
-    with StepTimer(server) as timer:
+    with StepEvents(server.engine) as timer:
         w0 = time.perf_counter()
         for th in threads:
             th.start()
@@ -2649,6 +2646,7 @@ def server_phase(ctx, gal, report) -> None:
 
     from facerecognitionpipeline_tpu_torch.gallery.manager import GalleryManager, StudentRecord
     from facerecognitionpipeline_tpu_torch.serve import rawproto
+    from facerecognitionpipeline_tpu_torch.serve.bench import StepEvents
     from facerecognitionpipeline_tpu_torch.serve.client import HTTPSession
 
     frame = ctx["frames_np"][0]
@@ -2674,7 +2672,7 @@ def server_phase(ctx, gal, report) -> None:
                       f"{first['num_students']} students; /reload_gallery: reloaded, then "
                       f"unchanged")
                 times = []
-                with StepTimer(server) as timer:
+                with StepEvents(server.engine) as timer:
                     for _ in range(100):
                         t0 = time.perf_counter()
                         server.batcher.submit(canvas).result(timeout=120)
@@ -6589,11 +6587,419 @@ def protocols_full(which: str) -> dict:
     return out
 
 
+# ------------------------------------------------------------ phase 18
+
+SERVING_ONLY = ("bench", "curve", "ceiling", "budget", "all")  # what --serving-only takes
+SERVING_DIR = os.path.join(REPO, "reports", "serving_bench_torch")
+BUDGET_FACES = 32  # examples/profile_budget.py's face slots
+BUDGET_CHAIN = 5
+# phase 18 (the default run) and --serving-only (the JAX scripts' sizes).
+# Bench servers: (image formats, transport, quantize, embed_budget, clients)
+# mosaic_payload: a fixture mosaic posted among the noise frames, so that
+# answers with faces come from shared B=8 steps under concurrent clients.
+# The curve: the raw I420 server and the stub on the card, both listening,
+# measured in turn at each client count, `curve_rounds` times.
+SERVING_PHASE = {
+    "servers": ((("raw-i420",), "i420", None, None, (1, 4)),),
+    "seconds": 8.0, "settle": 0.0, "mosaic_payload": True,
+    "ceiling_clients": (4,), "ceiling_seconds": 4.0, "ceiling_devices": ("cuda",),
+    "budgets": (8,), "budget_samples": 2,
+}
+SERVING_FULL = {
+    "servers": ((("png", "jpeg", "raw"), "rgb", None, None, (1, 4, 8, 12)),
+                (("jpeg",), "i420", None, None, (1, 4, 8, 12)),
+                (("raw-i420",), "i420", "int8", 8, (4, 12))),
+    "seconds": 20.0, "settle": 5.0, "mosaic_payload": False,
+    "curve_clients": (1, 4, 8, 12, 16, 24), "curve_rounds": 3,
+    "curve_seconds": 12.0, "curve_settle": 5.0,
+    "ceiling_clients": (1, 4, 8, 12), "ceiling_seconds": 12.0, "ceiling_devices": ("cpu",),
+    "budgets": (16, 8, 4), "budget_samples": 4,
+}
+CURVE_FLAT = 0.9  # the curve stops climbing at the first count within this of its top
+# a step of the bench's build: K1 x3, K2 x1, K5 x3, no gallery kernel (23
+# students match densely)
+BENCH_STEP = {"crop_resize": 3, "warp_patches": 1, "gallery_topk": 0, "gallery_topk_int8": 0,
+              "gallery_topk_f32": 0, "nms_fixpoint": 3}
+
+
+def served_canvas(payload, transport: str):
+    """The canvas the server dispatches for one bench payload, prepared as
+    its request path prepares it (decode, letterbox, the transport's
+    colour format), and the scale it divides boxes by."""
+    import base64
+
+    import numpy as np
+
+    from facerecognitionpipeline_tpu_torch.serve import rawproto
+    from facerecognitionpipeline_tpu_torch.utils.io import decode_image_rgb
+
+    path, body, headers = payload
+    if headers is None:
+        canvas, scale = rawproto.letterbox_rgb(decode_image_rgb(base64.b64decode(body)),
+                                               DET_SIZE)
+        return (rawproto.rgb_to_i420(canvas) if transport == "i420" else canvas), scale
+    h, w = int(headers[rawproto.HEADER_HEIGHT]), int(headers[rawproto.HEADER_WIDTH])
+    arr = np.frombuffer(body, np.uint8)
+    if headers[rawproto.HEADER_FORMAT] == "rgb24":
+        rgb = arr.reshape(h, w, 3)
+        canvas = rawproto.rgb_to_i420(rgb) if transport == "i420" else rgb
+    else:
+        yuv = arr.reshape(h * 3 // 2, w)
+        canvas = yuv if transport == "i420" else rawproto.i420_to_rgb(yuv)
+    return canvas, float(headers[rawproto.HEADER_SCALE])
+
+
+def bench_direct(tag, server, payloads, transport, int8: bool):
+    """A direct step of the server's engine on each payload's canvas:
+    (faces per payload, scale per payload, launches per step). The step
+    must launch BENCH_STEP, and the int8 build as many int8 products as its
+    eager step has quantized layers (phase 8's count), the bf16 build
+    none."""
+    import numpy as np
+    import torch
+
+    from facerecognitionpipeline_tpu_torch.serve import bench as B
+
+    canvases = [served_canvas(p, transport) for p in payloads]
+    at = B.launch_counts()
+    faces = [direct_faces(server, c) for c, _ in canvases]
+    n = len(canvases)
+    got = {k: c - at[k] for k, c in B.launch_counts().items()}
+    per = {k: c // n for k, c in got.items()}
+    if any(c % n for c in got.values()) or {k: per[k] for k in BENCH_STEP} != BENCH_STEP:
+        fail(f"{tag}: {n} direct steps launched {got}, want {BENCH_STEP} a step")
+    want_products = 0
+    if int8:
+        t, v, _ = server.gallery.device_snapshot()
+        batch = torch.from_numpy(np.stack([c for c, _ in canvases])).to(server.device)
+        want_products = sum(int8_step_shapes(server.engine, batch, t, v).values())
+        if want_products < 1:
+            fail(f"{tag}: the int8 build's step has no quantized layer")
+    if per["int8_products"] != want_products:
+        fail(f"{tag}: {per['int8_products']} int8 products a direct step, want {want_products}")
+    return faces, [s for _, s in canvases], per
+
+
+def print_bench_row(tag: str, r: dict) -> None:
+    def ms(x):
+        return "n/a" if x is None else f"{x:.3f} ms"
+
+    print(f"[bench] {tag} x{r['clients']}: {r['req_per_sec']:.3f} requests/s, p50 "
+          f"{r['latency_p50_ms']:.3f} ms, p95 {r['latency_p95_ms']:.3f} ms; {r['requests']} "
+          f"requests (the server counted {r['server_requests']}) in {r['wall_s']:.3f} s; "
+          f"{r['steps']} steps, {r['frames_per_step']:.3f} frames a step, step p50 "
+          f"{ms(r['step_p50_ms'])}, steps fill "
+          + ("n/a" if r["step_busy_share"] is None else f"{r['step_busy_share']:.3f}")
+          + f" of the window; CPU s: clients {r['client_cpu_s']:.3f}, this process "
+          f"{r['host_cpu_s']:.3f} ({r['cpu_count']} cores); clients ready in "
+          f"{r['clients_start_s']:.3f} s, done {r['clients_end_s']:.3f} s after the deadline; "
+          f"launches {r['launches']}")
+
+
+def bench_group(cfg: dict, group, fixture, res: dict) -> None:
+    """One bench server (`serve/bench.py::bench_server`) through its image
+    formats and client counts; every row held to the direct step."""
+    import gc
+    import json as _json
+
+    import torch
+
+    from facerecognitionpipeline_tpu_torch.serve import bench as B
+    from facerecognitionpipeline_tpu_torch.serve.client import HTTPSession
+
+    formats, transport, quantize, budget, clients = group
+    label = transport + (" int8" if quantize else "") + (f" budget {budget}" if budget else "")
+    t0 = time.perf_counter()
+    server, rng = B.bench_server(ARCH, DET_SIZE[0], BATCH, transport, quantize, budget,
+                                 device=DEVICE)
+    if server.device.type != DEVICE or server.engine.detector.crop_impl != "kernel" or \
+            server.batcher.bucket_sizes != [1, BATCH]:
+        fail(f"bench server {label}: not on {DEVICE} with the kernels selected and buckets "
+             f"(1, {BATCH}) ({server.batcher.bucket_sizes})")
+    frames = B.camera_frames(rng)
+    mosaic = mosaics(fixture, 1)[0][0]
+    served = B.ServedBench(server)
+    print(f"[bench] server {label} ({ARCH}, {DET_SIZE[0]} px, batch_max {BATCH}) built, "
+          f"warmed and listening in {time.perf_counter() - t0:.1f} s")
+    try:
+        for fmt in formats:
+            tag = f"{fmt}/{label}"
+            payloads = [B.encode_frame(f, fmt, DET_SIZE[0])
+                        for f in frames + ([mosaic] if cfg["mosaic_payload"] else [])]
+            faces, scales, per = bench_direct(tag, server, payloads, transport, bool(quantize))
+            if cfg["mosaic_payload"] and len(faces[-1]) < 8:
+                fail(f"bench {tag}: the mosaic payload's direct step found {len(faces[-1])} faces")
+            for n in clients:
+                row = served.run(n, cfg["seconds"], payloads, settle=cfg["settle"],
+                                 keep_answers=True)
+                answers = row.pop("answers")
+                row.update(B.bench_fields(row, fmt, transport, quantize, budget, ARCH))
+                row["direct_faces"] = [len(f) for f in faces]
+                print_bench_row(tag, row)
+                check_bench_row(f"bench {tag} x{n}", row, per)
+                for c, j, text in answers:
+                    check_response(f"bench {tag} x{n} client {c} payload {j}",
+                                   _json.loads(text), faces[j], scales[j])
+                for k, c in row["launches"].items():
+                    res["launches"][k] = res["launches"].get(k, 0) + c
+                res["bench"].append(row)
+        # one frame with faces posted alone: a fixture mosaic, held to the direct step
+        payload = B.encode_frame(mosaic, "raw-i420" if transport == "i420" else "raw",
+                                 DET_SIZE[0])
+        canvas, scale = served_canvas(payload, transport)
+        want_faces = direct_faces(server, canvas)
+        http = HTTPSession()
+        try:
+            r = http.post(served.url + payload[0], data=payload[1], headers=payload[2],
+                          timeout=120)
+        finally:
+            http.close()
+        if r.status_code != 200 or len(want_faces) < 8:
+            fail(f"bench {label}: the mosaic answered {r.status_code}, its direct step found "
+                 f"{len(want_faces)} faces")
+        check_response(f"bench {label} mosaic", r.json(), want_faces, scale)
+        report = {**served.report(), "transport": transport, "quantize": quantize,
+                  "embed_budget": budget}
+    finally:
+        served.close()
+    print(f"[bench] server {label}: {len(want_faces)} faces of a fixture mosaic answered as "
+          f"the direct step; launch report {report}")
+    res["servers"].append(report)
+    del server, served
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def check_bench_row(tag: str, row: dict, per: dict) -> None:
+    """A real server's row: the server's count equal to the clients', no
+    torch in a client, `per` launches (the direct step's) a dispatched step."""
+    if row["requests"] != row["server_requests"] or row["clients_imported_torch"]:
+        fail(f"{tag}: {row['requests']} requests, the server counted "
+             f"{row['server_requests']}; torch in a client: {row['clients_imported_torch']}")
+    want = {k: c * row["steps"] for k, c in per.items()}
+    if row["launches"] != want or not 1 <= row["steps"] <= row["requests"]:
+        fail(f"{tag}: {row['steps']} steps for {row['requests']} requests launched "
+             f"{row['launches']}, want {want}")
+
+
+def check_stub_row(tag: str, r: dict) -> None:
+    """A stub server's row: no launch, the server's count equal to the
+    clients', no torch in a client."""
+    if any(r["launches"].values()) or r["requests"] != r["server_requests"] or \
+            r["clients_imported_torch"]:
+        fail(f"{tag} x{r['clients']}: launches {r['launches']}, {r['requests']} requests "
+             f"against the server's {r['server_requests']}")
+
+
+def curve_summary(rows) -> dict:
+    """Per client count the median, least and most requests/s of the real
+    server's and the stub's rounds, the real steps' p50 and fill, frames a
+    step; where the real curve stops climbing (the first count whose
+    median is within CURVE_FLAT of the highest median) and the stub's top."""
+    import numpy as np
+
+    out = {"counts": []}
+    for n in sorted({r["clients"] for r in rows}):
+        at = {e: [r for r in rows if r["clients"] == n and r["engine_kind"] == e]
+              for e in ("real", "stub")}
+        entry = {"clients": n}
+        for e, rs in at.items():
+            rate = [r["req_per_sec"] for r in rs]
+            entry[e] = {"median": float(np.median(rate)), "min": min(rate), "max": max(rate),
+                        "frames_per_step": float(np.median([r["frames_per_step"] for r in rs])),
+                        "p50_ms": float(np.median([r["latency_p50_ms"] for r in rs]))}
+        real = at["real"]
+        entry["real"]["step_p50_ms"] = float(np.median([r["step_p50_ms"] for r in real]))
+        entry["real"]["step_busy_share"] = float(np.median([r["step_busy_share"] for r in real]))
+        entry["real_over_stub"] = entry["real"]["median"] / entry["stub"]["median"]
+        out["counts"].append(entry)
+    top = max(e["real"]["median"] for e in out["counts"])
+    flat = next(e for e in out["counts"] if e["real"]["median"] >= CURVE_FLAT * top)
+    out["real_top"] = top
+    out["real_flat_clients"] = flat["clients"]
+    out["real_flat_req_s"] = flat["real"]["median"]
+    out["stub_top"] = max(e["stub"]["median"] for e in out["counts"])
+    return out
+
+
+def curve_runs(cfg: dict, res: dict) -> None:
+    """The raw I420 server (bf16, the bench's build) and the stub on the
+    card, both listening, driven in turn at each of `curve_clients` for
+    `curve_rounds` rounds (a settle run before each count's first round):
+    the real curve beside the host's ceiling in one run, with each count's
+    spread over the rounds."""
+    import gc
+
+    import torch
+
+    from facerecognitionpipeline_tpu_torch.serve import bench as B
+
+    real, rng = B.bench_server(ARCH, DET_SIZE[0], BATCH, "i420", device=DEVICE)
+    if real.device.type != DEVICE or real.engine.detector.crop_impl != "kernel" or \
+            real.batcher.bucket_sizes != [1, BATCH]:
+        fail(f"curve server: not on {DEVICE} with the kernels selected and buckets (1, {BATCH}) "
+             f"({real.batcher.bucket_sizes})")
+    payloads = [B.encode_frame(f, "raw-i420", DET_SIZE[0]) for f in B.camera_frames(rng)]
+    _, _, per = bench_direct("curve raw-i420/i420", real, payloads, "i420", False)
+    stub, stub_payload = B.ceiling_server(DET_SIZE[0], "i420", device=DEVICE)
+    served = {"real": B.ServedBench(real), "stub": B.ServedBench(stub, session="ceiling")}
+    rows = []
+    try:
+        for rnd in range(cfg["curve_rounds"]):
+            for n in cfg["curve_clients"]:
+                row = served["real"].run(n, cfg["curve_seconds"], payloads,
+                                         settle=cfg["curve_settle"] if rnd == 0 else 0.0)
+                row.update(B.bench_fields(row, "raw-i420", "i420", None, None, ARCH))
+                row.update({"engine_kind": "real", "round": rnd})
+                print_bench_row(f"curve round {rnd} raw-i420/i420", row)
+                check_bench_row(f"curve round {rnd} raw-i420/i420 x{n}", row, per)
+                for k, c in row["launches"].items():
+                    res["launches"][k] = res["launches"].get(k, 0) + c
+                rows.append(row)
+                srow = served["stub"].run(n, cfg["curve_seconds"], [stub_payload])
+                srow.update({"engine": B.CEILING_ENGINE, "transport": "i420",
+                             "engine_kind": "stub", "round": rnd})
+                print_bench_row(f"curve round {rnd} stub on {DEVICE}", srow)
+                check_stub_row(f"curve round {rnd} stub", srow)
+                rows.append(srow)
+            # launch reports count this process's launches, both servers' together
+        # (each row above holds its own window's)
+        reports = {e: {k: v for k, v in sb.report().items() if k != "launches"}
+                   for e, sb in served.items()}
+    finally:
+        for sb in served.values():
+            sb.close()
+    summary = curve_summary(rows)
+    for e in summary["counts"]:
+        print(f"[curve] x{e['clients']}: real {e['real']['median']:.3f} req/s "
+              f"({e['real']['min']:.3f}-{e['real']['max']:.3f}; {e['real']['frames_per_step']:.3f}"
+              f" frames a step, step p50 {e['real']['step_p50_ms']:.3f} ms, steps fill "
+              f"{e['real']['step_busy_share']:.3f}), stub {e['stub']['median']:.3f} "
+              f"({e['stub']['min']:.3f}-{e['stub']['max']:.3f}); real/stub "
+              f"{e['real_over_stub']:.3f}")
+    print(f"[curve] the real curve stops climbing at {summary['real_flat_clients']} clients, "
+          f"{summary['real_flat_req_s']:.3f} req/s (its top {summary['real_top']:.3f}); the "
+          f"stub's top {summary['stub_top']:.3f} req/s")
+    res["curve"] = rows
+    res["curve_summary"] = summary
+    res["servers"].append({**reports["real"], "transport": "i420", "quantize": None,
+                           "embed_budget": None, "part": "curve"})
+    res["servers"].append({**reports["stub"], "engine": B.CEILING_ENGINE, "device": DEVICE,
+                           "part": "curve"})
+    del real, stub, served
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def ceiling_runs(cfg: dict, res: dict) -> None:
+    """`run_host_ceiling` with the stub on each of `ceiling_devices`: no
+    kernel may launch."""
+    from facerecognitionpipeline_tpu_torch.serve import bench as B
+
+    for dev in cfg["ceiling_devices"]:
+        out = B.run_host_ceiling(cfg["ceiling_clients"], cfg["ceiling_seconds"], DET_SIZE[0],
+                                 "i420", device=dev)
+        for r in out["rows"]:
+            print(f"[ceiling] stub on {dev} x{r['clients']}: {r['req_s']:.3f} requests/s, p50 "
+                  f"{r['p50_ms']:.3f} ms, p95 {r['latency_p95_ms']:.3f} ms; {r['requests']} "
+                  f"requests (the server counted {r['server_requests']}), {r['steps']} steps, "
+                  f"{r['frames_per_step']:.3f} frames a step; CPU s: clients "
+                  f"{r['client_cpu_s']:.3f}, this process {r['host_cpu_s']:.3f} "
+                  f"({r['cpu_count']} cores); launches {r['launches']}")
+            check_stub_row(f"ceiling on {dev}", r)
+        if any(out["server"]["launches"].values()):
+            fail(f"ceiling on {dev}: the stub server launched {out['server']['launches']}")
+        res["ceiling"].extend(out["rows"])
+        res["servers"].append({**out["server"], "engine": B.CEILING_ENGINE, "device": dev})
+
+
+def budget_runs(cfg: dict, res: dict) -> None:
+    """`profile_budget` at the JAX script's build: embeds per step B x
+    (budget or F), every budget's p50 at or below the dense step's."""
+    from facerecognitionpipeline_tpu_torch.pipeline.budget_profile import profile_budget
+
+    rows = profile_budget(b=BATCH, faces=BUDGET_FACES, det=DET_SIZE[0], budgets=cfg["budgets"],
+                          chain=BUDGET_CHAIN, samples=cfg["budget_samples"], architecture=ARCH,
+                          device=DEVICE)
+    dense = rows[0]["p50_step_ms"]
+    for r in rows:
+        print(f"[budget] {r['budget'] or 'dense'}: p50 {r['p50_step_ms']:.3f} ms, "
+              f"{r['frames_per_sec']:.2f} frames/s, device "
+              + ("n/a" if r["device_ms"] is None else f"{r['device_ms']:.3f} ms")
+              + f" a step, {r['embeds_per_step']} embeds a step")
+        if r["embeds_per_step"] != BATCH * (r["budget"] or BUDGET_FACES):
+            fail(f"budget {r['budget']}: {r['embeds_per_step']} embeds a step, want "
+                 f"{BATCH * (r['budget'] or BUDGET_FACES)}")
+        if r["p50_step_ms"] > dense:
+            fail(f"budget {r['budget']}: p50 {r['p50_step_ms']:.3f} ms above the dense "
+                 f"step's {dense:.3f}")
+    res["budget"] = rows
+
+
+def write_jsonl(path: str, rows) -> None:
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "w") as f:
+        for r in rows:
+            f.write(json.dumps(r) + "\n")
+
+
+def bench_runs(fixture, cfg: dict, which: str = "all") -> dict:
+    """The bench, the ceiling and the budget sweep at `cfg`'s sizes."""
+    t_all = time.perf_counter()
+    res = {"bench": [], "curve": [], "ceiling": [], "budget": [], "servers": [],
+           "launches": {}, "seconds": {}}
+    if which in ("bench", "all"):
+        t0 = time.perf_counter()
+        for group in cfg["servers"]:
+            bench_group(cfg, group, fixture, res)
+        res["seconds"]["bench"] = time.perf_counter() - t0
+    if which in ("curve", "all") and "curve_clients" in cfg:
+        t0 = time.perf_counter()
+        curve_runs(cfg, res)
+        res["seconds"]["curve"] = time.perf_counter() - t0
+    if which in ("ceiling", "all"):
+        t0 = time.perf_counter()
+        ceiling_runs(cfg, res)
+        res["seconds"]["ceiling"] = time.perf_counter() - t0
+    if which in ("budget", "all"):
+        t0 = time.perf_counter()
+        budget_runs(cfg, res)
+        res["seconds"]["budget"] = time.perf_counter() - t0
+    res["seconds"]["all"] = time.perf_counter() - t_all
+    return res
+
+
+def bench_phase(fixture, report) -> None:
+    """Phase 18 (see the module docstring)."""
+    res = bench_runs(fixture, SERVING_PHASE)
+    print(f"[serving] phase 18 took {res['seconds']['all']:.1f} s ({res['seconds']}); the "
+          f"bench servers' launches {res['launches']}")
+    report["serving"] = res
+
+
+def bench_full(fixture, which: str) -> dict:
+    """--serving-only: the JAX scripts' sizes, each part's rows (and its
+    servers' launch reports) written to SERVING_DIR/<part>.jsonl."""
+    res = bench_runs(fixture, SERVING_FULL, which)
+    servers = {"bench": [s for s in res["servers"] if "engine" not in s and "part" not in s],
+               "curve": [s for s in res["servers"] if "part" in s],
+               "ceiling": [s for s in res["servers"] if "engine" in s and "part" not in s],
+               "budget": []}
+    for part in ("bench", "curve", "ceiling", "budget"):
+        if which in (part, "all"):
+            extra = [{"summary": res["curve_summary"]}] if part == "curve" else []
+            write_jsonl(os.path.join(SERVING_DIR, f"{part}.jsonl"),
+                        res[part] + extra + [{"server": s} for s in servers[part]])
+    print(f"[serving] --serving-only {which}: {res['seconds']}; rows in "
+          f"{os.path.relpath(SERVING_DIR, REPO)}")
+    return res
+
+
 def nms_entry(report, source) -> dict:
     """The kernels line's entry of K5: times and bounds summed over the
     three calls of one step (stages 1-3 of the server build at B=8),
     launches of phases 3 (the timed steps), 7 (the served requests), 12 (the
-    mesh), 13 (one replay per route), 14, 15, 16 and 17; beside them the torch ops it
+    mesh), 13 (one replay per route), 14, 15, 16, 17 and 18; beside them the torch ops it
     absorbs (pairwise_iou + mask), the floor of its sweeps' barriers, its
     cluster per shape and nms_mask's device time per step."""
     rows = report["nms_fixpoint"]
@@ -6630,9 +7036,10 @@ def nms_entry(report, source) -> dict:
     entry["detector_launches"] = report["detector"]["launches"]["nms_fixpoint"]
     entry["soak_launches"] = report["soak"]["launches"]["nms_fixpoint"]
     entry["protocol_launches"] = report["protocols"]["launches"]["nms_fixpoint"]
+    entry["bench_launches"] = report["serving"]["launches"]["nms_fixpoint"]
     for key in ("launches", "server_launches", "mesh_launches", "graph_launches",
                 "openset_launches", "detector_launches", "soak_launches",
-                "protocol_launches"):
+                "protocol_launches", "bench_launches"):
         if entry[key] < 1:
             fail(f"{key}: a main path never launched nms_fixpoint")
     return entry
@@ -6699,6 +7106,15 @@ def main() -> int:
         if protocols_only not in PROTOCOLS_ONLY:
             print(f"chip_smoke: --protocols-only takes one of {list(PROTOCOLS_ONLY)}, "
                   f"not {protocols_only!r}", file=sys.stderr)
+            return 2
+    if "--serving-only" in sys.argv[1:]:
+        # bench, curve, ceiling, budget or all (all when nothing follows); anything
+        # else is refused before the build
+        args = sys.argv[sys.argv.index("--serving-only") + 1:]
+        serving_only = args[0] if args else "all"
+        if serving_only not in SERVING_ONLY:
+            print(f"chip_smoke: --serving-only takes one of {list(SERVING_ONLY)}, "
+                  f"not {serving_only!r}", file=sys.stderr)
             return 2
     if "--full-sizes" in sys.argv[1:]:
         # phase 7's servers on 1 048 576 ids, phase 11's train_detector at
@@ -6789,6 +7205,13 @@ def main() -> int:
         print(card_line())
         print(json.dumps({"protocols": res}))
         return 0
+    if "--serving-only" in sys.argv[1:]:
+        # the serving bench, the host ceiling and the budget sweep at the JAX
+        # scripts' sizes, after the build, writing the committed rows
+        res = bench_full(fixture, serving_only)
+        print(card_line())
+        print(json.dumps({"serving": res}))
+        return 0
     if "--mesh-only" in sys.argv[1:]:
         # phase 12 alone on phase 3's build, the same way; with --cards its
         # mesh entries are distinct cards (2 for serving, 4 for the (2, 2)
@@ -6818,7 +7241,8 @@ def main() -> int:
     detector_phase(fixture, report)
     soak_phase(fixture, report)
     protocols_phase(report)
-    print(f"[timing] phases 1-17 took {time.perf_counter() - t_start:.1f} s")
+    bench_phase(fixture, report)
+    print(f"[timing] phases 1-18 took {time.perf_counter() - t_start:.1f} s")
 
     print(card_line())
 
@@ -6846,6 +7270,7 @@ def main() -> int:
     detector_launches = report["detector"]["launches"]
     soak_launches = report["soak"]["launches"]
     protocol_launches = report["protocols"]["launches"]
+    bench_launches = report["serving"]["launches"]
     matcher_launches = {"crop_resize": enrol["launches_k1"], "warp_patches": 0,
                         **enrol["matcher_launches"]}
     # K1's and K2's first designs (one thread per output pixel), as timed when
@@ -6914,6 +7339,10 @@ def main() -> int:
             # phase 17 (the demo's float32 cascade, the sweep, the train
             # probes), counted from 0 over it: K5 alone
             "protocol_launches": protocol_launches[name],
+            # phase 18 (the bench servers' measured runs: raw I420 from 1 and
+            # 4 client processes), counted from 0 over each run: K1, K2 and
+            # K5; the bench's 23 students match densely
+            "bench_launches": bench_launches[name],
             "max_abs_err": max(r["err"] for r in all_rows),
             # ms, plain_ms, bound_ms and library_ms are sums over the call
             # shapes of one serving step (K1: R-net, O-net, align stage A)
@@ -6957,6 +7386,8 @@ def main() -> int:
         if name in ("crop_resize", "warp_patches", "gallery_topk_int8") and \
                 soak_launches[name] < 1:
             fail(f"phase 16 never launched {name}")
+        if name in ("crop_resize", "warp_patches") and bench_launches[name] < 1:
+            fail(f"phase 18 never launched {name}")
     # the pool route (the long lists of K3, K4 and K3 on float32 rows from
     # POOL_MIN_K): its times at top_k 1024 (every top_k in by_k); launches
     # over phase 2's long lists (counted from 0 before them, read after) and
@@ -6999,6 +7430,7 @@ def main() -> int:
     print(json.dumps({"detector": report["detector"]}))
     print(json.dumps({"soak": report["soak"]}))
     print(json.dumps({"protocols": report["protocols"]}))
+    print(json.dumps({"serving": report["serving"]}))
     print(json.dumps({
         "kernels": kernels,
         **{k: v for k, v in report.items() if k.startswith("step_p50_ms")},

@@ -3,8 +3,8 @@
 Counterpart of `examples/recycle_soak.py`. `run_recycle_soak` launches the
 server CLI (`cli/face_recognition_server.py`) under its `--max_requests`
 supervisor (`serve/server.py::_supervise`) as a process of its own, drives
-it from client processes (started with `spawn`; they import neither torch
-nor CUDA), samples the serving worker (the pid `/health` names) every few
+it from client processes (`Clients`: started with `spawn`, they import
+neither torch nor CUDA; serve/bench.py's clients are the same), samples the serving worker (the pid `/health` names) every few
 answered requests, finalizes the session and stops the supervisor with
 SIGTERM. It records:
 
@@ -41,6 +41,7 @@ import http.client
 import json
 import multiprocessing
 import os
+import pickle
 import queue
 import signal
 import socket
@@ -63,7 +64,8 @@ POLL_S = 0.05  # how often the supervisor's children are listed
 RETRY_S = 0.2  # a client's wait before it sends a refused request again
 ANSWER_TIMEOUT_S = 120.0  # one accepted request must be answered within this
 STOP_TIMEOUT_S = 60.0  # SIGTERM -> the supervisor returns
-STALL_S = 600.0  # no answer at all for this long fails the soak
+STALL_S = 600.0  # no answer at all for this long fails the soak or a bench
+START_TIMEOUT_S = 120.0  # spawned clients are ready to send within this
 MIN_GENERATIONS = 3  # worker processes a soak must show
 # the line a worker prints on its way out (serve/server.py's LAUNCH_LINE;
 # not imported from there: the clients import this module, not torch)
@@ -310,43 +312,170 @@ def _payload_bytes(request: Dict) -> int:
     return len(request["data"])
 
 
-def _client(cid: int, url: str, request: Dict, n: int, timeout_s: float, out_path: str,
-            answers) -> None:
-    """One client process: `request` answered `n` times as frames 1..n, each
-    sent again while the server refuses connections (a recycle). Writes
-    {"rows": [[t_answer (monotonic), ms, body text], ...], "error",
-    "torch_imported"} to out_path and puts `cid` on `answers` per answer."""
+def _connect(session: HTTPSession, url: str) -> None:
+    """Open the session's kept-alive connection with GET /health, again
+    while the server's listen queue refuses or resets it (clients that
+    start together connect at once), for at most START_TIMEOUT_S."""
+    deadline = time.monotonic() + START_TIMEOUT_S
+    while True:
+        try:
+            r = session.get(url + "/health", timeout=ANSWER_TIMEOUT_S)
+            break
+        except (ConnectionError, http.client.HTTPException):
+            if time.monotonic() > deadline:
+                raise
+            time.sleep(RETRY_S)
+    if r.status_code != 200:
+        raise SoakError(f"GET /health answered HTTP {r.status_code}: {r.text[:2000]}")
+
+
+def _client(cid: int, url: str, requests_path: str, out_path: str, answers,
+            count: int, seconds: float, barrier, retry: bool) -> None:
+    """One client process. Posts requests[(cid + i) % len(requests)] (the
+    list pickled at `requests_path`) as
+    frame i + 1, each after the answer to the last: `count` answers or, with
+    count 0, until `seconds` after it passes `barrier` (the parent and every
+    client meet there, each with its connection open, so that all start
+    together). With `retry` a request
+    the server refuses or drops (no worker listening: a recycle) is sent
+    again after RETRY_S; without, that fails the client, as an answer other
+    than 200 or none within ANSWER_TIMEOUT_S always does. Puts `cid` on
+    `answers` per answer and writes {"rows": [[t_answer (monotonic), ms,
+    body text], ...], "cpu_s", "error", "torch_imported"} to out_path."""
     session = HTTPSession()
     rows: list = []
-    error = None
-    deadline = time.monotonic() + timeout_s
+    error, cpu_s = None, 0.0
     try:
-        while len(rows) < n:
-            if time.monotonic() > deadline:
-                raise SoakError(f"{len(rows)} of {n} requests answered in {timeout_s:.0f} s")
+        with open(requests_path, "rb") as f:
+            requests = pickle.load(f)
+        if barrier is not None:
+            _connect(session, url)
+            barrier.wait(START_TIMEOUT_S)
+        stop = time.monotonic() + seconds
+        cpu0 = time.process_time()
+        while (len(rows) < count) if count else (time.monotonic() < stop):
+            k = len(rows) + 1
             t0 = time.monotonic()
             try:
-                r = _post(session, url, request, len(rows) + 1)
+                r = _post(session, url, requests[(cid + k - 1) % len(requests)], k)
             except TimeoutError as e:
-                raise SoakError(
-                    f"request {len(rows) + 1} not answered in {ANSWER_TIMEOUT_S:.0f} s") from e
+                raise SoakError(f"request {k} not answered in {ANSWER_TIMEOUT_S:.0f} s") from e
             except (ConnectionError, http.client.HTTPException):
+                if not retry:
+                    raise
                 time.sleep(RETRY_S)  # refused or reset: no worker is listening yet
                 continue
             t1 = time.monotonic()
             if r.status_code != 200:
-                raise SoakError(f"request {len(rows) + 1} answered {r.status_code}: "
-                                f"{r.text[:2000]}")
+                raise SoakError(f"request {k} answered HTTP {r.status_code}: {r.text[:2000]}")
             rows.append([t1, 1e3 * (t1 - t0), r.text])
             answers.put(cid)
-    except Exception as e:  # noqa: BLE001 - written for run_recycle_soak, then re-raised
+        cpu_s = time.process_time() - cpu0
+    except Exception as e:  # noqa: BLE001 - written for the parent, then re-raised
         error = f"{type(e).__name__}: {e}"
         raise
     finally:
         session.close()
         with open(out_path, "w") as f:
-            json.dump({"rows": rows, "error": error,
+            json.dump({"rows": rows, "cpu_s": cpu_s, "error": error,
                        "torch_imported": "torch" in sys.modules}, f)
+
+
+class Clients:
+    """`n` client processes (`_client`), started with `spawn` so that they
+    import numpy and this module but not torch: the recycle soak's and
+    serve/bench.py's. Each posts `requests` to `url` in turn, `count`
+    answers each or, with count 0, for `seconds` from one start that
+    `start()` gives them all; `retry` as `_client` says. The requests and
+    their records are written under `workdir`: a request passed as a
+    process argument goes down a pipe that the parent fills only as fast as
+    each child starts, so that megabytes of frames would start the clients
+    one after another."""
+
+    def __init__(self, n: int, url: str, requests: Sequence[Dict], workdir: str, name: str,
+                 count: int = 0, seconds: float = 0.0, retry: bool = False):
+        ctx = multiprocessing.get_context("spawn")
+        self.answers = ctx.Queue()
+        self.barrier = None if count else ctx.Barrier(n + 1)
+        self.out_paths = [os.path.join(workdir, f"{name}-{i}.json") for i in range(n)]
+        requests_path = os.path.join(workdir, f"{name}-requests.pkl")
+        with open(requests_path, "wb") as f:
+            pickle.dump(list(requests), f)
+        self.procs = [
+            ctx.Process(target=_client, name=f"{name}-{i}", daemon=True,
+                        args=(i, url, requests_path, self.out_paths[i], self.answers, count,
+                              seconds, self.barrier, retry))
+            for i in range(n)
+        ]
+
+    def _raise_on_failed(self, what: str) -> None:
+        errors = []
+        for p, out in zip(self.procs, self.out_paths):
+            if p.exitcode not in (None, 0):
+                try:
+                    with open(out) as f:
+                        errors.append(f"{p.name}: {json.load(f)['error']}")
+                except (OSError, ValueError, KeyError):
+                    errors.append(f"{p.name}: exit code {p.exitcode}")
+        if errors:
+            raise SoakError(f"{what}: " + "; ".join(errors))
+
+    def start(self) -> float:
+        """Start the processes; with a time limit, wait until every one is
+        ready and let them all go. Returns the monotonic start."""
+        for p in self.procs:
+            p.start()
+        if self.barrier is not None:
+            deadline = time.monotonic() + START_TIMEOUT_S
+            while self.barrier.n_waiting < len(self.procs):
+                self._raise_on_failed("a client failed before it was ready")
+                if time.monotonic() > deadline:
+                    raise SoakError(f"{len(self.procs) - self.barrier.n_waiting} of "
+                                    f"{len(self.procs)} clients not ready in "
+                                    f"{START_TIMEOUT_S:.0f} s")
+                time.sleep(0.05)
+            self.barrier.wait(START_TIMEOUT_S)
+        return time.monotonic()
+
+    def wait(self, on_answer=None, check=None) -> List[Dict]:
+        """Drain the answers (calling on_answer(answers so far) on each)
+        until every client has exited 0; return their records in client
+        order. Raises SoakError naming the errors of the clients that
+        failed, with check()'s message when it returns one (checked while no
+        answer comes), or after no answer for STALL_S."""
+        answered = 0
+        last = time.monotonic()
+        while True:
+            try:
+                self.answers.get(timeout=0.25)
+            except queue.Empty:
+                msg = check() if check is not None else None
+                if msg:
+                    raise SoakError(f"{msg} after {answered} answers")
+                self._raise_on_failed("a client failed")
+                if all(p.exitcode == 0 for p in self.procs):
+                    break
+                if time.monotonic() - last > STALL_S:
+                    raise SoakError(f"no answer for {STALL_S:.0f} s after {answered} answers")
+                continue
+            answered += 1
+            last = time.monotonic()
+            if on_answer is not None:
+                on_answer(answered)
+        records = []
+        for p, out in zip(self.procs, self.out_paths):
+            p.join(timeout=30)
+            with open(out) as f:
+                records.append(json.load(f))
+        return records
+
+    def close(self) -> None:
+        for p in self.procs:
+            if p.is_alive():
+                p.terminate()
+            p.join(timeout=10)
+        self.answers.close()
+        self.answers.join_thread()
 
 
 # ------------------------------------------------------------------ soak
@@ -399,9 +528,6 @@ def run_recycle_soak(
     env = dict(os.environ)
     env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
     env["PYTHONUNBUFFERED"] = "1"
-    ctx = multiprocessing.get_context("spawn")
-    answers = ctx.Queue()
-    out_paths = [os.path.join(workdir, f"client{i}.json") for i in range(clients)]
     result: Dict = {"clients": clients, "log": log_path}
     if cuda:
         result["card"] = ", ".join(_smi("--query-gpu=name,power.limit")[0])
@@ -410,7 +536,8 @@ def run_recycle_soak(
     sup = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT, env=env, cwd=workdir)
     workers = _Workers(sup.pid)
     result["supervisor_pid"] = sup.pid
-    procs = []
+    pool = Clients(clients, url, [request], workdir, "soak-client", count=frames // clients,
+                    retry=True)
     monitor = HTTPSession()  # the sampler's; closed after every use
     samples: List[Dict] = []
     probes: Dict[int, Dict] = {}
@@ -436,49 +563,21 @@ def run_recycle_soak(
         samples.append({"frame": frame, "pid": pid, "rss_mb": round(rss, 1),
                         "gpu_vram_mb": stats.get("current_gpu_vram_mb")})
 
+    def on_answer(answered: int) -> None:
+        if answered % sample_every == 0:
+            sample(answered)
+
+    def supervisor_gone() -> Optional[str]:
+        if sup.poll() is None:
+            return None
+        return f"the supervisor exited with {sup.returncode}"
+
     try:
-        for i in range(clients):
-            procs.append(ctx.Process(
-                target=_client, name=f"soak-client-{i}",
-                args=(i, url, request, frames // clients,
-                      STALL_S * (frames // max_requests + 2), out_paths[i], answers),
-            ))
-            procs[-1].start()
-        answered = 0
-        last_progress = time.monotonic()
-        while True:
-            try:
-                answers.get(timeout=0.25)
-            except queue.Empty:
-                if sup.poll() is not None:
-                    fail(f"the supervisor exited with {sup.returncode} after "
-                         f"{answered} of {frames} answers")
-                bad = [p for p in procs if p.exitcode not in (None, 0)]
-                if bad:
-                    errors = []
-                    for p, out in zip(procs, out_paths):
-                        if p.exitcode not in (None, 0):
-                            try:
-                                with open(out) as f:
-                                    errors.append(f"{p.name}: {json.load(f)['error']}")
-                            except (OSError, ValueError, KeyError):
-                                errors.append(f"{p.name}: exit code {p.exitcode}")
-                    fail("; ".join(errors))
-                if all(p.exitcode == 0 for p in procs):
-                    break
-                if time.monotonic() - last_progress > STALL_S:
-                    fail(f"no answer for {STALL_S:.0f} s after {answered} of {frames}")
-                continue
-            answered += 1
-            last_progress = time.monotonic()
-            if answered % sample_every == 0:
-                sample(answered)
-        for p in procs:
-            p.join(timeout=30)
-        rows = []
-        for out in out_paths:
-            with open(out) as f:
-                rows.append(json.load(f))
+        pool.start()
+        try:
+            rows = pool.wait(on_answer, supervisor_gone)
+        except SoakError as e:
+            fail(str(e))
         result["clients_imported_torch"] = any(r["torch_imported"] for r in rows)
         answers_rows = [r["rows"] for r in rows]
         result["answered"] = sum(len(r) for r in answers_rows)
@@ -532,10 +631,7 @@ def run_recycle_soak(
     finally:
         monitor.close()
         workers.stop()
-        for p in procs:
-            if p.is_alive():
-                p.terminate()
-            p.join(timeout=10)
+        pool.close()
         if sup.poll() is None:
             sup.terminate()
             try:
@@ -550,8 +646,6 @@ def run_recycle_soak(
                 except ProcessLookupError:
                     pass
         log.close()
-        answers.close()
-        answers.join_thread()
 
     report = summarize(samples, frames, max_requests)
     report.update(result)

@@ -57,7 +57,7 @@ from facerecognitionpipeline_tpu_torch.train.trainer import (
     _promoted,
     dropout_generator,
 )
-from facerecognitionpipeline_tpu_torch.utils.device import card_line, resolve_device
+from facerecognitionpipeline_tpu_torch.utils.device import card_line, chained_ms, resolve_device
 
 CHAIN, SAMPLES, WARM = 5, 6, 2
 PROFILE_CLASSES = 1024  # the JAX script's
@@ -68,31 +68,7 @@ def measure(fn: Callable, samples: int = SAMPLES, device="cuda") -> float:
     """Median ms of one call of `fn` over `samples` windows of CHAIN
     chained calls, after WARM calls: CUDA events on the current stream, or
     the host clock on the CPU."""
-    import time
-
-    for _ in range(WARM):
-        fn()
-    times = []
-    if torch.device(device).type == "cuda":
-        torch.cuda.synchronize(device)
-        events = []
-        for _ in range(samples):
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
-            a.record()
-            for _ in range(CHAIN):
-                fn()
-            b.record()
-            events.append((a, b))
-        torch.cuda.synchronize(device)
-        times = [a.elapsed_time(b) / CHAIN for a, b in events]
-    else:
-        for _ in range(samples):
-            t0 = time.perf_counter()
-            for _ in range(CHAIN):
-                fn()
-            times.append((time.perf_counter() - t0) * 1e3 / CHAIN)
-    return float(np.percentile(times, 50))
+    return float(np.percentile(chained_ms(fn, samples, CHAIN, WARM, device), 50))
 
 
 # ------------------------------------------------------------- the pieces

@@ -3,7 +3,7 @@
 from __future__ import annotations
 
 import subprocess
-from typing import Optional
+from typing import Callable, List, Optional
 
 import torch
 
@@ -45,3 +45,63 @@ def card_line(device="cuda") -> Optional[str]:
         return None
     lines = smi.stdout.strip().splitlines()
     return lines[0] if smi.returncode == 0 and lines else None
+
+
+def card_fields(device="cuda") -> dict:
+    """`card_line` as {"card": name, "power_limit": limit}, both None on the
+    CPU."""
+    line = card_line(device)
+    if line is None:
+        return {"card": None, "power_limit": None}
+    name, _, limit = line.rpartition(",")
+    return {"card": name.strip(), "power_limit": limit.strip()}
+
+
+def chained_ms(fn: Callable, samples: int, chain: int, warm: int, device="cuda") -> List[float]:
+    """Milliseconds per call of `fn`, one figure per window of `chain`
+    chained calls, `samples` windows after `warm` calls: CUDA events on the
+    current stream (nothing synchronises inside a window), or the host clock
+    on the CPU."""
+    import time
+
+    for _ in range(warm):
+        fn()
+    if torch.device(device).type != "cuda":
+        times = []
+        for _ in range(samples):
+            t0 = time.perf_counter()
+            for _ in range(chain):
+                fn()
+            times.append((time.perf_counter() - t0) * 1e3 / chain)
+        return times
+    torch.cuda.synchronize(device)
+    events = []
+    for _ in range(samples):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(chain):
+            fn()
+        b.record()
+        events.append((a, b))
+    torch.cuda.synchronize(device)
+    return [a.elapsed_time(b) / chain for a, b in events]
+
+
+def profiled_device_ms(fn: Callable, calls: int = 3, device="cuda") -> Optional[float]:
+    """Device milliseconds per call of `fn`, summed over every CUDA kernel
+    torch.profiler sees in `calls` calls; None on the CPU or where the
+    profiler sees no device time."""
+    if torch.device(device).type != "cuda":
+        return None
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize(device)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize(device)
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA)
+    return us / calls / 1e3 if us > 0 else None

@@ -28,7 +28,8 @@ def _port_sources():
                    "torch_detector_stress_eval.py", "torch_detector_ood_eval.py",
                    "torch_recycle_soak.py", "torch_synthetic_end_to_end.py",
                    "torch_quantize_calib_transfer.py", "torch_train_profile.py",
-                   "torch_train_int8_probe.py"):
+                   "torch_train_int8_probe.py", "torch_serving_bench.py",
+                   "torch_serving_host_ceiling.py", "torch_profile_budget.py"):
         yield os.path.join(REPO, "examples", script)
 
 
@@ -74,7 +75,10 @@ def test_port_never_imports_jax_or_the_jax_package():
                    "../examples/torch_synthetic_end_to_end.py",
                    "../examples/torch_quantize_calib_transfer.py",
                    "../examples/torch_train_profile.py",
-                   "../examples/torch_train_int8_probe.py"):
+                   "../examples/torch_train_int8_probe.py", "serve/bench.py",
+                   "pipeline/budget_profile.py", "../examples/torch_serving_bench.py",
+                   "../examples/torch_serving_host_ceiling.py",
+                   "../examples/torch_profile_budget.py"):
         assert module in scanned, module
     for path in _port_sources():
         n += 1
@@ -100,6 +104,7 @@ def test_port_never_imports_jax_or_the_jax_package():
     ("telemetry", ("cv2", "requests", "jax", "flax", "torch")),
     ("cli.face_recognition_server", ("cv2", "requests", "jax", "flax")),
     ("serve.soak", ("cv2", "requests", "jax", "flax", "torch")),
+    ("serve.bench", ("cv2", "requests", "jax", "flax", "torch")),
 ])
 def test_importing_the_serving_modules_pulls_in_no_optional_library(module, absent):
     """cv2, PIL and psutil are looked up at the call that needs them; requests
