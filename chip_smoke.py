@@ -357,11 +357,31 @@ Phases, in order; any failure exits non-zero before the final line:
      CPU; the budget sweep at dense, 16, 8 and 4 with 4 samples; the rows to
      reports/serving_bench_torch/{bench,curve,ceiling,budget}.jsonl; any
      other name after the flag is refused before the build.
+  19. the stage bisects (`pipeline/stage_profile.py`) at the JAX scripts'
+     build (B=8, 640 px, 32 slots, ir_101 bf16), 3 chained replays a
+     window, 2 windows: the fused step's stages (detect, its three stages,
+     the matmul alignment beside the engine's K1+K2 one, the gate, the
+     embedder, the 1024-id top-k) each its own CUDA graph, and the full
+     step through the engine's graph; the detect bisect's nine cumulative
+     programs; the full step at 1024 ids dense and 131 072 bf16 ids
+     streaming. Every graph's replay equal to its eager call bit for bit
+     (the full step to the engine's eager step); the kernels one replay
+     launched: K1 x2 and K5 x3 a detect, K1 x1 and K2 x1 the alignment, K1
+     x3, K2 x1 and K5 x3 the full step, K3 x1 a streaming step and no K3 or
+     K4 a dense one; the sum of stages printed beside the full step.
+     `python3 chip_smoke.py --profile-only [fused | detect | gallery | all]`
+     builds the kernels and runs instead the JAX scripts' defaults (5
+     chained replays; the fused step in bf16 and with the int8 embedder, 3
+     windows; detect, 3 windows; the gallery at 1024, 131 072 and 1 048 576
+     ids, dense, streaming and streaming_int8, 4 windows) with the same
+     checks, writing reports/stage_profile_torch/{fused_step,
+     fused_step_int8,detect,gallery_scale}.jsonl; any other name after the
+     flag is refused before the build.
 `python3 chip_smoke.py --full-sizes` runs the default phases with phase 7's
 servers on a gallery file of 1 048 576 ids and phase 11's train_detector at
 100 steps, the sizes the default run's 1200 s limit cut.
 Then it prints the card's name and power limit, JSON lines of phase 8's, 9's,
-10's, 11's, 12's, 13's, 14's, 15's, 16's, 17's and 18's numbers, a JSON line
+10's, 11's, 12's, 13's, 14's, 15's, 16's, 17's, 18's and 19's numbers, a JSON line
 describing the kernels, and as its last line {"ok": true, "device": {...}}.
 """
 
@@ -6658,13 +6678,13 @@ def bench_direct(tag, server, payloads, transport, int8: bool):
     import numpy as np
     import torch
 
-    from facerecognitionpipeline_tpu_torch.serve import bench as B
+    from facerecognitionpipeline_tpu_torch.ops.launches import launch_counts
 
     canvases = [served_canvas(p, transport) for p in payloads]
-    at = B.launch_counts()
+    at = launch_counts()
     faces = [direct_faces(server, c) for c, _ in canvases]
     n = len(canvases)
-    got = {k: c - at[k] for k, c in B.launch_counts().items()}
+    got = {k: c - at[k] for k, c in launch_counts().items()}
     per = {k: c // n for k, c in got.items()}
     if any(c % n for c in got.values()) or {k: per[k] for k in BENCH_STEP} != BENCH_STEP:
         fail(f"{tag}: {n} direct steps launched {got}, want {BENCH_STEP} a step")
@@ -6995,11 +7015,175 @@ def bench_full(fixture, which: str) -> dict:
     return res
 
 
+# ------------------------------------------------------------ phase 19
+
+PROFILE_ONLY = ("fused", "detect", "gallery", "all")  # what --profile-only takes
+STAGE_DIR = os.path.join(REPO, "reports", "stage_profile_torch")
+STAGE_FACES = 32  # the JAX bisects' face slots
+# phase 19 (the default run) and --profile-only (the JAX scripts' defaults)
+STAGE_PHASE = {"chain": 3, "samples": 2, "gallery_samples": 2,
+               "gallery": (((1024,), ("dense",)), ((131072,), ("streaming",))),
+               "int8": False}
+STAGE_FULL = {"chain": 5, "samples": 3, "gallery_samples": 4,
+              "gallery": (((1024, 131072, 1 << 20), ("dense", "streaming", "streaming_int8")),),
+              "int8": True}
+# launches of one replay of each stage program (K1 x2 and K5 x3 a detect, K1
+# x1 and K2 x1 an alignment, K3 or K4 once a streaming step)
+STAGE_LAUNCHES = {
+    "detect (cascade)": {"crop_resize": 2, "nms_fixpoint": 3},
+    "  stage1 (pnet pyramid+nms)": {"nms_fixpoint": 1},
+    "  stage2 (rnet)": {"crop_resize": 1, "nms_fixpoint": 1},
+    "  stage3 (onet)": {"crop_resize": 1, "nms_fixpoint": 1},
+    "  align (matmul warp, alt)": {},
+    "align (kernel K1+K2)": {"crop_resize": 1, "warp_patches": 1},
+    "quality gate": {},
+    "gallery topk (1024)": {},
+    "FULL fused step": {"crop_resize": 3, "warp_patches": 1, "nms_fixpoint": 3},
+    "pyramid progressive": {},
+    "pyramid direct (old)": {},
+    "stage1 (full s1)": {"nms_fixpoint": 1},
+    "+ s2 crops": {"crop_resize": 1, "nms_fixpoint": 1},
+    "+ rnet conv": {"crop_resize": 1, "nms_fixpoint": 1},
+    "+ s2 nms/topk (full s2)": {"crop_resize": 1, "nms_fixpoint": 2},
+    "+ s3 crops": {"crop_resize": 2, "nms_fixpoint": 2},
+    "+ onet conv": {"crop_resize": 2, "nms_fixpoint": 2},
+    "+ final nms (full cascade)": {"crop_resize": 2, "nms_fixpoint": 3},
+}
+STAGE_MATCH = {"dense": {}, "streaming": {"gallery_topk": 1},
+               "streaming_int8": {"gallery_topk_int8": 1}}
+
+
+def check_stage_row(tag: str, name: str, row: dict, want: dict) -> None:
+    """A stage row: its replay equal to its eager call bit for bit, the
+    kernels one replay launched (int8 products aside) equal to `want`, and
+    a time. The profiler's device time may be missing: late in the default
+    run it has seen no kernel of a 0.05 ms graph's three replays."""
+    if row["replay_equals_eager"] is not True:
+        fail(f"{tag} {name!r}: the graph's replay differs from the eager call")
+    got = {k: n for k, n in row["launches"].items() if k != "int8_products"}
+    if got != want:
+        fail(f"{tag} {name!r}: one replay launched {row['launches']}, want {want}")
+    if not row["ms"] > 0:
+        fail(f"{tag} {name!r}: no time ({row['ms']} ms)")
+
+
+def ms_text(ms) -> str:
+    return "n/a" if ms is None else f"{ms:.3f}"
+
+
+def fused_rows(tag: str, cfg: dict, quantize=None) -> dict:
+    """The fused-step bisect at the JAX script's build, every row checked;
+    the sum of stages printed beside the full step."""
+    from facerecognitionpipeline_tpu_torch.pipeline import stage_profile as SP
+
+    rows = SP.profile_fused_step(b=BATCH, faces=STAGE_FACES, det=DET_SIZE[0],
+                                 chain=cfg["chain"], samples=cfg["samples"], quantize=quantize,
+                                 architecture=ARCH, device=DEVICE)
+    for r in rows:
+        want = STAGE_LAUNCHES.get(r["stage"], {})  # the embedder launches none of them
+        check_stage_row(tag, r["stage"], r, want)
+        if quantize and r["stage"].startswith(("embed", "FULL")) and \
+                not r["launches"].get("int8_products"):
+            fail(f"{tag} {r['stage']!r}: the int8 embedder ran no int8 product")
+        print(f"[stages] {tag} {r['stage']:34s} {r['ms']:8.3f} ms  device "
+              f"{ms_text(r['device_ms'])} ms  launches {r['launches']}")
+    full = rows[-1]
+    summed = {"stage": "sum of stages", "ms": SP.sum_of_stages(rows),
+              "device_ms": SP.sum_of_stages(rows, "device_ms"),
+              **{k: full[k] for k in ("config", "device", "card", "power_limit")}}
+    print(f"[stages] {tag} sum of stages {summed['ms']:.3f} ms (device "
+          f"{ms_text(summed['device_ms'])}) against the FULL fused step {full['ms']:.3f} ms "
+          f"(device {ms_text(full['device_ms'])})")
+    return {"rows": rows, "sum": summed}
+
+
+def detect_rows(tag: str, cfg: dict) -> list:
+    from facerecognitionpipeline_tpu_torch.pipeline import stage_profile as SP
+
+    rows = SP.profile_detect(b=BATCH, det=DET_SIZE[0], chain=cfg["chain"],
+                             samples=cfg["samples"], device=DEVICE)
+    for r in rows:
+        check_stage_row(tag, r["program"], r, STAGE_LAUNCHES[r["program"]])
+        print(f"[stages] {tag} {r['program']:28s} {r['ms']:8.3f} ms (delta "
+              f"{r['delta_ms']:+.3f}, median {r['median_ms']:.3f}, device "
+              f"{ms_text(r['device_ms'])})  launches {r['launches']}")
+    return rows
+
+
+def gallery_rows(tag: str, cfg: dict) -> list:
+    from facerecognitionpipeline_tpu_torch.pipeline import stage_profile as SP
+
+    rows = []
+    for sizes, impls in cfg["gallery"]:
+        rows += SP.profile_gallery_scale(b=BATCH, faces=STAGE_FACES, det=DET_SIZE[0],
+                                         sizes=sizes, impls=impls, chain=cfg["chain"],
+                                         samples=cfg["gallery_samples"], architecture=ARCH,
+                                         device=DEVICE)
+    for r in rows:
+        name = f"{r['gallery_size']} {r['gallery_impl']}"
+        check_stage_row(tag, name, r | {"ms": r["p50_step_ms"]}, {
+            **STAGE_LAUNCHES["FULL fused step"], **STAGE_MATCH[r["gallery_impl"]]})
+        print(f"[stages] {tag} gallery {name}: p50 {r['p50_step_ms']:.3f} ms, "
+              f"{r['faces_per_sec']:.1f} faces/s, device {ms_text(r['device_ms'])} ms, "
+              f"launches {r['launches']}")
+    return rows
+
+
+def stage_runs(cfg: dict, which: str = "all") -> dict:
+    """The three bisects at `cfg`'s sizes, the kernels' counts set to 0
+    before and read after."""
+    counters = protocol_counters()
+    for c in counters.values():
+        c.reset()
+    t_all = time.perf_counter()
+    res: dict = {"seconds": {}}
+    for part, run in (("fused", lambda: fused_rows("fused bf16", cfg)),
+                      ("fused_int8", lambda: fused_rows("fused int8", cfg, "int8")),
+                      ("detect", lambda: detect_rows("detect", cfg)),
+                      ("gallery", lambda: gallery_rows("gallery", cfg))):
+        if which not in (part.split("_")[0], "all") or (part == "fused_int8" and
+                                                         not cfg["int8"]):
+            continue
+        t0 = time.perf_counter()
+        res[part] = run()
+        res["seconds"][part] = time.perf_counter() - t0
+    res["seconds"]["all"] = time.perf_counter() - t_all
+    res["launches"] = {k: c.count for k, c in counters.items()}
+    return res
+
+
+def stage_phase(report) -> None:
+    """Phase 19 (see the module docstring)."""
+    res = stage_runs(STAGE_PHASE)
+    for name in ("crop_resize", "warp_patches", "nms_fixpoint", "gallery_topk"):
+        if res["launches"][name] < 1:
+            fail(f"phase 19 never launched {name}")
+    print(f"[stages] phase 19 took {res['seconds']['all']:.1f} s ({res['seconds']}); "
+          f"launches {res['launches']}")
+    report["stages"] = res
+
+
+def stage_full(which: str) -> dict:
+    """--profile-only: the JAX scripts' defaults, each bisect's rows written
+    to STAGE_DIR/<name>.jsonl."""
+    res = stage_runs(STAGE_FULL, which)
+    files = {"fused": ("fused_step.jsonl", lambda v: v["rows"] + [v["sum"]]),
+             "fused_int8": ("fused_step_int8.jsonl", lambda v: v["rows"] + [v["sum"]]),
+             "detect": ("detect.jsonl", lambda v: v),
+             "gallery": ("gallery_scale.jsonl", lambda v: v)}
+    for part, (name, rows) in files.items():
+        if part in res:
+            write_jsonl(os.path.join(STAGE_DIR, name), rows(res[part]))
+    print(f"[stages] --profile-only {which}: {res['seconds']}; launches {res['launches']}; "
+          f"rows in {os.path.relpath(STAGE_DIR, REPO)}")
+    return res
+
+
 def nms_entry(report, source) -> dict:
     """The kernels line's entry of K5: times and bounds summed over the
     three calls of one step (stages 1-3 of the server build at B=8),
     launches of phases 3 (the timed steps), 7 (the served requests), 12 (the
-    mesh), 13 (one replay per route), 14, 15, 16, 17 and 18; beside them the torch ops it
+    mesh), 13 (one replay per route), 14, 15, 16, 17, 18 and 19; beside them the torch ops it
     absorbs (pairwise_iou + mask), the floor of its sweeps' barriers, its
     cluster per shape and nms_mask's device time per step."""
     rows = report["nms_fixpoint"]
@@ -7037,9 +7221,10 @@ def nms_entry(report, source) -> dict:
     entry["soak_launches"] = report["soak"]["launches"]["nms_fixpoint"]
     entry["protocol_launches"] = report["protocols"]["launches"]["nms_fixpoint"]
     entry["bench_launches"] = report["serving"]["launches"]["nms_fixpoint"]
+    entry["stage_launches"] = report["stages"]["launches"]["nms_fixpoint"]
     for key in ("launches", "server_launches", "mesh_launches", "graph_launches",
                 "openset_launches", "detector_launches", "soak_launches",
-                "protocol_launches", "bench_launches"):
+                "protocol_launches", "bench_launches", "stage_launches"):
         if entry[key] < 1:
             fail(f"{key}: a main path never launched nms_fixpoint")
     return entry
@@ -7115,6 +7300,15 @@ def main() -> int:
         if serving_only not in SERVING_ONLY:
             print(f"chip_smoke: --serving-only takes one of {list(SERVING_ONLY)}, "
                   f"not {serving_only!r}", file=sys.stderr)
+            return 2
+    if "--profile-only" in sys.argv[1:]:
+        # fused, detect, gallery or all (all when nothing follows); anything
+        # else is refused before the build
+        args = sys.argv[sys.argv.index("--profile-only") + 1:]
+        profile_only = args[0] if args else "all"
+        if profile_only not in PROFILE_ONLY:
+            print(f"chip_smoke: --profile-only takes one of {list(PROFILE_ONLY)}, "
+                  f"not {profile_only!r}", file=sys.stderr)
             return 2
     if "--full-sizes" in sys.argv[1:]:
         # phase 7's servers on 1 048 576 ids, phase 11's train_detector at
@@ -7212,6 +7406,13 @@ def main() -> int:
         print(card_line())
         print(json.dumps({"serving": res}))
         return 0
+    if "--profile-only" in sys.argv[1:]:
+        # the stage bisects at the JAX scripts' defaults, after the build,
+        # writing the committed rows
+        res = stage_full(profile_only)
+        print(card_line())
+        print(json.dumps({"stages": res}))
+        return 0
     if "--mesh-only" in sys.argv[1:]:
         # phase 12 alone on phase 3's build, the same way; with --cards its
         # mesh entries are distinct cards (2 for serving, 4 for the (2, 2)
@@ -7242,7 +7443,8 @@ def main() -> int:
     soak_phase(fixture, report)
     protocols_phase(report)
     bench_phase(fixture, report)
-    print(f"[timing] phases 1-18 took {time.perf_counter() - t_start:.1f} s")
+    stage_phase(report)
+    print(f"[timing] phases 1-19 took {time.perf_counter() - t_start:.1f} s")
 
     print(card_line())
 
@@ -7271,6 +7473,7 @@ def main() -> int:
     soak_launches = report["soak"]["launches"]
     protocol_launches = report["protocols"]["launches"]
     bench_launches = report["serving"]["launches"]
+    stage_launches = report["stages"]["launches"]
     matcher_launches = {"crop_resize": enrol["launches_k1"], "warp_patches": 0,
                         **enrol["matcher_launches"]}
     # K1's and K2's first designs (one thread per output pixel), as timed when
@@ -7343,6 +7546,10 @@ def main() -> int:
             # 4 client processes), counted from 0 over each run: K1, K2 and
             # K5; the bench's 23 students match densely
             "bench_launches": bench_launches[name],
+            # phase 19 (the stage bisects: every stage graph's replays and
+            # eager calls, the full step's, the gallery rows' steps; 131 072
+            # bf16 rows stream through K3), counted from 0 over it
+            "stage_launches": stage_launches[name],
             "max_abs_err": max(r["err"] for r in all_rows),
             # ms, plain_ms, bound_ms and library_ms are sums over the call
             # shapes of one serving step (K1: R-net, O-net, align stage A)
@@ -7388,6 +7595,9 @@ def main() -> int:
             fail(f"phase 16 never launched {name}")
         if name in ("crop_resize", "warp_patches") and bench_launches[name] < 1:
             fail(f"phase 18 never launched {name}")
+        if name in ("crop_resize", "warp_patches", "gallery_topk") and \
+                stage_launches[name] < 1:
+            fail(f"phase 19 never launched {name}")
     # the pool route (the long lists of K3, K4 and K3 on float32 rows from
     # POOL_MIN_K): its times at top_k 1024 (every top_k in by_k); launches
     # over phase 2's long lists (counted from 0 before them, read after) and
@@ -7431,6 +7641,7 @@ def main() -> int:
     print(json.dumps({"soak": report["soak"]}))
     print(json.dumps({"protocols": report["protocols"]}))
     print(json.dumps({"serving": report["serving"]}))
+    print(json.dumps({"stages": report["stages"]}))
     print(json.dumps({
         "kernels": kernels,
         **{k: v for k, v in report.items() if k.startswith("step_p50_ms")},

@@ -413,7 +413,9 @@ class MTCNNDetector:
             return crop_resize_kernel(img, boxes, out_size)
         return crop_resize_plain(img, boxes, out_size, self.dtype)
 
-    def _stage2(self, img, boxes, valid):
+    def _stage2_crops(self, img, boxes):
+        """Squared candidate boxes -> (sq [B,N,4], 24 px R-net crops
+        [B,N,24,24,C])."""
         b, h, w, _ = img.shape
         sq = _square(boxes).clamp(0, max(h, w))
         d = self.rnet_crop_downscale
@@ -425,9 +427,12 @@ class MTCNNDetector:
             full = device_constant((0.0, 0.0, float(w), float(h)), img.device).expand(b, 1, 4)
             small = crop_resize_plain(img, full, s, self.dtype)[:, 0]
             sx, sy = s / float(w), s / float(h)
-            crops = self._crop(small, sq * device_constant((sx, sy, sx, sy), img.device), 24)
-        else:
-            crops = self._crop(img, sq, 24)
+            return sq, self._crop(small, sq * device_constant((sx, sy, sx, sy), img.device), 24)
+        return sq, self._crop(img, sq, 24)
+
+    def _stage2(self, img, boxes, valid):
+        b = img.shape[0]
+        sq, crops = self._stage2_crops(img, boxes)
         n = sq.shape[1]
         prob, reg = self.nets.rnet(crops.reshape(b * n, 24, 24, -1))
         prob, reg = prob.reshape(b, n), reg.reshape(b, n, 4)
@@ -437,10 +442,16 @@ class MTCNNDetector:
         masked = torch.where(keep, prob, torch.full_like(prob, _NEG))
         return topk_boxes(boxes, masked, keep, self.stage2_keep)
 
-    def _stage3(self, img, boxes, valid):
-        b, h, w, _ = img.shape
+    def _stage3_crops(self, img, boxes):
+        """Squared candidate boxes -> (sq [B,N,4], 48 px O-net crops
+        [B,N,48,48,C])."""
+        h, w = img.shape[1:3]
         sq = _square(boxes).clamp(0, max(h, w))
-        crops = self._crop(img, sq, 48)
+        return sq, self._crop(img, sq, 48)
+
+    def _stage3(self, img, boxes, valid):
+        b = img.shape[0]
+        sq, crops = self._stage3_crops(img, boxes)
         n = sq.shape[1]
         prob, reg, lmk = self.nets.onet(crops.reshape(b * n, 48, 48, -1))
         prob = prob.reshape(b, n)

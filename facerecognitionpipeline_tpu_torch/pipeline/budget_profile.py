@@ -28,18 +28,19 @@ from __future__ import annotations
 from typing import Callable, List, Optional, Sequence
 
 import numpy as np
-import torch
 
-from facerecognitionpipeline_tpu_torch.utils.device import (
-    card_fields,
-    chained_ms,
-    profiled_device_ms,
-    resolve_device,
+from facerecognitionpipeline_tpu_torch.pipeline.stage_profile import (
+    DTYPE,
+    TOP_K,
+    device_fields,
+    profile_detector,
+    random_frames,
+    seeded_gallery,
+    timed,
 )
+from facerecognitionpipeline_tpu_torch.utils.device import resolve_device
 
 WARM = 3  # the JAX script's three synced steps before timing (the first captures)
-DTYPE = torch.bfloat16  # the detector's and the embedder's, as in the JAX script
-GALLERY_ROWS = 1024
 
 
 def first_step_embeds(engine, step: Callable) -> int:
@@ -73,43 +74,33 @@ def profile_budget(
     """One row per budget of [None, *budgets] (see the module docstring);
     `on_row` is called with each row as it is measured. device: 'cuda' (the
     default) raises without a card; 'cpu' runs every engine on the CPU."""
-    from facerecognitionpipeline_tpu_torch.gallery.search import DeviceGallery
-    from facerecognitionpipeline_tpu_torch.models.detector import MTCNNDetector
     from facerecognitionpipeline_tpu_torch.pipeline.embedder import FaceEmbedder
     from facerecognitionpipeline_tpu_torch.pipeline.engine import RecognitionEngine
 
     dev = resolve_device(device)
     rng = np.random.default_rng(0)
-    detector = MTCNNDetector(det_size=(det, det), max_faces=faces, min_face_size=40,
-                             dtype=DTYPE, device=dev)
+    detector = profile_detector(det, faces, dev)
     embedder = FaceEmbedder(architecture=architecture, dtype=DTYPE, device=dev,
                             random_ok=True)
-    gallery = DeviceGallery(device=dev)
-    t = rng.normal(size=(GALLERY_ROWS, 512)).astype(np.float32)
-    t /= np.linalg.norm(t, axis=1, keepdims=True)
-    gallery.rebuild([f"id{i}" for i in range(GALLERY_ROWS)], t)
-    templates, valid, _ = gallery.device_snapshot()
-    frames = torch.from_numpy(
-        rng.integers(0, 256, size=(b, det, det, 3), dtype=np.uint8)).to(dev)
-    where = {"device": str(dev), **card_fields(dev)}
+    templates, valid = seeded_gallery(rng, dev)
+    frames = random_frames(b, det, rng, dev)
+    where = device_fields(dev)
 
     rows = []
     for budget in [None, *budgets]:
-        engine = RecognitionEngine(detector, embedder, top_k=3, embed_budget=budget)
+        engine = RecognitionEngine(detector, embedder, top_k=TOP_K, embed_budget=budget)
 
         def step(engine=engine):
-            return engine.process_frames(frames, templates, valid, gallery_k=3)
+            return engine.process_frames(frames, templates, valid, gallery_k=TOP_K)
 
         embeds = first_step_embeds(engine, step)
-        times = chained_ms(step, samples, chain, WARM - 1, dev)
+        times, fields = timed(step, dev, samples, chain, WARM - 1)
         row = {
             "budget": budget,
             "p50_step_ms": float(np.percentile(times, 50)),
             "frames_per_sec": b / (float(np.mean(times)) / 1e3),
             "embeds_per_step": embeds,
-            "device_ms": profiled_device_ms(step, 3, dev),
-            "samples": samples, "chain": chain,
-            "timing": "cuda-events" if dev.type == "cuda" else "host-clock",
+            **fields,
             **where,
         }
         rows.append(row)

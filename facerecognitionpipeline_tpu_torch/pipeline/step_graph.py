@@ -89,9 +89,11 @@ def _describe(x) -> str:
 
 
 def clone_tree(tree):
-    """A copy of every tensor of a (nested) dict of tensors."""
+    """A copy of every tensor of a nested dict / tuple / list of tensors."""
     if isinstance(tree, dict):
         return {k: clone_tree(v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(clone_tree(v) for v in tree)
     return tree.clone()
 
 

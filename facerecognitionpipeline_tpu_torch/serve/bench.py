@@ -248,14 +248,6 @@ class ZeroCostEngine:
 # ---------------------------------------------------------------- servers
 
 
-def launch_counts() -> Dict[str, int]:
-    """The kernels' launch counters and the int8 products, by name."""
-    from facerecognitionpipeline_tpu_torch.ops import int8_gemm
-    from facerecognitionpipeline_tpu_torch.serve import server as tserver
-
-    return {**tserver.launch_counts(), "int8_products": int8_gemm.PRODUCTS.count}
-
-
 class StepEvents:
     """A pair of CUDA events around each step the batcher dispatches while
     open (the step as the device saw it, its waits included); read after
@@ -330,6 +322,8 @@ class ServedBench:
     def run(self, n_clients: int, seconds: float, payloads, settle: float = 0.0,
             rss_interval: float = 0.0, keep_answers: bool = False) -> dict:
         """A settle run of `settle` seconds (no row), then the measured run."""
+        from facerecognitionpipeline_tpu_torch.ops.launches import launch_counts
+
         if settle > 0:
             run_clients(self.url, n_clients, settle, payloads)
         at = launch_counts()

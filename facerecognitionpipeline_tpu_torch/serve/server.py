@@ -61,12 +61,8 @@ import torch
 
 from facerecognitionpipeline_tpu_torch.gallery.manager import GalleryManager
 from facerecognitionpipeline_tpu_torch.models.irse import BACKBONE_CONFIGS
-from facerecognitionpipeline_tpu_torch.ops import (
-    crop_kernel,
-    gallery_kernel,
-    nms_kernel,
-    warp_kernel,
-)
+# the kernels' launch counters by kernel (the int8 products left out)
+from facerecognitionpipeline_tpu_torch.ops.launches import kernel_counts as launch_counts
 from facerecognitionpipeline_tpu_torch.ops.quality import QualityConfig
 from facerecognitionpipeline_tpu_torch.serve import rawproto
 from facerecognitionpipeline_tpu_torch.serve.batcher import DeviceBatcher
@@ -88,19 +84,6 @@ _SAFE_COMPONENT = re.compile(r"[A-Za-z0-9][A-Za-z0-9_.\-]*")
 # the line a CLI process prints on its way out: the kernels it launched
 # since its server was ready (`FaceRecognitionServer.launch_report`)
 LAUNCH_LINE = "[kernels] "
-
-
-def launch_counts() -> Dict[str, int]:
-    """The launch counters of the port's kernels (`ops/*_kernel.py`), by
-    kernel."""
-    return {
-        "crop_resize": crop_kernel.LAUNCHES.count,
-        "warp_patches": warp_kernel.LAUNCHES.count,
-        "gallery_topk": gallery_kernel.LAUNCHES.count,
-        "gallery_topk_int8": gallery_kernel.LAUNCHES_INT8.count,
-        "gallery_topk_f32": gallery_kernel.LAUNCHES_F32.count,
-        "nms_fixpoint": nms_kernel.LAUNCHES.count,
-    }
 
 
 def _safe_path_component(value, what: str) -> str:

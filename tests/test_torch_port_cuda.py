@@ -1447,3 +1447,31 @@ def test_pool_route_in_a_cuda_graph_equals_the_eager_call(dev, gen):
     graph.replay()
     torch.cuda.synchronize()
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_stage_bisects_on_the_card(dev):
+    """The stage bisects (`pipeline/stage_profile.py`) at a small build:
+    every stage graph's replay equals its eager call bit for bit, one
+    replay launches the kernels its stage runs (a streaming step K3 or K4
+    once, a dense one neither), and every time is the card's."""
+    from facerecognitionpipeline_tpu_torch.pipeline import stage_profile as SP
+
+    step = {"crop_resize": 3, "warp_patches": 1, "nms_fixpoint": 3}
+    detect = {"crop_resize": 2, "nms_fixpoint": 3}
+    fused = SP.profile_fused_step(b=2, faces=8, det=320, chain=2, samples=1,
+                                  architecture="ir_micro", device=dev)
+    programs = SP.profile_detect(b=2, det=320, chain=2, samples=1, device=dev)
+    scale = SP.profile_gallery_scale(b=2, faces=8, det=320, sizes=(4096,),
+                                     impls=("dense", "streaming", "streaming_int8"), chain=2,
+                                     samples=1, architecture="ir_micro", device=dev)
+    for r in fused + programs + scale:
+        assert r["replay_equals_eager"] is True, r
+        assert r["device_ms"] > 0 and r["timing"] == "cuda-events" and r["card"], r
+    launches = {r["stage"]: r["launches"] for r in fused}
+    assert launches["detect (cascade)"] == detect
+    assert launches["align (kernel K1+K2)"] == {"crop_resize": 1, "warp_patches": 1}
+    assert launches["  align (matmul warp, alt)"] == {} and launches["quality gate"] == {}
+    assert launches["FULL fused step"] == step
+    assert programs[-1]["launches"] == detect and programs[0]["launches"] == {}
+    assert [r["launches"] for r in scale] == [
+        step, {**step, "gallery_topk": 1}, {**step, "gallery_topk_int8": 1}]

@@ -29,7 +29,9 @@ def _port_sources():
                    "torch_recycle_soak.py", "torch_synthetic_end_to_end.py",
                    "torch_quantize_calib_transfer.py", "torch_train_profile.py",
                    "torch_train_int8_probe.py", "torch_serving_bench.py",
-                   "torch_serving_host_ceiling.py", "torch_profile_budget.py"):
+                   "torch_serving_host_ceiling.py", "torch_profile_budget.py",
+                   "torch_profile_fused_step.py", "torch_profile_detect.py",
+                   "torch_profile_gallery_scale.py"):
         yield os.path.join(REPO, "examples", script)
 
 
@@ -78,7 +80,10 @@ def test_port_never_imports_jax_or_the_jax_package():
                    "../examples/torch_train_int8_probe.py", "serve/bench.py",
                    "pipeline/budget_profile.py", "../examples/torch_serving_bench.py",
                    "../examples/torch_serving_host_ceiling.py",
-                   "../examples/torch_profile_budget.py"):
+                   "../examples/torch_profile_budget.py", "pipeline/stage_profile.py",
+                   "../examples/torch_profile_fused_step.py",
+                   "../examples/torch_profile_detect.py",
+                   "../examples/torch_profile_gallery_scale.py", "ops/launches.py"):
         assert module in scanned, module
     for path in _port_sources():
         n += 1
