@@ -377,11 +377,29 @@ Phases, in order; any failure exits non-zero before the final line:
      checks, writing reports/stage_profile_torch/{fused_step,
      fused_step_int8,detect,gallery_scale}.jsonl; any other name after the
      flag is refused before the build.
+  20. bench.py's headline on the port (`pipeline/step_bench.py`, what
+     `bench_torch.py` prints) at its build (B=8, 640 px, 32 slots, ir_101
+     bf16, 1024 float32 ids, 5 chained steps a window, 8 windows by the host
+     clock, fetch-ended, the round trip subtracted by bench.py's rule): the
+     headline step and embed_budget=8, each through its engine's graph.
+     Each route's first replay equal to its eager step on all 12 result
+     fields, K1 x3, K2 x1, K5 x3 a step, its keys non-null, and its
+     host-clock p50 not below the CUDA-event p50 of the same windows by more
+     than the round trip over the chain (a guard of the round-trip
+     correction: the events' span counts the card's waits for the host
+     too). `python3 chip_smoke.py
+     --bench-only` builds the kernels and runs instead every route of
+     bench.py's line (the int8 embedder, full int8, budget 8 on full int8,
+     1 048 576 bf16 ids with K3 and their int8 pair with K4 once a step)
+     and e2e_rank1 with the port's ir_micro weights (trained first through
+     the synthetic demo where pretrained/ir_micro_synthetic_torch.npz is
+     absent), fails below phase 11's E2E_FLOOR or on any check above,
+     prints the line and appends it to reports/bench_line_torch.jsonl.
 `python3 chip_smoke.py --full-sizes` runs the default phases with phase 7's
 servers on a gallery file of 1 048 576 ids and phase 11's train_detector at
 100 steps, the sizes the default run's 1200 s limit cut.
 Then it prints the card's name and power limit, JSON lines of phase 8's, 9's,
-10's, 11's, 12's, 13's, 14's, 15's, 16's, 17's, 18's and 19's numbers, a JSON line
+10's, 11's, 12's, 13's, 14's, 15's, 16's, 17's, 18's, 19's and 20's numbers, a JSON line
 describing the kernels, and as its last line {"ok": true, "device": {...}}.
 """
 
@@ -7179,6 +7197,124 @@ def stage_full(which: str) -> dict:
     return res
 
 
+# ------------------------------------------------------------ phase 20
+
+BENCH_RECORD = os.path.join(REPO, "reports", "bench_line_torch.jsonl")
+# launches of one step of every route of bench.py's line: K1 x3, K2 x1, K5
+# x3, and K3 (bf16 rows) or K4 (their int8 pair) once against 1 048 576 ids
+BENCH_LAUNCHES = {"crop_resize": 3, "warp_patches": 1, "nms_fixpoint": 3}
+BENCH_MATCH = {"gallery_1m_bf16": {"gallery_topk": 1},
+               "gallery_1m_int8": {"gallery_topk_int8": 1}}
+BENCH_PHASE_ROUTES = ("bf16", "embed_budget8")  # phase 20: the headline and budget 8
+
+
+def check_headline(tag: str, res: dict, names) -> None:
+    """Every route of `names`: built and measured, its first step (the
+    graph's first replay) equal to its eager step on all 12 result fields,
+    the launches of one step as BENCH_LAUNCHES / BENCH_MATCH say, int8
+    products only on the routes with the int8 embedder, its keys in the
+    line (`step_bench.LINE_KEYS`) non-null, and its host-clock p50 not
+    below the CUDA-event p50 of the same windows by more than the round
+    trip it was corrected by, over the chain. The events' span also counts
+    the card's waits for the host, so this last check guards the
+    round-trip correction only: it cannot show the host holding the card
+    back."""
+    import numpy as np
+
+    from facerecognitionpipeline_tpu_torch.pipeline import step_bench as SB
+
+    line, routes = res["line"], res["routes"]
+    slack = routes["bf16"]["correction"] * 1e3 / res["chain"]
+    for name in names:
+        rec = routes.get(name, {})
+        if "error" in rec or "launches" not in rec:
+            fail(f"{tag} {name}: the route failed ({rec.get('error')})")
+        if len(rec["fields"]) != 12 or rec["differs"]:
+            fail(f"{tag} {name}: the graph's first replay differs from the eager step in "
+                 f"{rec['differs']} of {rec['fields']}")
+        got = {k: n for k, n in rec["launches"].items() if k != "int8_products"}
+        want = {**BENCH_LAUNCHES, **BENCH_MATCH.get(name, {})}
+        if got != want:
+            fail(f"{tag} {name}: one step launched {rec['launches']}, want {want}")
+        if bool(rec["launches"].get("int8_products")) != rec["options"]["embedder_quantized"]:
+            fail(f"{tag} {name}: int8 products a step {rec['launches'].get('int8_products')}")
+        for key, _ in SB.LINE_KEYS[name]:
+            if line[key] is None:
+                fail(f"{tag} {name}: {key} is null")
+        events = float(np.percentile(rec["event_ms"], 50))
+        if rec["p50_ms"] < events - slack:
+            fail(f"{tag} {name}: host-clock p50 {rec['p50_ms']:.4f} ms below the CUDA events' "
+                 f"{events:.4f} ms of the same windows (slack {slack:.4f})")
+        print(f"[bench] {tag} {name}: p50 {rec['p50_ms']:.3f} ms host clock, {events:.3f} ms "
+              f"CUDA events; launches a step {rec['launches']}; replay = eager on 12 fields")
+
+
+def headline_runs(tag: str, **kw) -> dict:
+    """`step_bench.run` on the card, the kernels' counts set to 0 before
+    and read after."""
+    from facerecognitionpipeline_tpu_torch.pipeline import step_bench as SB
+
+    counters = protocol_counters()
+    for c in counters.values():
+        c.reset()
+    t0 = time.perf_counter()
+    res = SB.run(device=DEVICE, **kw)
+    res["launches"] = {k: c.count for k, c in counters.items()}
+    print(f"[bench] {tag} took {time.perf_counter() - t0:.1f} s; launches {res['launches']}")
+    return res
+
+
+def headline_summary(res: dict) -> dict:
+    """The routes' figures without their windows' raw walls."""
+    keys = ("p50_ms", "faces_per_sec", "event_ms", "step_ms", "launches", "seconds",
+            "peak_mib", "options", "error")
+    return {"line": res["line"], "launches": res["launches"], "seconds": res["seconds"],
+            "routes": {n: {k: r[k] for k in keys if k in r} for n, r in res["routes"].items()}}
+
+
+def headline_phase(report) -> None:
+    """Phase 20 (see the module docstring)."""
+    res = headline_runs("phase 20", aux=BENCH_PHASE_ROUTES[1:], accuracy=False)
+    check_headline("phase 20", res, BENCH_PHASE_ROUTES)
+    for name in BENCH_LAUNCHES:
+        if res["launches"][name] < 1:
+            fail(f"phase 20 never launched {name}")
+    report["headline"] = headline_summary(res)
+
+
+def headline_full() -> dict:
+    """--bench-only: bench.py's line at its sizes, every route checked,
+    e2e_rank1 at or above E2E_FLOOR; the line printed and appended to
+    BENCH_RECORD. The port's ir_micro weights are trained first (the
+    synthetic demo, its report under WORK) where they are absent."""
+    from facerecognitionpipeline_tpu_torch.pipeline import step_bench as SB
+
+    if not os.path.exists(SB.EMBEDDER_WEIGHTS):
+        print(f"[bench] {os.path.relpath(SB.EMBEDDER_WEIGHTS, REPO)} is absent: training it "
+              f"first through the port's synthetic demo (evalharness/synthetic_demo.py)")
+        from facerecognitionpipeline_tpu_torch.evalharness import synthetic_demo
+
+        t0 = time.perf_counter()
+        synthetic_demo.run_demo(DEVICE, out_dir=os.path.join(WORK, "bench_demo"))
+        print(f"[bench] the demo trained and exported the weights in "
+              f"{time.perf_counter() - t0:.1f} s")
+    res = headline_runs("--bench-only")
+    check_headline("--bench-only", res, ("bf16",) + SB.AUX)
+    for name in protocol_counters():
+        if name != "gallery_topk_f32" and res["launches"][name] < 1:
+            fail(f"--bench-only never launched {name}")
+    line = res["line"]
+    if line["e2e_rank1"] is None or line["e2e_rank1"] < E2E_FLOOR:
+        fail(f"--bench-only: e2e_rank1 {line['e2e_rank1']} below {E2E_FLOOR} "
+             f"({line['accuracy_skipped']})")
+    print(json.dumps(line))
+    os.makedirs(os.path.dirname(BENCH_RECORD), exist_ok=True)
+    with open(BENCH_RECORD, "a") as f:
+        f.write(json.dumps(line) + "\n")
+    print(f"[bench] line appended to {os.path.relpath(BENCH_RECORD, REPO)}")
+    return headline_summary(res)
+
+
 def nms_entry(report, source) -> dict:
     """The kernels line's entry of K5: times and bounds summed over the
     three calls of one step (stages 1-3 of the server build at B=8),
@@ -7413,6 +7549,16 @@ def main() -> int:
         print(card_line())
         print(json.dumps({"stages": res}))
         return 0
+    if "--bench-only" in sys.argv[1:]:
+        # bench.py's line at its sizes, after the build, appended to the
+        # committed record
+        res = headline_full()
+        print(card_line())
+        print(json.dumps({"headline": res}))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
     if "--mesh-only" in sys.argv[1:]:
         # phase 12 alone on phase 3's build, the same way; with --cards its
         # mesh entries are distinct cards (2 for serving, 4 for the (2, 2)
@@ -7444,7 +7590,10 @@ def main() -> int:
     protocols_phase(report)
     bench_phase(fixture, report)
     stage_phase(report)
-    print(f"[timing] phases 1-19 took {time.perf_counter() - t_start:.1f} s")
+    t0 = time.perf_counter()
+    headline_phase(report)
+    print(f"[timing] phase 20 took {time.perf_counter() - t0:.1f} s")
+    print(f"[timing] phases 1-20 took {time.perf_counter() - t_start:.1f} s")
 
     print(card_line())
 
@@ -7642,6 +7791,7 @@ def main() -> int:
     print(json.dumps({"protocols": report["protocols"]}))
     print(json.dumps({"serving": report["serving"]}))
     print(json.dumps({"stages": report["stages"]}))
+    print(json.dumps({"headline": report["headline"]}))
     print(json.dumps({
         "kernels": kernels,
         **{k: v for k, v in report.items() if k.startswith("step_p50_ms")},

@@ -213,24 +213,25 @@ def random_frames(b: int, det: int, rng: np.random.Generator, dev) -> torch.Tens
     return torch.from_numpy(rng.integers(0, 256, size=(b, det, det, 3), dtype=np.uint8)).to(dev)
 
 
-def profile_detector(det: int, faces: int, dev):
-    """The JAX profile scripts' detector: bf16, min face 40, the shipped
-    default weights."""
+def profile_detector(det: int, faces: int, dev, quantize: Optional[str] = None):
+    """The JAX profile scripts' detector (and `bench.py`'s): bf16, min face
+    40, the shipped default weights; quantize='int8' calibrates its R/O-nets
+    on the default calibration frames."""
     from facerecognitionpipeline_tpu_torch.models.detector import MTCNNDetector
 
     return MTCNNDetector(det_size=(det, det), max_faces=faces, min_face_size=40, dtype=DTYPE,
-                         device=dev)
+                         quantize=quantize, device=dev)
 
 
-def seeded_gallery(rng: np.random.Generator, dev) -> tuple:
-    """The JAX profile scripts' gallery: GALLERY_ROWS unit-norm float32
-    rows drawn from `rng`, as a `DeviceGallery`'s (templates, valid)."""
+def seeded_gallery(rng: np.random.Generator, dev, rows: int = GALLERY_ROWS) -> tuple:
+    """The JAX profile scripts' gallery: `rows` unit-norm float32 rows
+    drawn from `rng`, as a `DeviceGallery`'s (templates, valid)."""
     from facerecognitionpipeline_tpu_torch.gallery.search import DeviceGallery
 
     gallery = DeviceGallery(device=dev)
-    t = rng.normal(size=(GALLERY_ROWS, 512)).astype(np.float32)
+    t = rng.normal(size=(rows, 512)).astype(np.float32)
     t /= np.linalg.norm(t, axis=1, keepdims=True)
-    gallery.rebuild([f"id{i}" for i in range(GALLERY_ROWS)], t)
+    gallery.rebuild([f"id{i}" for i in range(rows)], t)
     templates, valid, _ = gallery.device_snapshot()
     return templates, valid
 

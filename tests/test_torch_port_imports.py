@@ -24,6 +24,7 @@ def _port_sources():
             if f.endswith(".py"):
                 yield os.path.join(root, f)
     yield os.path.join(REPO, "chip_smoke.py")
+    yield os.path.join(REPO, "bench_torch.py")
     for script in ("torch_train_open_set.py", "torch_open_set_eval.py",
                    "torch_detector_stress_eval.py", "torch_detector_ood_eval.py",
                    "torch_recycle_soak.py", "torch_synthetic_end_to_end.py",
@@ -83,7 +84,8 @@ def test_port_never_imports_jax_or_the_jax_package():
                    "../examples/torch_profile_budget.py", "pipeline/stage_profile.py",
                    "../examples/torch_profile_fused_step.py",
                    "../examples/torch_profile_detect.py",
-                   "../examples/torch_profile_gallery_scale.py", "ops/launches.py"):
+                   "../examples/torch_profile_gallery_scale.py", "ops/launches.py",
+                   "pipeline/step_bench.py", "../bench_torch.py"):
         assert module in scanned, module
     for path in _port_sources():
         n += 1
@@ -99,6 +101,30 @@ def test_port_never_imports_jax_or_the_jax_package():
                 continue
             bad += [f"{os.path.relpath(path, REPO)}: {m}" for m in names if FORBIDDEN.match(m)]
     assert n > 30
+    assert not bad, bad
+
+
+def _imported(path) -> list:
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    names = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names.append(node.module or "")
+    return names
+
+
+@pytest.mark.parametrize("path", ["bench_torch.py",
+                                  "facerecognitionpipeline_tpu_torch/pipeline/step_bench.py"])
+def test_the_benchmark_entry_points_import_neither_jax_nor_bench_py(path):
+    """The port's counterpart of bench.py measures the port alone: nothing of
+    JAX, of the JAX package or of bench.py (a module named `bench` at the
+    root) is imported, at the top or inside a function."""
+    names = _imported(os.path.join(REPO, path))
+    assert any(n.startswith("facerecognitionpipeline_tpu_torch") for n in names)
+    bad = [n for n in names if FORBIDDEN.match(n) or re.match(r"^bench(\.|$)", n)]
     assert not bad, bad
 
 

@@ -105,6 +105,19 @@ def shared():
             "frames": frames}
 
 
+@pytest.fixture(scope="module")
+def ir18():
+    """ir_18 float32 on one seeded unfolded tree, built once for the file:
+    the JAX embedder (its forward jitted, as the JAX package serves it) and
+    the port's, each folding the tree itself."""
+    model = build_backbone("ir_18", folded=False)
+    lecun_normal_(model, torch.Generator().manual_seed(0))
+    tree = backbone_variables_from_state(model.state_dict())
+    jemb = JaxEmbedder("ir_18", variables=tree)
+    return {"jax": jemb, "jax_apply": jax.jit(jemb.model.apply),
+            "port": FaceEmbedder("ir_18", variables=tree, device="cpu")}
+
+
 # ------------------------------------------------- (a) the detect programs
 
 
@@ -247,13 +260,9 @@ def _np(tree):
     return tree.numpy()
 
 
-def test_fused_stages_give_the_jax_stages_outputs(shared):
-    model = build_backbone("ir_18", folded=False)
-    lecun_normal_(model, torch.Generator().manual_seed(0))
-    tree = backbone_variables_from_state(model.state_dict())
-    jemb = JaxEmbedder("ir_18", variables=tree)
-    emb = FaceEmbedder("ir_18", variables=tree, device="cpu")
-    engine = RecognitionEngine(shared["port"], emb, top_k=3)
+def test_fused_stages_give_the_jax_stages_outputs(shared, ir18):
+    jemb = ir18["jax"]
+    engine = RecognitionEngine(shared["port"], ir18["port"], top_k=3)
     t = np.random.default_rng(1).normal(size=(128, 512)).astype(np.float32)
     t /= np.linalg.norm(t, axis=1, keepdims=True)
     gallery = DeviceGallery(device="cpu")
@@ -287,7 +296,7 @@ def test_fused_stages_give_the_jax_stages_outputs(shared):
                                    atol=1e-4, err_msg=k)
 
     n = aligned0.shape[0] * aligned0.shape[1]
-    feats, norms = jemb.model.apply(
+    feats, norms = ir18["jax_apply"](
         jemb.variables, jax_normalize(jnp.asarray(aligned0.reshape(n, 112, 112, 3))))
     got_feats, got_norms = got[f"embed (ir_18 x {n})"]
     np.testing.assert_allclose(got_feats, np.asarray(feats), atol=1e-4)
