@@ -2415,8 +2415,8 @@ def drive_clients(tag, server, url, tmp, image_format, frame, n_clients, n_each,
         nms_kernel,
         warp_kernel,
     )
-    from facerecognitionpipeline_tpu_torch.serve.bench import StepEvents
     from facerecognitionpipeline_tpu_torch.serve.client import FaceRecognitionClient
+    from facerecognitionpipeline_tpu_torch.telemetry.trace import device_ms
 
     session = f"{tag.replace(' ', '_').replace('/', '-')}"
     clients = [
@@ -2440,7 +2440,7 @@ def drive_clients(tag, server, url, tmp, image_format, frame, n_clients, n_each,
     server.batcher.warmup(DET_SIZE)
     for c in counters.values():
         c.reset()
-    steps0 = server.batcher._dispatch_count
+    steps0 = server.batcher.steps.count
     lat = [[] for _ in clients]
     bodies = [[] for _ in clients]
     errors = []
@@ -2458,18 +2458,18 @@ def drive_clients(tag, server, url, tmp, image_format, frame, n_clients, n_each,
             errors.append(f"client {i}: {type(e).__name__}: {e}")
 
     threads = [threading.Thread(target=run, args=(i,)) for i in range(n_clients)]
-    with StepEvents(server.engine) as timer:
-        w0 = time.perf_counter()
-        for th in threads:
-            th.start()
-        for th in threads:
-            th.join(timeout=300)
-        wall = time.perf_counter() - w0
-    step_ms = timer.ms()
+    server.tracer.start()
+    w0 = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=300)
+    wall = time.perf_counter() - w0
+    step_ms = device_ms(server.tracer.stop())
     if errors or any(th.is_alive() for th in threads):
         fail(f"{tag}: {errors or 'a client thread hung'}")
     got = {k: c.count for k, c in counters.items()}
-    steps = server.batcher._dispatch_count - steps0
+    steps = server.batcher.steps.count - steps0
     n_req = n_clients * n_each
 
     for i in range(n_clients):
@@ -2684,8 +2684,8 @@ def server_phase(ctx, gal, report) -> None:
 
     from facerecognitionpipeline_tpu_torch.gallery.manager import GalleryManager, StudentRecord
     from facerecognitionpipeline_tpu_torch.serve import rawproto
-    from facerecognitionpipeline_tpu_torch.serve.bench import StepEvents
     from facerecognitionpipeline_tpu_torch.serve.client import HTTPSession
+    from facerecognitionpipeline_tpu_torch.telemetry.trace import device_ms
 
     frame = ctx["frames_np"][0]
     rng = np.random.default_rng(5)
@@ -2710,16 +2710,17 @@ def server_phase(ctx, gal, report) -> None:
                       f"{first['num_students']} students; /reload_gallery: reloaded, then "
                       f"unchanged")
                 times = []
-                with StepEvents(server.engine) as timer:
-                    for _ in range(100):
-                        t0 = time.perf_counter()
-                        server.batcher.submit(canvas).result(timeout=120)
-                        times.append(1e3 * (time.perf_counter() - t0))
+                server.tracer.start()
+                for _ in range(100):
+                    t0 = time.perf_counter()
+                    server.batcher.submit(canvas).result(timeout=120)
+                    times.append(1e3 * (time.perf_counter() - t0))
+                step_ms = device_ms(server.tracer.stop())
                 print(f"[serve-host] {name}: DeviceBatcher.submit().result() alone, 100 "
                       f"frames one at a time (upload, the {server.batcher.max_wait_s * 1e3:.0f} ms "
                       f"batching window, the step at B=1, results to the host): p50 "
                       f"{pct(times, 50):.3f} ms, p95 {pct(times, 95):.3f} ms; the step "
-                      f"inside it p50 {pct(timer.ms(), 50):.3f} ms (CUDA events)")
+                      f"inside it p50 {pct(step_ms, 50):.3f} ms (step.device spans)")
                 for image_format in formats:
                     for n_clients, n_each in SERVER_RUNS:
                         tag = f"{image_format} x{n_clients}"
@@ -5165,7 +5166,7 @@ def mesh_phase(ctx, gal, report, cards: bool = False) -> None:
             faces = [{"bbox": b} for b, o in zip(direct["bboxes"][0].cpu().numpy(), ok) if o]
             for c in counters.values():
                 c.reset()
-            steps0 = server.batcher._dispatch_count
+            steps0 = server.batcher.steps.count
             lat = []
             for j in range(MESH_REQUESTS):
                 s0 = time.perf_counter()
@@ -5179,7 +5180,7 @@ def mesh_phase(ctx, gal, report, cards: bool = False) -> None:
                 if r.status_code != 200:
                     fail(f"mesh server: request {j} answered {r.status_code}")
                 check_response(f"mesh server request {j}", r.json(), faces, 1.0)
-            steps = server.batcher._dispatch_count - steps0
+            steps = server.batcher.steps.count - steps0
             got = {k: c.count for k, c in counters.items()}
             expect("mesh server", got, steps)
             for k in totals:

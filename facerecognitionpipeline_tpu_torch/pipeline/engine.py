@@ -421,6 +421,7 @@ class RecognitionEngine:
         gallery_valid,
         gallery_k: Optional[int] = None,
         rotation: int = 0,
+        start_event=None,
     ) -> dict:
         """Frames (numpy or tensor; [B,H,W,3] uint8 for 'rgb', [B,H*3//2,W]
         for 'i420') -> the device result dict. `gallery_templates` is a
@@ -432,7 +433,10 @@ class RecognitionEngine:
         On a CUDA device the step runs as one CUDA graph per key and data
         shard (`pipeline/step_graph.py`), captured on first use of the key
         and printed to stderr, as the JAX engine compiles one program per
-        key; on the CPU it runs eagerly (`step`)."""
+        key; on the CPU it runs eagerly (`step`). `start_event`, a CUDA
+        timing event, is recorded on the step's stream right before its
+        first device operation (the batcher's tracer times the step from
+        it); the CPU route takes none."""
         if isinstance(frames, np.ndarray):
             frames = torch.from_numpy(frames)
         frames = frames.to(self.device, non_blocking=True)
@@ -440,7 +444,8 @@ class RecognitionEngine:
         if self.device.type == "cuda":
             if self._graphs is None:
                 self._graphs = StepGraphs(self)
-            return self._graphs.run(frames, gallery_templates, gallery_valid, k, rotation)
+            return self._graphs.run(frames, gallery_templates, gallery_valid, k, rotation,
+                                    start_event)
         return self.step(gallery_templates, gallery_valid, frames, gallery_k=k, rotation=rotation)
 
 

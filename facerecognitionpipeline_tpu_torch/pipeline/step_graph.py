@@ -162,9 +162,12 @@ class StepGraphs:
     def __len__(self) -> int:
         return len(self._graphs)
 
-    def run(self, frames: torch.Tensor, templates, valid, gallery_k: int, rotation) -> dict:
+    def run(self, frames: torch.Tensor, templates, valid, gallery_k: int, rotation,
+            start_event=None) -> dict:
         """The step's result dict for frames already on the engine's
-        device, through the graph of their key (captured first if new)."""
+        device, through the graph of their key (captured first if new).
+        `start_event` is recorded on the first shard's stream right before
+        the step's first device operation."""
         eng = self._engine
         shards = eng._shards
         n = len(shards)
@@ -192,6 +195,8 @@ class StepGraphs:
                 with _on(sh.device):  # the shard's card: its current stream
                     self._follow(sh.device)
                     entry = self._graphs.get(key)
+                    if start_event is not None and i == 0:
+                        start_event.record()
                     if entry is None:
                         entry = self._new(i, sh.device, src, templates, valid, gallery_k, rot)
                         self._graphs[key] = entry

@@ -18,6 +18,31 @@ On a CPU device the same stages run without streams. Under an engine's
 mesh, bucket sizes are multiples of its 'data' axis, groups upload to the
 mesh's first device (the engine splits them), and the completion stage
 waits on an event of every device of the mesh.
+
+The stages record spans into the batcher's `Tracer` when it is on
+(`telemetry/trace.py`; each site tests `tracer.on` and does nothing more
+when it is off):
+
+  batcher.ingress   per frame: submit() until the transfer thread takes it
+  batcher.upload    per group: the stack into pinned memory and the H2D enqueue
+  batcher.ready     per group: the upload's enqueue until the dispatch takes it
+  batcher.await     per dispatch: waiting for a first group, no frame in hand
+  batcher.window    per dispatch: waiting for more groups, up to max_wait_ms
+  batcher.assemble  per dispatch: the stream's waits on the uploads, padding
+                    and concatenation into the step's batch
+  batcher.provider  per dispatch: the gallery_provider() call
+  batcher.enqueue   per dispatch: process_frames on the host
+  batcher.handoff   per dispatch: the completion events recorded and the step
+                    handed to the completion thread
+  step.device       per step: the compute stream, from a timing event that
+                    process_frames records right before the step's first
+                    device operation to the completion event (on the CPU,
+                    the host times around process_frames)
+  batcher.d2h       per step: waiting on the step and copying the small fields
+  batcher.fanout    per frame: from the copy's end until its set_result
+
+and counts, on or off, `steps` (dispatches), `frames` (frames dispatched)
+and `carried` (dispatches that left an upload group for the next step).
 """
 
 from __future__ import annotations
@@ -30,6 +55,8 @@ from typing import Optional, Sequence
 
 import numpy as np
 import torch
+
+from facerecognitionpipeline_tpu_torch.telemetry.trace import DEVICE, Counter, Tracer
 
 _STOPPED = "DeviceBatcher stopped before this frame ran"
 _LAZY_KEYS = ("aligned", "embeddings", "landmarks", "embedding_norms")
@@ -82,6 +109,17 @@ def _item(tree, i):
     return tree[i]
 
 
+class _Frame(Future):
+    """The future of one submitted frame; traced, its id and submit() time."""
+
+    id = -1
+    submit_ns = 0
+
+
+def _ids(futs) -> tuple:
+    return tuple(f.id for f in futs)
+
+
 class DeviceBatcher:
     """Pipelined batching front of the recognition step."""
 
@@ -93,10 +131,13 @@ class DeviceBatcher:
         max_wait_ms: float = 5.0,
         top_k: int = 3,
         bucket_sizes: Optional[Sequence[int]] = None,
+        tracer: Optional[Tracer] = None,
     ):
         """gallery_provider() -> (templates, valid) device tensors, or
         (templates, valid, ids); with ids, each result carries the id list
-        captured at dispatch as result["gallery_ids"]."""
+        captured at dispatch as result["gallery_ids"]. `tracer`: the
+        recorder the stages write spans into (an off one of its own if
+        None)."""
         self.engine = engine
         self.gallery_provider = gallery_provider
         self.max_batch = max_batch
@@ -128,10 +169,22 @@ class DeviceBatcher:
         self._threads: list[threading.Thread] = []
         self._frame_shape = None  # set by warmup
         self._carry = None  # overflow group held for the next dispatch
-        self._dispatch_count = 0
+        self._dispatch_count = 0  # the step's rotation, wrapped
+        self._drained_ns = 0  # traced: when the dispatch thread's last drain ended
+        # the dispatch thread's counts
+        self.steps, self.frames, self.carried = Counter(), Counter(), Counter()
+        self.tracer = tracer if tracer is not None else Tracer()
+        self.tracer.watch(self.counts, self._devices[0])
         cuda = self.device.type == "cuda"
         self._h2d_stream = torch.cuda.Stream(self.device) if cuda else None
         self._d2h_stream = torch.cuda.Stream(self.device) if cuda else None
+
+    def counts(self) -> dict:
+        """The dispatch thread's counters and the engine's graph captures."""
+        graphs = getattr(self.engine, "_graphs", None)
+        return {"batcher.steps": self.steps.count, "batcher.frames": self.frames.count,
+                "batcher.carried": self.carried.count,
+                "graphs.captures": len(graphs.captures) if graphs is not None else 0}
 
     # ----------------------------------------------------------- lifecycle
 
@@ -176,7 +229,10 @@ class DeviceBatcher:
     def submit(self, frame: np.ndarray) -> Future:
         """frame at the engine's det size (host uint8) -> Future of this
         frame's slice of the step output (host arrays and lazy views)."""
-        fut: Future = Future()
+        fut = _Frame()
+        if self.tracer.on:
+            fut.submit_ns = time.perf_counter_ns()
+            fut.id = self.tracer.next_id()
         err = RuntimeError(_STOPPED)
         if self._stop.is_set():
             fut.set_exception(err)
@@ -232,6 +288,13 @@ class DeviceBatcher:
                     break
                 frames.append(f2)
                 futs.append(u2)
+            tr = self.tracer
+            on = tr.on  # one reading a group: start() and stop() run on other threads
+            if on:
+                taken_ns = time.perf_counter_ns()
+                for u in futs:
+                    if u.id >= 0:
+                        tr.span("batcher.ingress", u.submit_ns, taken_ns, u.id)
             # a malformed frame fails only its own future
             ref = self._frame_shape or frames[0].shape
             bad = [
@@ -249,11 +312,15 @@ class DeviceBatcher:
                     continue
             try:
                 dev, ev = self._upload(frames)
-                self._ready.put((dev, ev, futs))
+                ready_ns = 0
+                if on:
+                    ready_ns = time.perf_counter_ns()
+                    tr.span("batcher.upload", taken_ns, ready_ns, _ids(futs))
+                self._ready.put((dev, ev, futs, ready_ns))
                 if self._stop.is_set():  # put-then-recheck against stop()
                     while True:
                         try:
-                            _, _, futs2 = self._ready.get_nowait()
+                            _, _, futs2, _ = self._ready.get_nowait()
                         except queue.Empty:
                             break
                         _fail_futures(futs2, RuntimeError(_STOPPED))
@@ -264,8 +331,15 @@ class DeviceBatcher:
 
     def _drain(self) -> list:
         """Uploaded groups until max_batch frames are in hand or the
-        batching window closes; a group that would overflow is carried."""
+        batching window closes; a group that would overflow is carried.
+        Traced, the `batcher.await` and `batcher.window` spans tile the
+        dispatch thread's time up to `_drained_ns`."""
         groups = []
+        tr = self.tracer
+        on = tr.on  # one reading a drain: start() and stop() run on other threads
+        step = self.steps.count + 1  # the dispatch these groups go to
+        if on:
+            t_top = time.perf_counter_ns()
         if self._carry is not None:
             groups.append(self._carry)
             self._carry = None
@@ -273,7 +347,15 @@ class DeviceBatcher:
             try:
                 groups.append(self._ready.get(timeout=0.1))
             except queue.Empty:
+                if on:
+                    tr.span("batcher.await", t_top, time.perf_counter_ns(), step)
                 return groups
+            if on:
+                t = time.perf_counter_ns()
+                tr.span("batcher.await", t_top, t, step)
+                t_top = t
+        if on:
+            self._taken(groups[0], step)
         n = int(groups[0][0].shape[0])
         t0 = time.perf_counter()
         while n < self.max_batch:
@@ -286,11 +368,25 @@ class DeviceBatcher:
                 break
             gn = int(g[0].shape[0])
             if n + gn > self.max_batch:
-                self._carry = g
+                self._carry = g  # its ready span ends when the next drain takes it
+                self.carried.bump()
                 break
+            if on:
+                self._taken(g, step)
             groups.append(g)
             n += gn
+        if tr.on:
+            self._drained_ns = time.perf_counter_ns()
+            if on:
+                tr.span("batcher.window", t_top, self._drained_ns, step)
         return groups
+
+    def _taken(self, group, step: int) -> None:
+        """The `batcher.ready` span of a group the dispatch took (traced
+        since its upload)."""
+        if group[3]:
+            self.tracer.span("batcher.ready", group[3], time.perf_counter_ns(),
+                             _ids(group[2]), step)
 
     def _bucket(self, n: int) -> int:
         for b in self.bucket_sizes:
@@ -303,10 +399,12 @@ class DeviceBatcher:
             groups = self._drain()
             if not groups:
                 continue
-            items = [fut for _, _, futs in groups for fut in futs]
+            tr = self.tracer
+            on = tr.on  # one reading a dispatch
+            items = [fut for _, _, futs, _ in groups for fut in futs]
             try:
                 parts = []
-                for dev, ev, _ in groups:
+                for dev, ev, _, _ in groups:
                     if ev is not None:
                         torch.cuda.current_stream(self.device).wait_event(ev)
                         dev.record_stream(torch.cuda.current_stream(self.device))
@@ -316,21 +414,43 @@ class DeviceBatcher:
                 if b > n:
                     parts.append(parts[0].new_zeros((b - n, *parts[0].shape[1:])))
                 batch = parts[0] if len(parts) == 1 else torch.cat(parts)
+                self.steps.bump()
+                self.frames.bump(n)
+                step = self.steps.count
+                traced, kw = None, {}
+                if on:
+                    t_provider = time.perf_counter_ns()
+                    t_drained = self._drained_ns if self._drained_ns >= tr.start_ns else t_provider
+                    tr.span("batcher.assemble", t_drained, t_provider, step)
                 snapshot = self.gallery_provider()
                 gallery_ids = snapshot[2] if len(snapshot) > 2 else None
                 self._dispatch_count = (self._dispatch_count + 1) % (1 << 30)
+                if on:
+                    t_enqueue = time.perf_counter_ns()
+                    tr.span("batcher.provider", t_provider, t_enqueue, step)
+                    if self.device.type == "cuda":
+                        traced = (step, torch.cuda.Event(enable_timing=True))
+                        kw = {"start_event": traced[1]}
                 out = self.engine.process_frames(
                     batch, snapshot[0], snapshot[1], gallery_k=self.top_k,
-                    rotation=self._dispatch_count,
+                    rotation=self._dispatch_count, **kw,
                 )
+                if on:
+                    t_end = time.perf_counter_ns()
+                    tr.span("batcher.enqueue", t_enqueue, t_end, step)
+                    if traced is None:  # the CPU's step ran inside the call
+                        tr.span(DEVICE, t_enqueue, t_end, step)
+                        traced = (step, None)
                 ev = None
                 if self.device.type == "cuda":
                     ev = []
                     for d in self._devices:
-                        e = torch.cuda.Event()
+                        e = torch.cuda.Event(enable_timing=traced is not None)
                         e.record(torch.cuda.current_stream(d))
                         ev.append(e)
-                self._done.put((out, ev, items, gallery_ids))
+                self._done.put((out, ev, items, gallery_ids, traced))
+                if on:
+                    tr.span("batcher.handoff", t_end, time.perf_counter_ns(), step)
                 if self._stop.is_set():  # put-then-recheck against stop()
                     while True:
                         try:
@@ -349,9 +469,13 @@ class DeviceBatcher:
     def _complete_run(self) -> None:
         while not self._stop.is_set():
             try:
-                out, ev, items, gallery_ids = self._done.get(timeout=0.1)
+                out, ev, items, gallery_ids, traced = self._done.get(timeout=0.1)
             except queue.Empty:
                 continue
+            tr = self.tracer
+            on = tr.on and traced is not None
+            if on:
+                t_take = time.perf_counter_ns()
             try:
                 out = dict(out)
                 lazy = {k: out.pop(k) for k in _LAZY_KEYS if k in out}
@@ -362,12 +486,21 @@ class DeviceBatcher:
                         host = _to_host(out)
                 else:
                     host = _to_host(out)
+                step = -1
+                if on:
+                    step, start = traced
+                    copied_ns = time.perf_counter_ns()
+                    tr.span("batcher.d2h", t_take, copied_ns, step)
+                    if start is not None:
+                        tr.device_span(start, ev[0], step)
                 for i, fut in enumerate(items):
                     result = _item(host, i)
                     for k, v in lazy.items():
                         result[k] = _LazySlice(v, (i,))
                     if gallery_ids is not None:
                         result["gallery_ids"] = gallery_ids
+                    if step >= 0 and fut.id >= 0:
+                        tr.span("batcher.fanout", copied_ns, time.perf_counter_ns(), fut.id, step)
                     try:
                         fut.set_result(result)
                     except InvalidStateError:

@@ -42,6 +42,7 @@ import numpy as np
 
 from facerecognitionpipeline_tpu_torch.serve import rawproto, soak
 from facerecognitionpipeline_tpu_torch.serve.client import HTTPSession, _encode_image_base64
+from facerecognitionpipeline_tpu_torch.telemetry.trace import device_ms
 
 BASELINE_REQ_PER_SEC = 1.33  # BASELINE.md: the reference's server, one client
 BENCH_STUDENTS = 23  # the JAX bench's gallery: 23 students x 4 embeddings, seed 0
@@ -235,7 +236,10 @@ class ZeroCostEngine:
         return {key: {m: put(a) for m, a in v.items()} if isinstance(v, dict) else put(v)
                 for key, v in out.items()}
 
-    def process_frames(self, frames, templates, valid, gallery_k=3, rotation=0):
+    def process_frames(self, frames, templates, valid, gallery_k=3, rotation=0,
+                       start_event=None):
+        if start_event is not None:
+            start_event.record()
         b = int(frames.shape[0])
         if self.device.type == "cpu":
             return self._outputs(b, gallery_k)
@@ -248,55 +252,15 @@ class ZeroCostEngine:
 # ---------------------------------------------------------------- servers
 
 
-class StepEvents:
-    """A pair of CUDA events around each step the batcher dispatches while
-    open (the step as the device saw it, its waits included); read after
-    the run, so the dispatch thread never waits. Nothing on the CPU."""
-
-    def __init__(self, engine):
-        self.engine = engine
-        self.events: list = []
-
-    def __enter__(self):
-        import torch
-
-        if self.engine.device.type != "cuda":
-            return self
-        inner = self.engine.process_frames
-
-        def timed(*args, **kwargs):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            out = inner(*args, **kwargs)
-            end.record()
-            self.events.append((start, end))
-            return out
-
-        self.engine.process_frames = timed
-        return self
-
-    def __exit__(self, *exc):
-        if "process_frames" in vars(self.engine):
-            del self.engine.process_frames  # the instance attribute; the method stays
-
-    def ms(self) -> List[float]:
-        import torch
-
-        if not self.events:
-            return []
-        torch.cuda.synchronize(self.engine.device)
-        return [s.elapsed_time(e) for s, e in self.events]
-
-
 class ServedBench:
     """A FaceRecognitionServer served on 127.0.0.1 from a thread of this
     process, with one session open: what both scripts drive their clients
     against. `run` adds to each row what the server did in the window:
     steps dispatched, frames per step, kernel launches (and int8 products),
-    on a card the p50 of the dispatched steps (CUDA events) and the share
-    of the window they fill, the device, the card's name and power limit,
-    and the cores this process may use."""
+    on a card the p50 of the dispatched steps (the `step.device` spans of
+    the server's tracer, on across the window) and the share of the window
+    they fill, the device, the card's name and power limit, and the cores
+    this process may use."""
 
     def __init__(self, server, session: str = "serving_bench"):
         from facerecognitionpipeline_tpu_torch.serve.server import serve
@@ -327,12 +291,16 @@ class ServedBench:
         if settle > 0:
             run_clients(self.url, n_clients, settle, payloads)
         at = launch_counts()
-        steps0 = self.server.batcher._dispatch_count
-        with StepEvents(self.server.engine) as timer:
+        steps0 = self.server.batcher.steps.count
+        tracer = self.server.tracer
+        tracer.start()
+        try:
             row = run_clients(self.url, n_clients, seconds, payloads,
                               rss_interval=rss_interval, keep_answers=keep_answers)
-        step_ms = timer.ms()
-        steps = self.server.batcher._dispatch_count - steps0
+        finally:
+            trace = tracer.stop()
+        step_ms = device_ms(trace) if self.server.device.type == "cuda" else []
+        steps = self.server.batcher.steps.count - steps0
         row.update({
             "steps": steps,
             "frames_per_step": row["server_requests"] / steps if steps else None,

@@ -51,6 +51,7 @@ import re
 import signal
 import sys
 import threading
+import time
 import traceback
 from datetime import datetime
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
@@ -71,6 +72,7 @@ from facerecognitionpipeline_tpu_torch.serve.tracker import (
     SimpleTracker,
 )
 from facerecognitionpipeline_tpu_torch.telemetry.monitor import PerformanceMonitorServer
+from facerecognitionpipeline_tpu_torch.telemetry.trace import Tracer
 from facerecognitionpipeline_tpu_torch.utils.device import resolve_device
 from facerecognitionpipeline_tpu_torch.utils.io import (
     decode_image_rgb,
@@ -292,10 +294,14 @@ class FaceRecognitionServer:
                 f"input_format={transport!r} or drop the transport flag"
             )
         self.transport = engine_format
+        # the server's span recorder, off until tracer.start()
+        # (telemetry/trace.py): the batcher's stages and the session's
+        # monitor record into it
+        self.tracer = Tracer()
         self.batcher = DeviceBatcher(
             engine, self.gallery.device_snapshot,
             max_batch=batch_max, max_wait_ms=batch_wait_ms, top_k=3,
-            bucket_sizes=batch_buckets,
+            bucket_sizes=batch_buckets, tracer=self.tracer,
         )
         self.batcher.start()
         if warmup:
@@ -382,6 +388,7 @@ class FaceRecognitionServer:
                 output_dir=self.session_dir,
                 latency_window_size=100,
                 device=self.device,
+                tracer=self.tracer,
             )
 
         live = self.tracker_mode == "live"
@@ -528,13 +535,19 @@ class FaceRecognitionServer:
         scale: float,
         frame_count: int,
         timestamp: str,
+        read_s: Optional[tuple] = None,
     ) -> Dict:
         """Zero-decode path for `/process_frame_raw` (raw letterboxed planes
         straight off the wire — see rawproto.py). Face crops are taken from
-        the detection canvas (the client keeps its own full-res original)."""
+        the detection canvas (the client keeps its own full-res original).
+        `read_s`: the (start, end) perf_counter() of the body's read, where
+        the HTTP layer timed it for the tracer."""
         # Stamp before validation/frombuffer/colorspace prep — same timing
         # basis as process_full_frame.
         timings = self.perf_monitor.start_request() if self.perf_monitor else None
+        traced = timings is not None and self.tracer.on
+        if traced and read_s is not None:
+            timings["read_body"] = read_s
 
         dh, dw = self.det_size
         if (height, width) != (dh, dw):
@@ -553,6 +566,7 @@ class FaceRecognitionServer:
             # False), which `scale <= 0.0` would wave through into bbox math
             raise ValueError(f"invalid {rawproto.HEADER_SCALE}: {scale}")
 
+        decode_start = time.perf_counter() if traced else 0.0
         arr = np.frombuffer(buf, np.uint8)
         memo: Dict = {}
         if fmt == "rgb24":
@@ -574,6 +588,8 @@ class FaceRecognitionServer:
                     )
                 return memo["rgb"]
 
+        if traced:
+            timings["decode"] = (decode_start, time.perf_counter())
         return self._process_canvas(
             canvas,
             scale,
@@ -608,7 +624,10 @@ class FaceRecognitionServer:
 
         # device work is batched across threads; everything after the result
         # returns is host-side and fast
-        result = self.batcher.submit(canvas).result(timeout=600)
+        fut = self.batcher.submit(canvas)
+        if timings is not None and self.tracer.on:
+            timings["frame"] = fut.id  # the request's spans join the frame's
+        result = fut.result(timeout=600)
 
         # Collect valid, quality-passing faces in ORIGINAL frame coordinates.
         faces: List[Dict] = []
@@ -1284,7 +1303,7 @@ class FaceRecognitionServer:
         now = launch_counts()
         return {
             "pid": os.getpid(),
-            "steps": self.batcher._dispatch_count,
+            "steps": self.batcher.steps.count,
             "launches": {k: n - self._ready_launches[k] for k, n in now.items()},
         }
 
@@ -1427,7 +1446,9 @@ def make_handler(server: FaceRecognitionServer):
                     # HTTP/1.1 keep-alive — the next request line would be
                     # parsed out of this frame's pixels.
                     length = int(self.headers.get("Content-Length", 0))
+                    read_start = time.perf_counter() if server.tracer.on else None
                     payload = self._read_body(length)
+                    read_s = (read_start, time.perf_counter()) if read_start is not None else None
                     if server.session_name is None:
                         self._json(
                             {"error": "No active session. Call /init_session first"},
@@ -1454,6 +1475,7 @@ def make_handler(server: FaceRecognitionServer):
                         self.headers.get(
                             rawproto.HEADER_TIMESTAMP, datetime.now().isoformat()
                         ),
+                        read_s=read_s,
                     )
                     self._json(result)
                     self._note_served()

@@ -13,7 +13,11 @@ What differs from the JAX package:
   server's `device`; on a CPU device it reports `available: False` and never
   touches `torch.cuda`;
 * `profile_trace` wraps `torch.profiler.profile` and exports a Chrome trace
-  into `log_dir`;
+  into `log_dir`, with a `Tracer`'s spans beside the profiler's events;
+* with its server's `Tracer` on (`telemetry/trace.py`), `end_request`
+  records the request's spans: `server.request`, `server.recognition`, and
+  `server.read_body` / `server.decode` where the raw route timed them, all
+  with the id of the frame the request submitted. The reports do not change;
 * `psutil` is looked up at the call; without it the RAM figures read 0;
 * `torch` is imported by the server monitor and `profile_trace` only, so the
   camera client (which uses `PerformanceMonitorClient`) runs without it.
@@ -31,6 +35,8 @@ from datetime import datetime
 from typing import Dict, Optional
 
 import numpy as np
+
+from facerecognitionpipeline_tpu_torch.telemetry.trace import Tracer
 
 
 def _psutil():
@@ -94,10 +100,22 @@ def _latency_summary(window: deque, with_range: bool = False) -> Dict:
     return out
 
 
+#: the marker span the calling thread opens to put the program's spans on the profiler's clock
+CLOCK_MARK = "trace.clock"
+
+
 @contextlib.contextmanager
-def profile_trace(log_dir: str):
+def profile_trace(log_dir: str, tracer: Optional[Tracer] = None):
     """Capture a torch.profiler trace (host and, with a card, device
-    activity) around a code block; the Chrome trace lands in `log_dir`."""
+    activity) around a code block; the Chrome trace lands in `log_dir`.
+    With a `tracer` (started and stopped here), the program's spans join
+    the trace: one row per thread, frame and step ids in `args`. The
+    profiler records no `record_function` of the batcher's threads, and
+    its clock is not `perf_counter_ns()`: the offset is read from a marker
+    span the calling thread opens at the start. The device spans meet the
+    profiler's kernels only in a process's first profiler session: in a
+    later one the profiler's device timestamps slide against its host ones
+    (0.2-0.7 ms on an H100)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -107,12 +125,56 @@ def profile_trace(log_dir: str):
         activities.append(ProfilerActivity.CUDA)
     prof = profile(activities=activities)
     prof.start()
+    marks = []
+    trace = None
     try:
+        if tracer is not None:
+            tracer.start()
+            for _ in range(2):  # the first record_function pays a first-use cost
+                t0 = time.perf_counter_ns()
+                with torch.profiler.record_function(CLOCK_MARK):
+                    pass
+                marks.append((t0, time.perf_counter_ns()))
         yield prof
     finally:
+        if marks:
+            trace = tracer.stop()
         prof.stop()
         stamp = datetime.now().strftime("%Y%m%d_%H%M%S_%f")
-        prof.export_chrome_trace(os.path.join(log_dir, f"trace_{stamp}.json"))
+        path = os.path.join(log_dir, f"trace_{stamp}.json")
+        prof.export_chrome_trace(path)
+        if trace is not None:
+            _merge_spans(path, trace, marks)
+
+
+def _merge_spans(path: str, trace, marks: list) -> None:
+    """Write `trace`'s spans into the Chrome trace at `path`, on its clock:
+    the last marker event's midpoint is the midpoint of the host readings
+    taken around it."""
+    with open(path) as f:
+        doc = json.load(f)
+    events = doc["traceEvents"]
+    found = [e for e in events if e.get("name") == CLOCK_MARK and e.get("ph") == "X"]
+    if not found:
+        raise RuntimeError(f"the profiler recorded no {CLOCK_MARK!r} marker; spans not merged")
+    m = max(found, key=lambda e: e["ts"])
+    t0, t1 = marks[-1]
+    offset_us = m["ts"] + m["dur"] / 2 - (t0 + t1) / 2e3
+    pid = m["pid"]
+    tids: dict = {}
+    for s in trace.spans:
+        if s.thread not in tids:
+            tids[s.thread] = 10**9 + len(tids)
+            events.append({"ph": "M", "name": "thread_name", "pid": pid, "tid": tids[s.thread],
+                           "args": {"name": f"spans: {s.thread}"}})
+        ids = list(s.id) if isinstance(s.id, tuple) else s.id
+        events.append({"ph": "X", "cat": "program_span", "name": s.name, "pid": pid,
+                       "tid": tids[s.thread], "ts": s.start_ns / 1e3 + offset_us,
+                       "dur": (s.end_ns - s.start_ns) / 1e3,
+                       "args": {"id": ids, "parent": s.parent}})
+    doc["programCounters"] = trace.counters
+    with open(path, "w") as f:
+        json.dump(doc, f)
 
 
 class PerformanceMonitorServer:
@@ -126,14 +188,17 @@ class PerformanceMonitorServer:
         enable_gpu_monitoring: bool = True,
         latency_window_size: int = 100,
         device="cuda",
+        tracer: Optional[Tracer] = None,
     ):
         """device: the device whose memory the `gpu_vram` slots report (the
-        server's); 'cuda' raises without a card, CPU servers pass 'cpu'."""
+        server's); 'cuda' raises without a card, CPU servers pass 'cpu'.
+        tracer: the server's span recorder (an off one of its own if None)."""
         # torch is imported here, not by the module: the camera client
         # shares this module and needs no torch
         from facerecognitionpipeline_tpu_torch.utils.device import resolve_device
 
         self.device = resolve_device(device)
+        self.tracer = tracer if tracer is not None else Tracer()
         self.model_identifier = model_identifier
         self.session_name = session_name
         self.output_dir = output_dir
@@ -202,6 +267,8 @@ class PerformanceMonitorServer:
                 _, peak, _ = _device_mem_mb(self.device)
                 self.peak_gpu_vram_mb = max(self.peak_gpu_vram_mb, peak)
 
+            if self.tracer.on:
+                self._record_spans(timings, request_end)
             if self.log_detailed_requests:
                 self.detailed_request_logs.append(
                     {
@@ -220,6 +287,22 @@ class PerformanceMonitorServer:
                 "latency_recognition_ms": rec_ms,
                 "latency_network_ms": net_ms,
             }
+
+    def _record_spans(self, timings: Dict, request_end: float) -> None:
+        """The request's spans, children of `server.request`, under the id of
+        the frame it submitted (-1 if it submitted none)."""
+        frame = timings.get("frame", -1)
+        tr = self.tracer
+        tr.span("server.request", int(timings["request_start"] * 1e9), int(request_end * 1e9),
+                frame)
+        marks = [(n, timings.get(k)) for n, k in (("server.read_body", "read_body"),
+                                                  ("server.decode", "decode"))]
+        if timings.get("recognition_start") and timings.get("recognition_end"):
+            marks.append(("server.recognition",
+                          (timings["recognition_start"], timings["recognition_end"])))
+        for name, pair in marks:
+            if pair is not None:
+                tr.span(name, int(pair[0] * 1e9), int(pair[1] * 1e9), frame, frame)
 
     # --------------------------------------------------------------- reports
 

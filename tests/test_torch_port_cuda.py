@@ -14,6 +14,7 @@ store paths); the older tests hold 1e-5 on unit-scale
 data and 1e-3 on the 0..255 scale.
 """
 
+import contextlib
 import json
 import math
 
@@ -1226,6 +1227,10 @@ def test_k2_planar_to_the_bit(dev, gen):
 def small_engine(dev):
     """A bf16 engine on the card (det 320x320, 8 face slots, ir_micro),
     a float32 gallery and two 2x2 mosaics of the smoke fixture's tiles."""
+    return _small_engine(dev)
+
+
+def _small_engine(dev):
     import os
 
     from facerecognitionpipeline_tpu_torch.gallery.search import DeviceGallery
@@ -1475,3 +1480,114 @@ def test_stage_bisects_on_the_card(dev):
     assert programs[-1]["launches"] == detect and programs[0]["launches"] == {}
     assert [r["launches"] for r in scale] == [
         step, {**step, "gallery_topk": 1}, {**step, "gallery_topk_int8": 1}]
+
+
+# ------------------------------------------------ the batcher's spans on the card
+
+
+@contextlib.contextmanager
+def _started_batcher(small):
+    """A started DeviceBatcher over the small engine (buckets 1 and 2,
+    warmed) and its two frames on the host."""
+    from facerecognitionpipeline_tpu_torch.serve.batcher import DeviceBatcher
+
+    t, v = small["t"], small["v"]
+    b = DeviceBatcher(small["engine"], lambda: (t, v), max_batch=2, max_wait_ms=1.0)
+    b.warmup((320, 320))
+    b.start()
+    try:
+        yield b, small["frames"].cpu().numpy()
+    finally:
+        b.stop()
+
+
+@pytest.fixture
+def card_batcher(small_engine):
+    with _started_batcher(small_engine) as got:
+        yield got
+
+
+def test_batcher_steps_count_the_k2_launches(card_batcher):
+    """`batcher.steps` against K2's launch delta (one a step; ops/launches.py)."""
+    from facerecognitionpipeline_tpu_torch.ops.launches import kernel_counts
+
+    b, frames = card_batcher
+    b.submit(frames[0]).result(timeout=120)
+    torch.cuda.synchronize()
+    k2, steps = kernel_counts()["warp_patches"], b.steps.count
+    futs = [b.submit(frames[i % 2]) for i in range(40)]
+    for f in futs:
+        f.result(timeout=120)
+    torch.cuda.synchronize()
+    assert b.steps.count - steps == kernel_counts()["warp_patches"] - k2 > 0
+
+
+def _clock_check(out_dir: str) -> dict:
+    """100 steps of a started batcher under `profile_trace` with its tracer,
+    in this process's first profiler session. Per step (us, on the exported
+    trace's clock): how far the profiler's first device operation of that
+    replay (the frames' copy into the graph's buffer, then its kernels) lies
+    from the `step.device` span's start, and where each D2H copy starts
+    after the span's end."""
+    import os
+
+    from facerecognitionpipeline_tpu_torch.telemetry import monitor as tmon
+
+    with _started_batcher(_small_engine(torch.device("cuda"))) as (b, frames):
+        b.submit(frames[0]).result(timeout=120)
+        torch.cuda.synchronize()
+        with tmon.profile_trace(out_dir, tracer=b.tracer):
+            for i in range(100):
+                b.submit(frames[i % 2]).result(timeout=120)
+            torch.cuda.synchronize()
+    (name,) = os.listdir(out_dir)
+    with open(os.path.join(out_dir, name)) as f:
+        ev = json.load(f)["traceEvents"]
+    steps = sorted((e for e in ev if e.get("cat") == "program_span" and e["name"] == "step.device"),
+                   key=lambda e: e["ts"])
+    ops = [e for e in ev if e.get("cat") in ("kernel", "gpu_memcpy")]
+    firsts, copies = [], []
+    bounds = [s["ts"] for s in steps] + [math.inf]
+    prev_end = -math.inf
+    for k, s in enumerate(steps):  # the ops between the midpoints to the neighbouring steps
+        end = s["ts"] + s["dur"]
+        lo, hi = (prev_end + s["ts"]) / 2, (end + bounds[k + 1]) / 2
+        mine = [e for e in ops if lo <= e["ts"] < hi]
+        step_ops = [e for e in mine if e["cat"] == "kernel" or "DtoD" in e["name"]]
+        if step_ops:
+            firsts.append(abs(min(e["ts"] for e in step_ops) - s["ts"]))
+        copies += [e["ts"] - end for e in mine if "DtoH" in e["name"]]
+        prev_end = end
+    return {"steps": len(steps), "ops": len(ops), "firsts": firsts, "copies": copies}
+
+
+def test_step_events_on_the_host_clock_meet_the_profilers_first_kernel(dev, tmp_path):
+    """Each `step.device` span, put on the host clock by the tracer's anchor
+    and on the profiler's by `profile_trace`, starts within 0.1 ms (median
+    over 100 steps) of the first device operation the profiler saw in that
+    replay, and ends before the step's answer is copied to the host. The
+    check runs in a process of its own (`_clock_check`): in a later profiler
+    session of one process the profiler's device timestamps slide against
+    its host ones, and other tests here open profiler sessions."""
+    import os
+    import statistics
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        p for p in (repo, os.environ.get("PYTHONPATH")) if p)}
+    r = subprocess.run([sys.executable, os.path.abspath(__file__), str(tmp_path)], cwd=repo,
+                       env=env, capture_output=True, text=True, timeout=600)
+    assert r.returncode == 0, r.stderr[-4000:]
+    got = json.loads(r.stdout.strip().splitlines()[-1])
+    assert got["steps"] == 100 and got["ops"] and got["copies"]
+    assert len(got["firsts"]) >= 90
+    assert statistics.median(got["firsts"]) < 100.0, statistics.median(got["firsts"])
+    assert statistics.median(got["copies"]) > -100.0, statistics.median(got["copies"])
+
+
+if __name__ == "__main__":  # the clock check's own process
+    import sys
+
+    print(json.dumps(_clock_check(sys.argv[1])))
